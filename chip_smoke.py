@@ -20,16 +20,40 @@ Phases (any failure exits non-zero and prints no result):
    state (placed counts equal), every dense placement against the
    host's feasibility and AllocsFit checks, and the launch count of
    every kernel of the path against zero.
-4. Each kernel against its plain PyTorch version on the card at
-   N = 10,240, K = 1,024, G = 2, B in {1, 64}, with free ports and
-   distinct_hosts that limit placement: noise bits equal; greedy and
-   top-k choices and all five carried tensors equal, scores within
-   1e-4; overlay outputs equal. With median CUDA-event times, the plain
-   version's time, a library call's time where one PyTorch call
-   computes the same function, and the least time the card could take:
-   the larger of this run's bytes over the HBM rate and its operations
-   over the peak rate, and for the greedy scan also the measured time
-   of its chain of K block-wide argmax rounds alone.
+4. The eval storm, the JAX package's bench config 4 driven the way
+   its executive arm drives it (bench.py bench_tpu_e2e), on a fresh
+   cluster of the same shape: 4 rounds x 64 evals of config 4's job
+   (one job per eval) through ``PlacementBatcher.place_cohort`` with
+   pre_resolve on (the server default): rows built on a 4-thread pool
+   (ClusterMatrix + asks), one cohort dispatch, finalize (port offers,
+   Allocation objects) on a 4-thread pool, and the round's plans
+   committed, so each later round's base is a delta of the last (K4,
+   fused into the dispatch). Prints evals/s, per-eval p50/p99, the
+   batcher's dispatches, occupancy and stack/issue/sync times; checks
+   with bench.py's applier-style replay that no eval conflicts, holds
+   one round against the same cohort through a CPU batcher (the plain
+   versions), and counts conflicts of one round with pre_resolve off.
+   Then a greedy storm (16 evals of a 512 + 512 two-group job, K1 in
+   sequential mode), a parked storm (64 threads calling ``place()``
+   after ``add_cohort(64)``), and token-less cohorts that take the
+   stacked-state path (K1 and K2 with a base per eval), each checked.
+5. Each kernel against its plain PyTorch version on the card at the
+   main path's widths, with free ports and distinct_hosts that limit
+   placement: noise bits equal; greedy and top-k choices and all five
+   carried tensors equal, scores within 1e-4; overlay outputs and base
+   deltas equal. K0-K3 at N = 10,240, K = 1,024, G = 2, B in {1, 64};
+   the sequential scans at B = 4 x K = 1,024 and B = 64 x K = 64 (K1)
+   and B = 64 x K = 8 (K2); the stacked scans at B = 4; K4 at R = 256
+   and 4,096. With median CUDA-event times, the plain version's time,
+   a library call's time where one PyTorch call computes the same
+   function, and the least time the card could take: the larger of
+   this run's bytes over the HBM rate and its operations over the peak
+   rate, and for the greedy scans also the measured time of their
+   chain of block-wide argmax rounds alone.
+
+Every path of phases 3 and 4 runs with the launch counts set to 0
+just before it and read just after, and fails if a kernel of that path
+was never launched.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -48,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -265,7 +290,7 @@ def run_main_path(seed, torch):
     batcher = get_batcher()
     stats0 = batcher.stats()
     lat_ms = []
-    place_us = stats0["place_us"]
+    place_us = dispatch_us(stats0)
     cuda.reset_launch_counts()
     for label, job, expect in steps:
         h.state.upsert_job(h.next_index(), job)
@@ -279,15 +304,15 @@ def run_main_path(seed, torch):
         h.process("service-gpu", ev)
         torch.cuda.synchronize()
         lat_ms.append((time.perf_counter() - t1) * 1000.0)
-        place_ms = (batcher.stats()["place_us"] - place_us) / 1000.0
-        place_us = batcher.stats()["place_us"]
+        place_ms = (dispatch_us(batcher.stats()) - place_us) / 1000.0
+        place_us = dispatch_us(batcher.stats())
         check(len(h.plans) == n_plans + 1, f"{label}: no plan submitted")
         plan = h.plans[-1]
         fresh = new_allocs(plan, existing)
         dense_n = len(fresh)
         print(f"eval {label}: placed {dense_n} (host oracle {host_n}), "
               f"{lat_ms[-1]:.1f} ms, of which {place_ms:.1f} ms in the "
-              "batcher's place() (upload, kernels, copy back)")
+              "batcher's dispatch (uploads, kernels, copy back)")
         check(dense_n == host_n == expect,
               f"{label}: dense placed {dense_n}, host {host_n}, "
               f"expected {expect}")
@@ -299,19 +324,512 @@ def run_main_path(seed, torch):
                   f"{label}: distinct_hosts violated")
     counts = cuda.launch_counts()
     stats = batcher.stats()
-    delta = {k: stats[k] - stats0[k] for k in stats
-             if isinstance(stats[k], int)}
+    delta = stats_delta(stats0, stats)
     print(f"main path launches: {json.dumps(counts, sort_keys=True)}")
     print(f"batcher: {json.dumps(delta, sort_keys=True)}")
-    for name in ("threefry_uniform", "greedy_scan", "uniform_topk",
-                 "expand_overlay"):
-        check(counts.get(name, 0) > 0, f"kernel {name} never launched on "
-              "the main path")
+    require_launches(counts, "main path", (
+        "threefry_uniform", "greedy_scan", "uniform_topk", "expand_overlay",
+        "base_delta"))
     check(delta["fused_delta_updates"] > 0, "no fused base delta")
     total_s = sum(lat_ms) / 1000.0
     print(f"main path: {len(lat_ms)} evals, {len(lat_ms) / total_s:.2f} "
           f"evals/s, per-eval ms {[round(x, 3) for x in lat_ms]}")
     return counts, lat_ms
+
+
+def dispatch_us(stats):
+    """Batcher time in dispatches: base uploads, stacking and payload
+    upload, kernel issue, and the copy back that waits for the card."""
+    return sum(stats[k] for k in ("upload_us", "stack_us", "issue_us",
+                                  "sync_us"))
+
+
+def stats_delta(before, after):
+    return {k: after[k] - before[k] for k in after
+            if isinstance(after[k], int) and isinstance(before.get(k), int)}
+
+
+def require_launches(counts, label, names):
+    for name in names:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never launched on {label}")
+
+
+# ---------------------------------------------------------------- storm
+
+STORM_ROUNDS = 4
+STORM_BATCH = 64
+STORM_THREADS = 4
+GREEDY_STORM_BATCH = 16
+
+
+def storm_job(job_id, count=8):
+    """Config 4's job (bench.py service_job(networks=True,
+    distinct_hosts=True), count 8) under its own id: a storm's evals are
+    registrations of distinct jobs."""
+    job = north_star_job()
+    job.id = job_id
+    job.task_groups[0].count = count
+    return job
+
+
+def tg_cycle_of(job):
+    return [gi for gi, tg in enumerate(job.task_groups)
+            for _ in range(tg.count)]
+
+
+def placement_config(job, matrix, pre_resolve):
+    """The config the dense scheduler builds for ``job``
+    (scheduler/tpu.py build_placement_config)."""
+    from nomad_tpu_torch.scheduler.tpu import build_placement_config
+
+    tgs = tg_cycle_of(job)
+    return build_placement_config(False, pre_resolve, tgs,
+                                  matrix.build_asks(tgs))
+
+
+class GcPauses:
+    """Python's garbage-collector pauses while the block runs (a host
+    cost on the storm path: the store holds ~10^5 objects)."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses = []
+        self._start = 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"],
+                                time.perf_counter() - self._start))
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._callback)
+
+    def summary(self):
+        gen2 = [t for g, t in self.pauses if g == 2]
+        return dict(gc_collections=len(self.pauses),
+                    gc_gen2_collections=len(gen2),
+                    gc_total_ms=sum(t for _g, t in self.pauses) * 1000.0,
+                    gc_max_pause_ms=max((t for _g, t in self.pauses),
+                                        default=0.0) * 1000.0)
+
+
+class Storm:
+    """bench.py bench_tpu_e2e's executive arm on the port: rows built on
+    a small pool, one cohort dispatch, finalize on a second pool."""
+
+    def __init__(self, harness, batcher, threads=STORM_THREADS):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.h = harness
+        self.batcher = batcher
+        self.pool = ThreadPoolExecutor(max_workers=threads)
+        self.finalize_pool = ThreadPoolExecutor(max_workers=threads)
+
+    def close(self):
+        self.pool.shutdown(wait=True)
+        self.finalize_pool.shutdown(wait=True)
+
+    def jobs(self, prefix, n, make):
+        out = []
+        for i in range(n):
+            job = make(f"{prefix}-{i}")
+            self.h.state.upsert_job(self.h.next_index(), job)
+            out.append(self.h.state.job_by_id(job.id))
+        return out
+
+    def build_row(self, snap, job, seed):
+        from nomad_tpu_torch.models.matrix import ClusterMatrix
+        from nomad_tpu_torch.ops.binpack import host_prng_key, make_asks
+
+        matrix = ClusterMatrix(snap, job)
+        asks = make_asks(*matrix.build_asks(tg_cycle_of(job)))
+        return job, seed, matrix, asks, host_prng_key(seed)
+
+    def materialize(self, row, choices, scores):
+        """Port offers and Allocation objects for one row's choices
+        (bench.py's materialize). Returns the eval's plan."""
+        from types import SimpleNamespace
+
+        from nomad_tpu_torch.scheduler.tpu import (
+            _build_allocation,
+            _offer_networks,
+        )
+        from nomad_tpu_torch.scheduler.util import AllocTuple
+        from nomad_tpu_torch.structs import AllocMetric, Plan
+
+        job, seed, matrix, _asks, _key = row
+        rng = random.Random(seed)
+        stub = SimpleNamespace(eval=SimpleNamespace(id=f"storm-{seed}"),
+                               job=job)
+        plan = Plan(job=job)
+        net_indexes = {}
+        for j, gi in enumerate(tg_cycle_of(job)):
+            tg = job.task_groups[gi]
+            choice = int(choices[j])
+            if not 0 <= choice < matrix.n_real:
+                continue
+            node = matrix.nodes[choice]
+            metrics = AllocMetric()
+            metrics.nodes_evaluated = matrix.n_real
+            metrics.nodes_available = matrix.nodes_by_dc
+            metrics.score_node(node, "binpack", float(scores[j]))
+            missing = AllocTuple(name=f"{job.id}.{tg.name}[{j}]",
+                                 task_group=tg, alloc=None)
+            resources = _offer_networks(rng, missing, node, net_indexes,
+                                        matrix)
+            if resources is None:
+                continue
+            plan.append_alloc(_build_allocation(stub, missing, node,
+                                                resources, metrics))
+        return plan
+
+    def round(self, jobs, seed, config_of):
+        """One round: returns (rows, [(choices, scores)], [plan],
+        [per-eval seconds from round open], round seconds)."""
+        t0 = time.perf_counter()
+        snap = self.h.state.snapshot()
+        rows = [f.result() for f in [
+            self.pool.submit(self.build_row, snap, job, seed + i)
+            for i, job in enumerate(jobs)]]
+        results = self.batcher.place_cohort([
+            (m, a, k, config_of(job, m)) for job, _s, m, a, k in rows])
+
+        def finalize(row, res):
+            plan = self.materialize(row, *res)
+            return plan, time.perf_counter() - t0
+
+        done = [f.result() for f in [
+            self.finalize_pool.submit(finalize, row, res)
+            for row, res in zip(rows, results)]]
+        return (rows, results, [p for p, _t in done], [t for _p, t in done],
+                time.perf_counter() - t0)
+
+    def commit(self, plans):
+        """All of a round's allocations in one store write: the next
+        snapshot's base is a delta child of this round's."""
+        allocs = []
+        for plan in plans:
+            for per_node in plan.node_allocation.values():
+                for a in per_node:
+                    a.job = plan.job
+                    allocs.append(a)
+        self.h.state.upsert_allocs(self.h.next_index(), allocs)
+        return len(allocs)
+
+
+def conflicted_evals(rows, results):
+    """bench.py's verify_round: the round's placements replayed in order
+    against shared claimed capacity (AllocsFit, bandwidth, ports) on the
+    round's own base; an eval with a rejected placement would replan.
+    distinct_hosts is per eval (distinct jobs) and out of scope."""
+    import numpy as np
+
+    vm = rows[0][2]
+    res, bw, ports = vm.build_asks(tg_cycle_of(rows[0][0]))[:3]
+    claimed_util = np.zeros_like(vm.util)
+    claimed_bw = np.zeros_like(vm.bw_used)
+    claimed_ports = np.zeros_like(vm.ports_free)
+    conflicted = 0
+    for row, (choices, _scores) in zip(rows, results):
+        bad = False
+        for j in range(len(tg_cycle_of(row[0]))):
+            c = int(choices[j])
+            if not 0 <= c < vm.n_real:
+                continue
+            ok = (np.all(vm.util[c] + claimed_util[c] + res[j]
+                         <= vm.capacity[c])
+                  and vm.bw_used[c] + claimed_bw[c] + bw[j] <= vm.bw_avail[c]
+                  and vm.ports_free[c] - claimed_ports[c] >= ports[j])
+            if not ok:
+                bad = True
+                continue
+            claimed_util[c] += res[j]
+            claimed_bw[c] += bw[j]
+            claimed_ports[c] += ports[j]
+        conflicted += bad
+    return conflicted
+
+
+def hold_against_cpu(label, rows, results, config_of):
+    """The same cohort through a CPU batcher (the plain versions):
+    choices equal, scores within SCORE_TOL. Returns the score error."""
+    import numpy as np
+
+    from nomad_tpu_torch.scheduler.batcher import PlacementBatcher
+
+    cpu = PlacementBatcher("cpu").place_cohort([
+        (m, a, k, config_of(job, m)) for job, _s, m, a, k in rows])
+    err = 0.0
+    for (c, s), (c_cpu, s_cpu) in zip(results, cpu):
+        check(np.array_equal(c, c_cpu), f"{label}: choices differ from "
+              "the CPU batcher's")
+        err = max(err, float(np.abs(s - s_cpu).max()))
+    check(err <= SCORE_TOL, f"{label}: score error {err} against the CPU")
+    return err
+
+
+def counted(total, label, names, fn):
+    """Run one path with the launch counts set to 0 just before it and
+    read just after; fail if a kernel of the path never launched."""
+    from nomad_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    out = fn()
+    counts = cuda.launch_counts()
+    print(f"{label} launches: {json.dumps(counts, sort_keys=True)}")
+    require_launches(counts, label, names)
+    total.update(counts)
+    return out
+
+
+def run_storm(seed, torch, total):
+    """Phase 4 (see the module docstring). Adds each path's launch
+    counts to ``total``; returns the storm's figures."""
+    import numpy as np
+
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    t0 = time.perf_counter()
+    h = Harness(seed=seed + 1)
+    build_cluster(h, N_NODES, ALLOCS_PER_NODE, seed + 1)
+    print(f"storm cluster: {N_NODES} nodes, {len(h.state.allocs())} allocs,"
+          f" built in {time.perf_counter() - t0:.1f} s (host)")
+    batcher = get_batcher()
+    storm = Storm(h, batcher)
+    on = lambda job, m: placement_config(job, m, True)  # noqa: E731
+    off = lambda job, m: placement_config(job, m, False)  # noqa: E731
+    figures = {}
+    try:
+        # Warm-up round on the first snapshot, not committed.
+        storm.round(storm.jobs("warm", STORM_BATCH, storm_job), 50_000, on)
+        rounds = [storm.jobs(f"storm{r}", STORM_BATCH, storm_job)
+                  for r in range(STORM_ROUNDS)]
+        stats0 = batcher.stats()
+
+        def config4():
+            out = []
+            for r, jobs in enumerate(rounds):
+                out.append(storm.round(jobs, 60_000 + r * STORM_BATCH, on))
+                storm.commit(out[-1][2])
+            return out
+
+        with GcPauses() as gc_pauses:
+            done = counted(total, "config 4 storm", (
+                "threefry_uniform", "uniform_topk_seq", "expand_overlay",
+                "base_delta"), config4)
+        stats = stats_delta(stats0, batcher.stats())
+        lat = [t for r in done for t in r[3]]
+        wall = sum(r[4] for r in done)
+        placed = sum(len(a) for r in done for p in r[2]
+                     for a in p.node_allocation.values())
+        conflicted = sum(conflicted_evals(r[0], r[1]) for r in done)
+        n_evals = STORM_ROUNDS * STORM_BATCH
+        figures.update(
+            evals=n_evals, evals_per_s=n_evals / wall,
+            p50_ms=float(np.percentile(lat, 50)) * 1000.0,
+            p99_ms=float(np.percentile(lat, 99)) * 1000.0,
+            dispatches=stats["dispatches"],
+            occupancy=stats["batched_requests"] / max(stats["dispatches"], 1),
+            stack_ms=stats["stack_us"] / 1000.0,
+            issue_ms=stats["issue_us"] / 1000.0,
+            sync_ms=stats["sync_us"] / 1000.0,
+            upload_ms=stats["upload_us"] / 1000.0,
+            fused_delta_updates=stats["fused_delta_updates"],
+            placed=placed, conflicted_pre_resolve=conflicted)
+        print(f"config 4 storm: {n_evals} evals in {wall:.3f} s = "
+              f"{figures['evals_per_s']:.2f} evals/s; per-eval p50 "
+              f"{figures['p50_ms']:.2f} ms, p99 {figures['p99_ms']:.2f} ms; "
+              f"{stats['dispatches']} dispatches, occupancy "
+              f"{figures['occupancy']:.1f}; stack {figures['stack_ms']:.1f} "
+              f"ms, issue {figures['issue_ms']:.1f} ms, sync "
+              f"{figures['sync_ms']:.1f} ms, base uploads "
+              f"{figures['upload_ms']:.1f} ms over the {STORM_ROUNDS} rounds;"
+              f" {placed} allocs placed; conflicted evals with pre_resolve "
+              f"on: {conflicted}")
+        figures.update(gc_pauses.summary())
+        print(f"  garbage collection in those rounds: "
+              f"{json.dumps(gc_pauses.summary(), sort_keys=True)}")
+        for r, (_rows, _res, _plans, lat_r, wall_r) in enumerate(done):
+            print(f"  round {r}: {wall_r * 1000:.1f} ms, per-eval p50 "
+                  f"{np.percentile(lat_r, 50) * 1000:.1f} ms, max "
+                  f"{max(lat_r) * 1000:.1f} ms")
+        check_placed("config 4 storm", [x for r in done for x in r[1]],
+                     placed, n_evals * 8)
+        check(conflicted == 0, f"{conflicted} conflicted evals with "
+              "pre_resolve on")
+        check(stats["pre_resolve_dispatches"] == stats["dispatches"]
+              == STORM_ROUNDS, f"storm dispatches: {stats}")
+        check(stats["fused_delta_updates"] == STORM_ROUNDS - 1,
+              "storm rounds after the first did not fuse their base delta")
+        figures.update(device_share(
+            torch, lambda: storm.round(
+                storm.jobs("profiled", STORM_BATCH, storm_job), 75_000, on)))
+        # Round 2 (a fused-delta round) against the plain versions.
+        err = hold_against_cpu("config 4 round 2", done[1][0], done[1][1],
+                               on)
+        print(f"config 4 round 2 through a CPU batcher (plain versions): "
+              f"choices equal, max score error {err:.3g}")
+        figures["cpu_score_err"] = err
+
+        def pre_resolve_off():
+            rows, results, _p, _l, _w = storm.round(
+                storm.jobs("off", STORM_BATCH, storm_job), 70_000, off)
+            return conflicted_evals(rows, results)
+
+        figures["conflicted_pre_resolve_off"] = counted(
+            total, "config 4 round, pre_resolve off",
+            ("threefry_uniform", "uniform_topk"), pre_resolve_off)
+        print("config 4 round with pre_resolve off: conflicted evals "
+              f"{figures['conflicted_pre_resolve_off']} of {STORM_BATCH}")
+
+        def greedy():
+            jobs = storm.jobs("greedy", GREEDY_STORM_BATCH,
+                              lambda i: two_group_job_id(i, 512))
+            s0 = batcher.stats()
+            rows, results, plans, _lat, wall = storm.round(jobs, 80_000, on)
+            return rows, results, plans, wall, stats_delta(
+                s0, batcher.stats())
+
+        rows, results, plans, wall, st = counted(
+            total, "greedy storm",
+            ("threefry_uniform", "greedy_scan_seq", "expand_overlay"), greedy)
+        placed = sum(len(a) for p in plans for a in p.node_allocation.values())
+        conflicted = conflicted_evals(rows, results)
+        print(f"greedy storm: {GREEDY_STORM_BATCH} evals x 1,024 asks in "
+              f"{wall:.3f} s, {st['dispatches']} dispatch(es), issue "
+              f"{st['issue_us'] / 1000:.1f} ms, sync "
+              f"{st['sync_us'] / 1000:.1f} ms; {placed} placed; "
+              f"conflicted evals with pre_resolve on: {conflicted}")
+        check_placed("greedy storm", results, placed,
+                     GREEDY_STORM_BATCH * 1024)
+        check(conflicted == 0, f"greedy storm: {conflicted} conflicted evals")
+        figures.update(greedy_wall_s=wall, greedy_conflicted=conflicted)
+
+        def parked():
+            import threading
+
+            jobs = storm.jobs("parked", STORM_BATCH, storm_job)
+            snap = h.state.snapshot()
+            s0 = batcher.stats()
+            answers, errors = {}, []
+
+            def worker(i):
+                try:
+                    job, _s, m, a, k = storm.build_row(snap, jobs[i],
+                                                       90_000 + i)
+                    answers[i] = batcher.place(m, a, k, on(job, m))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(e)
+
+            batcher.add_cohort(STORM_BATCH)
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(STORM_BATCH)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            check(not errors, f"parked storm: {errors[:1]}")
+            check(len(answers) == STORM_BATCH and all(
+                np.shape(c) == (8,) for c, _s in answers.values()),
+                "parked storm: a request went unanswered")
+            return stats_delta(s0, batcher.stats())
+
+        st = counted(total, "parked storm",
+                     ("threefry_uniform", "uniform_topk_seq"), parked)
+        occupancy = st["batched_requests"] / max(st["dispatches"], 1)
+        print(f"parked storm: {STORM_BATCH} place() calls answered in "
+              f"{st['dispatches']} dispatch(es), occupancy {occupancy:.1f}")
+        check(occupancy > 1, f"parked storm occupancy {occupancy}")
+        figures["parked_occupancy"] = occupancy
+
+        def stacked():
+            # Token-less matrices: the batcher stacks full states, one
+            # base per eval (batched_placement_program).
+            out = []
+            for label, make, pre in (
+                    ("config 4 job", storm_job, 60),
+                    ("two-group job", lambda i: two_group_job_id(i, 512),
+                     61)):
+                jobs = storm.jobs(f"stacked{pre}", 4, make)
+                snap = h.state.snapshot()
+                rows = []
+                for i, job in enumerate(jobs):
+                    row = storm.build_row(snap, job, pre * 1000 + i)
+                    row[2].base_token = row[2].base_delta = None
+                    row[2].compact_overlay = None
+                    rows.append(row)
+                results = batcher.place_cohort([
+                    (m, a, k, on(job, m)) for job, _s, m, a, k in rows])
+                out.append((label, rows, results))
+            return out
+
+        for label, rows, results in counted(
+                total, "stacked cohorts",
+                ("threefry_uniform", "uniform_topk_stacked",
+                 "greedy_scan_stacked"), stacked):
+            err = hold_against_cpu(f"stacked {label}", rows, results, on)
+            placed = sum(int((c >= 0).sum()) for c, _s in results)
+            print(f"stacked cohort of 4 evals, {label}: {placed} asks "
+                  f"placed, equal to the CPU batcher's (score error "
+                  f"{err:.3g})")
+    finally:
+        storm.close()
+    return figures
+
+
+def check_placed(label, results, placed, expect):
+    """Every ask placed on the card, and every placement made into an
+    allocation (exact port offers) on the host."""
+    on_card = sum(int((c >= 0).sum()) for c, _s in results)
+    check(on_card == expect, f"{label}: {on_card} of {expect} asks placed")
+    check(placed == on_card, f"{label}: {on_card} placed on the card, "
+          f"{placed} made into allocations")
+
+
+def device_share(torch, fn):
+    """Device busy time of one storm round under torch.profiler: the
+    sum of the card's kernel and copy times over the round's wall time
+    (one stream, so they do not overlap). Prints "not measured" when
+    the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1000.0
+    if busy_ms <= 0.0:
+        print("profiled storm round: device time not measured (the "
+              "profiler recorded no device activity)")
+        return {}
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profiled storm round (64 evals, pre_resolve on): device busy "
+          f"{busy_ms:.2f} ms of {wall_ms:.1f} ms wall "
+          f"({100.0 * busy_ms / wall_ms:.2f}%, idle "
+          f"{100.0 - 100.0 * busy_ms / wall_ms:.2f}%); by name: " + ", ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1000.0:.3f} ms "
+              f"x{e.count}" for e in top))
+    return dict(profiled_wall_ms=wall_ms, profiled_device_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms)
+
+
+def two_group_job_id(job_id, count):
+    job = two_group_job(count)
+    job.id = job_id
+    return job
 
 
 # ---------------------------------------------------------------- kernels
@@ -590,6 +1108,205 @@ def overlay_inputs(torch, np, n, g, b, seed, device):
     return ov, t(class_ids)
 
 
+def seq_carry(base, jc, tgc):
+    """One shared copy of the claimed capacity (the pre_resolve
+    layout) and per-eval counts."""
+    return tuple(x.clone() for x in (base["util"], base["bw_used"],
+                                      base["ports_free"], jc, tgc))
+
+
+def stacked_static(torch, np, base, b, seed, device):
+    """Static node rows per eval (the stacked-state layout): capacity
+    scaled by 1 or 2 per node and eval, node_ok thinned per eval."""
+    rng = np.random.default_rng(seed)
+    n = base["capacity"].shape[0]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    cap = (base["capacity"] * t(rng.integers(1, 3, (b, n, 1))
+                                .astype(np.float32))).contiguous()
+    sched = (cap - (base["capacity"] - base["sched_capacity"])).contiguous()
+    ok = (base["node_ok"] & t(rng.random((b, n)) < 0.95)).contiguous()
+    return cap, sched, base["bw_avail"].expand(b, n).contiguous(), ok
+
+
+def bench_new_kernels(torch, np, seed):
+    """The kernels of the storm path: K4 and the sequential and stacked
+    layouts of K1 and K2, each against its plain version."""
+    from nomad_tpu_torch.ops import binpack, prng
+
+    dev = torch.device("cuda")
+    n, g = BENCH_N, 2
+    out = {}
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    # ---- K4 at R = 256 and 4,096 changed rows (padding repeats row 0)
+    for r in (256, 4096):
+        rng = np.random.default_rng(seed + r)
+        parent = (t(rng.integers(0, 40, (n, 4)).astype(np.float32) * 50),
+                  t(rng.integers(0, 10, n).astype(np.float32) * 50),
+                  t(rng.integers(0, 7, n).astype(np.float32)),
+                  t(rng.random(n) < 0.98))
+        real = r - r // 8
+        rows = np.empty(r, np.int32)
+        rows[:real] = rng.choice(n, real, replace=False)
+        rows[real:] = rows[0]
+        vals = [rng.integers(0, 40, (r, 4)).astype(np.float32) * 50,
+                rng.integers(0, 10, r).astype(np.float32) * 50,
+                rng.integers(0, 7, r).astype(np.float32),
+                rng.random(r) < 0.5]
+        for v in vals:
+            v[real:] = v[0]
+        payload = (t(rows), *(t(v) for v in vals))
+        before = [x.clone() for x in parent]
+        got = binpack.apply_base_delta(*parent, *payload)
+        want = binpack.apply_base_delta_plain(*parent, *payload)
+        for x, y, z, p0 in zip(got, want, parent, before):
+            check(torch.equal(x, y), f"K4 (R={r}): differs from the plain "
+                  "version")
+            check(torch.equal(z, p0), f"K4 (R={r}): the parent changed")
+        err = max((x.double() - y.double()).abs().max().item()
+                  for x, y in zip(got, want))
+        ms = time_cuda(torch, lambda: binpack.apply_base_delta(
+            *parent, *payload), RUNS)
+        plain_ms = time_cuda(torch, lambda: binpack.apply_base_delta_plain(
+            *parent, *payload), RUNS)
+        idx = (payload[0].long(),)
+        lib_ms = time_cuda(torch, lambda: [
+            torch.index_put(x, idx, v)
+            for x, v in zip(parent, payload[1:])], RUNS)
+        # The parent read and the child written once (util, bw_used,
+        # ports_free, node_ok: 25 B a node), and the R rows of payload.
+        bytes_ = 2 * n * 25 + r * (4 + 16 + 4 + 4 + 1)
+        out.setdefault("base_delta", {})[r] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(bytes_, 0.0), library_ms=lib_ms)
+        print(f"base_delta R={r}: bit-equal to the plain version, parent "
+              "unchanged")
+    # ---- K1 sequential at B x K = 4 x 1,024 and 64 x 64
+    for b, k in ((4, 1024), (64, 64)):
+        base, jc, tgc, feas, asks, _u, keys = kernel_inputs(
+            torch, np, n, k, g, b, seed + 3 * b, dev)
+        static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
+                  base["node_ok"])
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        c_k, c_p = seq_carry(base, jc, tgc), seq_carry(base, jc, tgc)
+        ch, sc = binpack.greedy_scan(*static, c_k, feas, asks, noise, 10.0,
+                                     True)
+        err = check_scan(torch, f"K1-seq (B={b}, K={k})", (ch, sc, c_k), (
+            *binpack.greedy_scan_plain(*static, c_p, feas, asks, noise, 10.0,
+                                       True), c_p))
+        full = ((base["ports_free"] >= 2) & (c_k[2] < 2)).sum().item()
+        check(full > 0, f"K1-seq (B={b}): no node filled to its port limit")
+        print(f"greedy_scan_seq B={b} K={k}: {(ch >= 0).sum().item()} of "
+              f"{b * k} asks placed over one shared carry, {full} rows "
+              "filled to their port limit; choices, scores and all five "
+              "carried tensors match")
+        box = {}
+        fresh = lambda: box.__setitem__("c", seq_carry(base, jc, tgc))
+        ms = time_cuda(torch, lambda: binpack.greedy_scan(
+            *static, box["c"], feas, asks, noise, 10.0, True), RUNS,
+            setup=fresh)
+        plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
+            *static, box["c"], feas, asks, noise, 10.0, True), 3, warmup=1,
+            setup=fresh)
+        rows, cells = rows_written(torch, ch, asks.tg_index, n, g)
+        nodes = torch.unique(ch[ch >= 0]).numel()
+        chain = chain_ms(torch, b * k, dev)
+        # Node rows and the shared carry read once; per eval its counts
+        # and feasible; every ask and its two outputs; the flags; the
+        # noise; the chosen shared rows and per-eval counts written once.
+        bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 5 * g)
+                  + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * k * n * 4
+                  + nodes * 24 + rows * 4 + cells * 4)
+        flops = b * k * n * 60
+        out.setdefault("greedy_scan_seq", {})[(b, k)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            library_ms=None, chain_ms=chain)
+        del noise
+    # ---- K2 sequential at B x K = 64 x 8 (config 4's storm)
+    b, k = 64, 8
+    base, jc, tgc, feas, _a, uasks, keys = kernel_inputs(
+        torch, np, n, k, g, b, seed + 11, dev)
+    static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
+              base["node_ok"])
+    unoise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
+    c_k, c_p = seq_carry(base, jc, tgc), seq_carry(base, jc, tgc)
+    ch, sc = binpack.uniform_topk(*static, c_k, feas, uasks, unoise, 10.0,
+                                  True)
+    err = check_scan(torch, f"K2-seq (B={b}, K={k})", (ch, sc, c_k), (
+        *binpack.uniform_topk_plain(*static, c_p, feas, uasks, unoise, 10.0,
+                                    True), c_p))
+    full = ((base["ports_free"] >= 2) & (c_k[2] < 2)).sum().item()
+    print(f"uniform_topk_seq B={b} K={k}: {(ch >= 0).sum().item()} of "
+          f"{b * k} asks placed, {full} shared rows filled to their port "
+          "limit; choices, scores and all five carried tensors match")
+    box = {}
+    fresh = lambda: box.__setitem__("c", seq_carry(base, jc, tgc))
+    ms = time_cuda(torch, lambda: binpack.uniform_topk(
+        *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
+        setup=fresh)
+    plain_ms = time_cuda(torch, lambda: binpack.uniform_topk_plain(
+        *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
+        setup=fresh)
+    score = torch.randn((b, n), device=dev)
+    lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1), RUNS)
+    rows, cells = rows_written(torch, ch, uasks.tg_index, n, g)
+    nodes = torch.unique(ch[ch >= 0]).numel()
+    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
+              + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+              + nodes * 24 + rows * 4 + cells * 4)
+    out["uniform_topk_seq"] = {b: dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(bytes_, b * n * 70 / FP32_FLOPS), library_ms=lib_ms)}
+    # ---- K5b: the stacked layouts at B = 4 (K1 at K = 1,024, K2 at 8)
+    b = 4
+    for name, k in (("greedy_scan_stacked", BENCH_K),
+                    ("uniform_topk_stacked", 8)):
+        base, jc, tgc, feas, asks, uasks, keys = kernel_inputs(
+            torch, np, n, k, g, b, seed + 13 + k, dev)
+        static = stacked_static(torch, np, base, b, seed + k, dev)
+        greedy = name.startswith("greedy")
+        fn, plain = ((binpack.greedy_scan, binpack.greedy_scan_plain)
+                     if greedy else
+                     (binpack.uniform_topk, binpack.uniform_topk_plain))
+        a = asks if greedy else uasks
+        noise = prng.threefry_uniform(keys, (k, n) if greedy else (n,),
+                                      0.0, 2.0)
+        c_k, c_p = (new_carry(torch, base, jc, tgc) for _ in range(2))
+        ch, sc = fn(*static, c_k, feas, a, noise, 10.0)
+        err = check_scan(torch, f"{name} (B={b})", (ch, sc, c_k), (
+            *plain(*static, c_p, feas, a, noise, 10.0), c_p))
+        print(f"{name} B={b} K={k}: {(ch >= 0).sum().item()} of {b * k} "
+              "asks placed over a base per eval; choices, scores and all "
+              "five carried tensors match")
+        box = {}
+        fresh = lambda: box.__setitem__("c", new_carry(torch, base, jc, tgc))
+        ms = time_cuda(torch, lambda: fn(*static, box["c"], feas, a, noise,
+                                         10.0), RUNS, setup=fresh)
+        plain_ms = time_cuda(torch, lambda: plain(
+            *static, box["c"], feas, a, noise, 10.0),
+            3 if greedy else RUNS, warmup=1, setup=fresh)
+        rows, cells = rows_written(torch, ch, a.tg_index, n, g)
+        lib_ms = None
+        if greedy:
+            chain = chain_ms(torch, k, dev)
+            bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 5 * g)
+                      + b * k * (ASK_BYTES + 8) + b * (1 + g)
+                      + b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
+            ops_s = max(b * k * n * 60 / FP32_FLOPS, chain / 1000.0)
+        else:
+            score = torch.randn((b, n), device=dev)
+            lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1),
+                               RUNS)
+            bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 4 + 1 + 4)
+                      + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+                      + rows * CARRY_ROW_BYTES + cells * 4)
+            ops_s = b * n * 70 / FP32_FLOPS
+        out[name] = {b: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **bound(bytes_, ops_s), library_ms=lib_ms)}
+        torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "threefry_uniform": ("nomad_tpu_torch/csrc/threefry.cu",
                          "nomad_tpu/ops/binpack.py:384"),
@@ -599,7 +1316,23 @@ REPLACES = {
                      "nomad_tpu/ops/binpack.py:302"),
     "expand_overlay": ("nomad_tpu_torch/csrc/expand_overlay.cu",
                        "nomad_tpu/ops/binpack.py:533"),
+    "base_delta": ("nomad_tpu_torch/csrc/base_delta.cu",
+                   "nomad_tpu/ops/binpack.py:192"),
+    "greedy_scan_seq": ("nomad_tpu_torch/csrc/greedy_scan.cu",
+                        "nomad_tpu/ops/binpack.py:461"),
+    "uniform_topk_seq": ("nomad_tpu_torch/csrc/uniform_topk.cu",
+                         "nomad_tpu/ops/binpack.py:548"),
+    "greedy_scan_stacked": ("nomad_tpu_torch/csrc/greedy_scan.cu",
+                            "nomad_tpu/ops/binpack.py:424"),
+    "uniform_topk_stacked": ("nomad_tpu_torch/csrc/uniform_topk.cu",
+                             "nomad_tpu/ops/binpack.py:424"),
 }
+# The shape each kernel's JSON record leads with (the others ride
+# along under "shapes").
+PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
+           "expand_overlay": 1, "base_delta": 256,
+           "greedy_scan_seq": (4, 1024), "uniform_topk_seq": 64,
+           "greedy_scan_stacked": 4, "uniform_topk_stacked": 4}
 
 
 def main(argv=None) -> int:
@@ -645,26 +1378,33 @@ def main(argv=None) -> int:
                 if "registers" in line or line.startswith("=="):
                     print("  " + line.rstrip())
 
-        counts, lat_ms = run_main_path(args.seed, torch)
+        total = Counter()
+        counts, _lat_ms = run_main_path(args.seed, torch)
+        total.update(counts)
+        storm = run_storm(args.seed, torch, total)
+        print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
         results = bench_kernels(torch, np, args.seed)
+        results.update(bench_new_kernels(torch, np, args.seed))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    print(f"launches on the main paths: {json.dumps(total, sort_keys=True)}")
     kernels = []
-    for name, per_b in results.items():
+    for name, shapes in results.items():
         src, replaces = REPLACES[name]
-        one = per_b[1]
-        print(f"{name}: B=1 {one['ms']:.4f} ms (plain {one['plain_ms']:.4f}, "
-              f"bound {one['bound_ms']:.4f} by {one['bound_by']}); B=64 "
-              f"{per_b[64]['ms']:.4f} ms (plain {per_b[64]['plain_ms']:.4f}, "
-              f"bound {per_b[64]['bound_ms']:.4f}); main-path launches "
-              f"{counts.get(name, 0)} over {len(lat_ms)} evals")
+        lead = shapes[PRIMARY[name]]
+        for shape, r in shapes.items():
+            print(f"{name} {shape}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} by "
+                  f"{r['bound_by']}, library {r['library_ms']})")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts.get(name, 0),
-            **one, "b64": per_b[64],
+            "replaces": replaces, "launches": total.get(name, 0),
+            **lead, "shape": str(PRIMARY[name]),
+            "shapes": {str(k): v for k, v in shapes.items()
+                       if k != PRIMARY[name]},
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

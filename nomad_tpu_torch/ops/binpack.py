@@ -10,22 +10,29 @@ JAX package's: ``PlacementConfig``, ``NodeState``, ``Asks`` and
 counts and indices, bool masks).
 
 The batch axis is written out: every program here takes a leading B
-over independent evals (the JAX package's ``vmap`` form), and every
-eval starts from the same cluster base.
+(the JAX package's ``vmap`` and ``scan`` forms). Three layouts:
 
-Four kernels carry the path, each a wrapper that launches a CUDA kernel
+- independent evals over one shared base (the vmap form), each with
+  its own copy of the carried state;
+- sequential evals (``PlacementConfig.pre_resolve``, the JAX package's
+  ``_overlay_seq``): the B evals run in order over ONE shared copy of
+  util/bw_used/ports_free, so each sees the capacity earlier evals
+  claimed; job_count/tg_count/feasible stay per eval (its own job);
+- stacked full states (``batched_placement_program``): a per-eval base.
+
+Five kernels carry the path, each a wrapper that launches a CUDA kernel
 (csrc/) for CUDA tensors and runs its plain PyTorch version, in this
 module or ops/prng.py, for CPU tensors:
 
 - K0 ``prng.threefry_uniform``: the tie-break noise;
-- K1 ``greedy_scan``: the K-step scan (``placement_program``);
+- K1 ``greedy_scan``: the K-step scan (``placement_program``), in
+  every layout above;
 - K2 ``uniform_topk``: one scoring pass + top-k for the uniform
-  distinct-hosts shape (``_uniform_topk_program``);
+  distinct-hosts shape (``_uniform_topk_program``), in every layout;
 - K3 ``expand_overlay``: the compact overlay's device-side expansion
-  (``_expand_overlay``).
-
-The base row update (K4, ``apply_base_delta`` and the fused copy of the
-compact-delta program) is a plain indexed copy in this slice.
+  (``_expand_overlay``);
+- K4 ``apply_base_delta``: the base row scatter, alone and fused into
+  the compact-delta program.
 """
 
 from __future__ import annotations
@@ -52,8 +59,9 @@ class PlacementConfig(NamedTuple):
     """Placement knobs (the JAX package's static config)."""
 
     anti_affinity_penalty: float  # 10 service / 5 batch (stack.go:14-18)
-    # In-batch conflict pre-resolution (a sequential eval axis). A later
-    # slice of the port; True raises.
+    # In-batch conflict pre-resolution: the batch's evals run in order
+    # over one shared copy of the claimed capacity (a sequential eval
+    # axis). Programs of one eval ignore it.
     pre_resolve: bool = False
     # Per-eval tie-break noise, in fitness units (see the JAX package's
     # PlacementConfig.noise_scale for why 2.0).
@@ -167,15 +175,13 @@ def uniform_dh_flag(placements, job_dh, tg_dh) -> bool:
     return bool(job_dh) or bool(_np.asarray(tg_dh).reshape(-1)[gi])
 
 
-# ------------------------------------------------------------ K4 (plain)
+# ------------------------------------------------------------ K4
 
 
-def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
-                     util_rows, bw_rows, ports_rows, ok_rows):
-    """Row scatter-set of the mutable base arrays (the JAX package's
-    apply_base_delta). Padding rows repeat a real row with the same
-    value, so the duplicate writes are benign. Returns new tensors; the
-    parent base stays as it was (it may still be cached)."""
+def apply_base_delta_plain(util, bw_used, ports_free, node_ok, rows,
+                           util_rows, bw_rows, ports_rows, ok_rows):
+    """The plain PyTorch version of K4: a copy of each mutable base
+    array with the changed rows set."""
     rows = rows.long()
     out = []
     for base, vals in ((util, util_rows), (bw_used, bw_rows),
@@ -184,6 +190,88 @@ def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
         t[rows] = vals
         out.append(t)
     return tuple(out)
+
+
+def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
+                     util_rows, bw_rows, ports_rows, ok_rows):
+    """K4: row scatter-set of the mutable base arrays.
+
+    Replaces ``apply_base_delta`` and the copy fused into
+    ``batched_placement_program_compact_delta`` (ops/binpack.py:192,607
+    of the JAX package). ``rows`` [R] i32, in range; padding rows
+    repeat a real row with the same value, so the duplicate writes are
+    benign. The row values: util_rows [R,4] f32, bw_rows/ports_rows [R]
+    f32, ok_rows [R] bool. Returns new tensors; the parent base stays
+    as it was (it may still be cached).
+
+    On the card (csrc/base_delta.cu) the bound is bytes: the four
+    arrays copied (``Tensor.clone``, a plain copy) and R rows written,
+    a few hundred KB at N = 10,240. One thread per (row, column) sets
+    the rows.
+    """
+    n, r = util.shape[0], rows.shape[0]
+    dev = util.device
+    for name, t, dtype, shape in (
+            ("util", util, torch.float32, (n, 4)),
+            ("bw_used", bw_used, torch.float32, (n,)),
+            ("ports_free", ports_free, torch.float32, (n,)),
+            ("node_ok", node_ok, torch.bool, (n,)),
+            ("rows", rows, torch.int32, (r,)),
+            ("util_rows", util_rows, torch.float32, (r, 4)),
+            ("bw_rows", bw_rows, torch.float32, (r,)),
+            ("ports_rows", ports_rows, torch.float32, (r,)),
+            ("ok_rows", ok_rows, torch.bool, (r,))):
+        _check(name, t, dtype, shape, dev)
+    if dev.type == "cpu":
+        return apply_base_delta_plain(util, bw_used, ports_free, node_ok,
+                                      rows, util_rows, bw_rows, ports_rows,
+                                      ok_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = tuple(x.clone() for x in (util, bw_used, ports_free, node_ok))
+    cuda.launch(
+        "nt_base_delta", n, r, rows.data_ptr(), util_rows.data_ptr(),
+        bw_rows.data_ptr(), ports_rows.data_ptr(), ok_rows.data_ptr(),
+        *(x.data_ptr() for x in out), cuda.stream_ptr(dev))
+    cuda.count_launch("base_delta")
+    return out
+
+
+_TORCH_DTYPES = {
+    _np.dtype(_np.float32): torch.float32,
+    _np.dtype(_np.int32): torch.int32,
+    _np.dtype(_np.int64): torch.int64,
+    _np.dtype(bool): torch.bool,
+}
+# Byte alignment of each array in device_resident's packed buffer.
+_ALIGN = 16
+
+
+def device_resident(arrays, device) -> tuple:
+    """Host numpy arrays as tensors on ``device``, in ONE copy.
+
+    The counterpart of the JAX package's ``device_resident`` identity
+    program (ops/binpack.py:632), the one-call base upload: the arrays
+    pack into one host buffer (pinned, for a CUDA device), which
+    crosses in one ``non_blocking`` copy on the device's current
+    stream, the stream the kernels launch on, so they run after it.
+    The tensors returned are views of that one device buffer."""
+    device = torch.device(device)
+    arrays = [_np.asarray(x, order="C") for x in arrays]
+    offsets, total = [], 0
+    for x in arrays:
+        if x.dtype not in _TORCH_DTYPES:
+            raise ValueError(f"device_resident: unsupported dtype {x.dtype}")
+        offsets.append(total)
+        total += -(-x.nbytes // _ALIGN) * _ALIGN
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for x, at in zip(arrays, offsets):
+        flat[at:at + x.nbytes] = x.reshape(-1).view(_np.uint8)
+    buf = host.to(device, non_blocking=True)
+    return tuple(buf[at:at + x.nbytes].view(_TORCH_DTYPES[x.dtype])
+                 .view(x.shape) for x, at in zip(arrays, offsets))
 
 
 # ------------------------------------------------------------ scoring
@@ -195,7 +283,8 @@ def _score_plain(capacity, sched, bw_avail, util, bw_used, ports_free,
     """Masked BestFit-v3 score of one ask per eval over all N nodes
     (the JAX package's _score_and_mask). Batched: util [B,N,4], the
     [B,N] vectors, ask_res [B,4], the [B] ask scalars and flags, noise
-    [B,N]; capacity/sched/bw_avail are the shared [N,...] base."""
+    [B,N]; capacity/sched/bw_avail are the shared [N,...] base or a
+    stacked [B,N,...] one."""
     new_util = util + ask_res[:, None, :]
     fits = (new_util <= capacity).all(dim=-1)
     fits &= bw_used + ask_bw[:, None] <= bw_avail
@@ -208,7 +297,7 @@ def _score_plain(capacity, sched, bw_avail, util, bw_used, ports_free,
     fitness = 20.0 - (torch.pow(10.0, free_frac[..., R_CPU])
                       + torch.pow(10.0, free_frac[..., R_MEM]))
     fitness = torch.clamp(fitness, 0.0, 18.0)
-    zero_cap = (sched[:, R_CPU] <= 0) | (sched[:, R_MEM] <= 0)
+    zero_cap = (sched[..., R_CPU] <= 0) | (sched[..., R_MEM] <= 0)
     fitness = torch.where(zero_cap, torch.zeros_like(fitness), fitness)
     score = fitness - penalty * job_count.to(torch.float32)
     score = score + noise
@@ -228,20 +317,31 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_scan_args(capacity, sched_capacity, bw_avail, node_ok, carry,
-                     feasible, asks, noise, noise_shape):
+                     feasible, asks, noise, noise_shape, seq):
+    """Validate a scan's arguments; returns (B, N, G, K, stacked).
+
+    The static node rows (capacity, sched_capacity, bw_avail, node_ok)
+    are the shared [N,...] base or, stacked, a [B,N,...] base per eval.
+    The carried util/bw_used/ports_free are [B,N,...] per-eval copies
+    or, with ``seq``, one shared [N,...] copy."""
     util, bw_used, ports_free, job_count, tg_count = carry
     b, n, g = feasible.shape
     k = asks.resources.shape[1]
+    stacked = capacity.dim() == 3
+    if stacked and seq:
+        raise ValueError("a sequential scan runs over one shared base")
+    lead = (b, n) if stacked else (n,)
+    own = (n,) if seq else (b, n)
     dev = capacity.device
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     for name, t, dtype, shape in (
-            ("capacity", capacity, f32, (n, 4)),
-            ("sched_capacity", sched_capacity, f32, (n, 4)),
-            ("bw_avail", bw_avail, f32, (n,)),
-            ("node_ok", node_ok, u8, (n,)),
-            ("util", util, f32, (b, n, 4)),
-            ("bw_used", bw_used, f32, (b, n)),
-            ("ports_free", ports_free, f32, (b, n)),
+            ("capacity", capacity, f32, (*lead, 4)),
+            ("sched_capacity", sched_capacity, f32, (*lead, 4)),
+            ("bw_avail", bw_avail, f32, lead),
+            ("node_ok", node_ok, u8, lead),
+            ("util", util, f32, (*own, 4)),
+            ("bw_used", bw_used, f32, own),
+            ("ports_free", ports_free, f32, own),
             ("job_count", job_count, i32, (b, n)),
             ("tg_count", tg_count, i32, (b, n, g)),
             ("feasible", feasible, u8, (b, n, g)),
@@ -254,7 +354,31 @@ def _check_scan_args(capacity, sched_capacity, bw_avail, node_ok, carry,
             ("asks.tg_distinct_hosts", asks.tg_distinct_hosts, u8, (b, g)),
             ("noise", noise, f32, (b, *noise_shape))):
         _check(name, t, dtype, shape, dev)
-    return b, n, g, k
+    return b, n, g, k, stacked
+
+
+def _launch_name(base, seq, stacked):
+    """The launch-count name of a scan kernel in one layout."""
+    return base + ("_seq" if seq else "_stacked" if stacked else "")
+
+
+def _in_order(fn, capacity, sched_capacity, bw_avail, node_ok, carry,
+              feasible, asks, noise, penalty):
+    """Run the plain scan ``fn`` over the B evals one at a time, in
+    order, on one shared copy of util/bw_used/ports_free: each eval
+    gets [1, ...] views of it, so its row updates land in the shared
+    tensors the next eval reads."""
+    util, bw_used, ports_free, job_count, tg_count = carry
+    outs = []
+    for i in range(feasible.shape[0]):
+        one = slice(i, i + 1)
+        own = (util[None], bw_used[None], ports_free[None],
+               job_count[one], tg_count[one])
+        outs.append(fn(capacity, sched_capacity, bw_avail, node_ok, own,
+                       feasible[one], Asks(*(x[one] for x in asks)),
+                       noise[one], penalty))
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
 
 
 def _update_rows(carry, rows_b, rows_n, ask_res, ask_bw, ask_ports, tg):
@@ -271,10 +395,15 @@ def _update_rows(carry, rows_b, rows_n, ask_res, ask_bw, ask_ports, tg):
 
 
 def greedy_scan_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
-                      feasible, asks, noise, penalty):
+                      feasible, asks, noise, penalty, seq=False):
     """The plain PyTorch version of K1: a Python loop over the K asks,
     each a batched [B, N] score, argmax and one-row update of the
-    carried tensors (updated in place)."""
+    carried tensors (updated in place). With ``seq`` the evals run one
+    after another over the shared carry (``_in_order``)."""
+    if seq:
+        return _in_order(greedy_scan_plain, capacity, sched_capacity,
+                         bw_avail, node_ok, carry, feasible, asks, noise,
+                         penalty)
     util, bw_used, ports_free, job_count, tg_count = carry
     b, n, _g = feasible.shape
     k = asks.resources.shape[1]
@@ -306,16 +435,21 @@ def greedy_scan_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
 
 
 def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
-                feasible, asks, noise, penalty):
-    """K1: B independent greedy scans of K asks over N nodes.
+                feasible, asks, noise, penalty, seq=False):
+    """K1: greedy scans of K asks over N nodes for B evals.
 
     Replaces ``_score_and_mask`` + ``placement_step`` scanned by
     ``placement_program`` (ops/binpack.py:214,263,360 of the JAX
-    package). ``carry`` = (util [B,N,4], bw_used [B,N], ports_free
-    [B,N], job_count [B,N], tg_count [B,N,G]), the evals' private
-    copies, updated in place; ``feasible`` [B,N,G] bool; ``asks`` with
-    a leading B; ``noise`` [B,K,N]. Returns (choices [B,K] i32, scores
-    [B,K] f32 without the noise).
+    package), under each batch layout: ``_overlay_seq`` and the
+    ``pre_resolve`` branch of ``_compact_batch`` (:461,548) with
+    ``seq``, and the stacked states of ``batched_placement_program``
+    (:424) when the static rows carry the batch axis.
+    ``carry`` = (util, bw_used, ports_free, job_count [B,N], tg_count
+    [B,N,G]), updated in place: util [B,N,4], bw_used/ports_free
+    [B,N], the evals' private copies, or with ``seq`` one shared [N,4]
+    / [N] copy that the evals claim from in order. ``feasible``
+    [B,N,G] bool; ``asks`` with a leading B; ``noise`` [B,K,N].
+    Returns (choices [B,K] i32, scores [B,K] f32 without the noise).
 
     On the card (csrc/greedy_scan.cu) the bound is the chain of K
     dependent block-wide argmaxes, not bytes: one block per eval walks
@@ -324,23 +458,24 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
     updates the chosen row before the next step's barrier. With one SM
     per eval, that SM's bandwidth and issue rate bound each step (about
     14 us at N = 10,240 on an H100; PERF.md), while extra evals of a
-    batch ride other SMs nearly for free.
+    batch ride other SMs nearly for free. With ``seq`` one block walks
+    all B x K steps in order (the next eval reads the rows the last
+    one wrote, after the same barrier), so the chain is B times longer.
     """
-    b, n, g, k = _check_scan_args(capacity, sched_capacity, bw_avail,
-                                  node_ok, carry, feasible, asks, noise,
-                                  (asks.resources.shape[1],
-                                   feasible.shape[1]))
+    b, n, g, k, stacked = _check_scan_args(
+        capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
+        noise, (asks.resources.shape[1], feasible.shape[1]), seq)
     dev = capacity.device
     if dev.type == "cpu":
         return greedy_scan_plain(capacity, sched_capacity, bw_avail, node_ok,
-                                 carry, feasible, asks, noise, penalty)
+                                 carry, feasible, asks, noise, penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     util, bw_used, ports_free, job_count, tg_count = carry
     cuda.launch(
-        "nt_greedy_scan", b, n, g, k, float(penalty),
+        "nt_greedy_scan", b, n, g, k, float(penalty), int(seq), int(stacked),
         capacity.data_ptr(), sched_capacity.data_ptr(), bw_avail.data_ptr(),
         node_ok.data_ptr(), util.data_ptr(), bw_used.data_ptr(),
         ports_free.data_ptr(), job_count.data_ptr(), tg_count.data_ptr(),
@@ -349,7 +484,7 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
         asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
         asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
         choices.data_ptr(), scores.data_ptr(), cuda.stream_ptr(dev))
-    cuda.count_launch("greedy_scan")
+    cuda.count_launch(_launch_name("greedy_scan", seq, stacked))
     return choices, scores
 
 
@@ -357,10 +492,16 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
 
 
 def uniform_topk_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
-                       feasible, asks, noise, penalty):
+                       feasible, asks, noise, penalty, seq=False):
     """The plain PyTorch version of K2: one [B, N] scoring pass of ask
     0, then the first min(K, N) of a stable descending sort (lowest
-    index first on ties, as lax.top_k), padded to K as unplaceable."""
+    index first on ties, as lax.top_k), padded to K as unplaceable.
+    With ``seq`` the evals run one after another over the shared
+    carry (``_in_order``)."""
+    if seq:
+        return _in_order(uniform_topk_plain, capacity, sched_capacity,
+                         bw_avail, node_ok, carry, feasible, asks, noise,
+                         penalty)
     util, bw_used, ports_free, job_count, tg_count = carry
     b, n, _g = feasible.shape
     k = asks.resources.shape[1]
@@ -393,49 +534,53 @@ def uniform_topk_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
 
 
 def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
-                 feasible, asks, noise, penalty):
+                 feasible, asks, noise, penalty, seq=False):
     """K2: the uniform distinct-hosts placement of B evals.
 
     Replaces ``_uniform_topk_program`` (ops/binpack.py:302 of the JAX
-    package). Arguments as ``greedy_scan`` except noise [B, N] (one
-    draw per node). Every active ask must be ask 0's task group
-    (uniform_dh_flag).
+    package), under the batch layouts ``greedy_scan`` takes (``seq``
+    for config 4's pre-resolved storm). Arguments as ``greedy_scan``
+    except noise [B, N] (one draw per node). Every active ask must be
+    ask 0's task group (uniform_dh_flag).
 
     On the card (csrc/uniform_topk.cu) the bound is the sort's
     dependent stages, not bytes: one block per eval packs each node's
     (score, index) into a 64-bit key ordered as lax.top_k orders,
     bitonic-sorts the keys in shared memory (global scratch past the
-    shared-memory limit), and updates the chosen, distinct rows.
+    shared-memory limit), and updates the chosen, distinct rows. With
+    ``seq`` one block runs the B evals in order, a barrier after each
+    eval's row updates.
     """
-    b, n, g, k = _check_scan_args(capacity, sched_capacity, bw_avail,
-                                  node_ok, carry, feasible, asks, noise,
-                                  (feasible.shape[1],))
+    b, n, g, k, stacked = _check_scan_args(
+        capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
+        noise, (feasible.shape[1],), seq)
     dev = capacity.device
     if dev.type == "cpu":
         return uniform_topk_plain(capacity, sched_capacity, bw_avail,
                                   node_ok, carry, feasible, asks, noise,
-                                  penalty)
+                                  penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n_pad = 1 << max(n - 1, 0).bit_length()
     scratch = None
     if n_pad * 8 > _TOPK_SMEM_MAX:
-        scratch = torch.empty((b, n_pad), dtype=torch.int64, device=dev)
+        scratch = torch.empty((1 if seq else b, n_pad), dtype=torch.int64,
+                              device=dev)
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     util, bw_used, ports_free, job_count, tg_count = carry
     cuda.launch(
-        "nt_uniform_topk", b, n, n_pad, g, k, float(penalty),
-        capacity.data_ptr(), sched_capacity.data_ptr(), bw_avail.data_ptr(),
-        node_ok.data_ptr(), util.data_ptr(), bw_used.data_ptr(),
-        ports_free.data_ptr(), job_count.data_ptr(), tg_count.data_ptr(),
-        feasible.data_ptr(), asks.resources.data_ptr(), asks.bw.data_ptr(),
-        asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+        "nt_uniform_topk", b, n, n_pad, g, k, float(penalty), int(seq),
+        int(stacked), capacity.data_ptr(), sched_capacity.data_ptr(),
+        bw_avail.data_ptr(), node_ok.data_ptr(), util.data_ptr(),
+        bw_used.data_ptr(), ports_free.data_ptr(), job_count.data_ptr(),
+        tg_count.data_ptr(), feasible.data_ptr(), asks.resources.data_ptr(),
+        asks.bw.data_ptr(), asks.ports.data_ptr(), asks.tg_index.data_ptr(),
         asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
         asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
         0 if scratch is None else scratch.data_ptr(),
         choices.data_ptr(), scores.data_ptr(), cuda.stream_ptr(dev))
-    cuda.count_launch("uniform_topk")
+    cuda.count_launch(_launch_name("uniform_topk", seq, stacked))
     return choices, scores
 
 
@@ -521,40 +666,42 @@ def _check_config(config: PlacementConfig) -> None:
         raise NotImplementedError(
             f"placement kernel {config.kernel!r}: only the greedy scan is "
             "ported (ROADMAP Queue A, kernel subsystem)")
-    if config.pre_resolve:
-        raise NotImplementedError(
-            "pre_resolve (sequential eval axis) is ported in a later slice "
-            "(ROADMAP Queue A, coalescing batcher)")
 
 
 def _placement_batch(capacity, sched_capacity, util, bw_avail, bw_used,
                      ports_free, node_ok, job_count, tg_count, feasible,
-                     asks: Asks, keys, config: PlacementConfig):
-    """B independent evals over one shared base: the base's carried
-    arrays are cloned into per-eval scratch, the noise is drawn (K0),
-    and K1 or K2 runs. Returns (choices [B,K], scores [B,K], carry)."""
+                     asks: Asks, keys, config: PlacementConfig,
+                     seq: bool = False):
+    """B evals: the base's carried arrays are cloned into scratch the
+    kernels update in place (one copy per eval, or with ``seq`` one
+    shared copy the evals claim from in order), the noise is drawn
+    (K0), and K1 or K2 runs. Returns (choices [B,K], scores [B,K],
+    carry), carry = (util, bw_used, ports_free, job_count, tg_count)
+    as the scan left it."""
     _check_config(config)
     b, n, _g = feasible.shape
     k = asks.resources.shape[1]
-    # Fresh per-eval copies: the kernels update the carry in place, and
-    # the inputs (a cached device base, the caller's state) must stay
-    # as they were.
+    # Fresh copies: the kernels update the carry in place, and the
+    # inputs (a cached device base, the caller's state) must stay as
+    # they were.
     dense = torch.contiguous_format
-    carry = (util.expand(b, n, 4).clone(memory_format=dense),
-             bw_used.expand(b, n).clone(memory_format=dense),
-             ports_free.expand(b, n).clone(memory_format=dense),
-             job_count.clone(memory_format=dense),
-             tg_count.clone(memory_format=dense))
+    if seq:
+        claimed = (util, bw_used, ports_free)
+    else:
+        claimed = (util.expand(b, n, 4), bw_used.expand(b, n),
+                   ports_free.expand(b, n))
+    carry = tuple(x.clone(memory_format=dense)
+                  for x in (*claimed, job_count, tg_count))
     if config.uniform_dh:
         noise = threefry_uniform(keys, (n,), 0.0, config.noise_scale)
-        choices, scores = uniform_topk(
-            capacity, sched_capacity, bw_avail, node_ok, carry,
-            feasible.contiguous(), asks, noise, config.anti_affinity_penalty)
+        scan = uniform_topk
     else:
         noise = threefry_uniform(keys, (k, n), 0.0, config.noise_scale)
-        choices, scores = greedy_scan(
-            capacity, sched_capacity, bw_avail, node_ok, carry,
-            feasible.contiguous(), asks, noise, config.anti_affinity_penalty)
+        scan = greedy_scan
+    choices, scores = scan(
+        capacity, sched_capacity, bw_avail, node_ok, carry,
+        feasible.contiguous(), asks, noise, config.anti_affinity_penalty,
+        seq)
     return choices, scores, carry
 
 
@@ -565,9 +712,10 @@ def _unsqueeze(t) -> torch.Tensor:
 def placement_program(state: NodeState, asks: Asks, key,
                       config: PlacementConfig):
     """One eval's K placements (the JAX package's placement_program /
-    placement_program_jit). ``state`` and ``asks`` are tensors on one
-    device; ``key`` a host uint32[2]. Returns (choices [K] i32, scores
-    [K] f32, final NodeState)."""
+    placement_program_jit; ``pre_resolve`` does not apply to one eval).
+    ``state`` and ``asks`` are tensors on one device; ``key`` a host
+    uint32[2]. Returns (choices [K] i32, scores [K] f32, final
+    NodeState)."""
     batched = Asks(*(_unsqueeze(x) for x in asks))
     keys = keys_tensor(key, state.capacity.device)
     choices, scores, carry = _placement_batch(
@@ -582,16 +730,49 @@ def placement_program(state: NodeState, asks: Asks, key,
     return choices[0], scores[0], final
 
 
+def batched_placement_program(states: NodeState, asks: Asks, keys,
+                              config: PlacementConfig):
+    """B evals over stacked full states, each with its own base (the
+    JAX package's batched_placement_program, a vmap of
+    placement_program; ``pre_resolve`` does not apply: the evals share
+    no base). Every field carries the batch axis."""
+    return _placement_batch(
+        states.capacity, states.sched_capacity, states.util,
+        states.bw_avail, states.bw_used, states.ports_free, states.node_ok,
+        states.job_count, states.tg_count, states.feasible, asks, keys,
+        config)
+
+
+def batched_placement_program_shared(state: NodeState, asks: Asks, keys,
+                                     config: PlacementConfig):
+    """B evals of one state and one ask list that differ only in their
+    keys [B, 2] (the JAX package's batched_placement_program_shared;
+    independent, as its vmap)."""
+    b = keys.shape[0]
+
+    def over(x):
+        return x.expand(b, *x.shape).contiguous()
+
+    return _placement_batch(
+        state.capacity, state.sched_capacity, state.util, state.bw_avail,
+        state.bw_used, state.ports_free, state.node_ok,
+        over(state.job_count), over(state.tg_count), over(state.feasible),
+        Asks(*(over(x) for x in asks)), keys, config)
+
+
 def batched_placement_program_overlay(state: NodeState, asks: Asks, keys,
                                       config: PlacementConfig):
     """B evals of different jobs over one shared base with dense
     per-eval overlays: job_count [B,N], tg_count/feasible [B,N,G] and
     the asks carry the batch axis; the other NodeState fields are the
-    shared [N,...] base."""
+    shared [N,...] base. With ``config.pre_resolve`` the evals run in
+    order over one copy of the claimed capacity (``_overlay_seq``), and
+    the carry's util/bw_used/ports_free come back [N,...]."""
     return _placement_batch(
         state.capacity, state.sched_capacity, state.util, state.bw_avail,
         state.bw_used, state.ports_free, state.node_ok, state.job_count,
-        state.tg_count, state.feasible, asks, keys, config)
+        state.tg_count, state.feasible, asks, keys, config,
+        seq=config.pre_resolve)
 
 
 def batched_placement_program_compact(
@@ -601,12 +782,15 @@ def batched_placement_program_compact(
 ):
     """The overlay path with the overlays expanded on the device (K3):
     the base tensors and class_ids are the cached cluster base; every
-    overlay field carries the batch axis."""
+    overlay field carries the batch axis. The expansion does not depend
+    on the claimed capacity, so all B overlays expand before the scan,
+    ``pre_resolve`` or not."""
     n = util.shape[0]
     feasible, job_count, tg_count = expand_overlay(class_ids, overlays, n)
     return _placement_batch(capacity, sched_capacity, util, bw_avail,
                             bw_used, ports_free, node_ok, job_count,
-                            tg_count, feasible, asks, keys, config)
+                            tg_count, feasible, asks, keys, config,
+                            seq=config.pre_resolve)
 
 
 def batched_placement_program_compact_delta(
@@ -616,9 +800,11 @@ def batched_placement_program_compact_delta(
 ) -> Tuple:
     """The compact dispatch with the base delta fused in: the mutable
     base arrays come from the cached PARENT snapshot and the changed
-    rows are set first (K4, a plain indexed copy here). Returns the
-    batch results plus the child's (util, bw_used, ports_free,
-    node_ok) for the batcher to cache."""
+    rows are set first (K4). Returns the batch results plus the child's
+    (util, bw_used, ports_free, node_ok) for the batcher to cache: the
+    base after the delta and BEFORE any placement (the scan claims from
+    its own copy, so the padding rows' and the evals' claims never leak
+    into the next snapshot)."""
     util2, bw2, ports2, ok2 = apply_base_delta(
         util, bw_used, ports_free, node_ok, rows, util_rows, bw_rows,
         ports_rows, ok_rows)

@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
-           "expand_overlay.cu")
+           "expand_overlay.cu", "base_delta.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
@@ -50,9 +50,10 @@ _L = ctypes.c_longlong
 # cudaError_t of its launch.
 SIGNATURES: Dict[str, List] = {
     "nt_threefry_uniform": [_P, _P, _L, _I, _F, _F, _P],
-    "nt_greedy_scan": [_I, _I, _I, _I, _F] + [_P] * 21,
-    "nt_uniform_topk": [_I, _I, _I, _I, _I, _F] + [_P] * 22,
+    "nt_greedy_scan": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 21,
+    "nt_uniform_topk": [_I, _I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
     "nt_expand_overlay": [_I] * 6 + [_P] * 10,
+    "nt_base_delta": [_I, _I] + [_P] * 10,
     "nt_argmax_chain": [_I, _P, _P],
 }
 

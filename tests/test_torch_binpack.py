@@ -289,13 +289,14 @@ def test_wrappers_check_their_arguments():
 
 
 def test_unported_options_raise():
+    """Only the greedy kernel is ported; pre_resolve is (and a lone
+    program ignores it, as placement_program_jit does)."""
     state, asks, key = world(13, 128, 16)
     ts = carry.node_state_from_numpy(state, "cpu")
     ta = carry.asks_from_numpy(asks, "cpu")
-    for config in (tb.PlacementConfig(10.0, pre_resolve=True),
-                   tb.PlacementConfig(10.0, kernel="convex")):
-        with pytest.raises(NotImplementedError):
-            tb.placement_program(ts, ta, key, config)
+    with pytest.raises(NotImplementedError):
+        tb.placement_program(ts, ta, key,
+                             tb.PlacementConfig(10.0, kernel="convex"))
 
 
 def test_batcher_lone_path_matches():
@@ -312,3 +313,287 @@ def test_batcher_lone_path_matches():
     np.testing.assert_array_equal(np.asarray(c_j), c_t)
     assert np.abs(np.asarray(s_j) - s_t).max() <= SCORE_TOL
     assert batcher.stats()["lone_dispatches"] == 1
+
+
+# ------------------------------------------------ batch layouts (K4, K5)
+
+
+def _overlay_world(seed, b, n, k, g=2, uniform=False):
+    """B evals over one tight shared base: per-eval overlays (job and
+    task-group counts, feasibility) and asks, keys [B, 2]. Few nodes and
+    many asks, so the evals compete for the same rows."""
+    rng = np.random.default_rng(seed)
+    state, _asks, _key = world(seed, n, k, g=g)
+    state = state._replace(
+        job_count=rng.integers(0, 2, (b, n)).astype(np.int32),
+        tg_count=rng.integers(0, 2, (b, n, g)).astype(np.int32),
+        feasible=rng.random((b, n, g)) < 0.85)
+    per = [world(seed * 100 + i, n, k, g=g, uniform=uniform)[1]
+           for i in range(b)]
+    asks = jb.Asks(*(np.stack([np.asarray(x) for x in xs])
+                     for xs in zip(*per)))
+    keys = np.stack([jb.host_prng_key(int(s))
+                     for s in rng.integers(0, 2**31, b)])
+    return state, asks, keys
+
+
+def _configs(uniform, pre_resolve):
+    kw = dict(anti_affinity_penalty=10.0, uniform_dh=uniform,
+              pre_resolve=pre_resolve)
+    return jb.PlacementConfig(**kw), tb.PlacementConfig(**kw)
+
+
+def _assert_batch_same(want, got, claimed=None):
+    """Choices equal, scores within SCORE_TOL, and the claimed
+    capacity (util, bw_used, ports_free) equal where given."""
+    np.testing.assert_array_equal(np.asarray(want[0]), got[0].numpy())
+    assert np.abs(np.asarray(want[1]) - got[1].numpy()).max() <= SCORE_TOL
+    if claimed is not None:
+        for w, t in zip(claimed, got[2][:3]):
+            np.testing.assert_array_equal(np.asarray(w), t.numpy())
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_pre_resolve_overlay_matches(uniform):
+    """The sequential eval axis (the JAX package's _overlay_seq): each
+    eval sees the capacity earlier evals claimed; the carried util,
+    bw_used and ports_free come back shared."""
+    b, n, k = 6, 64, 16
+    state, asks, keys = _overlay_world(20 + uniform, b, n, k,
+                                       uniform=uniform)
+    cj, ct = _configs(uniform, True)
+    want = jb.batched_placement_program_overlay(state, asks, keys, cj)
+    got = tb.batched_placement_program_overlay(
+        carry.node_state_from_numpy(state, "cpu"),
+        carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"), ct)
+    _assert_batch_same(want, got, claimed=want[2])
+    # The independent form places differently on this tight base.
+    off = tb.batched_placement_program_overlay(
+        carry.node_state_from_numpy(state, "cpu"),
+        carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"),
+        ct._replace(pre_resolve=False))
+    assert not torch.equal(off[0], got[0])
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_pre_resolve_compact_matches(uniform):
+    b, n = 4, 256
+    state, class_ids, overlays, asks, keys = _compact_world(30, b, n)
+    if uniform:
+        asks = asks._replace(tg_index=np.zeros_like(asks.tg_index))
+    cj, ct = _configs(uniform, True)
+    want = jb.batched_placement_program_compact(
+        state.capacity, state.sched_capacity, state.util, state.bw_avail,
+        state.bw_used, state.ports_free, state.node_ok, class_ids,
+        overlays, asks, keys, cj)
+    got = tb.batched_placement_program_compact(
+        *_port_base(state, class_ids),
+        carry.overlay_from_numpy(overlays, "cpu"),
+        carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"), ct)
+    _assert_batch_same(want, got, claimed=want[2])
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_pre_resolve_compact_delta_matches(uniform):
+    """The fused delta under pre_resolve: the derived base that comes
+    back is the child after the delta and before any placement."""
+    b, n = 4, 256
+    state, class_ids, overlays, asks, keys = _compact_world(31, b, n)
+    if uniform:
+        asks = asks._replace(tg_index=np.zeros_like(asks.tg_index))
+    rng = np.random.default_rng(31)
+    rows = rng.choice(n, 12, replace=False).astype(np.int32)
+    rows_p = np.concatenate([rows, np.full(4, rows[0], np.int32)])
+    delta = (rows_p, state.util[rows_p] + 100.0,
+             state.bw_used[rows_p] + 5.0, state.ports_free[rows_p] - 1.0,
+             ~state.node_ok[rows_p])
+    cj, ct = _configs(uniform, True)
+    want = jb.batched_placement_program_compact_delta(
+        state.capacity, state.sched_capacity, state.util, state.bw_avail,
+        state.bw_used, state.ports_free, state.node_ok, class_ids, *delta,
+        overlays, asks, keys, cj)
+    t = lambda x: torch.from_numpy(np.array(x, copy=True))
+    got = tb.batched_placement_program_compact_delta(
+        *_port_base(state, class_ids), *(t(x) for x in delta),
+        carry.overlay_from_numpy(overlays, "cpu"),
+        carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"), ct)
+    _assert_batch_same(want, got)
+    for w, g in zip(want[2:], got[2:]):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    child_util = state.util.copy()
+    child_util[rows_p] = delta[1]
+    np.testing.assert_array_equal(got[2].numpy(), child_util)
+
+
+def _serial_inputs(n, k, g, b, node_cpu=1000.0, ask_cpu=400.0):
+    """tests/test_dispatch_pipeline.py's _shared_batch_inputs."""
+    state = jb.make_node_state(
+        capacity=np.tile([node_cpu, 8192, 100000, 150], (n, 1)),
+        sched_capacity=np.tile([node_cpu, 8192, 100000, 150], (n, 1)),
+        util=np.zeros((n, 4)), bw_avail=np.full(n, 1000.0),
+        bw_used=np.zeros(n), ports_free=np.full(n, 100.0),
+        job_count=np.zeros((b, n), np.int32),
+        tg_count=np.zeros((b, n, g), np.int32),
+        feasible=np.ones((b, n, g), bool), node_ok=np.ones(n, bool))
+    asks = jb.make_asks(
+        resources=np.tile([ask_cpu, 64, 100, 0], (b, k, 1)),
+        bw=np.full((b, k), 10.0), ports=np.full((b, k), 1.0),
+        tg_index=np.zeros((b, k), np.int32), active=np.ones((b, k), bool),
+        job_distinct_hosts=np.zeros(b, bool),
+        tg_distinct_hosts=np.zeros((b, g), bool))
+    return state, asks
+
+
+def test_pre_resolve_parity_vs_serial_placement():
+    """Mirror of tests/test_dispatch_pipeline.py's serial parity: the
+    pre-resolved batch equals placing the evals one at a time while
+    carrying the shared capacity, in the port and in the reference."""
+    b, n, k, g = 6, 16, 4, 1
+    state, asks = _serial_inputs(n, k, g, b)
+    keys = np.stack([jb.host_prng_key(i) for i in range(b)])
+    cj, ct = _configs(False, True)
+    ts = carry.node_state_from_numpy(state, "cpu")
+    choices, scores, _ = tb.batched_placement_program_overlay(
+        ts, carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"),
+        ct)
+    want, _s, _c = jb.batched_placement_program_overlay(state, asks, keys, cj)
+    np.testing.assert_array_equal(np.asarray(want), choices.numpy())
+    util, bw, pf = ts.util, ts.bw_used, ts.ports_free
+    serial_c, serial_s = [], []
+    for i in range(b):
+        s = ts._replace(util=util, bw_used=bw, ports_free=pf,
+                        job_count=ts.job_count[i], tg_count=ts.tg_count[i],
+                        feasible=ts.feasible[i])
+        a = tb.Asks(*(torch.as_tensor(np.asarray(x)[i]) for x in asks))
+        c, sc, fin = tb.placement_program(s, a, keys[i], ct)
+        util, bw, pf = fin.util, fin.bw_used, fin.ports_free
+        serial_c.append(c)
+        serial_s.append(sc)
+    assert torch.equal(choices, torch.stack(serial_c))
+    assert torch.allclose(scores, torch.stack(serial_s))
+
+
+def test_pre_resolve_eliminates_in_batch_overcommit():
+    """Mirror of tests/test_dispatch_pipeline.py's overcommit A/B:
+    independent evals over a tight cluster overcommit it, the
+    pre-resolved batch does not."""
+    b, n, k, g = 8, 8, 2, 1
+    node_cpu, ask_cpu = 800.0, 400.0
+    state, asks = _serial_inputs(n, k, g, b, node_cpu=node_cpu,
+                                 ask_cpu=ask_cpu)
+    keys = tb.keys_tensor(
+        np.stack([jb.host_prng_key(100 + i) for i in range(b)]), "cpu")
+
+    def overcommits(pre_resolve):
+        choices, _, _ = tb.batched_placement_program_overlay(
+            carry.node_state_from_numpy(state, "cpu"),
+            carry.asks_from_numpy(asks, "cpu"), keys,
+            _configs(False, pre_resolve)[1])
+        claimed = np.zeros(n)
+        rejected = 0
+        for i in range(b):
+            bad = False
+            for c in choices[i].tolist():
+                if c < 0 or claimed[c] + ask_cpu > node_cpu:
+                    bad = True
+                    continue
+                claimed[c] += ask_cpu
+            rejected += bad
+        return rejected
+
+    assert overcommits(False) > 0
+    assert overcommits(True) == 0
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_stacked_program_matches(uniform):
+    """Stacked full states, a base per eval (batched_placement_program,
+    the mixed-token path)."""
+    b, n, k = 3, 128, 16
+    worlds = [world(40 + i, n, k, uniform=uniform) for i in range(b)]
+    states = jb.NodeState(*(np.stack([np.asarray(x) for x in xs])
+                            for xs in zip(*(w[0] for w in worlds))))
+    asks = jb.Asks(*(np.stack([np.asarray(x) for x in xs])
+                     for xs in zip(*(w[1] for w in worlds))))
+    keys = np.stack([w[2] for w in worlds])
+    for pre_resolve in (False, True):  # ignored: no shared base
+        cj, ct = _configs(uniform, pre_resolve)
+        want = jb.batched_placement_program(states, asks, keys, cj)
+        got = tb.batched_placement_program(
+            carry.node_state_from_numpy(states, "cpu"),
+            carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"),
+            ct)
+        _assert_batch_same(want, got, claimed=(want[2].util,
+                                               want[2].bw_used,
+                                               want[2].ports_free))
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_shared_program_matches(uniform):
+    """One state and one ask list, B keys
+    (batched_placement_program_shared)."""
+    state, asks, _key = world(50, 128, 16, uniform=uniform)
+    keys = np.stack([jb.host_prng_key(i) for i in range(5)])
+    cj, ct = _configs(uniform, False)
+    want = jb.batched_placement_program_shared(state, asks, keys, cj)
+    got = tb.batched_placement_program_shared(
+        carry.node_state_from_numpy(state, "cpu"),
+        carry.asks_from_numpy(asks, "cpu"), tb.keys_tensor(keys, "cpu"), ct)
+    _assert_batch_same(want, got, claimed=(want[2].util, want[2].bw_used,
+                                           want[2].ports_free))
+
+
+def test_placement_program_ignores_pre_resolve():
+    state, asks, key = world(51, 128, 16)
+    cj, ct = _configs(False, True)
+    want = jb.placement_program_jit(state, asks, key, cj)
+    assert_same(want, run_port(state, asks, key, ct))
+    assert_same(want, run_port(state, asks, key, ct._replace(
+        pre_resolve=False)))
+
+
+def test_apply_base_delta_matches_with_padded_rows():
+    """K4's plain version against the reference scatter: the padding
+    rows repeat the first changed row with its value, as the batcher's
+    _pad_rows makes them."""
+    from nomad_tpu_torch.scheduler.batcher import _delta_payload
+
+    n = 300
+    state, _asks, _key = world(52, n, 8)
+    rng = np.random.default_rng(52)
+    rows = rng.choice(n, 37, replace=False).tolist()
+    child = [np.asarray(x).copy() for x in (
+        state.capacity, state.sched_capacity, state.util, state.bw_avail,
+        state.bw_used, state.ports_free, state.node_ok)]
+    child[2][rows] += 64.0
+    child[4][rows] += 5.0
+    child[5][rows] -= 1.0
+    child[6][rows] = ~child[6][rows]
+    payload = _delta_payload(child, rows)
+    assert len(payload[0]) == 256 and (payload[0][37:] == rows[0]).all()
+    want = jb.apply_base_delta(state.util, state.bw_used, state.ports_free,
+                               state.node_ok, *payload)
+    t = lambda x: torch.from_numpy(np.array(x, copy=True))
+    parent = [t(x) for x in (state.util, state.bw_used, state.ports_free,
+                             state.node_ok)]
+    got = tb.apply_base_delta(*parent, *(t(x) for x in payload))
+    for w, g, c in zip(want, got, (child[2], child[4], child[5], child[6])):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+        np.testing.assert_array_equal(c, g.numpy())
+    np.testing.assert_array_equal(parent[0].numpy(), state.util)
+
+
+def test_device_resident_packs_every_array():
+    """The one-copy upload: every array comes back with its shape,
+    dtype and values, 0-d flags and empty arrays included."""
+    rng = np.random.default_rng(53)
+    arrays = (rng.random((5, 4)).astype(np.float32),
+              rng.integers(-3, 9, 7).astype(np.int32),
+              np.asarray(True), rng.random(3) < 0.5,
+              np.zeros((0, 2), np.float32),
+              rng.integers(0, 2**32, (2, 2), dtype=np.uint64)
+              .astype(np.int64))
+    out = tb.device_resident(arrays, "cpu")
+    for a, t in zip(arrays, out):
+        assert tuple(t.shape) == a.shape and t.is_contiguous()
+        np.testing.assert_array_equal(t.numpy(), a)

@@ -2,7 +2,9 @@
 card, at small shapes that reach every branch: free ports and
 distinct_hosts (per task group and per job) that limit where asks fit,
 inactive asks, asks past the node count, a node bucket whose top-k
-sorts in global scratch, and overlay rows padded with N.
+sorts in global scratch, overlay rows padded with N, the sequential
+(pre_resolve) and stacked batch layouts of the scans, and base deltas
+with padding rows.
 
 Marked ``cuda``; without a CUDA card every test skips. On the card's
 machine, which need not have JAX (tests/conftest.py configures it):
@@ -153,3 +155,105 @@ def test_wrappers_count_their_launches(dev):
     prng.threefry_uniform(keys, (4, 32), 0.0, 1.0)
     prng.threefry_uniform_plain(keys, (4, 32), 0.0, 1.0)
     assert cuda.launch_counts()["threefry_uniform"] == before + 1
+
+
+def shared_carry(base):
+    """One shared copy of the claimed capacity (the sequential layout)
+    and per-eval job and task-group counts."""
+    util, bw, ports, jc, tgc = base
+    return tuple(x.clone() for x in (util, bw, ports, jc, tgc))
+
+
+@pytest.mark.parametrize("b,n,k,g", [(4, 300, 64, 2), (6, 777, 40, 3)])
+def test_greedy_scan_seq_matches_plain(dev, b, n, k, g):
+    """The pre_resolve layout: one block walks the evals in order over
+    one shared copy of util/bw_used/ports_free."""
+    static, base, feasible, asks = scan_inputs(n, k, g, b, n + 1, dev)
+    keys = torch.arange(2 * b, device=dev).view(b, 2)
+    noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    runs = []
+    for fn in (binpack.greedy_scan, binpack.greedy_scan_plain):
+        c = shared_carry(base)
+        runs.append((*fn(*static, c, feasible, asks, noise, 10.0, True), c))
+    assert_scans_agree(*runs)
+    # Later evals see earlier claims: the shared ports run out.
+    assert ((base[2] >= 2) & (runs[0][2][2] < 2)).any()
+
+
+@pytest.mark.parametrize("b,n,k", [(8, 1000, 16), (3, 40000, 64)])
+def test_uniform_topk_seq_matches_plain(dev, b, n, k):
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, n + 2, dev)
+    asks = asks._replace(
+        resources=asks.resources[:, :1].expand(b, k, 4).contiguous(),
+        bw=asks.bw[:, :1].expand(b, k).contiguous(),
+        ports=asks.ports[:, :1].expand(b, k).contiguous(),
+        tg_index=torch.zeros_like(asks.tg_index),
+        tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
+    noise = prng.threefry_uniform(
+        torch.arange(2 * b, device=dev).view(b, 2), (n,), 0.0, 2.0)
+    runs = []
+    for fn in (binpack.uniform_topk, binpack.uniform_topk_plain):
+        c = shared_carry(base)
+        runs.append((*fn(*static, c, feasible, asks, noise, 10.0, True), c))
+    assert_scans_agree(*runs)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_stacked_scans_match_plain(dev, uniform):
+    """Per-eval bases (batched_placement_program's stacked states):
+    the static rows carry the batch axis."""
+    b, n, k, g = 4, 500, 32, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 7, dev)
+    rng = np.random.default_rng(8)
+    scale = torch.from_numpy(rng.integers(1, 3, (b, n, 1)).astype(
+        np.float32)).to(dev)
+    cap = (static[0] * scale).contiguous()
+    stacked = (cap, (cap - (static[0] - static[1])).contiguous(),
+               static[2].expand(b, n).contiguous(),
+               torch.from_numpy(rng.random((b, n)) < 0.9).to(dev))
+    keys = torch.arange(2 * b, device=dev).view(b, 2)
+    if uniform:
+        asks = asks._replace(
+            resources=asks.resources[:, :1].expand(b, k, 4).contiguous(),
+            bw=asks.bw[:, :1].expand(b, k).contiguous(),
+            ports=asks.ports[:, :1].expand(b, k).contiguous(),
+            tg_index=torch.zeros_like(asks.tg_index),
+            tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
+        noise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
+        fns = (binpack.uniform_topk, binpack.uniform_topk_plain)
+    else:
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        fns = (binpack.greedy_scan, binpack.greedy_scan_plain)
+    runs = []
+    for fn in fns:
+        c = fresh(base, b, n)
+        runs.append((*fn(*stacked, c, feasible, asks, noise, 10.0), c))
+    assert_scans_agree(*runs)
+
+
+@pytest.mark.parametrize("n,r", [(1000, 256), (10240, 4096)])
+def test_base_delta_matches_plain(dev, n, r):
+    """K4 bit-equal to its plain version, padding rows repeating the
+    first changed row; the parent arrays stay as they were."""
+    rng = np.random.default_rng(r)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    parent = (t(rng.random((n, 4)).astype(np.float32)),
+              t(rng.random(n).astype(np.float32)),
+              t(rng.random(n).astype(np.float32)), t(rng.random(n) < 0.5))
+    real = min(r - 3, n)
+    rows = np.full(r, 0, np.int32)
+    rows[:real] = rng.choice(n, real, replace=False)
+    rows[real:] = rows[0]
+    vals = (rng.random((r, 4)).astype(np.float32),
+            rng.random(r).astype(np.float32),
+            rng.random(r).astype(np.float32), rng.random(r) < 0.5)
+    for v in vals:
+        v[real:] = v[0]
+    payload = (t(rows), *(t(v) for v in vals))
+    before = [x.clone() for x in parent]
+    got = binpack.apply_base_delta(*parent, *payload)
+    want = binpack.apply_base_delta_plain(*parent, *payload)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for x, y in zip(parent, before):
+        assert torch.equal(x, y)

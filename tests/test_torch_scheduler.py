@@ -129,6 +129,28 @@ def test_eval_sequence_same_plans():
     assert after["compact_dispatches"] - before["compact_dispatches"] == 3
 
 
+@pytest.mark.parametrize("seed", [3, 11])
+@pytest.mark.parametrize("make_job", [lambda: distinct_hosts_job(40),
+                                      lambda: two_group_job((30, 26))],
+                         ids=["distinct_hosts", "two_group"])
+def test_pre_resolve_same_plan(seed, make_job):
+    """The server's default planner runs with pre_resolve on (the JAX
+    package's ServerConfig.dense_pre_resolve): the dense scheduler
+    hands it to the batcher, whose padded batch scans its evals in
+    order. The port places what the reference places."""
+    h = build_reference_cluster(256, seed, harness_seed=seed)
+    job = make_job()
+    h.state.upsert_job(h.next_index(), job)
+    hp = carry_over(h)
+    h.pre_resolve = hp.pre_resolve = True
+    ev = new_eval(h.state.job_by_id(job.id), consts.EVAL_TRIGGER_JOB_REGISTER)
+    h.process("service-tpu", ev)
+    hp.process("service-gpu", port_eval(ev))
+    _assert_same_plans(h, hp)
+    want = sum(tg.count for tg in job.task_groups)
+    assert len(plan_view(hp.plans[0])) == want
+
+
 def test_unplaceable_asks_same_failure_metrics():
     """More distinct-hosts asks than nodes: both fail the surplus with
     the same metrics and leave the same blocked eval."""
