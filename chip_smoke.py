@@ -37,21 +37,54 @@ Phases (any failure exits non-zero and prints no result):
    sequential mode), a parked storm (64 threads calling ``place()``
    after ``add_cohort(64)``), and token-less cohorts that take the
    stacked-state path (K1 and K2 with a base per eval), each checked.
-5. Each kernel against its plain PyTorch version on the card at the
+5. Preemption on a red cluster of the same size: four filler jobs at
+   priorities 10-40 hold five allocs on each node (footprints from
+   ``--seed``), leaving room for the high job's ask on 256 nodes only.
+   A priority-70 job (config 4's task, distinct_hosts, count 1,024)
+   runs through ``service-gpu`` with preemption on and a red pressure
+   probe: all 1,024 placed, 256 by the main pass and 768 through K6;
+   each victim staged once, below priority 70, and on every node the
+   lowest-priority-first prefix the host oracle
+   (``migrate.select_victims_host``) picks; the plan commits and the
+   preempted filler jobs get follow-up evals. The same eval with
+   preemption off leaves 768 unplaced. K6 is held against its plain
+   version on the scheduler's own inputs, and ``build_victims``' host
+   time is printed.
+6. Gangs on the same size with node meta ``rack`` (250 racks of 40,
+   g_pad 256) and ``ici`` (625 groups of 16, g_pad 1,024), through
+   ``service-gpu``: a rack slice and an ici slice at K = 64, a rack
+   spread at K = 512, ici affinity at K = 128, a free gang under
+   distinct_hosts at K = 1,024, and a rack slice under distinct_hosts
+   at K = 64 (larger than any rack); then, on a cluster of the same
+   size without topology meta (every node its own group, g_pad
+   10,240), a free gang and a rack spread at K = 512 and rack affinity
+   at K = 128. Each gang is all K or none; a slice lies in the
+   tightest covering group; the spread cap holds; distinct_hosts
+   holds; the plan's gang leg lists every member; the rejected gang
+   records one failure with K-1 coalesced. K7 is held against its
+   plain version on each gang's own call (every output and the final
+   carry).
+7. Each kernel against its plain PyTorch version on the card at the
    main path's widths, with free ports and distinct_hosts that limit
    placement: noise bits equal; greedy and top-k choices and all five
    carried tensors equal, scores within 1e-4; overlay outputs and base
    deltas equal. K0-K3 at N = 10,240, K = 1,024, G = 2, B in {1, 64};
    the sequential scans at B = 4 x K = 1,024 and B = 64 x K = 64 (K1)
    and B = 64 x K = 8 (K2); the stacked scans at B = 4; K4 at R = 256
-   and 4,096. With median CUDA-event times, the plain version's time,
-   a library call's time where one PyTorch call computes the same
-   function, and the least time the card could take: the larger of
-   this run's bytes over the HBM rate and its operations over the peak
-   rate, and for the greedy scans also the measured time of their
-   chain of block-wide argmax rounds alone.
+   and 4,096; K6 on phase 5's own call (K = 1,024) and its first 8
+   asks (choices, victim counts, the carry and the victim mask equal);
+   K7 on phase 6's own calls: the free gang (K = 1,024, g_pad = 256),
+   the ici slice (K = 64, g_pad = 1,024) and the spread without meta
+   (K = 512, g_pad = 10,240).
+   With median CUDA-event times, the plain version's time (fewer runs
+   for the slow plain scans: the count is in each record), a library
+   call's time where one PyTorch call computes the same function, and
+   the least time the card could take: the larger of this run's bytes
+   over the HBM rate and its operations over the peak rate, and for
+   the scans also the measured time of their chain of block-wide
+   argmax rounds alone.
 
-Every path of phases 3 and 4 runs with the launch counts set to 0
+Every path of phases 3 to 6 runs with the launch counts set to 0
 just before it and read just after, and fails if a kernel of that path
 was never launched.
 
@@ -73,6 +106,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from typing import NamedTuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -126,10 +160,11 @@ def card_identity():
 # ---------------------------------------------------------------- cluster
 
 
-def build_cluster(harness, n_nodes, allocs_per_node, seed):
+def build_cluster(harness, n_nodes, allocs_per_node, seed, meta=None):
     """The north-star cluster (the JAX package's bench config 4 shape):
     mock nodes over dc1/dc2, each carrying filler allocs of a modest
-    seeded footprint."""
+    seeded footprint. ``meta(node, i)``, if given, sets node meta
+    before the node's class is computed."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import consts
 
@@ -141,6 +176,8 @@ def build_cluster(harness, n_nodes, allocs_per_node, seed):
     for i in range(n_nodes):
         node = mock.node()
         node.datacenter = ("dc1", "dc2")[i % 2]
+        if meta is not None:
+            meta(node, i)
         node.compute_class()
         harness.state.upsert_node(harness.next_index(), node)
         allocs = []
@@ -795,11 +832,11 @@ def check_placed(label, results, placed, expect):
           f"{placed} made into allocations")
 
 
-def device_share(torch, fn):
-    """Device busy time of one storm round under torch.profiler: the
-    sum of the card's kernel and copy times over the round's wall time
-    (one stream, so they do not overlap). Prints "not measured" when
-    the profiler records no device activity."""
+def device_share(torch, fn, label="storm round (64 evals, pre_resolve on)"):
+    """Device busy time of ``fn`` (one storm round by default) under
+    torch.profiler: the sum of the card's kernel and copy times over
+    the wall time (one stream, so they do not overlap). Prints "not
+    measured" when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -812,11 +849,11 @@ def device_share(torch, fn):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1000.0
     if busy_ms <= 0.0:
-        print("profiled storm round: device time not measured (the "
+        print(f"profiled {label}: device time not measured (the "
               "profiler recorded no device activity)")
-        return {}
+        return dict(profiled_wall_ms=wall_ms)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profiled storm round (64 evals, pre_resolve on): device busy "
+    print(f"profiled {label}: device busy "
           f"{busy_ms:.2f} ms of {wall_ms:.1f} ms wall "
           f"({100.0 * busy_ms / wall_ms:.2f}%, idle "
           f"{100.0 - 100.0 * busy_ms / wall_ms:.2f}%); by name: " + ", ".join(
@@ -830,6 +867,522 @@ def two_group_job_id(job_id, count):
     job = two_group_job(count)
     job.id = job_id
     return job
+
+
+# ---------------------------------------------------------------- preemption
+
+PREEMPT_ROOM_NODES = 256   # nodes with room for the high job's ask
+PREEMPT_COUNT = 1_024      # the high job's count
+PREEMPT_PRIORITY = 70
+FILLER_PRIORITIES = (10, 20, 30, 40)
+
+
+def build_red_cluster(harness, n_nodes, seed):
+    """A red cluster: four filler jobs at priorities 10-40 hold five
+    allocs on each node, with footprints drawn from ``seed``; only
+    PREEMPT_ROOM_NODES nodes keep room for the high job's ask (500 CPU):
+    the rest have at most 400 CPU free. Returns the filler jobs."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import consts
+
+    rng = random.Random(seed)
+    fillers = []
+    for prio in FILLER_PRIORITIES:
+        job = mock.job()
+        job.id = f"filler-p{prio}"
+        job.priority = prio
+        job.task_groups[0].tasks[0].resources.networks = []
+        harness.state.upsert_job(harness.next_index(), job)
+        fillers.append(harness.state.job_by_id(job.id))
+    room = set(rng.sample(range(n_nodes), PREEMPT_ROOM_NODES))
+    for i in range(n_nodes):
+        node = mock.node()
+        node.datacenter = ("dc1", "dc2")[i % 2]
+        node.compute_class()
+        harness.state.upsert_node(harness.next_index(), node)
+        cpus = (300, 350, 400, 450, 500) if i in room else \
+            (700, 720, 740, 760, 780)
+        allocs = []
+        for _ in range(ALLOCS_PER_NODE):
+            job = rng.choice(fillers)
+            alloc = mock.alloc()
+            alloc.node_id = node.id
+            alloc.job_id = job.id
+            alloc.job = job
+            alloc.desired_status = consts.ALLOC_DESIRED_RUN
+            alloc.client_status = consts.ALLOC_CLIENT_RUNNING
+            for tr in alloc.task_resources.values():
+                tr.cpu = rng.choice(cpus)
+                tr.memory_mb = rng.choice((64, 128))
+                tr.networks = []
+            alloc.resources = None
+            allocs.append(alloc)
+        harness.state.upsert_allocs(harness.next_index(), allocs)
+    return fillers
+
+
+def urgent_job():
+    """The high-priority job: config 4's task (500 CPU, 256 MB, 50
+    Mbit/s, two dynamic ports) under task-group distinct_hosts."""
+    job = north_star_job()
+    job.id = "urgent"
+    job.priority = PREEMPT_PRIORITY
+    job.task_groups[0].count = PREEMPT_COUNT
+    return job
+
+
+class Call(NamedTuple):
+    """One recorded kernel-wrapper call."""
+
+    inputs: tuple  # the arguments, copied before the call
+    after: tuple  # the arguments after it: the final carry
+    out: tuple  # the result
+
+
+def cloned(x):
+    """Tensors, alone or in (named) tuples, copied; anything else as
+    is."""
+    if hasattr(x, "clone"):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [cloned(i) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+class Recorder:
+    """Wraps the kernel wrapper ``module.name`` while the block runs and
+    keeps each call: its inputs (copied first, as the scans update
+    their carry in place), its arguments after the call and its result.
+    The smoke holds each kernel against its plain version, and times
+    it, on exactly the inputs the scheduler gave it."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args):
+            inputs = cloned(args)
+            out = self.orig(*args)
+            self.calls.append(Call(inputs, args, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_preemption(seed, torch, total):
+    """Phase 5 (see the module docstring). Returns K6's recorded call
+    and its score error against the plain version, for the timings."""
+    from nomad_tpu_torch import migrate
+    from nomad_tpu_torch.models.matrix import ClusterMatrix
+    from nomad_tpu_torch.ops import preempt
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import consts
+    from nomad_tpu_torch.structs.eval import new_eval
+
+    t0 = time.perf_counter()
+    h = Harness(seed=seed + 5)
+    fillers = build_red_cluster(h, N_NODES, seed + 5)
+    n_allocs = len(h.state.allocs())
+    print(f"red cluster: {N_NODES} nodes, {n_allocs} allocs, built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    check(n_allocs == N_NODES * ALLOCS_PER_NODE, "red cluster size")
+    job = urgent_job()
+    h.state.upsert_job(h.next_index(), job)
+    job = h.state.job_by_id(job.id)
+    ev = new_eval(job, consts.EVAL_TRIGGER_JOB_REGISTER)
+
+    # Preemption off: the same eval leaves the surplus unplaced.
+    migrate.configure(preemption_enabled=False,
+                      pressure_probe=lambda: "red")
+    planner = _DryRunPlanner()
+    sched = new_scheduler("service-gpu", logging.getLogger("smoke.off"),
+                          h.state.snapshot(), planner,
+                          rng=random.Random(seed))
+    sched.process_eval(ev.copy())
+    off = sum(len(a) for p in planner.plans
+              for a in p.node_allocation.values())
+    unplaced = PREEMPT_COUNT - off
+    print(f"preemption off: placed {off}, {unplaced} unplaced")
+    check(off == PREEMPT_ROOM_NODES and unplaced == PREEMPT_COUNT - off,
+          f"preemption off placed {off}, expected {PREEMPT_ROOM_NODES}")
+
+    # build_victims alone on the same state (a Python loop per node).
+    t1 = time.perf_counter()
+    _arrays, _lists, n_cands = ClusterMatrix(h.state, job).build_victims(
+        PREEMPT_PRIORITY)
+    print(f"build_victims host time, {N_NODES} nodes ({n_cands} "
+          f"candidates): {(time.perf_counter() - t1) * 1000.0:.1f} ms")
+
+    migrate.configure(preemption_enabled=True,
+                      preempt_priority_threshold=50,
+                      pressure_probe=lambda: "red")
+    snap0 = h.state.snapshot()
+    try:
+        with Recorder(preempt, "preempt_scan") as rec:
+            share = device_share(torch, lambda: counted(
+                total, "preemption eval", (
+                    "threefry_uniform", "uniform_topk", "preempt_scan"),
+                lambda: h.process("service-gpu", ev)),
+                "preemption eval (1,024 asks, K6 for the surplus)")
+            wall_ms = share.get("profiled_wall_ms", float("nan"))
+    finally:
+        migrate.configure(preemption_enabled=False,
+                          pressure_probe=lambda: "green")
+    check(len(rec.calls) == 1, f"{len(rec.calls)} preemption dispatches")
+    plan = h.plans[-1]
+    placed = [a for allocs in plan.node_allocation.values() for a in allocs]
+    victims = {n: list(v) for n, v in plan.node_preemptions.items()}
+    n_victims = sum(len(v) for v in victims.values())
+    via_k6 = sum(1 for a in placed if a.node_id in victims)
+    print(f"preemption eval: placed {len(placed)} of {PREEMPT_COUNT} "
+          f"({len(placed) - via_k6} by the main pass, {via_k6} by K6), "
+          f"{n_victims} victims on {len(victims)} nodes, {wall_ms:.1f} ms "
+          f"(host clock under the profiler, matrix builds and plan "
+          f"included)")
+    check(len(placed) == PREEMPT_COUNT, "not every ask placed")
+    check(len(placed) - via_k6 == PREEMPT_ROOM_NODES,
+          f"{len(placed) - via_k6} placed by the main pass")
+    check(len({a.node_id for a in placed}) == len(placed),
+          "distinct_hosts violated")
+    ids = [v.id for vs in victims.values() for v in vs]
+    check(len(ids) == len(set(ids)), "a victim staged twice")
+    # Each node's victims: below priority 70 and the lowest-priority-
+    # first prefix the host oracle picks for that node.
+    pre = ClusterMatrix(snap0, job)
+    rows = {node.id: i for i, node in enumerate(pre.nodes)}
+    ask = [float(x) for x in pre.build_asks([0])[0][0]]
+    for node_id, vs in victims.items():
+        check(all(migrate.victim_priority(v) < PREEMPT_PRIORITY for v in vs),
+              f"node {node_id}: a victim at or above priority 70")
+        i = rows[node_id]
+        needed = [max(0.0, float(pre.util[i, d]) + ask[d]
+                      - float(pre.capacity[i, d])) for d in range(4)]
+        live = snap0.allocs_by_node_terminal(node_id, False)
+        want = migrate.select_victims_host(live, needed, PREEMPT_PRIORITY)
+        check(want is not None and [a.id for a in want] == [v.id for v in vs],
+              f"node {node_id}: victims differ from the host oracle")
+    for v in ids:
+        stored = h.state.alloc_by_id(v)
+        check(stored.desired_status == consts.ALLOC_DESIRED_EVICT,
+              f"victim {v} not evicted after the commit")
+    hit = {v.job_id for vs in victims.values() for v in vs}
+    follow = {e.job_id for e in h.create_evals
+              if e.triggered_by == consts.EVAL_TRIGGER_PREEMPTION}
+    check(hit == follow and hit <= {f.id for f in fillers},
+          f"follow-up evals for {sorted(follow)}, victims of {sorted(hit)}")
+    print(f"victims match the host oracle on all {len(victims)} nodes; "
+          f"follow-up evals for {sorted(follow)}")
+
+    # K6 against its plain version on the scheduler's own call.
+    call = rec.calls[0]
+    n = call.inputs[0].util.shape[0]
+    return call, hold_preempt(
+        torch, f"K6 (N={n}, K={call.out[0].shape[0]})", call)
+
+
+def hold_preempt(torch, label, call):
+    """K6's outputs and final carry (five node tensors and the victim
+    mask) on a recorded call, against its plain version on the call's
+    inputs: choices, victim counts and carry equal, scores within
+    SCORE_TOL. Returns the score error."""
+    from nomad_tpu_torch.ops import preempt
+
+    st, _vs, vok = call.after[:3]
+    want_st, vs, want_vok, asks, noise, prio, penalty = cloned(call.inputs)
+    ch_p, sc_p, nv_p = preempt.preempt_scan_plain(
+        want_st, vs, want_vok, asks, noise, prio, penalty)
+    ch, sc, nv = call.out
+    check(torch.equal(ch, ch_p) and torch.equal(nv, nv_p),
+          f"{label}: choices or victim counts differ from the plain version")
+    err = (sc - sc_p).abs().max().item()
+    check(err <= SCORE_TOL, f"{label}: score error {err}")
+    for name in CARRY_NAMES:
+        check(torch.equal(getattr(st, name), getattr(want_st, name)),
+              f"{label}: final {name} differs")
+    check(torch.equal(vok, want_vok), f"{label}: consumed slots differ")
+    print(f"{label}: {int((ch >= 0).sum())} placed, {int((nv > 0).sum())} "
+          f"by eviction; choices, victim counts and the final carry (five "
+          f"tensors and the victim mask) equal to the plain version, score "
+          f"error {err:.3g}")
+    return err
+
+
+# ---------------------------------------------------------------- gangs
+
+RACK_SIZE = 40  # 250 racks: the rack level pads to g_pad = 256
+ICI_SIZE = 16   # 625 groups: the ici level pads to g_pad = 1,024
+
+
+def topology_meta(node, i):
+    node.meta["rack"] = f"rack{i // RACK_SIZE}"
+    node.meta["ici"] = f"ici{i // ICI_SIZE}"
+
+
+def gang_job(job_id, count, dh=False, **gang):
+    """Config 4's task (dynamic ports included) as a gang task group."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Constraint, Gang, consts
+
+    job = mock.job()
+    job.id = job_id
+    job.datacenters = ["dc1", "dc2"]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.gang = Gang(**gang)
+    if dh:
+        tg.constraints.append(
+            Constraint(operand=consts.CONSTRAINT_DISTINCT_HOSTS))
+    return job
+
+
+GANGS = (  # (label, job id, count, distinct_hosts, gang stanza)
+    ("slice rack, K=64", "g-slice", 64, False, dict(slice="rack")),
+    ("slice ici, K=64", "g-slice-ici", 64, False, dict(slice="ici")),
+    ("spread rack, K=512", "g-spread", 512, False, dict(spread="rack")),
+    ("affinity ici, K=128", "g-affinity", 128, False, dict(affinity="ici")),
+    ("free + distinct_hosts, K=1024", "g-free", 1024, True, {}),
+    ("slice rack + distinct_hosts, K=64 (larger than any rack)",
+     "g-reject", 64, True, dict(slice="rack")),
+)
+# On nodes without topology meta: free, spread and affinity make every
+# node its own group (10,000 groups, g_pad 10,240).
+BARE_GANGS = (
+    ("free, K=512, no meta", "b-free", 512, False, {}),
+    ("spread rack, K=512, no meta", "b-spread", 512, False,
+     dict(spread="rack")),
+    ("affinity rack, K=128, no meta", "b-affinity", 128, False,
+     dict(affinity="rack")),
+)
+
+
+def run_gangs(seed, torch, total):
+    """Phase 6 (see the module docstring). Returns K7's recorded call
+    and its score error against the plain version for each gang, by
+    job id."""
+    from nomad_tpu_torch.ops import gang as ops_gang
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    recorded = {}
+    for meta, gangs, what in (
+            (topology_meta, GANGS, f"{N_NODES // RACK_SIZE} racks, "
+             f"{N_NODES // ICI_SIZE} ici groups"),
+            (None, BARE_GANGS, "no topology meta")):
+        t0 = time.perf_counter()
+        h = Harness(seed=seed + 7)
+        build_cluster(h, N_NODES, ALLOCS_PER_NODE, seed + 7, meta=meta)
+        print(f"gang cluster: {N_NODES} nodes ({what}), "
+              f"{len(h.state.allocs())} allocs, built in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        with Recorder(ops_gang, "gang_scan") as rec:
+            device_share(torch, lambda: counted(
+                total, f"gang evals ({what})",
+                ("threefry_uniform", "gang_scan"),
+                lambda: drive_gangs(h, gangs, rec, recorded)),
+                f"gang evals ({len(gangs)}, {what})")
+    # K7 against its plain version on each gang's own call.
+    return {jid: (recorded[jid], hold_gang(
+        torch, f"K7 ({label}, g_pad={recorded[jid].inputs[7].g_pad})",
+        recorded[jid])) for label, jid, _k, _dh, _s in GANGS + BARE_GANGS}
+
+
+def drive_gangs(h, gangs, rec, recorded):
+    """Each gang job through ``Harness.process("service-gpu", ...)``,
+    checked; its K7 call is kept in ``recorded``."""
+    from nomad_tpu_torch.structs import consts
+    from nomad_tpu_torch.structs.eval import new_eval
+
+    meta_of = {n.id: n.meta for n in h.state.nodes()}
+    for label, jid, k, dh, stanza in gangs:
+        job = gang_job(jid, k, dh, **stanza)
+        h.state.upsert_job(h.next_index(), job)
+        n_plans, n_calls = len(h.plans), len(rec.calls)
+        t1 = time.perf_counter()
+        h.process("service-gpu", new_eval(h.state.job_by_id(jid),
+                                          consts.EVAL_TRIGGER_JOB_REGISTER))
+        ms = (time.perf_counter() - t1) * 1000.0
+        check(len(rec.calls) == n_calls + 1,
+              f"{label}: {len(rec.calls) - n_calls} K7 calls")
+        recorded[jid] = rec.calls[-1]
+        check_gang(h, label, jid, k, dh, stanza, n_plans, meta_of,
+                   recorded[jid], ms)
+
+
+def check_gang(h, label, jid, k, dh, stanza, n_plans, meta_of, call, ms):
+    """A gang is all K or none; a slice lies in the tightest covering
+    group; the spread cap holds; distinct_hosts holds; the plan's gang
+    leg names every member; a rejected gang records one failure with
+    K-1 coalesced. A node without the level's meta is its own group."""
+    from nomad_tpu_torch.gang import gang_key
+    from nomad_tpu_torch.ops import gang as ops_gang
+
+    live = [a for a in h.state.allocs_by_job(jid) if not a.terminal_status()]
+    state, ask, abw, aports = (
+        type(x)(*(f.cpu() for f in x)) if isinstance(x, tuple) else x.cpu()
+        for x in call.inputs[:4])
+    config = call.inputs[7]
+    slice_group = int(call.out[2])
+    # The program's own group capacities, from the same inputs.
+    units = ops_gang.member_units_plain(state, ask, abw, aports, config)
+    caps = ops_gang.group_capacity_plain(units, state.topo_ids, config.g_pad)
+    if jid == "g-reject":
+        check(live == [] and len(h.plans) == n_plans,
+              f"{label}: a rejected gang staged allocs")
+        failed = h.evals[-1].failed_tg_allocs or {}
+        check(len(failed) == 1, f"{label}: {len(failed)} failures recorded")
+        (m,) = failed.values()
+        check(m.coalesced_failures == k - 1,
+              f"{label}: {m.coalesced_failures} coalesced, expected {k - 1}")
+        check(float(caps.max()) < k, f"{label}: a rack covers the gang")
+        print(f"gang {label}: rejected whole, one failure, {k - 1} "
+              f"coalesced, {ms:.1f} ms (host clock under the profiler)")
+        return
+    check(len(live) == k, f"{label}: {len(live)} of {k} members live")
+    plan = h.plans[-1]
+    members = plan.gang_groups.get(gang_key(jid, "web"), [])
+    check(sorted(members) == sorted(a.id for a in live),
+          f"{label}: the plan's gang leg does not list every member")
+    level = next(iter(stanza.values()), "rack")
+    groups = [meta_of[a.node_id].get(level) or a.node_id for a in live]
+    most = max(groups.count(g) for g in set(groups))
+    if dh:
+        check(len({a.node_id for a in live}) == k,
+              f"{label}: distinct_hosts violated")
+    if stanza.get("slice"):
+        check(len(set(groups)) == 1, f"{label}: members in "
+              f"{len(set(groups))} {level} groups")
+        tightest = float(caps[caps >= float(k)].min())
+        check(slice_group >= 0 and float(caps[slice_group]) == tightest,
+              f"{label}: group capacity {float(caps[slice_group])}, the "
+              f"tightest covering one has {tightest}")
+        detail = f"one {level} group, capacity {tightest:.0f} (the tightest " \
+                 "cover)"
+    elif stanza.get("spread"):
+        eligible = max(int((caps >= 1.0).sum()), 1)
+        cap = -(-k // eligible)
+        check(most <= cap, f"{label}: {most} members in one group, cap {cap}")
+        detail = f"at most {most} a group (cap {cap} over {eligible} groups)"
+    else:
+        detail = (f"{len(set(groups))} {level} group(s), at most {most} a "
+                  f"group, on {len({a.node_id for a in live})} nodes")
+    print(f"gang {label}: all {k} placed, {detail}, {ms:.1f} ms (host "
+          "clock under the profiler)")
+
+
+def hold_gang(torch, label, call):
+    """K7's outputs and final carry (util, bw_used, ports_free, placed,
+    group members) on a recorded call, against its plain version on the
+    call's inputs: all equal but the scores, which agree within
+    SCORE_TOL. Returns the score error."""
+    from nomad_tpu_torch.ops import gang as ops_gang
+
+    inputs = cloned(call.inputs)
+    ch_p, sc_p, sg_p = ops_gang.gang_scan_plain(*inputs)
+    ch, sc, sg = call.out
+    check(torch.equal(ch, ch_p) and int(sg) == int(sg_p),
+          f"{label}: choices or slice group differ from the plain version")
+    err = (sc - sc_p).abs().max().item()
+    check(err <= SCORE_TOL, f"{label}: score error {err}")
+    st, st_p = call.after[0], inputs[0]
+    for name in ("util", "bw_used", "ports_free"):
+        check(torch.equal(getattr(st, name), getattr(st_p, name)),
+              f"{label}: final {name} differs")
+    check(torch.equal(call.after[8], inputs[8])
+          and torch.equal(call.after[9], inputs[9]),
+          f"{label}: placed or group members differ")
+    print(f"{label}: {int((ch >= 0).sum())} placed; choices, slice group "
+          f"and the final carry equal to the plain version, score error "
+          f"{err:.3g}")
+    return err
+
+
+def bench_legs(torch, k6, gangs):
+    """K6 and K7 timed on the phases' own recorded calls: K6 at K =
+    1,024 (the preemption eval) and K = 8 (its first eight asks), K7 on
+    the free gang (K = 1,024, g_pad = 256), the ici slice (K = 64,
+    g_pad = 1,024) and the spread without meta (K = 512, g_pad =
+    10,240)."""
+    from nomad_tpu_torch.ops import gang as ops_gang
+    from nomad_tpu_torch.ops import preempt
+
+    dev = torch.device("cuda")
+    out = {}
+    # ---- K6
+    st0, vs, vok0, asks0, noise0, prio, penalty = k6[0].inputs
+    n, g = st0.feasible.shape
+    v = preempt.PREEMPT_MAX_VICTIMS
+    for k in (noise0.shape[0], 8):
+        if k == noise0.shape[0]:
+            call, err = k6
+        else:  # the first k asks: a call of its own, held like the path's
+            asks = type(asks0)(*(x[:k].contiguous() for x in asks0[:5]),
+                               *asks0[5:])
+            inputs = (st0, vs, vok0, asks, noise0[:k].contiguous(), prio,
+                      penalty)
+            args = cloned(inputs)
+            call = Call(inputs, args, preempt.preempt_scan(*args))
+            err = hold_preempt(torch, f"K6 (N={n}, K={k})", call)
+        box = {}
+        ms = time_cuda(torch, lambda: preempt.preempt_scan(*box["a"]), RUNS,
+                       setup=lambda: box.update(a=cloned(call.inputs)))
+        plain_runs = 1 if k > 8 else 3
+        plain_ms = time_cuda(
+            torch, lambda: preempt.preempt_scan_plain(*box["a"]), plain_runs,
+            warmup=1, setup=lambda: box.update(a=cloned(call.inputs)))
+        chain = chain_ms(torch, k, dev)
+        ch = call.out[0]
+        rows = torch.unique(ch[ch >= 0]).numel()
+        slots = int((vs.ok & ~call.after[2]).sum())
+        # Node rows, the carry and feasible, and every victim slot read
+        # once; the asks, the noise and the three outputs; the chosen
+        # rows (carry and one tg_count cell) and consumed slots written.
+        bytes_ = (n * (NODE_BYTES + CARRY_ROW_BYTES + 5 * g)
+                  + n * v * (16 + 4 + 4 + 4 + 1) + k * (ASK_BYTES + 12)
+                  + 1 + g + k * n * 4 + rows * (CARRY_ROW_BYTES + 4) + slots)
+        flops = k * n * (60 + v * 14)  # score + one walk over the slots
+        out.setdefault("preempt_scan", {})[k] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain_runs=plain_runs,
+            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            library_ms=None, chain_ms=chain)
+        torch.cuda.empty_cache()
+    # ---- K7
+    for jid in ("g-free", "g-slice-ici", "b-spread"):
+        call, err = gangs[jid]
+        st, _a, _b, _c, active, _nz, _gnz, cfg = call.inputs[:8]
+        n, k = st.util.shape[0], active.shape[0]
+        box = {}
+        ms = time_cuda(torch, lambda: ops_gang.gang_scan(*box["a"]), RUNS,
+                       setup=lambda: box.update(a=cloned(call.inputs)))
+        plain_runs = 1 if k > 64 else 3
+        plain_ms = time_cuda(
+            torch, lambda: ops_gang.gang_scan_plain(*box["a"]), plain_runs,
+            warmup=1, setup=lambda: box.update(a=cloned(call.inputs)))
+        chain = chain_ms(torch, k, dev)
+        ch = call.out[0]
+        rows = torch.unique(ch[ch >= 0]).numel()
+        # The gang state read once (73 B a node), the ask and member
+        # mask, both noises, the outputs; the chosen rows (util,
+        # bw_used, ports_free, placed) and the group counts written.
+        bytes_ = (n * 73 + 24 + k + k * n * 4 + cfg.g_pad * 8 + k * 8 + 4
+                  + rows * 28)
+        flops = k * n * 60 + n * 20
+        print(f"gang_scan timed on {jid} (K={k}, g_pad={cfg.g_pad}, "
+              f"{cfg.mode})")
+        out.setdefault("gang_scan", {})[(k, cfg.g_pad)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain_runs=plain_runs,
+            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            library_ms=None, chain_ms=chain)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- kernels
@@ -1326,13 +1879,18 @@ REPLACES = {
                             "nomad_tpu/ops/binpack.py:424"),
     "uniform_topk_stacked": ("nomad_tpu_torch/csrc/uniform_topk.cu",
                              "nomad_tpu/ops/binpack.py:424"),
+    "preempt_scan": ("nomad_tpu_torch/csrc/preempt_scan.cu",
+                     "nomad_tpu/ops/preempt.py:85"),
+    "gang_scan": ("nomad_tpu_torch/csrc/gang_scan.cu",
+                  "nomad_tpu/ops/gang.py:150"),
 }
 # The shape each kernel's JSON record leads with (the others ride
 # along under "shapes").
 PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "expand_overlay": 1, "base_delta": 256,
            "greedy_scan_seq": (4, 1024), "uniform_topk_seq": 64,
-           "greedy_scan_stacked": 4, "uniform_topk_stacked": 4}
+           "greedy_scan_stacked": 4, "uniform_topk_stacked": 4,
+           "preempt_scan": 1024, "gang_scan": (1024, 256)}
 
 
 def main(argv=None) -> int:
@@ -1383,8 +1941,11 @@ def main(argv=None) -> int:
         total.update(counts)
         storm = run_storm(args.seed, torch, total)
         print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
+        k6 = run_preemption(args.seed, torch, total)
+        gangs = run_gangs(args.seed, torch, total)
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
+        results.update(bench_legs(torch, k6, gangs))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -14,6 +14,8 @@ Layering (mirrors nomad_tpu):
   structs/    data model (Job, Node, Allocation, Evaluation, Plan, ...)
   state/      MVCC in-memory state store with watch notifications
   scheduler/  host scheduler (the oracle) + the dense GPU factories
+  migrate/    migration budget + the preemption policy and victim oracle
+  gang/       gang (all-or-nothing) spec helpers + the host gang stack
   models/     dense cluster-matrix construction (host numpy)
   ops/        placement programs over torch tensors + kernel wrappers
   csrc/       the CUDA C++ kernels (sm_90a)

@@ -5,8 +5,8 @@ state and the dense arrays built from it. These functions take that
 state as the JAX package produces it — plain dicts
 (``StateStore.persist()``, whose records are ``utils.codec.to_dict``
 output) and host numpy arrays (``NodeState``, ``Asks``,
-``CompactOverlay``) — and rebuild it in the port, so the same inputs
-can go through both packages.
+``CompactOverlay``, ``VictimState``, ``GangState``) — and rebuild it
+in the port, so the same inputs can go through both packages.
 
 Nothing here imports the JAX package: the caller hands over plain data.
 """
@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from .ops.binpack import Asks, CompactOverlay, NodeState
+from .ops.gang import GangState
+from .ops.preempt import VictimState
 from .state import StateStore
 
 
@@ -48,3 +50,15 @@ def asks_from_numpy(asks, device) -> Asks:
 def overlay_from_numpy(overlay, device) -> CompactOverlay:
     """A CompactOverlay of host numpy arrays as the port's tensors."""
     return _tensors(CompactOverlay, overlay, device)
+
+
+def victim_state_from_numpy(victims, device) -> VictimState:
+    """A VictimState of host numpy arrays (the JAX package's
+    make_victim_state output) as the port's tensors."""
+    return _tensors(VictimState, victims, device)
+
+
+def gang_state_from_numpy(state, device) -> GangState:
+    """A GangState of host numpy arrays (the JAX package's
+    make_gang_state output) as the port's tensors."""
+    return _tensors(GangState, state, device)

@@ -1222,3 +1222,50 @@ class ClusterMatrix:
             bool,
         )
         return resources, bw, ports, tg_index, active, job_dh, tg_dh
+
+    def build_victims(self, max_priority: int):
+        """Per-node preemption candidates for ops/preempt.py: the V
+        lowest-priority live allocations on each real node, sorted
+        priority-ascending (migrate ``victim_sort_key``). The host list
+        and the device tensor must agree on order: the kernel returns
+        only a victim COUNT per placement, and the commit loop maps it
+        back to the first n unconsumed entries.
+
+        Only allocs strictly below ``max_priority`` (the preempting
+        eval's) are candidates, and never this job's own. Returns
+        (victim_arrays, victim_lists, total): victim_arrays feed
+        make_victim_state, victim_lists[row] is the ordered Allocation
+        list, total the candidate count; rows beyond n_real are
+        padding."""
+        from ..migrate import victim_priority, victim_sort_key
+        from ..ops.preempt import PREEMPT_MAX_VICTIMS as V
+
+        n = self.n
+        res = np.zeros((n, V, 4), np.float32)
+        bw = np.zeros((n, V), np.float32)
+        ports = np.zeros((n, V), np.float32)
+        prio = np.full((n, V), np.inf, np.float32)
+        ok = np.zeros((n, V), bool)
+        victim_lists: Dict[int, List[Allocation]] = {}
+        total = 0
+        for i, node in enumerate(self.nodes):
+            cands = [
+                a for a in self._proposed_allocs(node.id)
+                if not a.terminal_status()
+                and a.job_id != self.job.id
+                and victim_priority(a) < max_priority
+            ]
+            if not cands:
+                continue
+            cands.sort(key=victim_sort_key)
+            cands = cands[:V]
+            victim_lists[i] = cands
+            total += len(cands)
+            for v, alloc in enumerate(cands):
+                cpu, mem, disk, iops, mbits, nports = _alloc_usage(alloc)
+                res[i, v] = (cpu, mem, disk, iops)
+                bw[i, v] = mbits
+                ports[i, v] = nports
+                prio[i, v] = victim_priority(alloc)
+                ok[i, v] = True
+        return (res, bw, ports, prio, ok), victim_lists, total

@@ -33,7 +33,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
-           "expand_overlay.cu", "base_delta.cu")
+           "expand_overlay.cu", "base_delta.cu", "preempt_scan.cu",
+           "gang_scan.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
@@ -55,6 +56,8 @@ SIGNATURES: Dict[str, List] = {
     "nt_expand_overlay": [_I] * 6 + [_P] * 10,
     "nt_base_delta": [_I, _I] + [_P] * 10,
     "nt_argmax_chain": [_I, _P, _P],
+    "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
+    "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
 }
 
 _lock = threading.Lock()

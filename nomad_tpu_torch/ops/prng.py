@@ -20,6 +20,11 @@ noise.
 
 ``threefry_uniform`` launches the CUDA kernel (csrc/threefry.cu) for a
 CUDA tensor of keys and runs ``threefry_uniform_plain`` for a CPU one.
+
+``fold_in`` derives a key on the host as ``jax.random.fold_in`` does
+(the gang program's group noise draws from ``fold_in(key, 1)``): one
+threefry2x32 hash of the counter pair (0, data), the words of
+``threefry_seed(data)`` for a 32-bit ``data``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,18 @@ def threefry2x32_plain(k0: torch.Tensor, k1: torch.Tensor,
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
     return x0, x1
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for a raw uint32[2] threefry
+    key, computed on the host: the new key is threefry2x32 under
+    ``key`` of the counter pair (0, data). Returns a uint32[2]."""
+    k0, k1 = (torch.tensor(int(w), dtype=torch.int64)
+              for w in np.asarray(key, np.uint32).reshape(2))
+    x0, x1 = threefry2x32_plain(k0, k1, torch.tensor(0, dtype=torch.int64),
+                                torch.tensor(int(data) & _MASK,
+                                             dtype=torch.int64))
+    return np.array([int(x0), int(x1)], np.uint32)
 
 
 def threefry_uniform_plain(keys: torch.Tensor, shape: Sequence[int],

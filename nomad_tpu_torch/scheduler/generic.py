@@ -27,11 +27,13 @@ from ..utils.ids import generate_uuid
 from .context import EvalContext
 from .stack import GenericStack
 from .util import (
+    ALLOC_GANG_REPLACED,
     ALLOC_LOST,
     ALLOC_MIGRATING,
     ALLOC_NOT_NEEDED,
     ALLOC_UPDATING,
     AllocTuple,
+    _append_update_with_client,
     SetStatusError,
     adjust_queued_allocations,
     desired_updates,
@@ -173,7 +175,6 @@ class GenericScheduler:
         self.job = self.state.job_by_id(self.eval.job_id)
         self.queued_allocs = {}
 
-        self._check_no_gangs()
         self.plan = self.eval.make_plan(self.job)
         self.failed_tg_allocs = None
         self.ctx = EvalContext(self.state, self.plan, self.logger, rng=self.rng)
@@ -276,17 +277,115 @@ class GenericScheduler:
             return set()
         return set(ids)
 
-    def _check_no_gangs(self) -> None:
-        """Gang task groups (all-or-nothing placement over a topology
-        tensor) are a later slice of the port: such a job raises here
-        instead of quietly taking the one-at-a-time path."""
-        if self.job is None:
+    def _route_updates(self, updates: List[AllocTuple]):
+        """In-place routing with GANG all-or-nothing semantics
+        (gang/): a gang task group's updates go in-place only
+        if EVERY member does. A mixed verdict — some members in-place,
+        some destructive (a tightened constraint failing on one node,
+        a dead node) — would hide the in-place members from
+        _promote_gang_replacements, which only reads the diff buckets:
+        the gang would re-place a PARTIAL member set, the exact state
+        the all-K program exists to reject. On a mixed verdict the
+        already-staged in-place rewrites unwind off the plan and every
+        member routes destructive, so promotion rebuilds the whole
+        gang."""
+        from ..gang import gang_spec
+
+        gang_updates: Dict[str, List[AllocTuple]] = {}
+        rest: List[AllocTuple] = []
+        for tup in updates:
+            tg = tup.task_group
+            if tg is not None and gang_spec(tg) is not None:
+                gang_updates.setdefault(tg.name, []).append(tup)
+            else:
+                rest.append(tup)
+        destructive, inplace = self._inplace_update(rest)
+        for name, tuples in gang_updates.items():
+            g_destr, g_inplace = self._inplace_update(tuples)
+            if not g_destr:
+                inplace.extend(g_inplace)
+                continue
+            # unwind the staged in-place rewrites (same alloc ids)
+            staged = {t.alloc.id for t in g_inplace}
+            if staged:
+                for node_id in list(self.plan.node_allocation):
+                    kept = [a for a in self.plan.node_allocation[node_id]
+                            if a.id not in staged]
+                    if kept:
+                        self.plan.node_allocation[node_id] = kept
+                    else:
+                        del self.plan.node_allocation[node_id]
+                self.logger.info(
+                    "eval %s: gang %s/%s update split in-place/"
+                    "destructive; routing all %d members destructive "
+                    "for whole-gang replacement", self.eval.id,
+                    self.eval.job_id, name, len(tuples))
+            destructive.extend(g_destr)
+            destructive.extend(g_inplace)
+        return destructive, inplace
+
+    def _promote_gang_replacements(self, diff) -> None:
+        """Gang semantics for reconciliation (gang/): if ANY
+        member of a gang task group is being replaced (lost node,
+        drained node, destructive update, or a missing slot), the
+        WHOLE gang replaces — survivors in the ignore bucket are
+        stopped and every member joins diff.place so the gang's
+        placement pass runs with the complete member set (the all-K
+        program rejects partial sets by construction). Gang members
+        are pulled OUT of the migrate/update/lost buckets: the
+        migration budget and rolling limits batch work in partial
+        waves, and a partially-deferred gang could never place."""
+        from ..gang import gang_task_groups
+
+        gangs = gang_task_groups(self.job)
+        if not gangs:
             return
-        for tg in self.job.task_groups:
-            if getattr(tg, "gang", None) is not None:
-                raise NotImplementedError(
-                    f"task group {tg.name!r} is a gang; gang scheduling "
-                    "is ported in a later slice (ROADMAP Queue A, gangs)")
+
+        def of(bucket, name):
+            return [t for t in bucket
+                    if t.task_group is not None
+                    and t.task_group.name == name]
+
+        for tg in gangs:
+            ignored = of(diff.ignore, tg.name)
+            lost = of(diff.lost, tg.name)
+            moving = (of(diff.place, tg.name) + of(diff.migrate, tg.name)
+                      + of(diff.update, tg.name))
+            if not lost and not moving:
+                continue  # gang untouched, or fully ignored
+            if not ignored and not lost and not of(diff.migrate, tg.name) \
+                    and not of(diff.update, tg.name):
+                continue  # fresh placement: already the complete set
+            self.logger.info(
+                "eval %s: gang %s/%s member set disturbed; staging "
+                "whole-gang replacement (%d survivors stopped)",
+                self.eval.id, self.eval.job_id, tg.name, len(ignored))
+            # Survivors + movers stop; every member re-places. Lost
+            # members additionally record client LOST.
+            for tup in of(diff.migrate, tg.name):
+                diff.migrate.remove(tup)
+                self.plan.append_update(
+                    tup.alloc, consts.ALLOC_DESIRED_STOP,
+                    ALLOC_GANG_REPLACED)
+                diff.place.append(tup)
+            for tup in of(diff.update, tg.name):
+                diff.update.remove(tup)
+                self.plan.append_update(
+                    tup.alloc, consts.ALLOC_DESIRED_STOP,
+                    ALLOC_GANG_REPLACED)
+                diff.place.append(tup)
+            for tup in of(diff.lost, tg.name):
+                diff.lost.remove(tup)
+                _append_update_with_client(
+                    self.plan, tup.alloc, consts.ALLOC_DESIRED_STOP,
+                    ALLOC_LOST, consts.ALLOC_CLIENT_LOST)
+                diff.place.append(tup)
+            for tup in ignored:
+                diff.ignore.remove(tup)
+                self.plan.append_update(
+                    tup.alloc, consts.ALLOC_DESIRED_STOP,
+                    ALLOC_GANG_REPLACED)
+                diff.place.append(tup)
 
     def _defer_migrations(self) -> None:
         """Mint (once per eval) the follow-up migration eval that
@@ -375,8 +474,16 @@ class GenericScheduler:
         for e in diff.stop:
             self.plan.append_update(e.alloc, consts.ALLOC_DESIRED_STOP, ALLOC_NOT_NEEDED)
 
-        destructive, inplace = self._inplace_update(diff.update)
+        destructive, inplace = self._route_updates(diff.update)
         diff.update = destructive
+
+        # Whole-gang replacement (gang/): a gang that loses or must move
+        # ANY member cannot keep running at K-1 — survivors are stopped
+        # and all K members re-place as one atomic unit. Runs AFTER
+        # in-place routing (an env tweak keeps the gang in place) and
+        # BEFORE the budget/limit legs (a gang must never be split
+        # across migration waves or rolling batches).
+        self._promote_gang_replacements(diff)
 
         if self.eval.annotate_plan:
             from ..structs import PlanAnnotations
@@ -448,7 +555,63 @@ class GenericScheduler:
 
         self._compute_placements(diff.place)
 
+    def _split_gang_placements(self, place: List[AllocTuple]):
+        """(gang sets, rest): gang TGs' tuples grouped per task group
+        for the all-or-nothing paths, everything else placed
+        one-at-a-time as before."""
+        from ..gang import gang_spec
+
+        gang_sets: Dict[str, List[AllocTuple]] = {}
+        gang_tgs = {}
+        rest: List[AllocTuple] = []
+        for missing in place:
+            tg = missing.task_group
+            if tg is not None and gang_spec(tg) is not None:
+                gang_sets.setdefault(tg.name, []).append(missing)
+                gang_tgs[tg.name] = tg
+            else:
+                rest.append(missing)
+        return [(gang_tgs[name], tuples)
+                for name, tuples in gang_sets.items()], rest
+
+    def _place_gang_host(self, tg, tuples: List[AllocTuple]) -> None:
+        """All-or-nothing gang placement through the host iterator
+        stack (gang/host.py). Stages everything or records
+        ONE whole-gang failure for the TG (which feeds the blocked-
+        eval machinery like any other placement failure)."""
+        from ..gang import note_gang_result
+        from ..gang.host import place_gang_host
+        from ..structs import AllocMetric
+
+        if self.failed_tg_allocs and tg.name in self.failed_tg_allocs:
+            self.failed_tg_allocs[tg.name].coalesced_failures += len(tuples)
+            return
+        ok = place_gang_host(self, tg, tuples)
+        note_gang_result(ok, len(tuples), "host")
+        if ok:
+            return
+        nodes, by_dc = ready_nodes_in_dcs(self.state, self.job.datacenters)
+        metrics = AllocMetric()
+        metrics.nodes_evaluated = len(nodes)
+        metrics.nodes_available = by_dc
+        if self.failed_tg_allocs is None:
+            self.failed_tg_allocs = {}
+        self.failed_tg_allocs[tg.name] = metrics
+        # Gang-aware class eligibility: the member selects inside
+        # place_gang_host ran the feasibility chain per class (the
+        # FeasibilityWrapper populates ctx.eligibility), so infeasible
+        # classes are already marked ineligible for the blocked eval;
+        # classes it never visited stay unknown, which the blocked
+        # tracker treats as eligible — capacity returning ANYWHERE a
+        # gang might fit re-runs the all-K pass (unknown-is-eligible,
+        # server/blocked.py), never the reverse.
+
     def _compute_placements(self, place: List[AllocTuple]) -> None:
+        gang_sets, place = self._split_gang_placements(place)
+        for tg, tuples in gang_sets:
+            self._place_gang_host(tg, tuples)
+        if not place:
+            return
         nodes, by_dc = ready_nodes_in_dcs(self.state, self.job.datacenters)
         self.stack.set_nodes(nodes)
 

@@ -4,9 +4,12 @@ The counterpart of the JAX package's scheduler/tpu.py
 BatchedTPUScheduler: the host scheduler's control flow — the same
 reconciliation, blocked-eval and rolling semantics, the same plan
 shape — with computePlacements run as one dense program on the device
-(ops/binpack.py through scheduler/batcher.py). In-place updates and
-sticky-disk preferences stay host-side; exact port numbers are
-assigned host-side on the chosen nodes.
+(ops/binpack.py through scheduler/batcher.py), gang task groups as one
+all-K program each (ops/gang.py), and the asks a preemption-eligible
+eval could not place as one place-or-preempt program
+(ops/preempt.py). In-place updates and sticky-disk preferences stay
+host-side; exact port numbers are assigned host-side on the chosen
+nodes.
 
 A device fault raises out of ``process_eval``: there is no host
 fallback around the dispatch. The routing rules that are semantics
@@ -17,6 +20,8 @@ stay as in the JAX package: sticky placements, and evals with at most
 from __future__ import annotations
 
 from typing import Dict, List
+
+import numpy as np
 
 from ..structs import (
     Allocation,
@@ -132,6 +137,14 @@ class BatchedGPUScheduler(GenericScheduler):
         from ..ops.binpack import host_prng_key, make_asks
         from .batcher import get_batcher
 
+        # Gang task groups take the dense all-K pass: one gang = one
+        # dispatch of ops/gang.py's program, staged on the plan's gang
+        # leg.
+        gang_sets, place = self._split_gang_placements(place)
+        for tg, tuples in gang_sets:
+            self._place_gang_dense(tg, tuples)
+        if not place:
+            return
         # Sticky-disk placements keep the host path (they pin to one node).
         sticky: List[AllocTuple] = []
         bulk: List[AllocTuple] = []
@@ -153,13 +166,12 @@ class BatchedGPUScheduler(GenericScheduler):
         bulk = remaining
         if not bulk:
             return
-        if preemption_eligible(self.eval.priority):
-            raise NotImplementedError(
-                "preemption-eligible eval: the dense preemption pass is "
-                "ported in a later slice (ROADMAP Queue A, preemption)")
-        if len(bulk) <= 3:
+        may_preempt = preemption_eligible(self.eval.priority)
+        if len(bulk) <= 3 and not may_preempt:
             # Too few placements to amortize a dispatch: the host
-            # iterators place a handful with identical semantics.
+            # iterators place a handful with identical semantics. A
+            # preemption-eligible eval stays dense at any size: the host
+            # iterators cannot evict.
             super()._compute_placements(bulk)
             return
 
@@ -177,6 +189,10 @@ class BatchedGPUScheduler(GenericScheduler):
 
         # Host-side exact port assignment per chosen node, incremental.
         net_indexes: Dict[str, NetworkIndex] = {}
+        # Asks the kernel could not place: candidates for the dense
+        # preemption pass (eligible evals only) before they become
+        # recorded failures.
+        unplaced: List[AllocTuple] = []
         for j, missing in enumerate(bulk):
             # Coalesce once the TG has failed, even if the kernel found a
             # node for a later ask of that TG (host-loop invariant).
@@ -192,8 +208,11 @@ class BatchedGPUScheduler(GenericScheduler):
             metrics.nodes_available = matrix.nodes_by_dc
 
             if node is None:
-                self._record_placement_failure(
-                    missing, matrix, metrics, tg_indices)
+                if may_preempt:
+                    unplaced.append(missing)
+                else:
+                    self._record_placement_failure(
+                        missing, matrix, metrics, tg_indices)
                 continue
 
             metrics.score_node(node, "binpack", float(scores[j]))
@@ -208,6 +227,190 @@ class BatchedGPUScheduler(GenericScheduler):
 
             self.plan.append_alloc(_build_allocation(
                 self, missing, node, task_resources, metrics))
+
+        if unplaced:
+            self._preempt_placements(unplaced, tg_indices)
+
+    def _place_gang_dense(self, tg, tuples: List[AllocTuple]) -> None:
+        """One gang's all-K dispatch (ops/gang.py, K7): per-node member
+        capacity, topology-group capacity, slice selection and K-step
+        member assignment in one program over the cluster matrix.
+        Members stage through the plan's gang leg
+        (Plan.append_gang_alloc). A device fault raises."""
+        from ..gang import build_gang_state, gang_key, note_gang_result
+        from ..models.matrix import ClusterMatrix
+        from ..ops.binpack import host_prng_key
+        from ..ops.gang import gang_placement
+
+        name = tg.name
+        if self.failed_tg_allocs and name in self.failed_tg_allocs:
+            self.failed_tg_allocs[name].coalesced_failures += len(tuples)
+            return
+
+        # The matrix includes this plan's earlier staged legs (gang
+        # replacement stops free their capacity through the proposed-
+        # alloc overlay): the all-K pass must see the room the
+        # survivors' stops open up.
+        matrix = ClusterMatrix(self.state, self.job, self.plan)
+        state, active, (ask_res, ask_bw, ask_ports), config = \
+            build_gang_state(matrix, self.job, tg)
+        key = host_prng_key(self.rng.getrandbits(31))
+        choices, scores, _slice_group = (
+            x.cpu().numpy() for x in gang_placement(
+                state, ask_res, ask_bw, ask_ports, active, key, config,
+                self.device))
+
+        if int(choices[0]) < 0:
+            # Whole-gang reject on the device (no slice fits all K, or a
+            # member found no node): ONE failure for the TG, with class
+            # eligibility from the feasibility mask so the blocked eval
+            # re-runs when capacity returns.
+            note_gang_result(False, len(tuples), "device")
+            m = AllocMetric()
+            m.nodes_evaluated = matrix.n_real
+            m.nodes_available = matrix.nodes_by_dc
+            tg_indices = {g.name: i
+                          for i, g in enumerate(self.job.task_groups)}
+            self._record_placement_failure(tuples[0], matrix, m,
+                                           tg_indices)
+            if len(tuples) > 1:
+                self.failed_tg_allocs[name].coalesced_failures += (
+                    len(tuples) - 1)
+            return
+
+        # Materialize: exact host-side port offers per member, staged on
+        # the gang leg. ANY member failing port assignment unwinds the
+        # whole gang to the host gang stack (exact ports there): a
+        # partial gang never survives this loop.
+        gkey = gang_key(self.job.id, name)
+        net_indexes: Dict[str, NetworkIndex] = {}
+        for j, missing in enumerate(tuples):
+            choice = int(choices[j])
+            node = (matrix.nodes[choice]
+                    if 0 <= choice < matrix.n_real else None)
+            m = AllocMetric()
+            m.nodes_evaluated = matrix.n_real
+            m.nodes_available = matrix.nodes_by_dc
+            task_resources = None
+            if node is not None:
+                m.score_node(node, "gang", float(scores[j]))
+                task_resources = _offer_networks(
+                    self.rng, missing, node, net_indexes, matrix)
+            if task_resources is None:
+                self.plan.pop_gang(gkey)
+                self._place_gang_host(tg, tuples)
+                return
+            self.plan.append_gang_alloc(gkey, _build_allocation(
+                self, missing, node, task_resources, m))
+        note_gang_result(True, len(tuples), "device")
+
+    def _preempt_placements(self, pending: List[AllocTuple],
+                            tg_indices: Dict[str, int]) -> None:
+        """The dense preemption pass (ops/preempt.py, K6): place the
+        asks the normal pass could not, choosing lowest-priority victims
+        and the placement in the same masked program. Runs only when
+        migrate.preemption_eligible said yes. Victim evictions are
+        staged on the plan's node_preemptions leg with the placements
+        they make room for. A device fault raises."""
+        from ..migrate import note_preemption
+        from ..models.matrix import ClusterMatrix
+        from ..ops.binpack import (
+            PlacementConfig,
+            host_prng_key,
+            make_asks,
+            make_node_state,
+        )
+        from ..ops.preempt import make_victim_state, preempt_placement
+        from .stack import (
+            BATCH_JOB_ANTI_AFFINITY_PENALTY,
+            SERVICE_JOB_ANTI_AFFINITY_PENALTY,
+        )
+        from .util import ALLOC_PREEMPTED
+
+        # A FRESH matrix including this very plan's placements and staged
+        # stops: the preemption pass must not claim headroom an earlier
+        # ask of this same eval just took, and its victim lists must
+        # exclude allocs the plan already stops.
+        pm = ClusterMatrix(self.state, self.job, self.plan)
+        varrays, victim_lists, n_candidates = pm.build_victims(
+            self.eval.priority)
+        if n_candidates == 0:
+            for missing in pending:
+                name = missing.task_group.name
+                if self.failed_tg_allocs and name in self.failed_tg_allocs:
+                    self.failed_tg_allocs[name].coalesced_failures += 1
+                    continue
+                metrics = AllocMetric()
+                metrics.nodes_evaluated = pm.n_real
+                metrics.nodes_available = pm.nodes_by_dc
+                self._record_placement_failure(missing, pm, metrics,
+                                               tg_indices)
+            return
+        placements = [tg_indices[m.task_group.name] for m in pending]
+        asks = make_asks(*pm.build_asks(placements))
+        state = make_node_state(
+            pm.capacity, pm.sched_capacity, pm.util, pm.bw_avail,
+            pm.bw_used, pm.ports_free, pm.job_count, pm.tg_count,
+            pm.feasible, pm.node_ok)
+        victims = make_victim_state(*varrays)
+        penalty = (BATCH_JOB_ANTI_AFFINITY_PENALTY if self.batch
+                   else SERVICE_JOB_ANTI_AFFINITY_PENALTY)
+        # Plain greedy config: the preemption program is its own entry
+        # point.
+        config = PlacementConfig(anti_affinity_penalty=penalty)
+        key = host_prng_key(self.rng.getrandbits(31))
+        choices, scores, counts = (
+            x.cpu().numpy() for x in preempt_placement(
+                state, victims, asks, key,
+                np.float32(self.eval.priority), config, self.device))
+
+        net_indexes: Dict[str, NetworkIndex] = {}
+        consumed: Dict[int, int] = {}
+        staged_total = 0
+        placed_total = 0
+        for j, missing in enumerate(pending):
+            name = missing.task_group.name
+            if self.failed_tg_allocs and name in self.failed_tg_allocs:
+                self.failed_tg_allocs[name].coalesced_failures += 1
+                continue
+            choice = int(choices[j])
+            node = pm.nodes[choice] if 0 <= choice < pm.n_real else None
+            metrics = AllocMetric()
+            metrics.nodes_evaluated = pm.n_real
+            metrics.nodes_available = pm.nodes_by_dc
+            if node is None:
+                self._record_placement_failure(missing, pm, metrics,
+                                               tg_indices)
+                continue
+            # The kernel returns a count: the victims are the node's next
+            # unconsumed candidates, in the order build_victims sorted
+            # them (the device's order).
+            cnt = int(counts[j])
+            taken = []
+            if cnt > 0:
+                lst = victim_lists.get(choice, [])
+                start = consumed.get(choice, 0)
+                taken = lst[start:start + cnt]
+                consumed[choice] = start + len(taken)
+            for victim in taken:
+                self.plan.append_preemption(
+                    victim, consts.ALLOC_DESIRED_EVICT, ALLOC_PREEMPTED)
+            metrics.score_node(node, "preempt", float(scores[j]))
+            task_resources = _offer_networks(
+                self.rng, missing, node, net_indexes, pm)
+            if task_resources is None:
+                # Port collision on the chosen node: back the victims
+                # out — an eviction must never commit without the
+                # placement it was freeing room for.
+                self.plan.pop_preemptions(node.id, len(taken))
+                self._record_placement_failure(missing, pm, metrics,
+                                               tg_indices)
+                continue
+            self.plan.append_alloc(_build_allocation(
+                self, missing, node, task_resources, metrics))
+            staged_total += len(taken)
+            placed_total += 1
+        note_preemption(staged_total, placed_total)
 
     def _record_placement_failure(
         self, missing: AllocTuple, matrix, metrics, tg_indices: Dict[str, int]

@@ -3,8 +3,9 @@ card, at small shapes that reach every branch: free ports and
 distinct_hosts (per task group and per job) that limit where asks fit,
 inactive asks, asks past the node count, a node bucket whose top-k
 sorts in global scratch, overlay rows padded with N, the sequential
-(pre_resolve) and stacked batch layouts of the scans, and base deltas
-with padding rows.
+(pre_resolve) and stacked batch layouts of the scans, base deltas
+with padding rows, preemption where victims, ports and distinct_hosts
+bind, and every gang mode.
 
 Marked ``cuda``; without a CUDA card every test skips. On the card's
 machine, which need not have JAX (tests/conftest.py configures it):
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from nomad_tpu_torch.ops import binpack, cuda, prng
+from nomad_tpu_torch.ops import binpack, cuda, gang, preempt, prng
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +258,263 @@ def test_base_delta_matches_plain(dev, n, r):
         assert torch.equal(x, y)
     for x, y in zip(parent, before):
         assert torch.equal(x, y)
+
+
+def preempt_inputs(n, k, g, seed, dev, dh=True):
+    """A crowded cluster for K6: most nodes full, a few with room;
+    per node up to 8 priority-sorted victims (some outranking the
+    eval, some holding ports and bandwidth); asks with ports, under
+    task-group distinct_hosts on group 0 when ``dh``."""
+    rng = np.random.default_rng(seed)
+    v = preempt.PREEMPT_MAX_VICTIMS
+    t = lambda x: torch.from_numpy(np.array(x)).to(dev)
+    cap = np.tile(np.array([[1000, 2000, 10000, 100]], np.float32), (n, 1))
+    sched = cap - np.array([[100, 200, 0, 0]], np.float32)
+    util = (cap - sched) + np.stack(
+        [rng.integers(12, 19, n) * 50, rng.integers(10, 19, n) * 100,
+         np.zeros(n), np.zeros(n)], 1).astype(np.float32)
+    util[rng.random(n) < 0.05, :2] = (300, 400)  # room without eviction
+    state = binpack.NodeState(
+        capacity=t(cap), sched_capacity=t(sched), util=t(util),
+        bw_avail=t(np.full(n, 100, np.float32)),
+        bw_used=t(rng.integers(0, 5, n).astype(np.float32) * 20),
+        ports_free=t(rng.integers(0, 3, n).astype(np.float32)),
+        job_count=t(rng.integers(0, 2, n).astype(np.int32)),
+        tg_count=t(rng.integers(0, 2, (n, g)).astype(np.int32)),
+        feasible=t(rng.random((n, g)) < 0.9), node_ok=t(rng.random(n) < 0.95))
+    res = np.zeros((n, v, 4), np.float32)
+    vbw = np.zeros((n, v), np.float32)
+    vports = np.zeros((n, v), np.float32)
+    prio = np.full((n, v), np.inf, np.float32)
+    ok = np.zeros((n, v), bool)
+    for i in range(n):
+        m = int(rng.integers(0, v + 1))
+        prio[i, :m] = np.sort(rng.integers(5, 80, m))
+        res[i, :m, 0] = rng.integers(1, 6, m) * 50
+        res[i, :m, 1] = rng.integers(1, 6, m) * 100
+        vbw[i, :m] = rng.integers(0, 3, m) * 10
+        vports[i, :m] = rng.integers(0, 2, m)
+        ok[i, :m] = True
+    victims = preempt.VictimState(t(res), t(vbw), t(vports), t(prio), t(ok))
+    active = np.ones(k, bool)
+    active[-3:] = False
+    asks = binpack.Asks(
+        resources=t(np.tile(np.array([[300, 400, 0, 0]], np.float32),
+                            (k, 1))),
+        bw=t(np.full(k, 20, np.float32)), ports=t(np.ones(k, np.float32)),
+        tg_index=t(rng.integers(0, g, k).astype(np.int32)), active=t(active),
+        job_distinct_hosts=t(np.array(False)),
+        tg_distinct_hosts=t((np.arange(g) == 0) & dh))
+    return state, victims, asks
+
+
+def preempt_carry(state, victims):
+    return (state._replace(util=state.util.clone(),
+                           bw_used=state.bw_used.clone(),
+                           ports_free=state.ports_free.clone(),
+                           job_count=state.job_count.clone(),
+                           tg_count=state.tg_count.clone()),
+            victims.ok.clone())
+
+
+@pytest.mark.parametrize("n,k,dh", [(300, 64, True), (2000, 256, True),
+                                   (40, 64, False)])
+def test_preempt_scan_matches_plain(dev, n, k, dh):
+    """K6 against its plain version: choices, n_victims, scores, and
+    the final carry (util, bw_used, ports_free, job_count, tg_count and
+    the consumed-victim mask). Without distinct_hosts, 64 asks on 40
+    nodes evict on the same node more than once, so the consumed
+    victims decide later choices."""
+    state, victims, asks = preempt_inputs(n, k, 2, n + k, dev, dh)
+    noise = prng.threefry_uniform(
+        torch.tensor([[3, n]], device=dev), (k, n), 0.0, 2.0)[0]
+    runs = []
+    for fn in (preempt.preempt_scan, preempt.preempt_scan_plain):
+        st, vok = preempt_carry(state, victims)
+        runs.append((*fn(st, victims, vok, asks, noise, 50.0, 10.0),
+                     st, vok))
+    (ch, sc, nv, st, vok), (ch_p, sc_p, nv_p, st_p, vok_p) = runs
+    assert torch.equal(ch, ch_p)
+    assert torch.equal(nv, nv_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    for name in CARRY:
+        assert torch.equal(getattr(st, name), getattr(st_p, name)), name
+    assert torch.equal(vok, vok_p)
+    # Both branches ran: some asks evicted, some fit without.
+    assert (nv > 0).any() and ((ch >= 0) & (nv == 0)).any()
+    assert (ch[-3:] == -1).all()
+
+
+def test_preempt_placement_program_matches_plain(dev):
+    """The scheduler's entry point (upload, K0, K6) against the plain
+    program on the same host inputs."""
+    state, victims, asks = preempt_inputs(500, 32, 2, 9, dev)
+    host = lambda x: type(x)(*(f.cpu().numpy() for f in x))
+    cfg = binpack.PlacementConfig(anti_affinity_penalty=10.0)
+    key = binpack.host_prng_key(21)
+    got = preempt.preempt_placement(host(state), host(victims), host(asks),
+                                    key, 50.0, cfg, dev)
+    want = preempt.preempt_placement_plain(state, victims, asks, key, 50.0,
+                                           cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert (got[1] - want[1]).abs().max().item() <= 1e-4
+
+
+def gang_inputs(n, seed, dev, rack=8, zero_ask=False):
+    """A topology cluster for K7: racks of ``rack`` nodes (every tenth
+    node without an id), varied free capacity and ports."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.array(x)).to(dev)
+    cap = np.tile(np.array([[2000, 4000, 10000, 100]], np.float32), (n, 1))
+    sched = cap - np.array([[100, 200, 0, 0]], np.float32)
+    sched[rng.random(n) < 0.02, 0] = 0.0  # the zero-capacity guard binds
+    util = (cap - sched) + np.stack(
+        [rng.integers(0, 30, n) * 50, rng.integers(0, 30, n) * 100,
+         np.zeros(n), np.zeros(n)], 1).astype(np.float32)
+    topo = (np.arange(n) // rack).astype(np.int32)
+    topo[rng.random(n) < 0.1] = -1
+    state = gang.GangState(
+        capacity=t(cap), sched_capacity=t(sched), util=t(util),
+        bw_avail=t(np.full(n, 100, np.float32)),
+        bw_used=t(rng.integers(0, 5, n).astype(np.float32) * 20),
+        ports_free=t(rng.integers(0, 4, n).astype(np.float32)),
+        feas_row=t(rng.random(n) < 0.9),
+        job_count=t(rng.integers(0, 2, n).astype(np.int32)),
+        dh_presence=t((rng.random(n) < 0.1).astype(np.int32)),
+        topo_ids=t(topo))
+    ask = (0, 0, 0, 0) if zero_ask else (300, 256, 0, 0)
+    return (state, t(np.asarray(ask, np.float32)),
+            t(np.float32(0 if zero_ask else 10)),
+            t(np.float32(0 if zero_ask else 1)))
+
+
+GANG_CASES = [(mode, dh) for mode in ("free", "slice", "spread", "affinity")
+              for dh in (False, True)]
+
+
+@pytest.mark.parametrize("mode,dh", GANG_CASES)
+@pytest.mark.parametrize("n,k_real,k,g_pad,rack", [
+    (400, 12, 16, 64, 8), (1200, 16, 16, 64, 60),
+    (3000, 200, 256, 1024, 3), (40, 200, 256, 16, 8)])
+def test_gang_scan_matches_plain(dev, mode, dh, n, k_real, k, g_pad, rack):
+    """K7 against its plain version in every mode, with and without
+    distinct_hosts: choices, scores, slice_group and the final carry
+    (util, bw_used, ports_free, placed, group members)."""
+    state, ask, abw, aports = gang_inputs(n, k_real + n, dev, rack=rack)
+    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad)
+
+
+@pytest.mark.parametrize("mode,dh", GANG_CASES)
+@pytest.mark.parametrize("n,k_real,k,g_pad,rack,shuffle", [
+    (6000, 300, 512, 4096, 2, False), (5000, 4, 8, 4096, 2, False),
+    (2000, 64, 64, 2048, 1, True)])
+def test_gang_scan_many_groups(dev, mode, dh, n, k_real, k, g_pad, rack,
+                               shuffle):
+    """Past 1,024 groups (every node without the level's meta is its
+    own group in free, spread and affinity mode) the group sums and
+    member counts live in global memory: the same checks as above, on
+    racks of two and on singleton groups whose ids are shuffled over
+    the nodes."""
+    state, ask, abw, aports = gang_inputs(n, k_real + n, dev, rack=rack)
+    if shuffle:
+        perm = np.random.default_rng(n).permutation(n)
+        state = state._replace(topo_ids=state.topo_ids[torch.from_numpy(
+            perm).to(dev)].contiguous())
+    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad)
+
+
+def test_gang_scan_zero_ask_many_groups(dev):
+    """A zero ask over 2,000 racks of two: each rack's capacity is 1e9
+    or 2e9, held in global memory, and the slice choice is the plain
+    version's."""
+    n, k, g_pad = 4000, 8, 2048
+    state, ask, abw, aports = gang_inputs(n, 6, dev, rack=2, zero_ask=True)
+    active = torch.ones(k, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode="slice",
+                          g_pad=g_pad)
+    key = binpack.host_prng_key(5)
+    outs = [fn(state, ask, abw, aports, active, key, cfg)
+            for fn in (gang.gang_placement_plain, _gang_on_card)]
+    (ch, sc, sg), (ch_p, sc_p, sg_p) = outs
+    assert torch.equal(ch, ch_p) and int(sg) == int(sg_p) >= 0
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+
+
+def _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad):
+    dev = state.capacity.device
+    active = torch.zeros(k, dtype=torch.bool, device=dev)
+    active[:k_real] = True
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode,
+                          distinct_hosts=dh, g_pad=g_pad)
+    keys = torch.tensor([[0, k_real], [1, n]], device=dev)
+    noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
+    gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
+    runs = []
+    for fn in (gang.gang_scan, gang.gang_scan_plain):
+        st = state._replace(util=state.util.clone(),
+                            bw_used=state.bw_used.clone(),
+                            ports_free=state.ports_free.clone())
+        placed = torch.zeros(n, dtype=torch.int32, device=dev)
+        members = torch.zeros(g_pad, dtype=torch.float32, device=dev)
+        out = fn(st, ask, abw, aports, active, noise, gnoise, cfg, placed,
+                 members)
+        runs.append((*out, st, placed, members))
+    (ch, sc, sg, st, pl, gm), (ch_p, sc_p, sg_p, st_p, pl_p, gm_p) = runs
+    assert torch.equal(ch, ch_p)
+    assert int(sg) == int(sg_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    for name in ("util", "bw_used", "ports_free"):
+        assert torch.equal(getattr(st, name), getattr(st_p, name)), name
+    assert torch.equal(pl, pl_p) and torch.equal(gm, gm_p)
+    placed = (ch[:k_real] >= 0)
+    assert placed.all() or not placed.any()  # all-K or none
+    assert (ch[k_real:] == -1).all()
+    if n < k_real:  # more members than the cluster holds: whole reject
+        assert not placed.any() and int(sg) == -1
+        if mode != "slice":  # members were placed, then rewritten
+            assert pl.sum().item() > 0
+
+
+@pytest.mark.parametrize("mode", ["slice", "free"])
+def test_gang_scan_zero_ask_units(dev, mode):
+    """A zero ask gives every feasible node 1e9 units: group sums pass
+    2^24 and the chosen group must still be the plain version's."""
+    n, k, g_pad = 1000, 8, 256
+    state, ask, abw, aports = gang_inputs(n, 5, dev, rack=13, zero_ask=True)
+    active = torch.ones(k, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode, g_pad=g_pad)
+    key = binpack.host_prng_key(4)
+    outs = [fn(state, ask, abw, aports, active, key, cfg)
+            for fn in (gang.gang_placement_plain, _gang_on_card)]
+    (ch, sc, sg), (ch_p, sc_p, sg_p) = outs
+    assert torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    if mode == "slice":
+        assert int(sg) >= 0
+
+
+def _gang_on_card(state, ask, abw, aports, active, key, cfg):
+    host = type(state)(*(f.cpu().numpy() for f in state))
+    return gang.gang_placement(host, ask.cpu().numpy(), abw.cpu().numpy(),
+                               aports.cpu().numpy(), active.cpu().numpy(),
+                               key, cfg, ask.device)
+
+
+def test_new_wrappers_count_their_launches(dev):
+    state, victims, asks = preempt_inputs(100, 8, 2, 1, dev)
+    noise = torch.zeros((8, 100), device=dev)
+    before = cuda.launch_counts()
+    st, vok = preempt_carry(state, victims)
+    preempt.preempt_scan(st, victims, vok, asks, noise, 50.0, 10.0)
+    st, vok = preempt_carry(state, victims)
+    preempt.preempt_scan_plain(st, victims, vok, asks, noise, 50.0, 10.0)
+    gstate, ask, abw, aports = gang_inputs(100, 2, dev)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0)
+    gang.gang_placement_plain(gstate, ask, abw, aports, active,
+                              binpack.host_prng_key(1), cfg)
+    _gang_on_card(gstate, ask, abw, aports, active, binpack.host_prng_key(1),
+                  cfg)
+    after = cuda.launch_counts()
+    assert after["preempt_scan"] == before.get("preempt_scan", 0) + 1
+    assert after["gang_scan"] == before.get("gang_scan", 0) + 1

@@ -81,3 +81,23 @@ def test_wrapper_rejects_bad_keys():
         threefry_uniform(torch.zeros((2, 2), dtype=torch.int32), (4,), 0, 1)
     with pytest.raises(ValueError):
         threefry_uniform(torch.zeros((2, 3), dtype=torch.int64), (4,), 0, 1)
+
+
+@pytest.mark.parametrize("data", [0, 1, 7, 2**32 - 1])
+def test_fold_in_matches_reference(data):
+    """The gang program's group noise draws from fold_in(key, 1): the
+    port derives the same key on the host, bit for bit."""
+    from nomad_tpu_torch.ops.prng import fold_in
+
+    rng = np.random.default_rng(data % 1000)
+    keys = [jax_host_prng_key(5), jax_host_prng_key(2**31 - 1),
+            rng.integers(0, 2**32, 2, dtype=np.uint64).astype(np.uint32)]
+    for key in keys:
+        want = np.asarray(jax.random.fold_in(key, np.uint32(data)),
+                          np.uint32)
+        assert np.array_equal(fold_in(key, data), want)
+    folded = fold_in(jax_host_prng_key(9), 1)
+    want = jax.random.uniform(jax.random.fold_in(jax_host_prng_key(9), 1),
+                              (256,), minval=0.0, maxval=1.0)
+    assert np.array_equal(_bits(want),
+                          _bits(_port(folded, (256,), 0.0, 1.0)[0]))

@@ -167,39 +167,3 @@ def port_job(job):
     from nomad_tpu_torch.utils.codec import from_dict
 
     return from_dict(Job, to_dict(job))
-
-
-def test_gang_task_group_raises():
-    """Gangs are a later slice: the port raises instead of placing a
-    gang one member at a time."""
-    from nomad_tpu_torch.structs import Gang
-
-    h = build_reference_cluster(16, 37)
-    hp = carry_over(h)
-    job = port_job(two_group_job((4, 4), job_id="gang"))
-    job.task_groups[0].gang = Gang()
-    hp.state.upsert_job(hp.next_index(), job)
-    from nomad_tpu_torch.structs import consts as port_consts
-    from nomad_tpu_torch.structs.eval import new_eval as port_new_eval
-
-    ev = port_new_eval(hp.state.job_by_id(job.id),
-                       port_consts.EVAL_TRIGGER_JOB_REGISTER)
-    for factory in ("service", "service-gpu"):
-        with pytest.raises(NotImplementedError, match="gang"):
-            hp.process(factory, ev)
-
-
-def test_preemption_eligible_eval_raises(monkeypatch):
-    """A preemption-eligible eval is a later slice too: the dense
-    scheduler raises instead of quietly leaving its asks unplaced."""
-    import nomad_tpu_torch.migrate as port_migrate
-
-    h = build_reference_cluster(32, 41)
-    job = two_group_job((6, 6), job_id="urgent")
-    h.state.upsert_job(h.next_index(), job)
-    hp = carry_over(h)
-    monkeypatch.setattr(port_migrate, "preemption_eligible",
-                        lambda priority: True)
-    ev = new_eval(h.state.job_by_id(job.id), consts.EVAL_TRIGGER_JOB_REGISTER)
-    with pytest.raises(NotImplementedError, match="preemption"):
-        hp.process("service-gpu", port_eval(ev))

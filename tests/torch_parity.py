@@ -125,3 +125,21 @@ def failed_view(ev):
     return {name: (m.nodes_evaluated, m.nodes_filtered, m.nodes_exhausted,
                    m.coalesced_failures, dict(m.nodes_available))
             for name, m in (ev.failed_tg_allocs or {}).items()}
+
+
+def preemptions_view(plan):
+    """{node id: [victim alloc ids, in staging order]} of a plan's
+    preemption leg (victims are carried-over allocs: same ids in both
+    packages)."""
+    return {node: [a.id for a in victims]
+            for node, victims in plan.node_preemptions.items()}
+
+
+def gang_view(plan):
+    """{gang key: [member alloc names, in staging order]} of a plan's
+    gang leg (new allocs get fresh ids in each package, so members are
+    named)."""
+    names = {a.id: a.name for allocs in plan.node_allocation.values()
+             for a in allocs}
+    return {key: [names[i] for i in ids]
+            for key, ids in plan.gang_groups.items()}
