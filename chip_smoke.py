@@ -75,7 +75,18 @@ Phases (any failure exits non-zero and prints no result):
    asks (choices, victim counts, the carry and the victim mask equal);
    K7 on phase 6's own calls: the free gang (K = 1,024, g_pad = 256),
    the ici slice (K = 64, g_pad = 1,024) and the spread without meta
-   (K = 512, g_pad = 10,240).
+   (K = 512, g_pad = 10,240); K8a and K8b on phase 8's own calls (the
+   512 + 512 eval, B = 1 x K = 1,024: the batcher pads no registered
+   kernel's batch, and all 64 evals of the convex storm, K = 8 under
+   seq; K8a's full launch gives the path's pref bit for bit; K8b fed
+   the plain relaxation's pref: choices and carry equal) and K9 on the
+   four defrag solves (K = 512 x N = 10,240 cold and warm, and over
+   node classes). K8a and K9 outputs are held to RELAX_TOLS: logits
+   within 1e-4 relative to max(1, |logit|), x within 1e-3 of its row's
+   largest entry, pref within 1e-3; or, where float32 rounding moves
+   the plain version itself (the relaxation can be chaotic), within
+   10x the plain version's own distance from its float64 run, a bound
+   that must stay under 0.1.
    With median CUDA-event times, the plain version's time (fewer runs
    for the slow plain scans: the count is in each record), a library
    call's time where one PyTorch call computes the same function, and
@@ -84,7 +95,23 @@ Phases (any failure exits non-zero and prints no result):
    the scans also the measured time of their chain of block-wide
    argmax rounds alone.
 
-Every path of phases 3 to 6 runs with the launch counts set to 0
+8. The convex kernel and the defrag solve (they run before phase 7's
+   holds, which use their recorded calls): (a) config 4's job and the
+   512 + 512 job through ``service-convex-gpu`` on phase 3's cluster,
+   each placed as the host oracle places it and checked as phase 3's,
+   with a greedy arm (``service-greedy-gpu``, nothing committed) on the
+   same state; (e) the quality board's fragmentation and bin-pack
+   medians of both arms; (b) a convex storm: 64 evals of config 4's job
+   through ``place_cohort`` with pre_resolve on phase 4's cluster (K8
+   eval by eval on one stream), 0 conflicts, all placed; (c) the oracle
+   differential rig on the card: convex, greedy, gangs, defrag waves;
+   (d) ``compute_defrag_plan`` at full width on a fragmented layout of
+   10,000 nodes (phase 3's cluster has nothing to move): cold and warm
+   at K = 512 x N = 10,240, then over node classes; fragmentation never
+   rises; the moves become wave evals through ``service-gpu`` and every
+   plan passes ``judge_migration_plan``.
+
+Every path of phases 3 to 6 and 8 runs with the launch counts set to 0
 just before it and read just after, and fails if a kernel of that path
 was never launched.
 
@@ -371,7 +398,7 @@ def run_main_path(seed, torch):
     total_s = sum(lat_ms) / 1000.0
     print(f"main path: {len(lat_ms)} evals, {len(lat_ms) / total_s:.2f} "
           f"evals/s, per-eval ms {[round(x, 3) for x in lat_ms]}")
-    return counts, lat_ms
+    return counts, lat_ms, h
 
 
 def dispatch_us(stats):
@@ -415,13 +442,13 @@ def tg_cycle_of(job):
             for _ in range(tg.count)]
 
 
-def placement_config(job, matrix, pre_resolve):
+def placement_config(job, matrix, pre_resolve, kernel=None):
     """The config the dense scheduler builds for ``job``
     (scheduler/tpu.py build_placement_config)."""
     from nomad_tpu_torch.scheduler.tpu import build_placement_config
 
     tgs = tg_cycle_of(job)
-    return build_placement_config(False, pre_resolve, tgs,
+    return build_placement_config(False, pre_resolve, kernel, tgs,
                                   matrix.build_asks(tgs))
 
 
@@ -820,7 +847,7 @@ def run_storm(seed, torch, total):
                   f"{err:.3g})")
     finally:
         storm.close()
-    return figures
+    return figures, h
 
 
 def check_placed(label, results, placed, expect):
@@ -1860,6 +1887,478 @@ def bench_new_kernels(torch, np, seed):
     return out
 
 
+# ---------------------------------------------------------------- convex
+
+CONVEX_STORM_BATCH = 64
+DEFRAG_MOVES = 8
+# K8a / K9 against their plain versions (tests/test_torch_cuda.py
+# assert_relax_agrees): logits relative to max(1, |logit|), x relative
+# to its row's largest entry (a row sums to 1 over N nodes, so at N =
+# 10,240 an absolute tolerance would pass a zero), pref absolute (its
+# terms are already over their maxima). Past CHAOS_CAP from float64 a
+# comparison holds nothing.
+RELAX_TOLS = {"logits": 1e-4, "x": 1e-3, "pref": 1e-3}
+CHAOS_CAP = 0.1
+
+
+def build_fragmented_cluster(harness, n_nodes):
+    """The defrag phase's cluster, tests/test_defrag.py's fragmented
+    layout at full width: nodes of 1000 CPU / 1000 MB over dc1/dc2;
+    two in five hold one 600/600 alloc of job "dfbig", two in five two
+    300/300 allocs (jobs "dfs0", "dfs1"), one in five is empty. Every
+    occupied node keeps 400 free, which fits a 300 but strands against
+    a 600: consolidating the 300s is a strict fragmentation win. Job
+    counts, alloc names and job references are the scheduler's, so a
+    wave eval reconciles to the marked moves only."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Resources, consts
+
+    shapes = {"dfbig": 600, "dfs0": 300, "dfs1": 300}
+    jobs = {}
+    for jid, size in shapes.items():
+        job = mock.job()
+        job.id = job.name = jid
+        job.datacenters = ["dc1", "dc2"]
+        job.task_groups[0].count = 2 * n_nodes // 5
+        task = job.task_groups[0].tasks[0]
+        task.resources.cpu = task.resources.memory_mb = size
+        task.resources.networks = []
+        harness.state.upsert_job(harness.next_index(), job)
+        jobs[jid] = harness.state.job_by_id(jid)
+    slot = Counter()
+    allocs = []
+    for i in range(n_nodes):
+        node = mock.node()
+        node.datacenter = ("dc1", "dc2")[i % 2]
+        node.resources.cpu = node.resources.memory_mb = 1000
+        node.reserved = None
+        node.compute_class()
+        harness.state.upsert_node(harness.next_index(), node)
+        for jid in {0: ("dfbig",), 1: ("dfbig",), 2: ("dfs0", "dfs1"),
+                    3: ("dfs0", "dfs1")}.get(i % 5, ()):
+            job = jobs[jid]
+            a = mock.alloc()
+            a.job, a.job_id, a.node_id = job, jid, node.id
+            a.name = f"{jid}.{job.task_groups[0].name}[{slot[jid]}]"
+            a.task_group = job.task_groups[0].name
+            slot[jid] += 1
+            a.resources = None
+            a.shared_resources = None
+            a.task_resources = {job.task_groups[0].tasks[0].name: Resources(
+                cpu=shapes[jid], memory_mb=shapes[jid])}
+            a.desired_status = consts.ALLOC_DESIRED_RUN
+            a.client_status = consts.ALLOC_CLIENT_RUNNING
+            allocs.append(a)
+    harness.state.upsert_allocs(harness.next_index(), allocs)
+
+
+def run_convex(seed, torch, total, main_h, storm_h):
+    """Phase 8 (see the module docstring). Returns the recorded K8a,
+    K8b and K9 calls for phase 7's holds."""
+    import numpy as np
+
+    from nomad_tpu_torch.defrag import (
+        WarmState,
+        build_wave_evals,
+        compute_defrag_plan,
+    )
+    from nomad_tpu_torch.kernels import convex, quality
+    from nomad_tpu_torch.kernels.differential import (
+        DEFAULT_SEEDS,
+        judge_migration_plan,
+        run_defrag_differential,
+        run_differential,
+        run_gang_differential,
+    )
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+    from nomad_tpu_torch.structs import consts
+    from nomad_tpu_torch.structs.eval import new_eval
+
+    rec = {}
+    # ---- a. service-convex-gpu on the main path's cluster, beside a
+    # greedy arm on the same state (dry run) for the quality board.
+    h = main_h
+    board = quality.get_board()
+    board.reset()
+    steps = [("config 4 job (K = 8, ports + distinct_hosts)",
+              storm_job("convex-star"), 8),
+             ("512 + 512 two-group job (K = 1,024)",
+              two_group_job_id("convex-two", 512), 1024)]
+    for label, job, expect in steps:
+        h.state.upsert_job(h.next_index(), job)
+        ev = new_eval(h.state.job_by_id(job.id),
+                      consts.EVAL_TRIGGER_JOB_REGISTER)
+        existing = {a.id for a in h.state.allocs_by_job(job.id)}
+        host_n = host_oracle_count(h.state, ev, seed, existing)
+        arms = {"greedy": [], "convex": []}
+        # Dry runs on the same state, in turns (the first pays the base
+        # build): greedy, convex, convex, greedy.
+        for kernel in ("greedy", "convex", "convex", "greedy"):
+            planner = _DryRunPlanner()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_scheduler(f"service-{kernel}-gpu",
+                          logging.getLogger("smoke.ab"), h.state.snapshot(),
+                          planner, rng=random.Random(seed)).process_eval(
+                              ev.copy())
+            torch.cuda.synchronize()
+            placed = sum(len(new_allocs(p, existing)) for p in planner.plans)
+            check(placed == host_n, f"{label}: {kernel} arm placed {placed}")
+            arms[kernel].append(round((time.perf_counter() - t0) * 1000.0, 1))
+        print(f"eval {label}, dry runs on the same state (ms, in turns): "
+              f"greedy {arms['greedy']}, convex {arms['convex']}")
+        n_plans = len(h.plans)
+        with Recorder(convex, "relaxed_pref") as rel, \
+                Recorder(convex, "convex_round") as rnd:
+            share = device_share(torch, lambda: counted(
+                total, f"convex eval, {label}",
+                ("threefry_uniform", "convex_relax", "convex_round"),
+                lambda: h.process("service-convex-gpu", ev)),
+                f"convex eval, {label}")
+        check(len(h.plans) == n_plans + 1, f"{label}: no plan submitted")
+        plan = h.plans[-1]
+        fresh = new_allocs(plan, existing)
+        print(f"convex eval, {label}: placed {len(fresh)} (host oracle "
+              f"{host_n}), {share['profiled_wall_ms']:.1f} ms under the "
+              "profiler")
+        check(len(fresh) == host_n == expect,
+              f"{label}: convex placed {len(fresh)}, host {host_n}")
+        check(h.evals[-1].status == consts.EVAL_STATUS_COMPLETE,
+              f"{label}: eval status {h.evals[-1].status}")
+        check_placements(h.state, h.state.job_by_id(job.id), plan)
+        if expect == 8:
+            check(len({a.node_id for a in fresh}) == 8,
+                  f"{label}: distinct_hosts violated")
+        check(len(rel.calls) == len(rnd.calls) == 1,
+              f"{label}: {len(rel.calls)} relaxations")
+        rec[("eval", expect)] = (rel.calls[0], rnd.calls[0])
+    # ---- e. the quality board's medians, greedy and convex arms
+    medians = board.snapshot()["kernels"]
+    for kernel in ("greedy", "convex"):
+        q = medians.get(kernel)
+        check(q is not None and q["samples"] >= 4,
+              f"quality board: {kernel} arm {q}")
+        print(f"quality board, {kernel}: fragmentation median "
+              f"{q['fragmentation']}, binpack_score median "
+              f"{q['binpack_score']} ({q['samples']} evals)")
+    # ---- b. a convex storm under pre_resolve on the storm's cluster
+    storm = Storm(storm_h, get_batcher())
+    conv = lambda job, m: placement_config(job, m, True, "convex")  # noqa
+    try:
+        jobs = storm.jobs("convex", CONVEX_STORM_BATCH, storm_job)
+        with Recorder(convex, "relaxed_pref") as rel, \
+                Recorder(convex, "convex_round") as rnd:
+            rows, results, plans, lat, wall = counted(
+                total, "convex storm", (
+                    "threefry_uniform", "expand_overlay", "convex_relax",
+                    "convex_round_seq"),
+                lambda: storm.round(jobs, 130_000, conv))
+    finally:
+        storm.close()
+    placed = sum(len(a) for p in plans for a in p.node_allocation.values())
+    conflicted = conflicted_evals(rows, results)
+    print(f"convex storm: {CONVEX_STORM_BATCH} evals of config 4's job "
+          f"(pre_resolve) in {wall:.3f} s = "
+          f"{CONVEX_STORM_BATCH / wall:.2f} evals/s; per-eval p50 "
+          f"{np.percentile(lat, 50) * 1000:.2f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1000:.2f} ms; {placed} placed; "
+          f"conflicted evals: {conflicted}")
+    check_placed("convex storm", results, placed, CONVEX_STORM_BATCH * 8)
+    check(conflicted == 0, f"convex storm: {conflicted} conflicted evals")
+    check(len(rel.calls) == len(rnd.calls) == CONVEX_STORM_BATCH,
+          f"convex storm: {len(rel.calls)} relaxations")
+    rec["storm"] = list(zip(rel.calls, rnd.calls))
+    storm = Storm(storm_h, get_batcher())
+    try:
+        more = storm.jobs("convex-p", CONVEX_STORM_BATCH, storm_job)
+        device_share(torch, lambda: storm.round(more, 140_000, conv),
+                     "convex storm round (64 evals, pre_resolve on)")
+    finally:
+        storm.close()
+    # ---- c. the oracle differential rig on the card
+    for label, fn, names in (
+            ("convex", lambda: run_differential("convex"),
+             ("convex_relax", "convex_round")),
+            ("greedy", lambda: run_differential(
+                "greedy", list(DEFAULT_SEEDS)[:3]), ("threefry_uniform",)),
+            ("gangs", run_gang_differential, ("gang_scan",)),
+            ("defrag waves", run_defrag_differential, ("defrag_solve",))):
+        t0 = time.perf_counter()
+        report = counted(total, f"rig: {label}", names, fn)
+        print(f"rig, {label}: {report['cases']} cases, green "
+              f"{report['green']} ({time.perf_counter() - t0:.1f} s)")
+        check(report["green"], f"rig {label}: {report['violations'][:3]}")
+    # ---- d. defrag at full width. The main path's cluster has nothing
+    # to defragment (every node's free space fits every ask there), so
+    # this phase builds its own fragmented layout at the same width.
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    t0 = time.perf_counter()
+    frag_h = Harness(seed=seed + 8)
+    build_fragmented_cluster(frag_h, N_NODES)
+    print(f"defrag cluster: {N_NODES} nodes, {len(frag_h.state.allocs())} "
+          f"allocs, built in {time.perf_counter() - t0:.1f} s (host)")
+    warm = WarmState()
+    dcs = ["dc1", "dc2"]
+    plans = {}
+    with Recorder(convex, "defrag_solve") as sol:
+        for label, compress in (("cold", False), ("warm", False),
+                                ("compressed cold", None),
+                                ("compressed warm", None)):
+            plan = counted(
+                total, f"defrag solve, {label}", ("defrag_solve",),
+                lambda: compute_defrag_plan(
+                    frag_h.state.snapshot(), dcs, max_moves=DEFRAG_MOVES,
+                    min_gain=0.0, warm=warm, class_compress=compress))
+            plans[label] = plan
+            width = (f"{plan.classes} classes" if plan.compressed
+                     else f"{plan.n} nodes")
+            print(f"defrag {label}: K = {plan.k} over {width}, "
+                  f"{plan.movable} movable, warm {plan.warm} "
+                  f"({plan.carried} carried), {plan.candidates} candidates, "
+                  f"{len(plan.moves)} moves, fragmentation "
+                  f"{plan.frag_before:.6f} -> {plan.frag_after:.6f}, "
+                  f"round {plan.solve_ms:.1f} ms (host)")
+            check(plan.frag_after <= plan.frag_before,
+                  f"defrag {label}: fragmentation rose")
+            check(plan.warm == label.endswith("warm"),
+                  f"defrag {label}: warm {plan.warm}")
+    check(plans["cold"].k == 512 and plans["cold"].n == BENCH_N,
+          f"defrag cold: K = {plans['cold'].k}, N = {plans['cold'].n}")
+    check(plans["compressed cold"].compressed, "no compressed solve")
+    check(len(sol.calls) == 4, f"{len(sol.calls)} defrag solves")
+    rec["defrag"] = dict(zip(plans, sol.calls))
+    moves = plans["warm"].moves
+    snap = frag_h.state.snapshot()
+    evals = build_wave_evals(snap, moves)
+    judged = 0
+
+    def waves():
+        nonlocal judged
+        for ev in evals:
+            ev_snap = frag_h.state.snapshot()
+            seen = len(frag_h.plans)
+            frag_h.process("service-gpu", ev)
+            for wave_plan in frag_h.plans[seen:]:
+                bad = judge_migration_plan(ev_snap, wave_plan)
+                check(not bad, f"defrag wave plan: {bad[:3]}")
+                judged += 1
+
+    check(moves, "defrag found no move")
+    t0 = time.perf_counter()
+    # The wave evals' placements may take the host iterators (3 or fewer
+    # a job): no kernel is required here.
+    counted(total, "defrag waves", (), waves)
+    for mv in moves:
+        stored = frag_h.state.alloc_by_id(mv.alloc_id)
+        check(stored.desired_status in (consts.ALLOC_DESIRED_STOP,
+                                        consts.ALLOC_DESIRED_EVICT),
+              f"moved alloc {mv.alloc_id} not stopped")
+    print(f"defrag wave: {len(moves)} moves in {len(evals)} evals through "
+          f"service-gpu, {judged} plans judged by judge_migration_plan "
+          f"(clean) in {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def relax_err(got, want, kind):
+    """The largest error of a K8a / K9 output in RELAX_TOLS' terms."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    if kind == "logits":
+        err = err / want.abs().clamp(min=1.0)
+    elif kind == "x":
+        err = err / want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return err.max().item()
+
+
+def hold_outputs(label, got, plain, plain64, kinds):
+    """Each output within RELAX_TOLS of the plain version, or, where
+    float32 rounding moves the sums (a chaotic instance), no farther
+    from the float64 run (``plain64()``) than 10x the plain version's
+    own distance, a bound under CHAOS_CAP. Returns ({kind: error},
+    {kind: (the kernel's, the plain version's distance from float64)}
+    for the outputs held so)."""
+    errs, far, p64 = {}, {}, None
+    for g, p, kind in zip(got, plain, kinds):
+        errs[kind] = err = relax_err(g, p, kind)
+        if err <= RELAX_TOLS[kind]:
+            continue
+        p64 = p64 or plain64()
+        q = p64[kinds.index(kind)]
+        far[kind] = (relax_err(g, q, kind), relax_err(p, q, kind))
+        bound = 10 * far[kind][1] + 1e-5
+        check(bound < CHAOS_CAP and far[kind][0] <= bound,
+              f"{label}: {kind} error {err}, float64 distance "
+              f"{far[kind][0]}, bound {bound}")
+    return errs, far
+
+
+def _double(x):
+    """Float tensors, alone or in (named) tuples, as float64."""
+    if isinstance(x, tuple):
+        items = [_double(i) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if hasattr(x, "dtype") and x.dtype.is_floating_point:
+        return x.double()
+    return x
+
+
+def hold_relax(torch, label, call):
+    """K8a on a recorded ``relaxed_pref`` call: the full launch on the
+    call's inputs (logits, x and pref) gives the call's pref bit for
+    bit and agrees with the plain version (hold_outputs). Returns
+    (hold_outputs' two dicts, the largest absolute error of x and
+    pref, the plain version's pref)."""
+    from nomad_tpu_torch.kernels import convex
+
+    args = cloned(call.inputs)
+    got = convex.relaxed_assignment(*cloned(call.inputs))
+    check(torch.equal(got[2], call.out),
+          f"{label}: the full launch's pref differs from the path's")
+    plain = convex.relaxed_assignment_plain(*args)
+    errs, far = hold_outputs(
+        label, got, plain,
+        lambda: convex.relaxed_assignment_plain(*_double(args)),
+        ("logits", "x", "pref"))
+    abs_err = max((g - p).abs().max().item()
+                  for g, p in zip(got[1:], plain[1:]))
+    return (errs, far), abs_err, plain[2]
+
+
+def hold_round(torch, label, call, pref):
+    """K8b on a recorded call, fed the plain relaxation's pref, against
+    its plain version fed the same: choices and carry equal, scores
+    within SCORE_TOL. Returns (score error, the call's inputs with that
+    pref)."""
+    from nomad_tpu_torch.kernels import convex
+
+    args = list(cloned(call.inputs))
+    args[9] = pref
+    k_args, p_args = cloned(tuple(args)), cloned(tuple(args))
+    out_k = convex.convex_round(*k_args)
+    out_p = convex.convex_round_plain(*p_args)
+    err = check_scan(torch, label, (*out_k, k_args[4]), (*out_p, p_args[4]))
+    return err, tuple(args)
+
+
+def bench_convex(torch, np, rec):
+    """Phase 7's holds and times for K8a, K8b and K9 on phase 8's own
+    calls: the 512 + 512 eval (K = 1,024, N = 10,240), the convex storm
+    (64 evals of K = 8 under seq, all held, the first timed), and the
+    defrag solves (cold and warm at K = 512 x N = 10,240, and at the
+    compressed width)."""
+    from nomad_tpu_torch.kernels import convex
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def relax_bytes(b, n, g, k, outputs):
+        # Node rows, the carry, the counts and feasibility, every ask,
+        # read once; ``outputs`` [B,K,N] f32 arrays written once.
+        return (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
+                + b * k * ASK_BYTES + b * (1 + g) + outputs * b * k * n * 4)
+
+    def relax_flops(b, n, k, iters):
+        # A prologue of ~40 flops a pair (two pow), then per iteration
+        # ~55 a pair (two exp, the six contractions and the gradient).
+        return b * k * n * (40 + 55 * iters)
+
+    # ---- K8a and K8b on the K = 1,024 eval and the storm
+    for key, calls, name_round in (
+            ("eval", [rec[("eval", 1024)]], "convex_round"),
+            ("storm", rec["storm"], "convex_round_seq")):
+        errs, kinds, far, rerrs = [], {}, {}, []
+        held = []
+        for rel_call, rnd_call in calls:
+            (kind_errs, kind_far), err, pref = hold_relax(
+                torch, f"K8a {key}", rel_call)
+            rerr, args = hold_round(torch, f"K8b {key}", rnd_call, pref)
+            errs.append(err)
+            for kind, e in kind_errs.items():
+                kinds[kind] = max(kinds.get(kind, 0.0), e)
+            for kind, pair in kind_far.items():
+                far[kind] = max(far.get(kind, pair), pair)
+            rerrs.append(rerr)
+            held.append(args)
+        rel_call, rnd_call = calls[0]
+        static = rel_call.inputs[:4]
+        feas = rel_call.inputs[5]
+        b, n, g = feas.shape
+        k = rel_call.inputs[6].resources.shape[1]
+        print(f"K8a ({key}, B={b}, K={k}, N={n}): {len(calls)} call(s) held, "
+              f"max x / pref absolute error {max(errs):.3g}, in "
+              f"RELAX_TOLS' terms {kinds}; held by the float64 run "
+              f"(kernel's, plain's distance) {far}; K8b: choices and "
+              f"carry equal, max score error {max(rerrs):.3g}")
+        box = {}
+        ms = time_cuda(torch, lambda: convex.relaxed_pref(*box["a"]),
+                       RUNS, setup=lambda: box.update(
+                           a=cloned(rel_call.inputs)))
+        plain_ms = time_cuda(
+            torch, lambda: convex.relaxed_assignment_plain(*box["a"]), 3,
+            warmup=1, setup=lambda: box.update(a=cloned(rel_call.inputs)))
+        it = convex.SOLVE_ITERS
+        bytes_ = relax_bytes(b, n, g, k, 1)
+        out.setdefault("convex_relax", {})[(key, k)] = dict(
+            max_abs_err=max(errs), errs=kinds, float64=far, ms=ms,
+            plain_ms=plain_ms,
+            **bound(bytes_, relax_flops(b, n, k, it) / FP32_FLOPS),
+            library_ms=None,
+            pass_bound_ms=it * 3 * b * k * n * 4 / HBM_BYTES_S * 1000.0,
+            calls_held=len(calls))
+        args = held[0]
+        ms = time_cuda(torch, lambda: convex.convex_round(*box["a"]), RUNS,
+                       setup=lambda: box.update(a=cloned(args)))
+        plain_ms = time_cuda(
+            torch, lambda: convex.convex_round_plain(*box["a"]),
+            1 if k > 64 else 3, warmup=1,
+            setup=lambda: box.update(a=cloned(args)))
+        chain = chain_ms(torch, k, dev)
+        ch = rnd_call.out[0]
+        rows, cells = rows_written(torch, ch, args[6].tg_index, n, g)
+        bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
+                  + b * k * (ASK_BYTES + 8) + b * (1 + g)
+                  + 2 * b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
+        flops = b * k * n * (60 + 25)  # K1's step + bias and strand term
+        out.setdefault(name_round, {})[(key, k)] = dict(
+            max_abs_err=max(rerrs), ms=ms, plain_ms=plain_ms,
+            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            library_ms=None, chain_ms=chain, calls_held=len(calls))
+        torch.cuda.empty_cache()
+    # ---- K9 on the defrag rounds' own calls
+    for label, call in rec["defrag"].items():
+        args = cloned(call.inputs)
+        plain = convex.defrag_solve_plain(*args)
+        kind_errs, far = hold_outputs(
+            f"K9 {label}", call.out, plain,
+            lambda: convex.defrag_solve_plain(*_double(args)),
+            ("logits", "x"))
+        err = (call.out[1] - plain[1]).abs().max().item()
+        k, w = args[0].shape
+        iters = args[-1]
+        print(f"K9 {label} (K={k}, W={w}, {iters} iterations): x absolute "
+              f"error {err:.3g}; logits relative error "
+              f"{kind_errs['logits']:.3g}, x over its row maximum "
+              f"{kind_errs['x']:.3g}; held by the float64 run {far}")
+        box = {}
+        ms = time_cuda(torch, lambda: convex.defrag_solve(*box["a"]), RUNS,
+                       setup=lambda: box.update(a=cloned(call.inputs)))
+        plain_ms = time_cuda(
+            torch, lambda: convex.defrag_solve_plain(*box["a"]), 3, warmup=1,
+            setup=lambda: box.update(a=cloned(call.inputs)))
+        # logits0 and the W rows and asks read once; logits and x out.
+        bytes_ = k * w * 4 + w * (16 * 3 + 4 * 3 + 1) + k * 29 + 2 * k * w * 4
+        out.setdefault("defrag_solve", {})[(label, k, w)] = dict(
+            max_abs_err=err, errs=kind_errs, float64=far, ms=ms,
+            plain_ms=plain_ms,
+            **bound(bytes_, k * w * (40 + 55 * iters) / FP32_FLOPS),
+            library_ms=None,
+            pass_bound_ms=iters * 3 * k * w * 4 / HBM_BYTES_S * 1000.0)
+        torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "threefry_uniform": ("nomad_tpu_torch/csrc/threefry.cu",
                          "nomad_tpu/ops/binpack.py:384"),
@@ -1883,6 +2382,14 @@ REPLACES = {
                      "nomad_tpu/ops/preempt.py:85"),
     "gang_scan": ("nomad_tpu_torch/csrc/gang_scan.cu",
                   "nomad_tpu/ops/gang.py:150"),
+    "convex_relax": ("nomad_tpu_torch/csrc/convex_relax.cu",
+                     "nomad_tpu/kernels/convex.py:136"),
+    "convex_round": ("nomad_tpu_torch/csrc/convex_round.cu",
+                     "nomad_tpu/kernels/convex.py:224"),
+    "convex_round_seq": ("nomad_tpu_torch/csrc/convex_round.cu",
+                         "nomad_tpu/ops/binpack.py:461"),
+    "defrag_solve": ("nomad_tpu_torch/csrc/convex_relax.cu",
+                     "nomad_tpu/defrag/solver.py:213"),
 }
 # The shape each kernel's JSON record leads with (the others ride
 # along under "shapes").
@@ -1890,7 +2397,10 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "expand_overlay": 1, "base_delta": 256,
            "greedy_scan_seq": (4, 1024), "uniform_topk_seq": 64,
            "greedy_scan_stacked": 4, "uniform_topk_stacked": 4,
-           "preempt_scan": 1024, "gang_scan": (1024, 256)}
+           "preempt_scan": 1024, "gang_scan": (1024, 256),
+           "convex_relax": ("eval", 1024), "convex_round": ("eval", 1024),
+           "convex_round_seq": ("storm", 8),
+           "defrag_solve": ("cold", 512, BENCH_N)}
 
 
 def main(argv=None) -> int:
@@ -1937,15 +2447,18 @@ def main(argv=None) -> int:
                     print("  " + line.rstrip())
 
         total = Counter()
-        counts, _lat_ms = run_main_path(args.seed, torch)
+        counts, _lat_ms, main_h = run_main_path(args.seed, torch)
         total.update(counts)
-        storm = run_storm(args.seed, torch, total)
+        storm, storm_h = run_storm(args.seed, torch, total)
         print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
         k6 = run_preemption(args.seed, torch, total)
         gangs = run_gangs(args.seed, torch, total)
+        convex_calls = run_convex(args.seed, torch, total, main_h, storm_h)
+        del main_h, storm_h
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))
+        results.update(bench_convex(torch, np, convex_calls))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

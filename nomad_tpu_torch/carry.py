@@ -6,7 +6,9 @@ state as the JAX package produces it — plain dicts
 (``StateStore.persist()``, whose records are ``utils.codec.to_dict``
 output) and host numpy arrays (``NodeState``, ``Asks``,
 ``CompactOverlay``, ``VictimState``, ``GangState``) — and rebuild it
-in the port, so the same inputs can go through both packages.
+in the port, so the same inputs can go through both packages. The
+defrag solver's warm start crosses the same way: the carried iterate
+is a key and a dict of numpy logits rows.
 
 Nothing here imports the JAX package: the caller hands over plain data.
 """
@@ -62,3 +64,15 @@ def gang_state_from_numpy(state, device) -> GangState:
     """A GangState of host numpy arrays (the JAX package's
     make_gang_state output) as the port's tensors."""
     return _tensors(GangState, state, device)
+
+
+def warm_state_from_numpy(key, logits: Mapping[str, np.ndarray]):
+    """The defrag solver's WarmState from the JAX package's carried
+    iterate (its WarmState ``key`` and ``logits`` {alloc id: [W] f32}),
+    so both solvers can start a warm round from the same logits."""
+    from .defrag.solver import WarmState
+
+    warm = WarmState()
+    warm.store(key, {alloc_id: np.array(row, np.float32, copy=True)
+                     for alloc_id, row in logits.items()})
+    return warm

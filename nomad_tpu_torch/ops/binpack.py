@@ -20,9 +20,17 @@ The batch axis is written out: every program here takes a leading B
   claimed; job_count/tg_count/feasible stay per eval (its own job);
 - stacked full states (``batched_placement_program``): a per-eval base.
 
-Five kernels carry the path, each a wrapper that launches a CUDA kernel
-(csrc/) for CUDA tensors and runs its plain PyTorch version, in this
-module or ops/prng.py, for CPU tensors:
+Every layout dispatches on ``PlacementConfig.kernel`` through the
+kernel registry (nomad_tpu_torch/kernels): ``greedy`` is the native
+scan of this module (``greedy_placement_program``), any other name
+resolves to its registered program (``convex``: kernels/convex.py) and
+runs in the same place with the same arguments, as the JAX package's
+``placement_program`` does. The scheduler factories ``service-<k>-gpu``
+pin a kernel k per scheduler (scheduler/__init__.py).
+
+Five kernels carry the greedy path, each a wrapper that launches a CUDA
+kernel (csrc/) for CUDA tensors and runs its plain PyTorch version, in
+this module or ops/prng.py, for CPU tensors:
 
 - K0 ``prng.threefry_uniform``: the tie-break noise;
 - K1 ``greedy_scan``: the K-step scan (``placement_program``), in
@@ -70,7 +78,9 @@ class PlacementConfig(NamedTuple):
     # group under distinct-hosts, so the K steps collapse to one scoring
     # pass + top-k (uniform_dh_flag decides it host-side).
     uniform_dh: bool = False
-    # Placement kernel: only the greedy scan is ported in this slice.
+    # Placement kernel: "greedy" is this module's native scan; any other
+    # name resolves through the kernel registry (nomad_tpu_torch/kernels)
+    # and joins the batcher's shape key with the rest of the config.
     kernel: str = "greedy"
 
 
@@ -323,7 +333,8 @@ def _check_scan_args(capacity, sched_capacity, bw_avail, node_ok, carry,
     The static node rows (capacity, sched_capacity, bw_avail, node_ok)
     are the shared [N,...] base or, stacked, a [B,N,...] base per eval.
     The carried util/bw_used/ports_free are [B,N,...] per-eval copies
-    or, with ``seq``, one shared [N,...] copy."""
+    or, with ``seq``, one shared [N,...] copy. A ``noise`` of None is
+    not checked (the relaxation takes none)."""
     util, bw_used, ports_free, job_count, tg_count = carry
     b, n, g = feasible.shape
     k = asks.resources.shape[1]
@@ -353,7 +364,8 @@ def _check_scan_args(capacity, sched_capacity, bw_avail, node_ok, carry,
             ("asks.job_distinct_hosts", asks.job_distinct_hosts, u8, (b,)),
             ("asks.tg_distinct_hosts", asks.tg_distinct_hosts, u8, (b, g)),
             ("noise", noise, f32, (b, *noise_shape))):
-        _check(name, t, dtype, shape, dev)
+        if t is not None:
+            _check(name, t, dtype, shape, dev)
     return b, n, g, k, stacked
 
 
@@ -363,11 +375,12 @@ def _launch_name(base, seq, stacked):
 
 
 def _in_order(fn, capacity, sched_capacity, bw_avail, node_ok, carry,
-              feasible, asks, noise, penalty):
+              feasible, asks, noise, penalty, *per_eval):
     """Run the plain scan ``fn`` over the B evals one at a time, in
     order, on one shared copy of util/bw_used/ports_free: each eval
     gets [1, ...] views of it, so its row updates land in the shared
-    tensors the next eval reads."""
+    tensors the next eval reads. ``per_eval`` tensors (a leading B) are
+    sliced like the noise and passed after the penalty."""
     util, bw_used, ports_free, job_count, tg_count = carry
     outs = []
     for i in range(feasible.shape[0]):
@@ -376,7 +389,7 @@ def _in_order(fn, capacity, sched_capacity, bw_avail, node_ok, carry,
                job_count[one], tg_count[one])
         outs.append(fn(capacity, sched_capacity, bw_avail, node_ok, own,
                        feasible[one], Asks(*(x[one] for x in asks)),
-                       noise[one], penalty))
+                       noise[one], penalty, *(x[one] for x in per_eval)))
     return (torch.cat([o[0] for o in outs]),
             torch.cat([o[1] for o in outs]))
 
@@ -661,37 +674,35 @@ def expand_overlay(class_ids, overlays: CompactOverlay, n: int):
 # ------------------------------------------------------------ programs
 
 
-def _check_config(config: PlacementConfig) -> None:
-    if config.kernel != "greedy":
-        raise NotImplementedError(
-            f"placement kernel {config.kernel!r}: only the greedy scan is "
-            "ported (ROADMAP Queue A, kernel subsystem)")
-
-
-def _placement_batch(capacity, sched_capacity, util, bw_avail, bw_used,
-                     ports_free, node_ok, job_count, tg_count, feasible,
-                     asks: Asks, keys, config: PlacementConfig,
-                     seq: bool = False):
-    """B evals: the base's carried arrays are cloned into scratch the
-    kernels update in place (one copy per eval, or with ``seq`` one
-    shared copy the evals claim from in order), the noise is drawn
-    (K0), and K1 or K2 runs. Returns (choices [B,K], scores [B,K],
-    carry), carry = (util, bw_used, ports_free, job_count, tg_count)
-    as the scan left it."""
-    _check_config(config)
-    b, n, _g = feasible.shape
-    k = asks.resources.shape[1]
-    # Fresh copies: the kernels update the carry in place, and the
-    # inputs (a cached device base, the caller's state) must stay as
-    # they were.
+def fresh_carry(util, bw_used, ports_free, job_count, tg_count, b: int,
+                seq: bool):
+    """The carry a batch's scans update in place: copies of the base's
+    claimed capacity (one per eval, or with ``seq`` one shared copy the
+    evals claim from in order) and of the per-eval counts. The inputs
+    (a cached device base, the caller's state) stay as they were."""
+    n = util.shape[-2]
     dense = torch.contiguous_format
     if seq:
         claimed = (util, bw_used, ports_free)
     else:
         claimed = (util.expand(b, n, 4), bw_used.expand(b, n),
                    ports_free.expand(b, n))
-    carry = tuple(x.clone(memory_format=dense)
-                  for x in (*claimed, job_count, tg_count))
+    return tuple(x.clone(memory_format=dense)
+                 for x in (*claimed, job_count, tg_count))
+
+
+def greedy_placement_program(capacity, sched_capacity, util, bw_avail,
+                             bw_used, ports_free, node_ok, job_count,
+                             tg_count, feasible, asks: Asks, keys,
+                             config: PlacementConfig, seq: bool = False):
+    """The native ``greedy`` kernel over B evals: the carry is copied
+    (``fresh_carry``), the noise is drawn (K0), and K1 or K2 runs.
+    Returns (choices [B,K], scores [B,K], carry), carry = (util,
+    bw_used, ports_free, job_count, tg_count) as the scan left it."""
+    b, n, _g = feasible.shape
+    k = asks.resources.shape[1]
+    carry = fresh_carry(util, bw_used, ports_free, job_count, tg_count, b,
+                        seq)
     if config.uniform_dh:
         noise = threefry_uniform(keys, (n,), 0.0, config.noise_scale)
         scan = uniform_topk
@@ -703,6 +714,25 @@ def _placement_batch(capacity, sched_capacity, util, bw_avail, bw_used,
         feasible.contiguous(), asks, noise, config.anti_affinity_penalty,
         seq)
     return choices, scores, carry
+
+
+def _placement_batch(capacity, sched_capacity, util, bw_avail, bw_used,
+                     ports_free, node_ok, job_count, tg_count, feasible,
+                     asks: Asks, keys, config: PlacementConfig,
+                     seq: bool = False):
+    """B evals through the kernel ``config.kernel`` names (the JAX
+    package's registry dispatch in placement_program): the native
+    greedy program, or the registered one. Every batch layout comes
+    through here."""
+    if config.kernel == "greedy":
+        program = greedy_placement_program
+    else:
+        from ..kernels import kernel_program
+
+        program = kernel_program(config.kernel)
+    return program(capacity, sched_capacity, util, bw_avail, bw_used,
+                   ports_free, node_ok, job_count, tg_count, feasible, asks,
+                   keys, config, seq)
 
 
 def _unsqueeze(t) -> torch.Tensor:

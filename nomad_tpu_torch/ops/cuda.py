@@ -34,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "expand_overlay.cu", "base_delta.cu", "preempt_scan.cu",
-           "gang_scan.cu")
+           "gang_scan.cu", "convex_relax.cu", "convex_round.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
@@ -58,6 +58,9 @@ SIGNATURES: Dict[str, List] = {
     "nt_argmax_chain": [_I, _P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
     "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
+    "nt_mirror_descent": [_I] * 3 + [_P] * 14,
+    "nt_convex_relax": [_I] * 6 + [_F, _I, _I] + [_P] * 29,
+    "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,12 @@ Reference: scheduler/scheduler.go:13 (BuiltinSchedulers), :21
 
 The port's registry: "service" and "batch" are the host schedulers
 (the oracle), "service-gpu" and "batch-gpu" the dense factories whose
-placements run on the device (scheduler/tpu.py). The dense factories
-are registered lazily so importing the scheduler package loads no
-device code.
+placements run on the device (scheduler/tpu.py) with the process-global
+active placement kernel (nomad_tpu_torch/kernels ``configure``), and,
+for every registered kernel k, "service-k-gpu" and "batch-k-gpu" pinned
+to that kernel (the seam the differential rig selects kernels through).
+The dense factories are registered lazily so importing the scheduler
+package loads no device code.
 """
 
 from __future__ import annotations
@@ -74,14 +77,24 @@ register_scheduler(
 
 
 def _register_gpu_factories() -> None:
+    """The dense factories: unpinned, and one pinned pair per registered
+    kernel (the JAX package's service-<k>-tpu, with the -gpu suffix)."""
+    from ..kernels import kernel_names
     from .tpu import BatchedGPUScheduler
 
-    def factory(logger, state, planner, rng=None, *, batch):
-        return BatchedGPUScheduler(logger, state, planner, batch=batch,
-                                   rng=rng)
+    def pinned(kernel):
+        def factory(logger, state, planner, rng=None, *, batch):
+            return BatchedGPUScheduler(logger, state, planner, batch=batch,
+                                       rng=rng, kernel=kernel)
+        return factory
 
-    register_scheduler("service-gpu", functools.partial(factory, batch=False))
-    register_scheduler("batch-gpu", functools.partial(factory, batch=True))
+    for kernel in (None, *kernel_names()):
+        infix = "" if kernel is None else f"{kernel}-"
+        factory = pinned(kernel)
+        register_scheduler(f"service-{infix}gpu",
+                           functools.partial(factory, batch=False))
+        register_scheduler(f"batch-{infix}gpu",
+                           functools.partial(factory, batch=True))
 
 
 __all__ = [

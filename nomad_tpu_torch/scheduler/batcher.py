@@ -467,10 +467,14 @@ class PlacementBatcher:
 
         # Pad the batch axis up a ladder bucket: padding rows repeat the
         # last request (under pre_resolve they scan after the real rows)
-        # and their outputs are dropped.
+        # and their outputs are dropped. Only the native greedy scan is
+        # padded, and it runs one block per eval, so its padding rows
+        # cost no time; a registered kernel's work grows with every row
+        # (the convex relaxation is [B,K,N]), so it gets the live rows.
         n_live = len(batch)
-        padded = batch + [batch[-1]] * (_pad_batch(n_live, self.max_batch)
-                                        - n_live)
+        n_rows = (_pad_batch(n_live, self.max_batch)
+                  if config.kernel == "greedy" else n_live)
+        padded = batch + [batch[-1]] * (n_rows - n_live)
         keys = np.stack([np.asarray(r.key, np.uint32) for r in padded]) \
             .astype(np.int64)
         host = [keys, *_stack([r.asks for r in padded])]

@@ -32,6 +32,67 @@ def seed_harness_cluster(harness: "Harness", nodes=(), allocs=(),
             harness.next_index(), node_id, True)
 
 
+def seed_consolidation_cluster(harness: "Harness", n_nodes: int,
+                               factory: str = "service",
+                               big_prefix: str = "cbig",
+                               small_prefix: str = "csmall"):
+    """The shared fragmentation fixture of the defrag rig: a fleet of
+    1000/1000-capacity nodes running a mixed service workload — 600/600
+    'big' jobs and 300/300 'small' jobs, placed through the real
+    scheduler ``factory`` — whose churn-stopped smalls leave the
+    sub-ask remainders consolidation exists for. Returns (nodes, jobs)."""
+    from .. import mock
+    from ..structs.eval import new_eval
+
+    nodes = []
+    for _ in range(n_nodes):
+        node = mock.node()
+        node.resources.cpu = 1000
+        node.resources.memory_mb = 1000
+        node.reserved = None
+        node.compute_class()
+        nodes.append(node)
+
+    def mkjob(jid, count, cpu, mem):
+        job = mock.job()
+        job.id = jid
+        job.task_groups[0].count = count
+        task = job.task_groups[0].tasks[0]
+        task.resources.cpu = cpu
+        task.resources.memory_mb = mem
+        task.resources.networks = []
+        return job
+
+    jobs = [mkjob(f"{big_prefix}{j}", 4, 600, 600)
+            for j in range(n_nodes // 8)]
+    jobs += [mkjob(f"{small_prefix}{j}", 6, 300, 300)
+             for j in range(n_nodes // 5)]
+    seed_harness_cluster(harness, nodes=nodes, jobs=jobs)
+    for job in jobs:
+        harness.process(factory, new_eval(
+            harness.state.job_by_id(job.id),
+            consts.EVAL_TRIGGER_JOB_REGISTER))
+    return nodes, jobs
+
+
+def churn_stop_small_allocs(harness: "Harness", rng, prob: float,
+                            small_prefix: str = "csmall"):
+    """One churn sweep over a seed_consolidation_cluster: each live
+    small-job alloc stops with probability ``prob`` (seeded ``rng``:
+    deterministic per seed), committed like a client update. Returns
+    the stopped allocs."""
+    stops = []
+    for a in sorted((a for a in harness.state.allocs()
+                     if not a.terminal_status()), key=lambda a: a.id):
+        if a.job_id.startswith(small_prefix) and rng.random() < prob:
+            upd = a.copy()
+            upd.desired_status = consts.ALLOC_DESIRED_STOP
+            upd.client_status = consts.ALLOC_CLIENT_COMPLETE
+            stops.append(upd)
+    seed_harness_cluster(harness, allocs=stops)
+    return stops
+
+
 class RejectPlan:
     """Planner that rejects every plan and forces a state refresh —
     exercises the refresh/retry loop."""

@@ -4,8 +4,10 @@ The counterpart of the JAX package's scheduler/tpu.py
 BatchedTPUScheduler: the host scheduler's control flow — the same
 reconciliation, blocked-eval and rolling semantics, the same plan
 shape — with computePlacements run as one dense program on the device
-(ops/binpack.py through scheduler/batcher.py), gang task groups as one
-all-K program each (ops/gang.py), and the asks a preemption-eligible
+(ops/binpack.py through scheduler/batcher.py, with the placement
+kernel the instance pins or the active one, nomad_tpu_torch/kernels;
+each committed plan scored on the quality board), gang task groups as
+one all-K program each (ops/gang.py), and the asks a preemption-eligible
 eval could not place as one place-or-preempt program
 (ops/preempt.py). In-place updates and sticky-disk preferences stay
 host-side; exact port numbers are assigned host-side on the chosen
@@ -19,7 +21,7 @@ stay as in the JAX package: sticky placements, and evals with at most
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -62,15 +64,19 @@ def _offer_networks(rng, missing: AllocTuple, node, net_indexes, matrix):
     return task_resources
 
 
-def build_placement_config(batch: bool, pre_resolve: bool, placements,
-                           ask_arrays):
-    """The PlacementConfig the dense scheduler hands the batcher."""
+def build_placement_config(batch: bool, pre_resolve: bool, kernel,
+                           placements, ask_arrays):
+    """The PlacementConfig the dense scheduler hands the batcher.
+    ``kernel`` pins the placement kernel; None takes the process-global
+    active one (kernels.configure)."""
+    from ..kernels import active_kernel
     from ..ops.binpack import PlacementConfig, uniform_dh_flag
     from .stack import (
         BATCH_JOB_ANTI_AFFINITY_PENALTY,
         SERVICE_JOB_ANTI_AFFINITY_PENALTY,
     )
 
+    kernel = kernel or active_kernel()
     return PlacementConfig(
         anti_affinity_penalty=(
             BATCH_JOB_ANTI_AFFINITY_PENALTY if batch
@@ -78,10 +84,39 @@ def build_placement_config(batch: bool, pre_resolve: bool, placements,
         pre_resolve=pre_resolve,
         # Uniform distinct-hosts shape: one TG scaled to count=K under
         # distinct-hosts collapses the K-step scan to one scoring pass
-        # + top-k (ops/binpack.py uniform_topk).
-        uniform_dh=uniform_dh_flag(placements, ask_arrays[5],
-                                   ask_arrays[6]),
+        # + top-k (ops/binpack.py uniform_topk). Greedy only: another
+        # kernel runs its own joint solve.
+        uniform_dh=(kernel == "greedy" and uniform_dh_flag(
+            placements, ask_arrays[5], ask_arrays[6])),
+        kernel=kernel,
     )
+
+
+def note_quality(logger, job, kernel, matrix, ask_res, committed) -> None:
+    """Quality board entry (kernels/quality.py) for one dense plan's
+    committed claims, (ask row, node row) pairs: the base utilization
+    plus those claims, scored on the fragmentation and bin-pack axes
+    under the kernel's name. Scoring never fails an eval."""
+    from ..kernels.quality import (
+        get_board,
+        quality_from_arrays,
+        reference_ask,
+    )
+
+    try:
+        if not get_board().should_sample(kernel):
+            return
+        util = np.asarray(matrix.util).copy()
+        if committed:
+            js = np.asarray([j for j, _r in committed])
+            rows = np.asarray([r for _j, r in committed])
+            np.add.at(util, rows, np.asarray(ask_res)[js])
+        q = quality_from_arrays(util, matrix.capacity, matrix.node_ok,
+                                reference_ask(job))
+        get_board().note_plan(kernel, q["fragmentation"],
+                              q["binpack_score"])
+    except Exception:  # noqa: BLE001 - scoring must never fail an eval
+        logger.warning("placement-quality scoring failed", exc_info=True)
 
 
 def _build_allocation(sched, missing: AllocTuple, node, task_resources,
@@ -112,14 +147,18 @@ class BatchedGPUScheduler(GenericScheduler):
 
     The device is resolved when the scheduler is made
     (``device.default_device()``): CUDA, or the CPU only when asked
-    for, else it raises."""
+    for, else it raises. ``kernel`` pins the placement kernel
+    (nomad_tpu_torch/kernels) for this instance, as the
+    ``service-<kernel>-gpu`` factories do; None defers to the
+    process-global active kernel."""
 
     def __init__(self, logger, state, planner, batch=False, rng=None,
-                 device=None):
+                 device=None, kernel=None):
         from ..device import default_device
 
         super().__init__(logger, state, planner, batch=batch, rng=rng)
         self.device = device if device is not None else default_device()
+        self.kernel = kernel
 
     def _inplace_update(self, updates):
         """Batched host-side in-place routing (scheduler/util.py
@@ -182,13 +221,16 @@ class BatchedGPUScheduler(GenericScheduler):
         asks = make_asks(*ask_arrays)
         config = build_placement_config(
             self.batch, bool(getattr(self.planner, "pre_resolve", False)),
-            placements, ask_arrays)
+            self.kernel, placements, ask_arrays)
         key = host_prng_key(self.rng.getrandbits(31))
         choices, scores = get_batcher(self.device).place(
             matrix, asks, key, config)
 
         # Host-side exact port assignment per chosen node, incremental.
         net_indexes: Dict[str, NetworkIndex] = {}
+        # Placements appended to the plan, (ask row, node row): the
+        # quality board scores committed claims only.
+        committed: List[Tuple[int, int]] = []
         # Asks the kernel could not place: candidates for the dense
         # preemption pass (eligible evals only) before they become
         # recorded failures.
@@ -227,7 +269,10 @@ class BatchedGPUScheduler(GenericScheduler):
 
             self.plan.append_alloc(_build_allocation(
                 self, missing, node, task_resources, metrics))
+            committed.append((j, choice))
 
+        note_quality(self.logger, self.job, config.kernel, matrix,
+                     ask_arrays[0], committed)
         if unplaced:
             self._preempt_placements(unplaced, tg_indices)
 

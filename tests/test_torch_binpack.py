@@ -289,14 +289,18 @@ def test_wrappers_check_their_arguments():
 
 
 def test_unported_options_raise():
-    """Only the greedy kernel is ported; pre_resolve is (and a lone
-    program ignores it, as placement_program_jit does)."""
+    """A kernel name the registry does not know raises; the registered
+    ones (greedy and convex) run (a lone program ignores pre_resolve,
+    as placement_program_jit does)."""
     state, asks, key = world(13, 128, 16)
     ts = carry.node_state_from_numpy(state, "cpu")
     ta = carry.asks_from_numpy(asks, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown placement kernel"):
         tb.placement_program(ts, ta, key,
-                             tb.PlacementConfig(10.0, kernel="convex"))
+                             tb.PlacementConfig(10.0, kernel="cvx"))
+    choices, _scores, _final = tb.placement_program(
+        ts, ta, key, tb.PlacementConfig(10.0, kernel="convex"))
+    assert choices.shape == ta.active.shape
 
 
 def test_batcher_lone_path_matches():

@@ -5,7 +5,8 @@ inactive asks, asks past the node count, a node bucket whose top-k
 sorts in global scratch, overlay rows padded with N, the sequential
 (pre_resolve) and stacked batch layouts of the scans, base deltas
 with padding rows, preemption where victims, ports and distinct_hosts
-bind, and every gang mode.
+bind, every gang mode, and the convex kernel's relaxation (placement
+and defrag modes, every batch layout) and rounding scan.
 
 Marked ``cuda``; without a CUDA card every test skips. On the card's
 machine, which need not have JAX (tests/conftest.py configures it):
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from nomad_tpu_torch.kernels import convex
 from nomad_tpu_torch.ops import binpack, cuda, gang, preempt, prng
 
 pytestmark = pytest.mark.cuda
@@ -518,3 +520,195 @@ def test_new_wrappers_count_their_launches(dev):
     after = cuda.launch_counts()
     assert after["preempt_scan"] == before.get("preempt_scan", 0) + 1
     assert after["gang_scan"] == before.get("gang_scan", 0) + 1
+
+
+# ------------------------------------------------------------ convex (K8, K9)
+
+# K8a / K9 outputs against their plain versions: logits relative to
+# max(1, |logit|) (tests/test_torch_convex.py); x relative to its row's
+# largest entry (a row sums to 1 over N nodes: at N = 10,240 every
+# entry is below 1e-3, so an absolute tolerance would pass a zero); pref
+# absolute (its terms are already over their maxima).
+RELAX_TOLS = {"logits": 1e-4, "x": 1e-3, "pref": 1e-3}
+# Past this distance from float64 a comparison holds nothing.
+CHAOS_CAP = 0.1
+
+
+def relax_err(got, want, kind):
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    if kind == "logits":
+        err = err / want.abs().clamp(min=1.0)
+    elif kind == "x":
+        err = err / want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return err.max().item()
+
+
+def assert_relax_agrees(got, plain, plain64, kinds):
+    """Each output within RELAX_TOLS of the plain version, or, where
+    float32 rounding moves the sums (an ill-conditioned, chaotic
+    instance: tests/test_torch_defrag.py), no farther from the float64
+    run than 10x the plain version's own distance, a bound that must
+    stay under CHAOS_CAP."""
+    for g, p, p64, kind in zip(got, plain, plain64, kinds):
+        err = relax_err(g, p, kind)
+        if err <= RELAX_TOLS[kind]:
+            continue
+        bound = 10 * relax_err(p, p64, kind) + 1e-5
+        assert bound < CHAOS_CAP, (kind, err, bound)
+        assert relax_err(g, p64, kind) <= bound, (kind, err, bound)
+
+
+def _double(x):
+    if isinstance(x, tuple):
+        items = [_double(i) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.double() if x.dtype == torch.float32 else x
+
+
+def relax_inputs(layout, n, k, g, b, seed, dev):
+    """scan_inputs in one of the relaxation's layouts: a carry per eval
+    ("independent"), one shared [N,...] carry ("shared", B = 1, as the
+    pre_resolve host loop calls it), or a base per eval ("stacked")."""
+    static, base, feasible, asks = scan_inputs(n, k, g, b, seed, dev)
+    if layout == "shared":
+        c = shared_carry(base)
+    else:
+        c = fresh(base, b, n)
+    if layout == "stacked":
+        static = tuple(x.expand(b, *x.shape).contiguous() for x in static)
+        static = (static[0] * 2, static[1] * 2, *static[2:])
+    return static, c, feasible, asks
+
+
+@pytest.mark.parametrize("layout,b,n,k,g", [
+    ("independent", 3, 300, 24, 2), ("shared", 1, 777, 40, 3),
+    ("stacked", 2, 500, 16, 2), ("independent", 1, 10240, 8, 2)])
+def test_convex_relax_matches_plain(dev, layout, b, n, k, g):
+    static, c, feasible, asks = relax_inputs(layout, n, k, g, b, n, dev)
+    before = tuple(x.clone() for x in c)
+    got = convex.relaxed_assignment(*static, c, feasible, asks, 10.0)
+    plain = convex.relaxed_assignment_plain(*static, c, feasible, asks, 10.0)
+    plain64 = convex.relaxed_assignment_plain(
+        *_double(static), _double(c), feasible, _double(asks), 10.0)
+    assert_relax_agrees(got, plain, plain64, ("logits", "x", "pref"))
+    # The program's launch, x staged in pref's buffer: the same bits.
+    assert torch.equal(
+        convex.relaxed_pref(*static, c, feasible, asks, 10.0), got[2])
+    for x, y in zip(c, before):
+        assert torch.equal(x, y)  # the relaxation only reads the carry
+    # Inactive asks and their rows of x: softmax rows still sum to 1.
+    assert torch.allclose(got[1].sum(-1), torch.ones_like(got[1][..., 0]),
+                          atol=1e-4)
+
+
+def test_mirror_descent_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    k, n = 24, 500
+    t = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).to(dev)
+    mask = np.where(rng.random((k, n)) < 0.8, 0.0, -1e30)
+    mask[0] = -1e30
+    lin = rng.random((k, n)) * 18
+    active = np.ones((k, 1))
+    active[-4:] = 0.0
+    args = [t(lin), t(lin), t(mask), t((rng.random((k, 4)) * 400 + 50)
+                                       * active),
+            t(rng.random(k) * 50 * active[:, 0]), t(2.0 * active[:, 0]),
+            t(rng.random((n, 4)) * 0.9), t(rng.random(n) * 0.5),
+            t(np.full((n, 4), 1000.0)), t(np.full(n, 500.0)),
+            t(np.full(n, 3.0)), t(active)]
+    got = convex.mirror_descent(*args, 12)
+    plain = convex.mirror_descent_plain(*args, 12)
+    plain64 = convex.mirror_descent_plain(*[a.double() for a in args], 12)
+    assert_relax_agrees(
+        [got, convex._softmax(got + args[2])],
+        [plain, convex._softmax(plain + args[2])],
+        [plain64, convex._softmax(plain64 + args[2].double())],
+        ("logits", "x"))
+
+
+@pytest.mark.parametrize("warm,k,w", [(False, 64, 700), (True, 64, 700),
+                                      (False, 16, 10240)])
+def test_defrag_solve_matches_plain(dev, warm, k, w):
+    rng = np.random.default_rng(w + warm)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    cap = np.tile(np.array([[4000, 8192, 100000, 150]], np.float32), (w, 1))
+    # Node 5 has no CPU and the only room for ask 0's memory, which asks
+    # no CPU: the defrag prologue's capacity[:, 0] > 0 alone keeps ask 0
+    # off it (its row then has no feasible node).
+    cap[5] = (0.0, 100000.0, 100000.0, 150.0)
+    active = np.ones(k, bool)
+    active[-3:] = False
+    ask = np.stack([rng.choice([50, 100], k), rng.choice([64, 128], k),
+                    np.zeros(k), np.zeros(k)], 1).astype(np.float32)
+    ask[0] = (0.0, 50000.0, 0.0, 0.0)
+    util = (cap * rng.random((w, 4)) * 0.5).astype(np.float32)
+    util[5] = 0.0
+    ok = rng.random(w) < 0.95
+    ok[5] = True
+    args = [t(rng.normal(0, 5, (k, w)).astype(np.float32)),
+            t(rng.random(k) < (0.4 if warm else 2.0)), t(util), t(cap),
+            t(cap), t(ok), t(np.full(w, 1000, np.float32)),
+            t(rng.integers(0, 500, w).astype(np.float32)),
+            t(rng.integers(0, 8, w).astype(np.float32)), t(ask),
+            t(np.zeros(k, np.float32)), t(np.zeros(k, np.float32)),
+            t(active)]
+    iters = 5 if warm else 24
+    got = convex.defrag_solve(*args, iters)
+    plain = convex.defrag_solve_plain(*args, iters)
+    plain64 = convex.defrag_solve_plain(*_double(tuple(args)), iters)
+    assert_relax_agrees(got, plain, plain64, ("logits", "x"))
+    assert got[1][-3:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("layout,b,n,k,g", [
+    ("independent", 3, 300, 48, 2), ("seq", 4, 777, 40, 3),
+    ("stacked", 2, 500, 64, 2), ("independent", 1, 10240, 128, 2),
+    ("tight", 3, 300, 48, 2)])
+def test_convex_round_matches_plain(dev, layout, b, n, k, g):
+    """K8b fed one pref: choices and all five carried tensors equal,
+    scores within 1e-4, with ports and distinct_hosts binding. "tight"
+    gives every node the same pref and 1 to 3 asks of CPU headroom, so
+    the strand term decides between nodes."""
+    static, base, feasible, asks = scan_inputs(n, k, g, b, n + 5, dev)
+    if layout == "tight":
+        rng = np.random.default_rng(n)
+        head = torch.from_numpy(rng.integers(8, 24, n) * 50.0).to(dev)
+        base = (base[0].clone(), *base[1:])
+        base[0][:, 0] = static[0][:, 0] - head.float()
+        asks = asks._replace(resources=torch.tensor(
+            [400.0, 256.0, 300.0, 0.0], device=dev).expand(b, k, 4)
+            .contiguous())
+    if layout == "stacked":
+        static = tuple(x.expand(b, *x.shape).contiguous() for x in static)
+    seq = layout == "seq"
+    noise = prng.threefry_uniform(torch.arange(2 * b, device=dev).view(b, 2),
+                                  (k, n), 0.0, 2.0)
+    pref = torch.rand((b, k, n), device=dev,
+                      generator=torch.Generator(dev).manual_seed(n))
+    if layout == "tight":
+        pref = torch.full_like(pref, 0.5)
+    runs = []
+    for fn in (convex.convex_round, convex.convex_round_plain):
+        c = shared_carry(base) if seq else fresh(base, b, n)
+        runs.append((*fn(*static, c, feasible, asks, noise, 10.0, pref,
+                         seq), c))
+    assert_scans_agree(*runs)
+    placed = runs[0][0] >= 0
+    assert placed.any()
+    assert ((base[2] >= 2) & (runs[0][2][2] < 2)).any()
+
+
+def test_convex_wrappers_count_their_launches(dev):
+    static, c, feasible, asks = relax_inputs("independent", 64, 4, 2, 1, 1,
+                                             dev)
+    before = cuda.launch_counts()
+    pref = convex.relaxed_assignment(*static, c, feasible, asks, 10.0)[2]
+    convex.relaxed_pref(*static, c, feasible, asks, 10.0)
+    convex.relaxed_assignment_plain(*static, c, feasible, asks, 10.0)
+    noise = torch.zeros((1, 4, 64), device=dev)
+    convex.convex_round(*static, c, feasible, asks, noise, 10.0, pref)
+    after = cuda.launch_counts()
+    assert after["convex_relax"] == before.get("convex_relax", 0) + 2
+    assert after["convex_round"] == before.get("convex_round", 0) + 1
