@@ -110,8 +110,20 @@ Phases (any failure exits non-zero and prints no result):
    at K = 512 x N = 10,240, then over node classes; fragmentation never
    rises; the moves become wave evals through ``service-gpu`` and every
    plan passes ``judge_migration_plan``.
+9. The node-sharded mesh path on 4 shards (slices of cuda:0 on one
+   card, the cards round-robin on two or more): after a warm-up round,
+   2 rounds x 64 evals of config 4's job through a mesh batcher's
+   ``place_cohort`` with pre_resolve on phase 4's cluster (K0 and K3 a
+   shard, K10d; round 2's base a K10a delta child of round 1's), plans,
+   choices and scores identical to the unsharded batcher's on the same
+   rows; the 512 + 512 eval through K10c (B = 1: a sharded base runs
+   the live rows only), equal to K1's; K10b over one-node groups
+   (g_pad 10,240) and racks of 40 (g_pad 256), equal to the one-device
+   node-order sum. Phase 7 holds K10a-K10d against their plain versions
+   on these calls, with each record's launches a call read from the
+   launch counts around one call.
 
-Every path of phases 3 to 6 and 8 runs with the launch counts set to 0
+Every path of phases 3 to 6, 8 and 9 runs with the launch counts set to 0
 just before it and read just after, and fails if a kernel of that path
 was never launched.
 
@@ -1887,6 +1899,439 @@ def bench_new_kernels(torch, np, seed):
     return out
 
 
+# ---------------------------------------------------------------- mesh
+
+MESH_SHARDS = 4
+MESH_ROUNDS = 2
+RACK_GROUP_PAD = 256
+
+
+def mesh_devices(torch):
+    """The mesh phase's four shards: over the cards round-robin where
+    there are two or more (the distinct-card path), else four slices of
+    the one card."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{s % n if n >= 2 else 0}" for s in range(MESH_SHARDS)]
+
+
+class ShardRecorder:
+    """Wraps ``parallel.shard.<name>`` (a sharded scan) while the block
+    runs and keeps each call's shards, copied before it, and result."""
+
+    def __init__(self, name):
+        from nomad_tpu_torch.parallel import shard
+
+        self.module, self.name, self.calls = shard, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(shards, penalty, seq=False):
+            inputs = [cloned(sh) for sh in shards]
+            out = self.orig(shards, penalty, seq)
+            self.calls.append((inputs, penalty, seq,
+                               tuple(x.clone() for x in out)))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_mesh(seed, torch, total, storm_h):
+    """Phase 9: the node-sharded mesh path on a 4-shard mesh. Returns
+    the recorded calls for the holds (bench_mesh)."""
+    import numpy as np
+
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+    from nomad_tpu_torch.parallel.shard import sharded_group_capacity
+    from nomad_tpu_torch.scheduler.batcher import (
+        PlacementBatcher,
+        _delta_payload,
+    )
+
+    devices = mesh_devices(torch)
+    mesh = make_mesh(devices=devices)
+    print(f"mesh: {mesh}")
+    if torch.cuda.device_count() < 2:
+        print("mesh: distinct-card path not run (one card): the four "
+              "shards are slices of cuda:0")
+    else:
+        print(f"mesh: distinct-card path over {torch.cuda.device_count()} "
+              "cards")
+    mb = PlacementBatcher(mesh=mesh)
+    ref = PlacementBatcher()
+    storm = Storm(storm_h, mb)
+    on = lambda job, m: placement_config(job, m, True)  # noqa: E731
+    rec = {}
+    figures = {}
+    try:
+        s0 = mb.stats()
+        # Warm-up round on the first snapshot, not committed (phase 4's
+        # warm-up): its host base build and sharded upload stay out of
+        # the timed rounds, and round 1 finds the base cached.
+        storm.round(storm.jobs("mesh-warm", STORM_BATCH, storm_job),
+                    105_000, on)
+        rounds = [storm.jobs(f"mesh{r}", STORM_BATCH, storm_job)
+                  for r in range(MESH_ROUNDS)]
+        spans = []
+
+        def mesh_storm():
+            out = []
+            with ShardRecorder("sharded_uniform_topk") as topk:
+                for r, jobs in enumerate(rounds):
+                    before = mb.stats()
+                    out.append(storm.round(jobs, 110_000 + r * STORM_BATCH,
+                                           on))
+                    spans.append(dispatch_us(stats_delta(
+                        before, mb.stats())) / 1000.0)
+                    storm.commit(out[-1][2])
+            rec["topk"] = topk.calls
+            return out
+
+        with GcPauses() as gc_pauses:
+            done = counted(total, "mesh storm", (
+                "threefry_uniform", "expand_overlay", "sharded_uniform_topk",
+                "sharded_base_delta"), mesh_storm)
+        st = stats_delta(s0, mb.stats())
+        lat = [t for r in done for t in r[3]]
+        wall = sum(r[4] for r in done)
+        n_evals = MESH_ROUNDS * STORM_BATCH
+        placed = sum(len(a) for r in done for p in r[2]
+                     for a in p.node_allocation.values())
+        figures.update(
+            evals=n_evals, evals_per_s=n_evals / wall,
+            p50_ms=float(np.percentile(lat, 50)) * 1000.0,
+            p99_ms=float(np.percentile(lat, 99)) * 1000.0,
+            placed=placed, sync_ms=st["sync_us"] / 1000.0,
+            issue_ms=st["issue_us"] / 1000.0,
+            conflicted=sum(conflicted_evals(r[0], r[1]) for r in done))
+        print(f"mesh storm ({MESH_SHARDS} shards): {n_evals} evals in "
+              f"{wall:.3f} s = {figures['evals_per_s']:.2f} evals/s; "
+              f"per-eval p50 {figures['p50_ms']:.2f} ms, p99 "
+              f"{figures['p99_ms']:.2f} ms; issue {figures['issue_ms']:.1f}"
+              f" ms, sync {figures['sync_ms']:.1f} ms; batcher, warm-up "
+              f"round included: {json.dumps(st, sort_keys=True)}")
+        check_placed("mesh storm", [x for r in done for x in r[1]], placed,
+                     n_evals * 8)
+        check(figures["conflicted"] == 0, "mesh storm: conflicted evals")
+        check(st["sharded_bases"] == MESH_ROUNDS and st["base_uploads"] == 1
+              and st["base_delta_updates"] == MESH_ROUNDS - 1
+              and st["fused_delta_updates"] == 0,
+              f"mesh storm: rounds after the first did not derive a "
+              f"sharded base through K10a: {st}")
+        occ = mb.shard_occupancy()
+        print(f"mesh storm: per-shard occupancy {json.dumps(occ)}")
+        print(f"  garbage collection in those rounds: "
+              f"{json.dumps(gc_pauses.summary(), sort_keys=True)}")
+        # The same rows through the unsharded batcher (K2-seq, K3, K4):
+        # plans identical, choices and scores bit for bit; its dispatch
+        # timed beside the mesh one.
+        ref_ms = []
+        for r, (rows, results, plans, _l, _w) in enumerate(done):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ref.place_cohort([(m, a, k, on(job, m))
+                                     for job, _s, m, a, k in rows])
+            ref_ms.append((time.perf_counter() - t0) * 1000.0)
+            print(f"  round {r}: {done[r][4] * 1000:.1f} ms, of it the mesh "
+                  f"dispatch {spans[r]:.1f} ms (batcher upload, stack, "
+                  f"issue, sync); the unsharded dispatch of the same rows "
+                  f"{ref_ms[r]:.1f} ms")
+            for i, ((c, sc), (wc, ws)) in enumerate(zip(results, want)):
+                check(np.array_equal(c, wc) and np.array_equal(
+                    sc.view(np.int32), ws.view(np.int32)),
+                    f"mesh storm round {r} eval {i}: differs from the "
+                    "unsharded storm")
+            for row, plan, (wc, ws) in zip(rows, plans, want):
+                again = storm.materialize(row, wc, ws)
+                check(plan_nodes(plan) == plan_nodes(again),
+                      f"mesh storm round {r}: a plan differs")
+        figures.update(dispatch_ms=spans, unsharded_dispatch_ms=ref_ms,
+                       **gc_pauses.summary())
+        print(f"mesh storm: {MESH_ROUNDS} rounds' plans identical to the "
+              "unsharded storm's on the same state and keys")
+        # The base delta of round 2, for K10a's hold.
+        m2 = done[1][0][0][2]
+        parent = mb._device_bases[m2.base_delta[0]]
+        rec["delta"] = (mesh, parent, _delta_payload(
+            (m2.capacity, m2.sched_capacity, m2.util, m2.bw_avail,
+             m2.bw_used, m2.ports_free, m2.node_ok, m2.class_ids),
+            m2.base_delta[1]))
+
+        # ---- the 512 + 512 greedy eval through K10c, against K1
+        job = storm.jobs("mesh-greedy", 1,
+                         lambda i: two_group_job_id(i, 512))[0]
+        row = storm.build_row(storm_h.state.snapshot(), job, 120_000)
+
+        def greedy():
+            with ShardRecorder("sharded_greedy_scan") as scan:
+                got = mb.place_cohort([(row[2], row[3], row[4],
+                                        on(job, row[2]))])
+            rec["greedy"] = scan.calls
+            return got
+
+        t0 = time.perf_counter()
+        got = counted(total, "mesh greedy eval", (
+            "threefry_uniform", "expand_overlay", "sharded_greedy_scan"),
+            greedy)
+        wall = time.perf_counter() - t0
+        want = ref.place_cohort([(row[2], row[3], row[4], on(job, row[2]))])
+        (c, sc), (wc, ws) = got[0], want[0]
+        check(np.array_equal(c, wc) and np.array_equal(
+            sc.view(np.int32), ws.view(np.int32)),
+            "mesh greedy eval: differs from K1's")
+        figures["greedy_eval_ms"] = wall * 1000.0
+        print(f"mesh greedy eval (512 + 512 asks, pre_resolve, live rows "
+              f"only): {int((c >= 0).sum())} of 1024 placed in "
+              f"{wall * 1000:.1f} ms, choices and scores equal to K1's")
+
+        # ---- K10b on the mesh: member units of config 4's ask per node
+        # over meta-less singletons (g_pad 10,240) and racks of 40
+        m = row[2]
+        ask = np.asarray(row[3].resources[0], np.float64)
+        free = np.asarray(m.capacity, np.float64) - m.util
+        per = np.where(ask[None, :] > 0,
+                       np.floor(free / np.maximum(ask, 1e-9)[None, :]), 1e9)
+        units = (np.clip(per.min(1), 0, None) * m.node_ok).astype(np.float32)
+        n = units.shape[0]
+        real = np.arange(n) < m.n_real
+        groups = {
+            n: np.where(real, np.arange(n), -1).astype(np.int32),
+            RACK_GROUP_PAD: np.where(real, np.arange(n) // RACK_SIZE,
+                                     -1).astype(np.int32)}
+
+        def capacities():
+            return {g_pad: sharded_group_capacity(mesh, g_pad)(units, ids)
+                    for g_pad, ids in groups.items()}
+
+        caps = counted(total, "mesh group capacity", ("group_capacity",),
+                       capacities)
+        for g_pad, ids in groups.items():
+            want = np.zeros(g_pad, np.float32)
+            np.add.at(want, ids[ids >= 0], units[ids >= 0])
+            check(np.array_equal(caps[g_pad].cpu().numpy(), want),
+                  f"K10b (g_pad {g_pad}): differs from the one-device sum")
+        rec["groups"] = (mesh, units, groups)
+        print(f"mesh group capacity: g_pad {n} (singletons) and "
+              f"{RACK_GROUP_PAD} (racks of {RACK_SIZE}) equal the one-device "
+              f"node-order sums (units under 2^24: max "
+              f"{float(units.max()):.0f})")
+    finally:
+        storm.close()
+    return figures, rec
+
+
+def plan_nodes(plan):
+    """{alloc name: node id} of a plan."""
+    return {a.name: a.node_id for allocs in plan.node_allocation.values()
+            for a in allocs}
+
+
+def hold_shards(torch, label, call):
+    """One recorded sharded-scan call re-run through the kernel and the
+    plain version on copies of its inputs: choices, scores and every
+    shard's carry equal (scores within SCORE_TOL), and the kernel's
+    re-run equal to the recorded result. Then the whole node axis
+    through the unsharded K1 / K2: equal bit for bit. Returns the score
+    error and the kernel re-run's launches."""
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import shard
+
+    inputs, penalty, seq, out = call
+    uniform = inputs[0].noise.dim() == 2
+    kern, plain, one = ((shard.sharded_uniform_topk,
+                         shard.sharded_uniform_topk_plain,
+                         binpack.uniform_topk) if uniform else
+                        (shard.sharded_greedy_scan,
+                         shard.sharded_greedy_scan_plain,
+                         binpack.greedy_scan))
+    runs = []
+    for fn in (kern, plain):
+        shards = [cloned(sh) for sh in inputs]
+        (ch, sc), n = launches_of(kern.__name__, lambda: fn(
+            shards, penalty, seq))
+        if fn is kern:
+            launches = n
+        runs.append((ch, sc, joined_carry(torch, shards, seq)))
+    err = check_scan(torch, label, *runs)
+    check(torch.equal(runs[0][0], out[0]) and torch.equal(runs[0][1], out[1]),
+          f"{label}: the re-run differs from the recorded call")
+    whole = [cloned(sh) for sh in inputs]
+    cat = lambda xs, d: torch.cat(list(xs), dim=d)  # noqa: E731
+    static = [cat((getattr(sh, f) for sh in whole), 0)
+              for f in ("capacity", "sched_capacity", "bw_avail", "node_ok")]
+    carry = list(joined_carry(torch, whole, seq))
+    feas = cat((sh.feasible for sh in whole), 1)
+    noise = cat((sh.noise for sh in whole), -1)
+    ch, sc = one(*static, carry, feas, whole[0].asks, noise, penalty, seq)
+    check(torch.equal(ch, out[0]) and torch.equal(sc, out[1]),
+          f"{label}: differs from the unsharded kernel")
+    return err, launches
+
+
+def launches_of(name, fn):
+    """``fn()`` with the launch counts set to 0 just before it: its
+    result and the launches of kernel ``name`` it made."""
+    from nomad_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    out = fn()
+    return out, cuda.launch_counts().get(name, 0)
+
+
+def joined_carry(torch, shards, seq):
+    own = 0 if seq else 1
+    return tuple(torch.cat([sh.carry[i] for sh in shards],
+                           dim=own if i < 3 else 1) for i in range(5))
+
+
+def bench_mesh(torch, np, rec):
+    """Holds and times of K10a-K10d on the mesh phase's own inputs: the
+    round-2 base delta, both group capacities, the 512 + 512 eval's
+    K10c call (B = 1 under seq: the batcher pads no batch over a
+    sharded base), and the storm's 64-eval K10d calls (K = 8 under seq:
+    all held, the first timed)."""
+    from nomad_tpu_torch.ops.binpack import apply_base_delta_plain
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import gather, place
+
+    out = {}
+    # ---- K10a
+    mesh, parent, payload = rec["delta"]
+    targets = [parent[i] for i in (2, 4, 5, 6)]
+    got, delta_launches = launches_of("sharded_base_delta", lambda: (
+        shard.sharded_base_delta(mesh)(*targets, *payload)))
+    pay = place(mesh, payload, ((), (None, None), (), (), ()))
+    w = len(targets[0].parts[0])
+
+    def plain_delta():
+        return [apply_base_delta_plain(
+            *(t.parts[0][s] for t in targets),
+            *(p.parts[0][s] for p in pay), targets[0].lo[s])
+            for s in range(w)]
+
+    want = plain_delta()
+    delta_err = 0.0
+    for j, g in enumerate(got):
+        for s in range(w):
+            check(torch.equal(g.parts[0][s], want[s][j]),
+                  f"K10a: shard {s} differs from the plain version")
+            delta_err = max(delta_err, (g.parts[0][s].float() - want[s][j]
+                                        .float()).abs().max().item())
+    whole = [gather(t) for t in targets]
+    rows = torch.from_numpy(payload[0]).long()
+    for g, t, v in zip(got, whole, payload[1:]):
+        t[rows] = torch.from_numpy(np.asarray(v))
+        check(torch.equal(gather(g), t), "K10a: differs from the "
+              "one-device scatter")
+    n = sum(p.shape[0] for p in targets[0].parts[0])
+    r = len(payload[0])
+    ms = time_cuda(torch, lambda: shard.sharded_base_delta(mesh)(
+        *targets, *payload), RUNS)
+    plain_ms = time_cuda(torch, plain_delta, RUNS)
+    flat = [gather(t).cuda() for t in targets]
+    idx = (rows.cuda(),)
+    vals = [torch.from_numpy(np.asarray(v)).cuda() for v in payload[1:]]
+    lib_ms = time_cuda(torch, lambda: [
+        torch.index_put(x, idx, v) for x, v in zip(flat, vals)], RUNS)
+    out["sharded_base_delta"] = {r: dict(
+        max_abs_err=delta_err, ms=ms, plain_ms=plain_ms,
+        **bound(2 * n * 25 + r * 29, 0.0), library_ms=lib_ms,
+        launches_per_call=delta_launches, shards=w)}
+    print(f"K10a: {r} payload rows over {w} shards of {n // w} equal the "
+          "plain version and the one-device scatter")
+    # ---- K10b
+    mesh, units, groups = rec["groups"]
+    for g_pad, ids in groups.items():
+        run = shard.sharded_group_capacity(mesh, g_pad)
+        got, n_launch = launches_of("group_capacity",
+                                    lambda: run(units, ids))
+        u_sh, i_sh = place(mesh, (units, ids), (("nodes",), ("nodes",)))
+
+        def plain_groups():
+            from nomad_tpu_torch.ops.gang import group_capacity_plain
+
+            return shard.group_capacity_combine_plain(torch.stack([
+                group_capacity_plain(u, i, g_pad)
+                for u, i in zip(u_sh.parts[0], i_sh.parts[0])]))
+
+        want = plain_groups()
+        check(torch.equal(got, want), f"K10b (g_pad {g_pad}): differs "
+              "from the plain version")
+        ms = time_cuda(torch, lambda: run(u_sh, i_sh), RUNS)
+        plain_ms = time_cuda(torch, plain_groups, RUNS)
+        tu = torch.from_numpy(units).cuda()
+        ti = torch.from_numpy(ids).cuda()
+        keep = ti >= 0
+        tu, ti = tu[keep].contiguous(), ti[keep].long().contiguous()
+        lib_ms = time_cuda(torch, lambda: torch.zeros(
+            g_pad, device=tu.device).index_add_(0, ti, tu), RUNS)
+        nn = units.shape[0]
+        out.setdefault("group_capacity", {})[g_pad] = dict(
+            max_abs_err=(got - want).abs().max().item(), ms=ms,
+            plain_ms=plain_ms,
+            **bound(nn * 8 + g_pad * 4, nn / INT32_OPS), library_ms=lib_ms,
+            launches_per_call=n_launch, shards=len(u_sh.parts[0]))
+    # ---- K10c on the 512 + 512 eval's call
+    call = rec["greedy"][0]
+    err, launches = hold_shards(torch, "K10c (512 + 512 eval)", call)
+    inputs, penalty, seq, res = call
+    b, k = res[0].shape
+    n = sum(sh.feasible.shape[1] for sh in inputs)
+    g = inputs[0].feasible.shape[2]
+    box = {}
+    fresh = lambda: box.__setitem__(  # noqa: E731
+        "s", [cloned(sh) for sh in inputs])
+    ms = time_cuda(torch, lambda: shard.sharded_greedy_scan(
+        box["s"], penalty, seq), 5, setup=fresh, warmup=1)
+    plain_ms = time_cuda(torch, lambda: shard.sharded_greedy_scan_plain(
+        box["s"], penalty, seq), 1, setup=fresh, warmup=0)
+    chain = chain_ms(torch, b * k if seq else k, torch.device("cuda"))
+    tg = inputs[0].asks.tg_index
+    rows, cells = rows_written(torch, res[0], tg, n, g)
+    bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
+              + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * k * n * 4
+              + rows * CARRY_ROW_BYTES + cells * 4)
+    out["sharded_greedy_scan"] = {(b, k): dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(bytes_, max(b * k * n * 60 / FP32_FLOPS, chain / 1000.0)),
+        library_ms=None, chain_ms=chain, launches_per_call=launches,
+        shards=w)}
+    print(f"K10c (B x K = {b} x {k}, seq {seq}, {w} shards): held against "
+          f"the plain version and K1; {launches} launches a call")
+    # ---- K10d on the storm's calls
+    held = [hold_shards(torch, f"K10d storm call {i}", c)
+            for i, c in enumerate(rec["topk"])]
+    errs = [e for e, _n in held]
+    inputs, penalty, seq, res = rec["topk"][0]
+    b, k = res[0].shape
+    n = sum(sh.feasible.shape[1] for sh in inputs)
+    ms = time_cuda(torch, lambda: shard.sharded_uniform_topk(
+        box["s"], penalty, seq), RUNS,
+        setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]))
+    plain_ms = time_cuda(torch, lambda: shard.sharded_uniform_topk_plain(
+        box["s"], penalty, seq), 3, warmup=1,
+        setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]))
+    score = torch.randn((b, n), device="cuda")
+    lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1), RUNS)
+    tg = inputs[0].asks.tg_index
+    rows, cells = rows_written(torch, res[0], tg, n, g)
+    nodes = torch.unique(res[0][res[0] >= 0]).numel()
+    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
+              + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+              + nodes * 24 + rows * 4 + cells * 4)
+    out["sharded_uniform_topk"] = {b: dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        **bound(bytes_, b * n * 70 / FP32_FLOPS), library_ms=lib_ms,
+        launches_per_call=held[0][1], shards=w, calls_held=len(errs))}
+    print(f"K10d: {len(errs)} storm calls (B x K = {b} x {k}, seq {seq}) "
+          "held against the plain version and K2")
+    return out
+
+
 # ---------------------------------------------------------------- convex
 
 CONVEX_STORM_BATCH = 64
@@ -2390,6 +2835,14 @@ REPLACES = {
                          "nomad_tpu/ops/binpack.py:461"),
     "defrag_solve": ("nomad_tpu_torch/csrc/convex_relax.cu",
                      "nomad_tpu/defrag/solver.py:213"),
+    "sharded_base_delta": ("nomad_tpu_torch/csrc/base_delta.cu",
+                           "nomad_tpu/parallel/shard.py:72"),
+    "group_capacity": ("nomad_tpu_torch/csrc/group_capacity.cu",
+                       "nomad_tpu/parallel/shard.py:109"),
+    "sharded_greedy_scan": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+                            "nomad_tpu/parallel/mesh.py:212"),
+    "sharded_uniform_topk": ("nomad_tpu_torch/csrc/sharded_topk.cu",
+                             "nomad_tpu/ops/binpack.py:302"),
 }
 # The shape each kernel's JSON record leads with (the others ride
 # along under "shapes").
@@ -2400,7 +2853,9 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "preempt_scan": 1024, "gang_scan": (1024, 256),
            "convex_relax": ("eval", 1024), "convex_round": ("eval", 1024),
            "convex_round_seq": ("storm", 8),
-           "defrag_solve": ("cold", 512, BENCH_N)}
+           "defrag_solve": ("cold", 512, BENCH_N),
+           "sharded_base_delta": 256, "group_capacity": BENCH_N,
+           "sharded_greedy_scan": (1, BENCH_K), "sharded_uniform_topk": 64}
 
 
 def main(argv=None) -> int:
@@ -2454,11 +2909,14 @@ def main(argv=None) -> int:
         k6 = run_preemption(args.seed, torch, total)
         gangs = run_gangs(args.seed, torch, total)
         convex_calls = run_convex(args.seed, torch, total, main_h, storm_h)
+        mesh_figures, mesh_calls = run_mesh(args.seed, torch, total, storm_h)
+        print(f"mesh figures: {json.dumps(mesh_figures, sort_keys=True)}")
         del main_h, storm_h
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))
         results.update(bench_convex(torch, np, convex_calls))
+        results.update(bench_mesh(torch, np, mesh_calls))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

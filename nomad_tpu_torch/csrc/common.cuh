@@ -60,3 +60,91 @@ __device__ __forceinline__ float nt_node_score(
 __device__ __forceinline__ bool nt_better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
 }
+
+// (score, node index) packed into one 64-bit key whose unsigned order
+// is nt_better's: the high word is the score's bits mapped so unsigned
+// order is float order (-0 ranks as +0), the low word 0xffffffff -
+// index, so a larger key is a higher score and, on ties, a lower
+// index. Key 0 is below every real key (padding).
+__device__ __forceinline__ unsigned long long nt_pack(float s, int i) {
+  uint32_t u = __float_as_uint(s == 0.0f ? 0.0f : s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) |
+         (unsigned long long)(0xffffffffu - (uint32_t)i);
+}
+
+__device__ __forceinline__ float nt_unpack_score(unsigned long long key) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int nt_unpack_index(unsigned long long key) {
+  return (int)(0xffffffffu - (uint32_t)key);
+}
+
+// Block-wide bitonic sort of n_pad keys (a power of two), descending,
+// in shared or global memory; ``pay`` (may be null) moves with its
+// key. Opens and closes with a barrier.
+__device__ __forceinline__ void nt_bitonic_desc(unsigned long long* keys,
+                                                int* pay, int n_pad) {
+  const int half = n_pad >> 1;
+  for (int size = 2; size <= n_pad; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < half; t += blockDim.x) {
+        const int lo = 2 * stride * (t / stride) + (t % stride);
+        const int hi = lo + stride;
+        const unsigned long long x = keys[lo];
+        const unsigned long long y = keys[hi];
+        const bool desc = (lo & size) == 0;
+        if (desc ? (x < y) : (x > y)) {
+          keys[lo] = y;
+          keys[hi] = x;
+          if (pay) {
+            const int p = pay[lo];
+            pay[lo] = pay[hi];
+            pay[hi] = p;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// One chunk of a node-order group sum (K7's group capacity, K10b's
+// partials): this thread holds node (base + threadIdx.x)'s units ``u``
+// and group ``id`` (< 0 or >= g_pad: none; past N pass 0 and -1). Each
+// group the chunk adds to is summed by one thread walking the chunk in
+// node order, into ``sums`` [g_pad], so a group's float sum rounds in
+// the order index_add_ rounds it, also past 2^24. Adding a zero leaves
+// a sum as it is: only groups with units here are walked. ``s_units``
+// and ``s_ids`` hold blockDim.x entries, ``s_lo``/``s_hi`` one int, all
+// in shared memory. Opens and closes with a barrier.
+__device__ __forceinline__ void nt_group_chunk(int base, int N, int g_pad,
+                                               float u, int id, float* sums,
+                                               float* s_units, int* s_ids,
+                                               int* s_lo, int* s_hi) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    *s_lo = 0x7fffffff;
+    *s_hi = -1;
+  }
+  __syncthreads();
+  s_units[t] = u;
+  s_ids[t] = id;
+  if (id >= 0 && id < g_pad && u != 0.0f) {
+    atomicMin(s_lo, id);
+    atomicMax(s_hi, id);
+  }
+  __syncthreads();
+  const int m = min((int)blockDim.x, N - base);
+  const int lo = *s_lo, hi = *s_hi;  // lo > hi: no group to add to
+  for (int g = lo <= hi ? lo + t : hi + 1; g <= hi; g += blockDim.x) {
+    float acc = sums[g];
+    for (int i = 0; i < m; ++i)
+      if (s_ids[i] == g) acc = __fadd_rn(acc, s_units[i]);
+    sums[g] = acc;
+  }
+  __syncthreads();
+}

@@ -147,36 +147,14 @@ __global__ void __launch_bounds__(NT_GANG_THREADS) nt_gang_scan_kernel(
   // ---- 1. member units and group capacity, in node order
   if (mode == NT_GANG_SLICE || mode == NT_GANG_SPREAD) {
     for (int base = 0; base < N; base += blockDim.x) {
-      if (t == 0) {
-        s_lo = 0x7fffffff;
-        s_hi = -1;
-      }
-      __syncthreads();
       const int n = base + t;
       const float u = n < N ? nt_member_units(n, mode, dhb, capacity, util,
                                               bw_avail, bw_used, ports_free,
                                               feas_row, dh_presence, topo_ids,
                                               a, abw, aports)
                             : 0.0f;
-      const int id = n < N ? topo_ids[n] : -1;
-      s_units[t] = u;
-      s_ids[t] = id;
-      // Adding a zero leaves a sum as it is: only groups with units in
-      // this chunk are walked.
-      if (id >= 0 && id < g_pad && u != 0.0f) {
-        atomicMin(&s_lo, id);
-        atomicMax(&s_hi, id);
-      }
-      __syncthreads();
-      const int m = min((int)blockDim.x, N - base);
-      const int lo = s_lo, hi = s_hi;  // lo > hi: no group to add to
-      for (int g = lo <= hi ? lo + t : hi + 1; g <= hi; g += blockDim.x) {
-        float acc = cap[g];
-        for (int i = 0; i < m; ++i)
-          if (s_ids[i] == g) acc = __fadd_rn(acc, s_units[i]);
-        cap[g] = acc;
-      }
-      __syncthreads();
+      nt_group_chunk(base, N, g_pad, u, n < N ? topo_ids[n] : -1, cap,
+                     s_units, s_ids, &s_lo, &s_hi);
     }
   }
   // k_actual: the active members (an exact count).

@@ -12,6 +12,11 @@
 // one fused multiply-add, so the scaling here is fmaf (for the noise's
 // minval of 0 the two roundings agree anyway).
 //
+// A column window (lo, cols of total_cols) draws one node shard's
+// columns of the full draw: element (r, j) hashes counter
+// r * total_cols + lo + j, so W shards' windows are exactly the full
+// [rows, total_cols] draw's columns (parallel/shard.py).
+//
 // Bound on the card: 20 rounds of 32-bit add/rotate/xor per element
 // against one 4-byte store; integer-ALU bound. Design: one thread per
 // element over a grid-stride loop, no shared memory, coalesced stores.
@@ -50,14 +55,21 @@ __device__ __forceinline__ void nt_threefry2x32(uint32_t k0, uint32_t k1,
 
 __global__ void nt_threefry_uniform_kernel(const long long* __restrict__ keys,
                                            float* __restrict__ out,
-                                           long long per_eval, int batch,
-                                           float minval, float scale) {
+                                           long long rows, long long cols,
+                                           long long total_cols, long long lo,
+                                           int batch, float minval,
+                                           float scale) {
+  const long long per_eval = rows * cols;
   const long long total = per_eval * (long long)batch;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        t < total; t += step) {
     const long long b = t / per_eval;
-    const unsigned long long i = (unsigned long long)(t - b * per_eval);
+    const long long e = t - b * per_eval;
+    const long long r = e / cols;
+    // The element's counter in the full [rows, total_cols] draw.
+    const unsigned long long i =
+        (unsigned long long)(r * total_cols + lo + (e - r * cols));
     const uint32_t k0 = (uint32_t)keys[2 * b];
     const uint32_t k1 = (uint32_t)keys[2 * b + 1];
     uint32_t x0 = (uint32_t)(i >> 32);
@@ -70,17 +82,21 @@ __global__ void nt_threefry_uniform_kernel(const long long* __restrict__ keys,
   }
 }
 
-// keys: int64[B, 2] holding the uint32 key words; out: float32[B, per_eval].
-NT_API int nt_threefry_uniform(const void* keys, void* out, long long per_eval,
-                               int batch, float minval, float scale,
-                               void* stream) {
-  const long long total = per_eval * (long long)batch;
+// keys: int64[B, 2] holding the uint32 key words; out: float32[B, rows,
+// cols], the column window [lo, lo + cols) of a [rows, total_cols]
+// draw per key (lo = 0 and cols = total_cols: the whole draw).
+NT_API int nt_threefry_uniform(const void* keys, void* out, long long rows,
+                               long long cols, long long total_cols,
+                               long long lo, int batch, float minval,
+                               float scale, void* stream) {
+  const long long total = rows * cols * (long long)batch;
   if (total <= 0) return 0;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;
   nt_threefry_uniform_kernel<<<(int)blocks, threads, 0,
                                (cudaStream_t)stream>>>(
-      (const long long*)keys, (float*)out, per_eval, batch, minval, scale);
+      (const long long*)keys, (float*)out, rows, cols, total_cols, lo, batch,
+      minval, scale);
   return (int)cudaGetLastError();
 }

@@ -8,11 +8,10 @@
 // of util, bw_used and ports_free; stacked states (stacked = 1), a
 // per-eval base.
 //
-// Each node's (score, index) packs into one 64-bit key: the high word
-// is the score's bits mapped so unsigned order is float order, the low
-// word is 0xffffffff - index, so a larger key is a higher score and,
-// on ties, a lower index — lax.top_k's order. Padding keys are 0,
-// below every real key.
+// Each node's (score, index) packs into one 64-bit key (nt_pack,
+// csrc/common.cuh): a larger key is a higher score and, on ties, a
+// lower index — lax.top_k's order. Padding keys are 0, below every
+// real key.
 //
 // Bound on the card: one pass over N nodes (~40 bytes a node) and a
 // sort of N keys; at N = 10,240 both are a few hundred KB, so the
@@ -30,21 +29,6 @@
 #include "common.cuh"
 
 #define NT_TOPK_THREADS 1024
-
-__device__ __forceinline__ unsigned long long nt_pack(float s, int i) {
-  uint32_t u = __float_as_uint(s == 0.0f ? 0.0f : s);  // -0 ranks as +0
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (unsigned long long)(0xffffffffu - (uint32_t)i);
-}
-
-__device__ __forceinline__ float nt_unpack_score(unsigned long long key) {
-  const uint32_t u = (uint32_t)(key >> 32);
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-__device__ __forceinline__ int nt_unpack_index(unsigned long long key) {
-  return (int)(0xffffffffu - (uint32_t)key);
-}
 
 // One eval's scoring pass, sort and row updates; every pointer is
 // already offset to the eval.
@@ -77,25 +61,7 @@ __device__ __forceinline__ void nt_topk_eval(
                               n)
                     : 0ull;
   }
-  // Bitonic sort, descending.
-  const int half = n_pad >> 1;
-  for (int size = 2; size <= n_pad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int lo = 2 * stride * (t / stride) + (t % stride);
-        const int hi = lo + stride;
-        const unsigned long long x = keys[lo];
-        const unsigned long long y = keys[hi];
-        const bool desc = (lo & size) == 0;
-        if (desc ? (x < y) : (x > y)) {
-          keys[lo] = y;
-          keys[hi] = x;
-        }
-      }
-    }
-  }
-  __syncthreads();
+  nt_bitonic_desc(keys, nullptr, n_pad);
   const int k_eff = K < N ? K : N;
   for (int t = threadIdx.x; t < K; t += blockDim.x) {
     bool valid = false;

@@ -189,15 +189,19 @@ def uniform_dh_flag(placements, job_dh, tg_dh) -> bool:
 
 
 def apply_base_delta_plain(util, bw_used, ports_free, node_ok, rows,
-                           util_rows, bw_rows, ports_rows, ok_rows):
-    """The plain PyTorch version of K4: a copy of each mutable base
-    array with the changed rows set."""
-    rows = rows.long()
+                           util_rows, bw_rows, ports_rows, ok_rows, lo=0):
+    """The plain PyTorch version of K4 (and of its shard form, K10a): a
+    copy of each mutable base array with the changed rows set; rows
+    outside [lo, lo + N) drop."""
+    n = util.shape[0]
+    local = rows.long() - lo
+    keep = (local >= 0) & (local < n)
+    local = local[keep]
     out = []
     for base, vals in ((util, util_rows), (bw_used, bw_rows),
                        (ports_free, ports_rows), (node_ok, ok_rows)):
         t = base.clone()
-        t[rows] = vals
+        t[local] = vals[keep]
         out.append(t)
     return tuple(out)
 
@@ -219,9 +223,20 @@ def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
     a few hundred KB at N = 10,240. One thread per (row, column) sets
     the rows.
     """
+    return base_delta_rows(util, bw_used, ports_free, node_ok, rows,
+                           util_rows, bw_rows, ports_rows, ok_rows, 0,
+                           "base_delta")
+
+
+def base_delta_rows(util, bw_used, ports_free, node_ok, rows, util_rows,
+                    bw_rows, ports_rows, ok_rows, lo: int, name: str):
+    """The launch behind K4 and its shard form K10a
+    (parallel/shard.py): the arrays are N rows from global row ``lo``,
+    ``rows`` global indices (others drop); counts one ``name`` launch
+    on the card."""
     n, r = util.shape[0], rows.shape[0]
     dev = util.device
-    for name, t, dtype, shape in (
+    for label, t, dtype, shape in (
             ("util", util, torch.float32, (n, 4)),
             ("bw_used", bw_used, torch.float32, (n,)),
             ("ports_free", ports_free, torch.float32, (n,)),
@@ -231,19 +246,20 @@ def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
             ("bw_rows", bw_rows, torch.float32, (r,)),
             ("ports_rows", ports_rows, torch.float32, (r,)),
             ("ok_rows", ok_rows, torch.bool, (r,))):
-        _check(name, t, dtype, shape, dev)
+        _check(label, t, dtype, shape, dev)
     if dev.type == "cpu":
         return apply_base_delta_plain(util, bw_used, ports_free, node_ok,
                                       rows, util_rows, bw_rows, ports_rows,
-                                      ok_rows)
+                                      ok_rows, lo)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = tuple(x.clone() for x in (util, bw_used, ports_free, node_ok))
     cuda.launch(
-        "nt_base_delta", n, r, rows.data_ptr(), util_rows.data_ptr(),
-        bw_rows.data_ptr(), ports_rows.data_ptr(), ok_rows.data_ptr(),
-        *(x.data_ptr() for x in out), cuda.stream_ptr(dev))
-    cuda.count_launch("base_delta")
+        "nt_base_delta", n, r, int(lo), rows.data_ptr(),
+        util_rows.data_ptr(), bw_rows.data_ptr(), ports_rows.data_ptr(),
+        ok_rows.data_ptr(), *(x.data_ptr() for x in out),
+        cuda.stream_ptr(dev))
+    cuda.count_launch(name)
     return out
 
 
@@ -600,7 +616,8 @@ def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
 # ------------------------------------------------------------ K3
 
 
-def expand_overlay_plain(class_ids, overlays: CompactOverlay, n: int):
+def expand_overlay_plain(class_ids, overlays: CompactOverlay, n: int,
+                         lo: int = 0):
     """The plain PyTorch version of K3. Out-of-range rows are masked
     out before the indexed writes (torch's index_put_ raises on them
     where JAX's mode="drop" drops them)."""
@@ -609,10 +626,10 @@ def expand_overlay_plain(class_ids, overlays: CompactOverlay, n: int):
     classed = class_ids >= 0
     cid = torch.clamp(class_ids.long(), 0, overlays.verdicts.shape[1] - 1)
     feasible = overlays.verdicts[:, cid, :] & classed[None, :, None]
-    pr = overlays.patch_rows.long()
+    pr = overlays.patch_rows.long() - lo
     pb, pp = ((pr >= 0) & (pr < n)).nonzero(as_tuple=True)
     feasible[pb, pr[pb, pp]] = overlays.patch_vals[pb, pp]
-    jr = overlays.job_rows.long()
+    jr = overlays.job_rows.long() - lo
     jt = overlays.job_tgs.long()
     jb, jj = ((jr >= 0) & (jr < n)).nonzero(as_tuple=True)
     job_count = torch.zeros((b, n), dtype=torch.int32, device=dev)
@@ -628,7 +645,8 @@ def expand_overlay_plain(class_ids, overlays: CompactOverlay, n: int):
     return feasible.contiguous(), job_count, tg_count
 
 
-def expand_overlay(class_ids, overlays: CompactOverlay, n: int):
+def expand_overlay(class_ids, overlays: CompactOverlay, n: int,
+                   lo: int = 0):
     """K3: rebuild B evals' dense overlays from their compact form.
 
     Replaces ``_expand_overlay`` (ops/binpack.py:533 of the JAX
@@ -636,7 +654,10 @@ def expand_overlay(class_ids, overlays: CompactOverlay, n: int):
     id is >= 0, then the patch rows set; job_count [B,N] and tg_count
     [B,N,G] are scatter-adds of one at the job's alloc rows. Row N
     (the padding) drops. ``class_ids`` is the shared [N] base array;
-    the overlay fields carry a leading B.
+    the overlay fields carry a leading B. With ``lo`` the outputs are
+    one node shard's N rows from global row ``lo`` (class_ids its
+    slice): patch and job rows are global and rebase by -lo, and rows
+    outside the shard drop (parallel/mesh.py's sharded dispatch).
 
     On the card (csrc/expand_overlay.cu) the bound is bytes (the N x G
     writes): one block per eval gathers every node's verdict row, then
@@ -655,14 +676,15 @@ def expand_overlay(class_ids, overlays: CompactOverlay, n: int):
             ("job_tgs", overlays.job_tgs, torch.int32, (b, j))):
         _check(name, t, dtype, shape, dev)
     if dev.type == "cpu":
-        return expand_overlay_plain(class_ids, overlays, n)
+        return expand_overlay_plain(class_ids, overlays, n, lo)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     feasible = torch.empty((b, n, g), dtype=torch.bool, device=dev)
     job_count = torch.empty((b, n), dtype=torch.int32, device=dev)
     tg_count = torch.empty((b, n, g), dtype=torch.int32, device=dev)
     cuda.launch(
-        "nt_expand_overlay", b, n, g, c, p, j, class_ids.data_ptr(),
+        "nt_expand_overlay", b, n, g, c, p, j, int(lo),
+        class_ids.data_ptr(),
         overlays.verdicts.data_ptr(), overlays.patch_rows.data_ptr(),
         overlays.patch_vals.data_ptr(), overlays.job_rows.data_ptr(),
         overlays.job_tgs.data_ptr(), feasible.data_ptr(),

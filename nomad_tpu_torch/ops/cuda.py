@@ -34,7 +34,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "expand_overlay.cu", "base_delta.cu", "preempt_scan.cu",
-           "gang_scan.cu", "convex_relax.cu", "convex_round.cu")
+           "gang_scan.cu", "convex_relax.cu", "convex_round.cu",
+           "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
@@ -50,17 +51,23 @@ _L = ctypes.c_longlong
 # C signatures (csrc/*.cu NT_API functions); every one returns the
 # cudaError_t of its launch.
 SIGNATURES: Dict[str, List] = {
-    "nt_threefry_uniform": [_P, _P, _L, _I, _F, _F, _P],
+    "nt_threefry_uniform": [_P, _P, _L, _L, _L, _L, _I, _F, _F, _P],
     "nt_greedy_scan": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 21,
     "nt_uniform_topk": [_I, _I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
-    "nt_expand_overlay": [_I] * 6 + [_P] * 10,
-    "nt_base_delta": [_I, _I] + [_P] * 10,
+    "nt_expand_overlay": [_I] * 7 + [_P] * 10,
+    "nt_base_delta": [_I, _I, _I] + [_P] * 10,
     "nt_argmax_chain": [_I, _P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
     "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
     "nt_mirror_descent": [_I] * 3 + [_P] * 14,
     "nt_convex_relax": [_I] * 6 + [_F, _I, _I] + [_P] * 29,
     "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
+    "nt_group_partial": [_I, _I] + [_P] * 4,
+    "nt_group_combine": [_I, _I] + [_P] * 3,
+    "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 21,
+    "nt_shard_winner": [_I] * 6 + [_P] * 7,
+    "nt_shard_topk": [_I] * 6 + [_F] + [_I] * 4 + [_P] * 22,
+    "nt_shard_merge": [_I] * 7 + [_P] * 9,
 }
 
 _lock = threading.Lock()
@@ -168,9 +175,11 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name`` (a wrapper that launches its
+    kernel n times in one call counts them once, after the loop)."""
     with _lock:
-        _launches[name] += 1
+        _launches[name] += n
 
 
 def launch_counts() -> Dict[str, int]:

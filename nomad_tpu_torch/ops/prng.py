@@ -73,23 +73,40 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array([int(x0), int(x1)], np.uint32)
 
 
+def _draw_shape(shape, window):
+    """(rows, cols, total_cols, lo) of a draw: ``shape``'s last axis is
+    the column window [lo, lo + cols) of a [rows, total_cols] draw."""
+    shape = tuple(int(x) for x in shape)
+    cols = shape[-1] if shape else 1
+    rows = int(np.prod(shape[:-1], dtype=np.int64)) if shape else 1
+    lo, total = window if window is not None else (0, cols)
+    if not 0 <= lo <= lo + cols <= total:
+        raise ValueError(f"window [{lo}, {lo + cols}) outside {total} "
+                         "columns")
+    return rows, cols, int(total), int(lo)
+
+
 def threefry_uniform_plain(keys: torch.Tensor, shape: Sequence[int],
-                           minval: float, maxval: float) -> torch.Tensor:
+                           minval: float, maxval: float,
+                           window=None) -> torch.Tensor:
     """The plain PyTorch version: one eval row at a time, so the int64
     temporaries stay at one row's size."""
     batch = keys.shape[0]
-    per_eval = int(np.prod(shape, dtype=np.int64))
-    out = torch.empty((batch, per_eval), dtype=torch.float32,
-                      device=keys.device)
-    counter = torch.arange(per_eval, dtype=torch.int64, device=keys.device)
+    rows, cols, total, lo = _draw_shape(shape, window)
+    dev = keys.device
+    out = torch.empty((batch, rows * cols), dtype=torch.float32, device=dev)
+    counter = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+               * total + lo
+               + torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
+               ).reshape(-1)
     hi = counter >> 32
-    lo = counter & _MASK
-    lo_f = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    lo_w = counter & _MASK
+    lo_f = torch.tensor(minval, dtype=torch.float32, device=dev)
     scale = float(np.float32(maxval) - np.float32(minval))
     for b in range(batch):
         k0 = keys[b, 0] & _MASK
         k1 = keys[b, 1] & _MASK
-        x0, x1 = threefry2x32_plain(k0, k1, hi, lo)
+        x0, x1 = threefry2x32_plain(k0, k1, hi, lo_w)
         bits = (x0 ^ x1) >> 9 | 0x3F800000
         f = bits.to(torch.int32).view(torch.float32) - 1.0
         fma = (f.double() * scale + float(lo_f)).float()
@@ -98,31 +115,36 @@ def threefry_uniform_plain(keys: torch.Tensor, shape: Sequence[int],
 
 
 def threefry_uniform(keys: torch.Tensor, shape: Sequence[int],
-                     minval: float, maxval: float) -> torch.Tensor:
+                     minval: float, maxval: float,
+                     window=None) -> torch.Tensor:
     """float32[B, *shape] noise, row b drawn from key ``keys[b]``.
 
     ``keys`` is int64[B, 2] holding the two uint32 key words (the
     layout of ``binpack.host_prng_key``). Replaces
     ``jax.random.uniform(key, shape, minval, maxval)`` vmapped over the
-    keys (ops/binpack.py:320,384 of the JAX package). On the card:
-    csrc/threefry.cu, integer-ALU bound (20 rounds per 4-byte store);
-    one thread per element, no shared memory.
+    keys (ops/binpack.py:320,384 of the JAX package). ``window`` =
+    (lo, total) draws columns [lo, lo + shape[-1]) of the
+    ``(*shape[:-1], total)`` draw: element (r, j) hashes counter
+    r * total + lo + j, so the node shards of a mesh
+    (nomad_tpu_torch/parallel) draw exactly the unsharded noise's
+    columns. On the card: csrc/threefry.cu, integer-ALU bound (20
+    rounds per 4-byte store); one thread per element, no shared memory.
     """
     if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys must be int64[B, 2], got {keys.dtype} "
                          f"{tuple(keys.shape)}")
     if keys.device.type == "cpu":
-        return threefry_uniform_plain(keys, shape, minval, maxval)
+        return threefry_uniform_plain(keys, shape, minval, maxval, window)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
+    rows, cols, total, lo = _draw_shape(shape, window)
     keys = keys.contiguous()
     batch = keys.shape[0]
-    per_eval = int(np.prod(shape, dtype=np.int64))
     out = torch.empty((batch, *shape), dtype=torch.float32,
                       device=keys.device)
     scale = float(np.float32(maxval) - np.float32(minval))
     cuda.launch("nt_threefry_uniform", keys.data_ptr(), out.data_ptr(),
-                per_eval, batch, float(np.float32(minval)), scale,
-                cuda.stream_ptr(keys.device))
+                rows, cols, total, lo, batch, float(np.float32(minval)),
+                scale, cuda.stream_ptr(keys.device))
     cuda.count_launch("threefry_uniform")
     return out

@@ -27,6 +27,14 @@ Under ``PlacementConfig.pre_resolve`` (the server default) the evals of
 a shared-base batch run in order over one copy of the claimed
 capacity, so each sees what the earlier ones claimed.
 
+Given a ``mesh`` (parallel/mesh.py), a base of SHARD_MIN_NODES or more
+nodes lives sharded over the mesh's node axis: its upload splits into
+per-shard slices, a delta child derives shard by shard (K10a), and the
+shared-base dispatches run over the shards (K3 with a row offset, then
+K10c or K10d). The lone and stacked paths stay unsharded. The mesh is
+explicit: a registered placement kernel has no sharded form yet, and a
+dispatch of one over a sharded base raises NotImplementedError.
+
 Two ways in: concurrent ``place()`` calls queue by shape key and one of
 them (or a dispatcher thread) dispatches the batch after an adaptive
 window; ``place_cohort()`` dispatches a pre-formed cohort on the
@@ -50,6 +58,10 @@ import torch
 from ..device import default_device
 
 MAX_BATCH = 64
+# Node count at which a batcher given a mesh keeps the cluster base
+# sharded over the mesh's node axis (parallel/): below this the per
+# shard slices are too small to pay for the cross-shard steps.
+SHARD_MIN_NODES = 2048
 # Idle-batcher accumulation window: a drained group's place() calls
 # arrive staggered by their GIL-serialized host phases, so a too-small
 # window ships a near-empty first dispatch. Adaptive: a large measured
@@ -185,9 +197,15 @@ class PlacementBatcher:
     threads, caching cluster bases there."""
 
     def __init__(self, device: Optional[torch.device] = None,
-                 max_batch: int = MAX_BATCH, window: float = WINDOW_S):
+                 max_batch: int = MAX_BATCH, window: float = WINDOW_S,
+                 mesh=None):
         self.device = torch.device(device) if device is not None \
             else default_device()
+        if mesh is not None and mesh.shape["dp"] != 1:
+            raise ValueError("the batcher shards the node axis only: give "
+                             f"it a dp = 1 mesh, not {mesh.shape}")
+        # parallel/mesh.py Mesh (dp = 1) over which big bases shard.
+        self.mesh = mesh
         self.max_batch = max_batch
         self.window = window
         self.logger = logging.getLogger("nomad_tpu_torch.batcher")
@@ -214,6 +232,9 @@ class PlacementBatcher:
         self.base_uploads = 0  # guarded-by: _lock (full uploads)
         self.base_delta_updates = 0  # guarded-by: _lock (derived bases)
         self.fused_delta_updates = 0  # guarded-by: _lock (inside a dispatch)
+        # Bases made device-resident sharded over the mesh: full uploads
+        # and delta derivations from a sharded parent alike.
+        self.sharded_bases = 0  # guarded-by: _lock
         # Per-dispatch cost breakdown (seconds and bytes, cumulative):
         # host stacking and the payload upload, kernel issue, and the
         # copy back of the results (which waits for the device).
@@ -384,8 +405,20 @@ class PlacementBatcher:
         _dev, nbytes = self._device_base(token, base, delta)
         return int(nbytes)
 
+    def _base_mesh(self, n: int):
+        """The mesh a base of ``n`` nodes shards over: None without a
+        mesh, below SHARD_MIN_NODES, or when n does not split evenly
+        over the node axis (bucketing should prevent that)."""
+        mesh = self.mesh
+        if mesh is None or n < SHARD_MIN_NODES:
+            return None
+        if n % mesh.shape["nodes"]:
+            return None
+        return mesh
+
     def _build_device_base(self, token, base, delta):
         from ..ops.binpack import apply_base_delta, device_resident
+        from ..parallel.mesh import is_sharded, upload_base
 
         t0 = time.perf_counter()
         dev = None
@@ -396,16 +429,29 @@ class PlacementBatcher:
             if parent is not None and rows:
                 payload = _delta_payload(base, rows)
                 nbytes = sum(x.nbytes for x in payload)
-                util2, bw2, ports2, ok2 = apply_base_delta(
-                    parent[2], parent[4], parent[5], parent[6],
-                    *device_resident(payload, self.device))
+                if is_sharded(parent[0]):
+                    # A sharded parent: the payload replicates, and each
+                    # shard keeps the rows of its slice (K10a).
+                    from ..parallel.shard import sharded_base_delta
+
+                    util2, bw2, ports2, ok2 = sharded_base_delta(
+                        self.mesh)(parent[2], parent[4], parent[5],
+                                   parent[6], *payload)
+                else:
+                    util2, bw2, ports2, ok2 = apply_base_delta(
+                        parent[2], parent[4], parent[5], parent[6],
+                        *device_resident(payload, self.device))
                 # capacity/sched_capacity/bw_avail/class_ids never
                 # change with allocs: share the parent's device tensors.
                 dev = (parent[0], parent[1], util2, parent[3], bw2, ports2,
                        ok2, parent[7])
         delta_derived = dev is not None
         if dev is None:
-            dev = device_resident(base, self.device)
+            mesh = self._base_mesh(np.shape(base[0])[0])
+            if mesh is not None:
+                dev = upload_base(mesh, base)
+            else:
+                dev = device_resident(base, self.device)
             nbytes = sum(np.asarray(x).nbytes for x in base)
         with self._lock:
             self.t_upload += time.perf_counter() - t0
@@ -414,6 +460,8 @@ class PlacementBatcher:
                 self.base_delta_updates += 1
             else:
                 self.base_uploads += 1
+            if is_sharded(dev[0]):
+                self.sharded_bases += 1
             self._cache_put(token, dev)
         return dev, nbytes
 
@@ -435,6 +483,11 @@ class PlacementBatcher:
                 return None
             parent = self._device_bases.get(parent_token)
             if parent is None:
+                return None
+            if not isinstance(parent[0], torch.Tensor):
+                # A sharded parent derives through _build_device_base
+                # (K10a, shard by shard): the fused program runs on one
+                # device.
                 return None
             self._device_bases.move_to_end(parent_token)
             done = threading.Event()
@@ -465,43 +518,61 @@ class PlacementBatcher:
             self._account(t0, t1, t2, 0, lone=True)
             return
 
-        # Pad the batch axis up a ladder bucket: padding rows repeat the
-        # last request (under pre_resolve they scan after the real rows)
-        # and their outputs are dropped. Only the native greedy scan is
-        # padded, and it runs one block per eval, so its padding rows
-        # cost no time; a registered kernel's work grows with every row
-        # (the convex relaxation is [B,K,N]), so it gets the live rows.
         n_live = len(batch)
-        n_rows = (_pad_batch(n_live, self.max_batch)
-                  if config.kernel == "greedy" else n_live)
-        padded = batch + [batch[-1]] * (n_rows - n_live)
-        keys = np.stack([np.asarray(r.key, np.uint32) for r in padded]) \
-            .astype(np.int64)
-        host = [keys, *_stack([r.asks for r in padded])]
         overlay = token is not None and all(r.token == token for r in batch)
         compact = overlay and batch[0].compact is not None
-        if compact:
-            host += _stack([r.compact for r in padded])
-        elif overlay:
-            host += _stack([r.overlay for r in padded])
-        else:
-            host += _stack([r.full_state() for r in padded])
         fused = None
         try:
             if compact:
                 fused = self._claim_fused_delta(token, batch[0].delta)
-            if fused:
-                host += list(_delta_payload(batch[0].base, fused[1]))
-            payload = sum(x.nbytes for x in host)
             dev = None
             if overlay and not fused:
                 dev, _ = self._device_base(token, batch[0].base,
                                            batch[0].delta)
-            up = binpack.device_resident(host, self.device)
-            keys_t, asks = up[0], binpack.Asks(*up[1:8])
-            rest = up[8:]
-            t1 = time.perf_counter()
+            # A node-sharded base (parallel/mesh.py): the payload goes
+            # to every shard and the dispatch runs over the shards.
+            sharded = dev is not None and not isinstance(dev[0],
+                                                         torch.Tensor)
+            # Pad the batch axis up a ladder bucket: padding rows repeat
+            # the last request (under pre_resolve they scan after the
+            # real rows) and their outputs are dropped. Only the native
+            # greedy scan on one device is padded, and it runs one block
+            # per eval, so its padding rows cost no time. A registered
+            # kernel's work grows with every row (the convex relaxation
+            # is [B,K,N]), and so does a sharded scan's (every row is
+            # work in each shard's launches, and under pre_resolve K10c
+            # and K10d issue theirs eval by eval): they get the live
+            # rows.
+            n_rows = (_pad_batch(n_live, self.max_batch)
+                      if config.kernel == "greedy" and not sharded
+                      else n_live)
+            padded = batch + [batch[-1]] * (n_rows - n_live)
+            keys = np.stack([np.asarray(r.key, np.uint32)
+                             for r in padded]).astype(np.int64)
+            host = [keys, *_stack([r.asks for r in padded])]
+            if compact:
+                host += _stack([r.compact for r in padded])
+            elif overlay:
+                host += _stack([r.overlay for r in padded])
+            else:
+                host += _stack([r.full_state() for r in padded])
             if fused:
+                host += list(_delta_payload(batch[0].base, fused[1]))
+            payload = sum(x.nbytes for x in host)
+            if sharded:
+                from ..parallel.mesh import place_payload, sharded_dispatch
+
+                # One copy a distinct device: the dispatch payload.
+                placed, payload = place_payload(dev, host, compact)
+            else:
+                up = binpack.device_resident(host, self.device)
+                keys_t, asks = up[0], binpack.Asks(*up[1:8])
+                rest = up[8:]
+            t1 = time.perf_counter()
+            if sharded:
+                choices, scores = sharded_dispatch(dev, placed, compact,
+                                                   config)
+            elif fused:
                 parent = fused[0]
                 overlays = binpack.CompactOverlay(*rest[:5])
                 (choices, scores, util2, bw2, ports2, ok2) = \
@@ -674,6 +745,16 @@ class PlacementBatcher:
             if spawn:
                 self._spawn_dispatcher(shape_key, config)
 
+    def shard_occupancy(self) -> list:
+        """[{shard, device, rows, bytes}] per node shard of the newest
+        resident base (parallel/shard.py per_shard_occupancy): one row
+        for an unsharded base, none before the first upload."""
+        from ..parallel.shard import per_shard_occupancy
+
+        with self._lock:
+            dev = next(reversed(self._device_bases.values()), None)
+        return [] if dev is None else per_shard_occupancy(dev)
+
     def stats(self) -> dict:
         with self._lock:
             return {
@@ -691,6 +772,7 @@ class PlacementBatcher:
                 "base_uploads": self.base_uploads,
                 "base_delta_updates": self.base_delta_updates,
                 "fused_delta_updates": self.fused_delta_updates,
+                "sharded_bases": self.sharded_bases,
                 # Cumulative; divide by `dispatches` for per-dispatch.
                 "stack_us": int(self.t_stack * 1e6),
                 "issue_us": int(self.t_issue * 1e6),

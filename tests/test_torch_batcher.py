@@ -1,8 +1,9 @@
 """The port's coalescing batcher (nomad_tpu_torch/scheduler/batcher.py)
 on the CPU, mirroring tests/test_batcher.py and
-tests/test_batcher_overlay.py (less the two mesh cases: the sharded
-base is a later slice), and held against the JAX package's batcher on
-the same cohorts.
+tests/test_batcher_overlay.py, and held against the JAX package's
+batcher on the same cohorts. The mesh cases give the port's batcher an
+8-shard CPU mesh; the JAX batcher shards over its 8 virtual CPU
+devices by itself (tests/conftest.py).
 
 Choices must be identical and scores within 1e-4 absolute (float32
 pow(10, x) may differ in the last ulp between XLA's and torch's CPU
@@ -701,3 +702,182 @@ def test_stats_report_occupancy_and_timings():
         assert key in st
     assert st["payload_bytes"] > 0
     assert torch.device(st["device"]).type == "cpu"
+
+
+# ------------------------------------------- the node-sharded mesh path
+
+
+def cpu_mesh(w=8):
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=["cpu"] * w)
+
+
+def test_large_cluster_base_shards_across_mesh():
+    """At SHARD_MIN_NODES the cached base shards over the mesh's node
+    axis and the dispatch matches the unsharded oracle; a delta child of
+    the sharded parent derives shard by shard (K10a), with no full
+    re-upload, and is sharded too."""
+    from nomad_tpu_torch.parallel.mesh import is_sharded
+
+    n = batcher_mod.SHARD_MIN_NODES
+    b = PlacementBatcher("cpu", window=0.001, mesh=cpu_mesh())
+    asks = build_asks()
+    s1 = build_state(n=n, token="bigA", job_seed=0)
+    key = jb.host_prng_key(7)
+    got = b.place(s1, asks, key, CONFIG)
+    assert b.sharded_bases == 1
+    dev = b._device_bases["bigA"]
+    assert is_sharded(dev[0]) and len(dev[0].parts[0]) == 8
+    assert_result(got, direct(s1, asks, key))
+
+    s2 = build_state(n=n, token="bigB", job_seed=0)
+    s2.util = s1.util.copy()
+    s2.util[1234] += [500, 256, 150, 0]
+    s2.base_delta = ("bigA", (1234,))
+    key2 = jb.host_prng_key(8)
+    got2 = b.place(s2, asks, key2, CONFIG)
+    assert b.base_uploads == 1
+    assert b.base_delta_updates == 1 and b.fused_delta_updates == 0
+    assert b.sharded_bases == 2
+    assert_result(got2, direct(s2, asks, key2))
+    child = b._device_bases["bigB"]
+    from nomad_tpu_torch.parallel.mesh import gather
+
+    np.testing.assert_array_equal(gather(child[2]).numpy(), s2.util)
+    occ = b.shard_occupancy()
+    assert len(occ) == 8 and all(e["rows"] == n // 8 for e in occ)
+
+
+def test_sharded_dispatch_runs_the_live_rows(monkeypatch):
+    """Over a sharded base the batch is not padded up a ladder bucket:
+    a lone eval scans as B = 1 (every row is work in each shard's
+    launches), where the unsharded batcher pads it to 4."""
+    from nomad_tpu_torch.parallel import shard
+
+    seen = []
+    orig = shard.sharded_greedy_scan
+
+    def spy(shards, penalty, seq=False):
+        seen.append(shards[0].feasible.shape[0])
+        return orig(shards, penalty, seq)
+
+    monkeypatch.setattr(shard, "sharded_greedy_scan", spy)
+    b = PlacementBatcher("cpu", window=0.001, mesh=cpu_mesh())
+    s = build_state(n=batcher_mod.SHARD_MIN_NODES, token="live", job_seed=0)
+    asks, key = build_asks(), jb.host_prng_key(3)
+    got = b.place(s, asks, key, CONFIG)
+    assert b.sharded_bases == 1 and seen == [1]
+    assert_result(got, direct(s, asks, key))
+
+
+def test_small_cluster_base_stays_unsharded():
+    b = PlacementBatcher("cpu", window=0.001, mesh=cpu_mesh())
+    s = build_state(n=128, token="small", job_seed=0)
+    b.place(s, build_asks(), jb.host_prng_key(1), CONFIG)
+    assert b.sharded_bases == 0
+    assert len(b.shard_occupancy()) == 1
+
+
+@pytest.fixture(scope="module")
+def big_cluster():
+    """A 2,048-node cluster (SHARD_MIN_NODES) in the JAX package's
+    store and the port's, carried over: shared by the mesh cases."""
+    h = build_reference_cluster(2048, 29, allocs_per_node=1,
+                                harness_seed=5)
+    return h, carry_over(h)
+
+
+def test_live_batcher_compact_dispatch_on_the_mesh(big_cluster):
+    """``__graft_entry__._dryrun_live_batcher`` on the port: a 2,048-node
+    StateStore snapshot -> ClusterMatrix (compact overlay) -> batcher,
+    the cached base sharded over the node axis; the same eval through
+    the JAX batcher (sharded over its 8 devices) places the same."""
+    h, hp = big_cluster
+    job = distinct_hosts_job(8, "live-dh")
+    h.state.upsert_job(h.next_index(), job)
+    hp.state.upsert_job(h._next_index - 1, carry_over_job(job))
+    hp._next_index = h._next_index
+    m = ClusterMatrix(hp.state.snapshot(), hp.state.job_by_id(job.id))
+    assert m.compact_overlay is not None
+    asks = tb.make_asks(*m.build_asks([0] * 8))
+    b = PlacementBatcher("cpu", window=0.0, mesh=cpu_mesh())
+    got = b.place(m, asks, tb.host_prng_key(1), CONFIG)
+    st = b.stats()
+    assert st["sharded_bases"] == 1 and st["compact_dispatches"] == 1
+    assert (np.asarray(got[0])[:8] >= 0).all()
+    rm = RefMatrix(h.state.snapshot(), h.state.job_by_id(job.id))
+    ref = RefBatcher(window=0.0)
+    want = ref.place(rm, jb.make_asks(*rm.build_asks([0] * 8)),
+                     jb.host_prng_key(1), REF_CONFIG)
+    assert ref.stats()["sharded_bases"] == 1
+    assert_result(got, want)
+
+
+def carry_over_job(job):
+    from nomad_tpu.utils.codec import to_dict
+    from nomad_tpu_torch.structs import Job as PortJob
+    from nomad_tpu_torch.utils.codec import from_dict
+
+    return from_dict(PortJob, to_dict(job))
+
+
+@pytest.mark.parametrize("uniform", [True, False],
+                         ids=["uniform", "greedy"])
+def test_pre_resolve_cohort_on_the_mesh_matches_reference(big_cluster,
+                                                         uniform):
+    """A pre_resolve cohort through place_cohort on the mesh (K3 with a
+    row offset, then K10d or K10c in order over the shared claimed
+    capacity), then a second cohort on a delta child of the sharded
+    base (K10a), against the JAX batcher on its sharded base."""
+    h, hp = big_cluster
+    job = distinct_hosts_job(12, f"coh-{uniform}") if uniform else \
+        two_group_job((7, 5), f"coh-{uniform}")
+    h.state.upsert_job(h.next_index(), job)
+    hp.state.upsert_job(h._next_index - 1, carry_over_job(job))
+    hp._next_index = h._next_index
+    kw = dict(anti_affinity_penalty=10.0, pre_resolve=True,
+              uniform_dh=uniform)
+    cj, ct = jb.PlacementConfig(**kw), tb.PlacementConfig(**kw)
+    ref, port = RefBatcher(), PlacementBatcher("cpu", mesh=cpu_mesh())
+    for round_, seed in ((0, 3000), (1, 4000)):
+        if round_:
+            _add_filler_allocs(h, hp, rows=range(0, 2048, 97), seed=9)
+        rr, pr = _cohort(h, hp, job, 6, "compact", seed + 10 * uniform)
+        want = ref.place_cohort([(m, jb.make_asks(*a), k, cj, None)
+                                 for m, a, k in rr])
+        got = port.place_cohort([(m, tb.make_asks(*a), k, ct)
+                                 for m, a, k in pr])
+        for w_, g_ in zip(want, got):
+            assert_result(g_, w_)
+        assert sum(int((c >= 0).sum()) for c, _s in got) > 0
+    st = port.stats()
+    assert st["base_uploads"] == 1 and st["base_delta_updates"] == 1
+    assert st["fused_delta_updates"] == 0 and st["sharded_bases"] == 2
+    assert st["pre_resolve_dispatches"] == 2
+    assert ref.stats()["sharded_bases"] == 2
+
+
+def test_registered_kernel_over_a_sharded_base_raises(big_cluster):
+    """The convex kernel has no sharded form yet: its dispatch over a
+    sharded base raises NotImplementedError naming the layout."""
+    h, hp = big_cluster
+    job = two_group_job((3, 1), "convex-mesh")  # both datacenters
+    h.state.upsert_job(h.next_index(), job)
+    hp.state.upsert_job(h._next_index - 1, carry_over_job(job))
+    hp._next_index = h._next_index
+    m = ClusterMatrix(hp.state.snapshot(), hp.state.job_by_id(job.id))
+    assert m.capacity.shape[0] >= batcher_mod.SHARD_MIN_NODES
+    asks = tb.make_asks(*m.build_asks([0, 0, 0, 1]))
+    b = PlacementBatcher("cpu", mesh=cpu_mesh())
+    cfg = CONFIG._replace(kernel="convex")
+    with pytest.raises(NotImplementedError, match="compact layout"):
+        b.place_cohort([(m, asks, tb.host_prng_key(2), cfg)])
+    assert b.stats()["sharded_bases"] == 1
+
+
+def test_batcher_takes_a_node_axis_mesh_only():
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="dp = 1"):
+        PlacementBatcher("cpu", mesh=make_mesh(devices=["cpu"] * 4, dp=2))

@@ -712,3 +712,355 @@ def test_convex_wrappers_count_their_launches(dev):
     after = cuda.launch_counts()
     assert after["convex_relax"] == before.get("convex_relax", 0) + 2
     assert after["convex_round"] == before.get("convex_round", 0) + 1
+
+
+# ---------------------------------------------- K10: the node-sharded path
+
+
+def shard_split(static, base, feasible, asks, keys, w, uniform, seq,
+                noise_scale=2.0):
+    """The scan inputs split into w node shards (NodeShard), each with
+    its own carry copy and its window of the noise."""
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+    from nomad_tpu_torch.parallel.shard import NodeShard
+
+    b, n, _g = feasible.shape
+    k = asks.resources.shape[1]
+    stacked = static[0].dim() == 3
+    carry = shared_carry(base) if seq else fresh(base, b, n)
+    d = 1 if stacked else 0
+    out = []
+    for lo, hi in shard_bounds(n, w):
+        part = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa: E731
+        own = 0 if seq else 1
+        shape = (hi - lo,) if uniform else (k, hi - lo)
+        out.append(NodeShard(
+            lo, *(part(x, d) for x in static),
+            (part(carry[0], own), part(carry[1], own), part(carry[2], own),
+             part(carry[3], 1), part(carry[4], 1)),
+            part(feasible, 1), asks,
+            prng.threefry_uniform(keys, shape, 0.0, noise_scale,
+                                  window=(lo, n))))
+    return out
+
+
+def join_carry(shards, seq):
+    own = 0 if seq else 1
+    return tuple(torch.cat([sh.carry[i] for sh in shards],
+                           dim=own if i < 3 else 1) for i in range(5))
+
+
+def uniform_asks(asks, b, k):
+    return asks._replace(
+        resources=asks.resources[:, :1].expand(b, k, 4).contiguous(),
+        bw=asks.bw[:, :1].expand(b, k).contiguous(),
+        ports=asks.ports[:, :1].expand(b, k).contiguous(),
+        tg_index=torch.zeros_like(asks.tg_index),
+        tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
+
+
+def stacked_of(static, b, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    scale = torch.from_numpy(rng.integers(1, 3, (b, n, 1)).astype(
+        np.float32)).to(dev)
+    cap = (static[0] * scale).contiguous()
+    return (cap, (cap - (static[0] - static[1])).contiguous(),
+            static[2].expand(b, n).contiguous(),
+            torch.from_numpy(rng.random((b, n)) < 0.9).to(dev))
+
+
+@pytest.mark.parametrize("layout", ["independent", "seq", "stacked"])
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("uniform", [False, True], ids=["greedy", "uniform"])
+def test_sharded_scans_match_plain_and_unsharded(dev, uniform, w, layout):
+    """K10c / K10d on w shards of the card: choices, scores and every
+    carried tensor equal the plain sharded version's (scores within
+    1e-4), and equal K1 / K2 on the whole node axis bit for bit."""
+    from nomad_tpu_torch.parallel import shard
+
+    b, n, k, g = 3, 1000, 40, 2
+    seq = layout == "seq"
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 11 * w, dev)
+    if layout == "stacked":
+        static = stacked_of(static, b, n, dev, w)
+    if uniform:
+        asks = uniform_asks(asks, b, k)
+    keys = torch.arange(2 * b, device=dev).view(b, 2) + 5
+    kern, plain, one = ((shard.sharded_uniform_topk,
+                         shard.sharded_uniform_topk_plain,
+                         binpack.uniform_topk) if uniform else
+                        (shard.sharded_greedy_scan,
+                         shard.sharded_greedy_scan_plain,
+                         binpack.greedy_scan))
+    runs = []
+    for fn in (kern, plain):
+        shards = shard_split(static, base, feasible, asks, keys, w, uniform,
+                             seq)
+        runs.append((*fn(shards, 10.0, seq), join_carry(shards, seq)))
+    assert_scans_agree(*runs)
+    c = shared_carry(base) if seq else fresh(base, b, n)
+    noise = prng.threefry_uniform(keys, (n,) if uniform else (k, n), 0.0,
+                                  2.0)
+    ch, sc = one(*static, c, feasible, asks, noise, 10.0, seq)
+    assert torch.equal(runs[0][0], ch) and torch.equal(runs[0][1], sc)
+    for name, x, y in zip(CARRY, runs[0][2], c):
+        assert torch.equal(x, y), name
+    assert (ch >= 0).any()
+
+
+def tie_inputs(n, k, dev, fit_row=None):
+    """Equal nodes (noise off): every score ties; ask 1 fits nowhere."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    cap = np.tile(np.array([[1000, 1000, 1000, 10]], np.float32), (n, 1))
+    ok = np.zeros(n, bool)
+    ok[fit_row] = True
+    static = (t(cap), t(cap), t(np.full(n, 100, np.float32)), t(ok))
+    base = (t(np.tile(np.array([[900, 900, 0, 0]], np.float32), (n, 1))),
+            t(np.zeros(n, np.float32)), t(np.full(n, 10, np.float32)),
+            t(np.zeros((1, n), np.int32)), t(np.zeros((1, n, 1), np.int32)))
+    res = np.tile(np.array([[50, 50, 0, 0]], np.float32), (k, 1))
+    res[1] = [500, 0, 0, 0]
+    asks = binpack.Asks(
+        resources=t(res[None]), bw=t(np.zeros((1, k), np.float32)),
+        ports=t(np.zeros((1, k), np.float32)),
+        tg_index=t(np.zeros((1, k), np.int32)),
+        active=t(np.ones((1, k), bool)), job_distinct_hosts=t(np.zeros(1, bool)),
+        tg_distinct_hosts=t(np.zeros((1, 1), bool)))
+    return static, base, t(np.ones((1, n, 1), bool)), asks
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_sharded_greedy_tie_across_a_boundary_and_no_fit(dev, w):
+    """A tie between the last row of shard 0 and the first of shard 1
+    goes to the lower global index; an ask that fits nowhere gives -1
+    and 0 on every shard, and the scan goes on."""
+    from nomad_tpu_torch.parallel import shard
+
+    n, k = 256, 3
+    edge = n // w
+    static, base, feasible, asks = tie_inputs(n, k, dev, [edge - 1, edge])
+    keys = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    runs = []
+    for fn in (shard.sharded_greedy_scan, shard.sharded_greedy_scan_plain):
+        shards = shard_split(static, base, feasible, asks, keys, w, False,
+                             False, noise_scale=0.0)
+        runs.append((*fn(shards, 10.0), join_carry(shards, False)))
+    assert_scans_agree(*runs)
+    assert runs[0][0].tolist() == [[edge - 1, -1, edge]]
+    assert runs[0][1][0, 1].item() == 0.0
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_sharded_uniform_topk_tie_across_a_boundary(dev, w):
+    """Tied nodes on both sides of a shard boundary (noise off) come
+    out lowest global index first; the surplus ask, with no node left
+    that fits, is -1."""
+    from nomad_tpu_torch.parallel import shard
+
+    n, k = 256, 3
+    edge = n // w
+    static, base, feasible, asks = tie_inputs(n, k, dev, [edge, edge - 1])
+    asks = uniform_asks(asks, 1, k)
+    keys = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    runs = []
+    for fn in (shard.sharded_uniform_topk, shard.sharded_uniform_topk_plain):
+        shards = shard_split(static, base, feasible, asks, keys, w, True,
+                             False, noise_scale=0.0)
+        runs.append((*fn(shards, 10.0), join_carry(shards, False)))
+    assert_scans_agree(*runs)
+    assert runs[0][0].tolist() == [[edge - 1, edge, -1]]
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_sharded_uniform_topk_global_scratch_and_surplus(dev, w):
+    """Shards whose slice sorts in global scratch (n_local past the
+    shared-memory limit at w = 1, 2), and more asks than nodes fit."""
+    from nomad_tpu_torch.parallel import shard
+
+    b, n, k = 2, 60000, 64
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, 3 + w, dev)
+    asks = uniform_asks(asks, b, k)
+    keys = torch.arange(2 * b, device=dev).view(b, 2)
+    runs = []
+    for fn in (shard.sharded_uniform_topk, shard.sharded_uniform_topk_plain):
+        shards = shard_split(static, base, feasible, asks, keys, w, True,
+                             True)
+        runs.append((*fn(shards, 10.0, True), join_carry(shards, True)))
+    assert_scans_agree(*runs)
+    c = shared_carry(base)
+    noise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
+    ch, _sc = binpack.uniform_topk(*static, c, feasible, asks, noise, 10.0,
+                                   True)
+    assert torch.equal(runs[0][0], ch)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_sharded_base_delta_matches_plain(dev, w):
+    """K10a: rows in every shard, padding rows repeating the first
+    row; each shard keeps its own rows. Bit-equal to the plain version
+    and to K4 on the whole base."""
+    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
+    from nomad_tpu_torch.parallel.shard import sharded_base_delta
+
+    n, r = 4096, 256
+    rng = np.random.default_rng(w)
+    parent = (rng.random((n, 4)).astype(np.float32),
+              rng.random(n).astype(np.float32),
+              rng.random(n).astype(np.float32), rng.random(n) < 0.5)
+    rows = np.full(r, 0, np.int32)
+    rows[:200] = rng.choice(n, 200, replace=False)
+    rows[200:] = rows[0]
+    vals = [rng.random((r, 4)).astype(np.float32),
+            rng.random(r).astype(np.float32),
+            rng.random(r).astype(np.float32), rng.random(r) < 0.5]
+    for v in vals:
+        v[200:] = v[0]
+    specs = [("nodes", None), ("nodes",), ("nodes",), ("nodes",)]
+    got = []
+    for devices in (["cuda"] * w, ["cpu"] * w):
+        mesh = make_mesh(devices=devices)
+        targets = place(mesh, parent, specs)
+        got.append([gather(x) for x in sharded_base_delta(mesh)(
+            *targets, rows, *vals)])
+        for x, p in zip(targets, parent):
+            assert torch.equal(gather(x), torch.from_numpy(p))  # untouched
+    one = binpack.apply_base_delta(*(torch.from_numpy(x).to(dev) for x in (
+        *parent, rows, *vals)))
+    for x, y, z in zip(*got, one):
+        assert torch.equal(x, y) and torch.equal(x, z.cpu())
+
+
+@pytest.mark.parametrize("w,g_pad,singletons", [
+    (1, 256, False), (2, 16, False), (4, 2048, False), (4, 10240, True)])
+def test_sharded_group_capacity_matches_plain(dev, w, g_pad, singletons):
+    """K10b: -1 ids drop, a group spans shards, more than 1,024 groups,
+    and one group a node (the meta-less case, g_pad 10,240). Whole
+    numbers under 2^24: bit-equal to the plain version and to the
+    one-device index_add_."""
+    from nomad_tpu_torch.ops.gang import group_capacity_plain
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+    from nomad_tpu_torch.parallel.shard import sharded_group_capacity
+
+    n = 10240 if singletons else 4096
+    rng = np.random.default_rng(g_pad)
+    units = rng.integers(0, 40, n).astype(np.float32)
+    ids = (np.arange(n) if singletons else rng.integers(0, g_pad - 2, n)) \
+        .astype(np.int32)
+    ids[rng.choice(n, 50, replace=False)] = -1
+    got = sharded_group_capacity(make_mesh(devices=["cuda"] * w), g_pad)(
+        units, ids)
+    want = sharded_group_capacity(make_mesh(devices=["cpu"] * w), g_pad)(
+        units, ids)
+    one = group_capacity_plain(torch.from_numpy(units),
+                               torch.from_numpy(ids), g_pad)
+    assert torch.equal(got.cpu(), want) and torch.equal(want, one)
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_noise_window_at_an_offset(dev, w):
+    """The kernel's window at lo > 0 is the full draw's columns."""
+    keys = torch.tensor([[7, 11], [3, 5]], dtype=torch.int64, device=dev)
+    n, k = 1000 * w, 6
+    full = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    for s in range(1, w):
+        lo = s * (n // w)
+        part = prng.threefry_uniform(keys, (k, n // w), 0.0, 2.0,
+                                     window=(lo, n))
+        assert torch.equal(part, full[:, :, lo:lo + n // w])
+        plain = prng.threefry_uniform_plain(keys, (k, n // w), 0.0, 2.0,
+                                            window=(lo, n))
+        assert torch.equal(part, plain)
+
+
+def test_sharded_wrappers_count_their_launches(dev):
+    """K x (W + 1) + W launches for a greedy scan of one eval, W + 1 +
+    W for an independent top-k, W + 1 for a group capacity, W for a
+    delta; plain versions count nothing."""
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    b, n, k, w = 1, 512, 5, 4
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, 1, dev)
+    keys = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    cuda.reset_launch_counts()
+    shard.sharded_greedy_scan(shard_split(static, base, feasible, asks, keys,
+                                          w, False, False), 10.0)
+    shard.sharded_greedy_scan_plain(shard_split(
+        static, base, feasible, asks, keys, w, False, False), 10.0)
+    ua = uniform_asks(asks, b, k)
+    shard.sharded_uniform_topk(shard_split(static, base, feasible, ua, keys,
+                                           w, True, False), 10.0)
+    mesh = make_mesh(devices=["cuda"] * w)
+    shard.sharded_group_capacity(mesh, 16)(
+        np.ones(n, np.float32), np.zeros(n, np.int32))
+    counts = cuda.launch_counts()
+    assert counts["sharded_greedy_scan"] == k * (w + 1) + w
+    assert counts["sharded_uniform_topk"] == 2 * w + 1
+    assert counts["group_capacity"] == w + 1
+
+
+def _to(x, device):
+    """Tensors, alone or in (named) tuples, moved to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        items = [_to(i, device) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def test_sharded_paths_on_distinct_cards(dev):
+    """The distinct-card path: four shards over the cards round-robin
+    (per-card launches, partial buffers and winners crossing between
+    cards) give what four shards of one card give, for K10a-K10d.
+    Skips on a machine with one card."""
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: the distinct-card path")
+    w = 4
+    spread = [torch.device("cuda", s % cards) for s in range(w)]
+    b, n, k, g = 3, 1000, 24, 2
+    for uniform in (False, True):
+        for seq in (False, True):
+            static, base, feasible, asks = scan_inputs(n, k, g, b, 21, dev)
+            if uniform:
+                asks = uniform_asks(asks, b, k)
+            keys = torch.arange(2 * b, device=dev).view(b, 2)
+            fn = (shard.sharded_uniform_topk if uniform
+                  else shard.sharded_greedy_scan)
+            one = shard_split(static, base, feasible, asks, keys, w, uniform,
+                              seq)
+            many = [_to(sh, d) for sh, d in zip(
+                shard_split(static, base, feasible, asks, keys, w, uniform,
+                            seq), spread)]
+            want = fn(one, 10.0, seq)
+            got = fn(many, 10.0, seq)
+            assert torch.equal(got[0], want[0]), (uniform, seq)
+            assert torch.equal(got[1], want[1]), (uniform, seq)
+            for a, c in zip(one, many):
+                for x, y in zip(a.carry, c.carry):
+                    assert torch.equal(x, y.to(dev)), (uniform, seq)
+    rng = np.random.default_rng(5)
+    parent = (rng.random((n, 4)).astype(np.float32),
+              rng.random(n).astype(np.float32),
+              rng.random(n).astype(np.float32), rng.random(n) < 0.5)
+    rows = rng.choice(n, 40, replace=False).astype(np.int32)
+    vals = [rng.random((40, 4)).astype(np.float32),
+            rng.random(40).astype(np.float32),
+            rng.random(40).astype(np.float32), rng.random(40) < 0.5]
+    units = rng.integers(0, 40, n).astype(np.float32)
+    ids = rng.integers(-1, 1100, n).astype(np.int32)
+    specs = [("nodes", None), ("nodes",), ("nodes",), ("nodes",)]
+    out = []
+    for devices in (["cuda:0"] * w, [str(d) for d in spread]):
+        mesh = make_mesh(devices=devices)
+        delta = shard.sharded_base_delta(mesh)(
+            *place(mesh, parent, specs), rows, *vals)
+        caps = shard.sharded_group_capacity(mesh, 1152)(units, ids)
+        out.append(([gather(x) for x in delta], caps.cpu()))
+    for x, y in zip(out[0][0], out[1][0]):
+        assert torch.equal(x, y)
+    assert torch.equal(out[0][1], out[1][1])
