@@ -93,7 +93,12 @@ Phases (any failure exits non-zero and prints no result):
    the least time the card could take: the larger of this run's bytes
    over the HBM rate and its operations over the peak rate, and for
    the scans also the measured time of their chain of block-wide
-   argmax rounds alone.
+   argmax rounds alone. On phase 9's calls: K10a-K10d, then K10e (the
+   gang programs: outputs and every shard's carry), K10f (the defrag
+   solves) and K10g-a (the 512 + 512 eval and all 64 storm evals) to
+   RELAX_TOLS as K8a and K9, and K10g-b (choices and carry equal its
+   plain version's, and K8b's on the whole node axis fed the same
+   pref).
 
 8. The convex kernel and the defrag solve (they run before phase 7's
    holds, which use their recorded calls): (a) config 4's job and the
@@ -119,9 +124,25 @@ Phases (any failure exits non-zero and prints no result):
    rows; the 512 + 512 eval through K10c (B = 1: a sharded base runs
    the live rows only), equal to K1's; K10b over one-node groups
    (g_pad 10,240) and racks of 40 (g_pad 256), equal to the one-device
-   node-order sum. Phase 7 holds K10a-K10d against their plain versions
-   on these calls, with each record's launches a call read from the
-   launch counts around one call.
+   node-order sum. Then the last three node-sharded programs on the
+   same mesh: config 4's job and the 512 + 512 job through
+   ``service-convex-gpu`` on a mesh batcher on phase 3's cluster (K0 and
+   K3 a shard, K10g-a's relaxation with its cross-shard softmax and
+   maxima, K10g-b's rounding over the shards), each placed as the host
+   oracle places it and checked as phase 8's, its pref within 5e-3 of
+   the unsharded convex eval's on the same state and key (or, where
+   float32 drifts, held by the float64 run) and the number of
+   placements that differ from that eval's printed; a 64-eval convex
+   storm through the mesh batcher's ``place_cohort`` with pre_resolve
+   (0 conflicts, all placed); ``compute_defrag_plan(..., mesh=)`` on
+   phase 8's fragmented layout, cold then warm at K = 512 x N = 10,240
+   (K10f; fragmentation never rises, the warm plan's moves pass
+   ``judge_migration_plan``); and phase 6's free gang, ici slice and
+   meta-less spread through ``shard_gang_inputs`` + ``gang_placement``
+   (K10e, with K10b's group sums), equal to K7's choices, scores and
+   slice group on the same call. Phase 7 holds K10a-K10g against their
+   plain versions on these calls, with each record's launches a call
+   read from the launch counts around one call.
 
 Every path of phases 3 to 6, 8 and 9 runs with the launch counts set to 0
 just before it and read just after, and fails if a kernel of that path
@@ -136,6 +157,7 @@ Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -1205,11 +1227,12 @@ BARE_GANGS = (
 def run_gangs(seed, torch, total):
     """Phase 6 (see the module docstring). Returns K7's recorded call
     and its score error against the plain version for each gang, by
-    job id."""
+    job id, and each gang's recorded ``gang_placement`` call (phase 9
+    runs it again over node shards)."""
     from nomad_tpu_torch.ops import gang as ops_gang
     from nomad_tpu_torch.scheduler.testing import Harness
 
-    recorded = {}
+    recorded, placements = {}, {}
     for meta, gangs, what in (
             (topology_meta, GANGS, f"{N_NODES // RACK_SIZE} racks, "
              f"{N_NODES // ICI_SIZE} ici groups"),
@@ -1220,16 +1243,21 @@ def run_gangs(seed, torch, total):
         print(f"gang cluster: {N_NODES} nodes ({what}), "
               f"{len(h.state.allocs())} allocs, built in "
               f"{time.perf_counter() - t0:.1f} s (host)")
-        with Recorder(ops_gang, "gang_scan") as rec:
+        with Recorder(ops_gang, "gang_scan") as rec, \
+                Recorder(ops_gang, "gang_placement") as programs:
             device_share(torch, lambda: counted(
                 total, f"gang evals ({what})",
                 ("threefry_uniform", "gang_scan"),
                 lambda: drive_gangs(h, gangs, rec, recorded)),
                 f"gang evals ({len(gangs)}, {what})")
+        check(len(programs.calls) == len(gangs),
+              f"{len(programs.calls)} gang programs for {len(gangs)} gangs")
+        placements.update((g[1], c) for g, c in zip(gangs, programs.calls))
     # K7 against its plain version on each gang's own call.
     return {jid: (recorded[jid], hold_gang(
         torch, f"K7 ({label}, g_pad={recorded[jid].inputs[7].g_pad})",
-        recorded[jid])) for label, jid, _k, _dh, _s in GANGS + BARE_GANGS}
+        recorded[jid])) for label, jid, _k, _dh, _s in GANGS + BARE_GANGS}, \
+        placements
 
 
 def drive_gangs(h, gangs, rec, recorded):
@@ -1915,8 +1943,9 @@ def mesh_devices(torch):
 
 
 class ShardRecorder:
-    """Wraps ``parallel.shard.<name>`` (a sharded scan) while the block
-    runs and keeps each call's shards, copied before it, and result."""
+    """Wraps ``parallel.shard.<name>`` (a wrapper over node shards) while
+    the block runs and keeps each call's shards and other arguments,
+    copied before it, and its result, copied: (shards, args, out)."""
 
     def __init__(self, name):
         from nomad_tpu_torch.parallel import shard
@@ -1926,11 +1955,12 @@ class ShardRecorder:
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
-        def wrapped(shards, penalty, seq=False):
+        def wrapped(shards, *args):
             inputs = [cloned(sh) for sh in shards]
-            out = self.orig(shards, penalty, seq)
-            self.calls.append((inputs, penalty, seq,
-                               tuple(x.clone() for x in out)))
+            kept = cloned(args)
+            out = self.orig(shards, *args)
+            self.calls.append((inputs, kept, cloned(
+                tuple(out) if isinstance(out, list) else out)))
             return out
 
         setattr(self.module, self.name, wrapped)
@@ -2131,20 +2161,28 @@ def plan_nodes(plan):
 
 
 def hold_shards(torch, label, call):
-    """One recorded sharded-scan call re-run through the kernel and the
-    plain version on copies of its inputs: choices, scores and every
-    shard's carry equal (scores within SCORE_TOL), and the kernel's
-    re-run equal to the recorded result. Then the whole node axis
-    through the unsharded K1 / K2: equal bit for bit. Returns the score
-    error and the kernel re-run's launches."""
+    """One recorded sharded-scan call (K10c, K10d or K10g-b) re-run
+    through the kernel and the plain version on copies of its inputs:
+    choices, scores and every shard's carry equal (scores within
+    SCORE_TOL), and the kernel's re-run equal to the recorded result.
+    Then the whole node axis through the unsharded K1 / K2 / K8b (fed
+    the same pref): equal bit for bit. Returns the score error and the
+    kernel re-run's launches."""
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.parallel import shard
 
-    inputs, penalty, seq, out = call
+    from nomad_tpu_torch.kernels import convex
+
+    inputs, (penalty, *rest), out = call
+    seq = bool(rest and rest[0])
     uniform = inputs[0].noise.dim() == 2
+    biased = inputs[0].pref is not None
     kern, plain, one = ((shard.sharded_uniform_topk,
                          shard.sharded_uniform_topk_plain,
                          binpack.uniform_topk) if uniform else
+                        (shard.sharded_convex_round,
+                         shard.sharded_convex_round_plain,
+                         convex.convex_round) if biased else
                         (shard.sharded_greedy_scan,
                          shard.sharded_greedy_scan_plain,
                          binpack.greedy_scan))
@@ -2166,7 +2204,9 @@ def hold_shards(torch, label, call):
     carry = list(joined_carry(torch, whole, seq))
     feas = cat((sh.feasible for sh in whole), 1)
     noise = cat((sh.noise for sh in whole), -1)
-    ch, sc = one(*static, carry, feas, whole[0].asks, noise, penalty, seq)
+    pref = (cat((sh.pref for sh in whole), -1),) if biased else ()
+    ch, sc = one(*static, carry, feas, whole[0].asks, noise, penalty, *pref,
+                 seq)
     check(torch.equal(ch, out[0]) and torch.equal(sc, out[1]),
           f"{label}: differs from the unsharded kernel")
     return err, launches
@@ -2278,7 +2318,7 @@ def bench_mesh(torch, np, rec):
     # ---- K10c on the 512 + 512 eval's call
     call = rec["greedy"][0]
     err, launches = hold_shards(torch, "K10c (512 + 512 eval)", call)
-    inputs, penalty, seq, res = call
+    inputs, (penalty, seq), res = call
     b, k = res[0].shape
     n = sum(sh.feasible.shape[1] for sh in inputs)
     g = inputs[0].feasible.shape[2]
@@ -2306,7 +2346,7 @@ def bench_mesh(torch, np, rec):
     held = [hold_shards(torch, f"K10d storm call {i}", c)
             for i, c in enumerate(rec["topk"])]
     errs = [e for e, _n in held]
-    inputs, penalty, seq, res = rec["topk"][0]
+    inputs, (penalty, seq), res = rec["topk"][0]
     b, k = res[0].shape
     n = sum(sh.feasible.shape[1] for sh in inputs)
     ms = time_cuda(torch, lambda: shard.sharded_uniform_topk(
@@ -2332,6 +2372,409 @@ def bench_mesh(torch, np, rec):
     return out
 
 
+# ------------------------------------------- mesh: gang, defrag, convex
+
+
+@contextlib.contextmanager
+def batcher_for_schedulers(batcher):
+    """``batcher`` as the process batcher of the port's default device
+    while the block runs, so the dense schedulers (``service-convex-gpu``)
+    dispatch through it: the port shards a base only on a batcher given
+    a mesh, and has no automatic mesh yet."""
+    from nomad_tpu_torch.device import default_device
+    from nomad_tpu_torch.scheduler import batcher as batcher_mod
+
+    dev = default_device()
+    with batcher_mod._batchers_lock:
+        before = batcher_mod._batchers.get(dev)
+        batcher_mod._batchers[dev] = batcher
+    try:
+        yield
+    finally:
+        with batcher_mod._batchers_lock:
+            if before is None:
+                batcher_mod._batchers.pop(dev, None)
+            else:
+                batcher_mod._batchers[dev] = before
+
+
+def joined(torch, outs, i):
+    """Output ``i`` of a per-shard output list, joined in node order."""
+    return torch.cat([o[i] for o in outs], dim=-1)
+
+
+def dry_plan(h, kind, ev, seed):
+    """One eval through ``kind`` on ``h``'s state, nothing committed:
+    its plan (the rng from ``seed``, so two arms draw the same keys)."""
+    from nomad_tpu_torch.scheduler import new_scheduler
+
+    planner = _DryRunPlanner()
+    new_scheduler(kind, logging.getLogger("smoke.mesh"), h.state.snapshot(),
+                  planner, rng=random.Random(seed)).process_eval(ev.copy())
+    check(len(planner.plans) == 1, f"{kind}: {len(planner.plans)} plans")
+    return planner.plans[0]
+
+
+def run_mesh_programs(seed, torch, total, main_h, storm_h, frag_h,
+                      gang_programs):
+    """Phase 9, the last three node-sharded programs on the 4-shard
+    mesh: (a) the convex kernel (K10g) through ``service-convex-gpu`` on
+    a mesh batcher, then a convex storm through its ``place_cohort``;
+    (b) ``compute_defrag_plan(..., mesh=)`` (K10f); (c) phase 6's gang
+    programs on a node-sharded GangState (K10e). Returns figures and the
+    recorded calls for phase 7's holds (bench_mesh_programs)."""
+    import numpy as np
+
+    from nomad_tpu_torch.defrag import (
+        WarmState,
+        build_wave_evals,
+        compute_defrag_plan,
+    )
+    from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.kernels.differential import judge_migration_plan
+    from nomad_tpu_torch.ops.gang import GANG_MODE_FREE, \
+        GANG_MODE_AFFINITY, gang_placement
+    from nomad_tpu_torch.parallel.mesh import make_mesh, shard_gang_inputs
+    from nomad_tpu_torch.scheduler.batcher import PlacementBatcher
+    from nomad_tpu_torch.structs import consts
+    from nomad_tpu_torch.structs.eval import new_eval
+
+    mesh = make_mesh(devices=mesh_devices(torch))
+    mb = PlacementBatcher(mesh=mesh)
+    rec, figures = {}, {}
+    relax_names = ("threefry_uniform", "expand_overlay",
+                   "sharded_convex_relax", "sharded_convex_round")
+    # ---- a. service-convex-gpu through the mesh batcher on phase 3's
+    # cluster, beside the unsharded convex eval on the same state and key
+    h = main_h
+    steps = [("config 4 job (K = 8, ports + distinct_hosts)",
+              storm_job("mesh-convex-star"), 8),
+             ("512 + 512 two-group job (K = 1,024)",
+              two_group_job_id("mesh-convex-two", 512), 1024)]
+    for label, job, expect in steps:
+        h.state.upsert_job(h.next_index(), job)
+        job = h.state.job_by_id(job.id)
+        ev = new_eval(job, consts.EVAL_TRIGGER_JOB_REGISTER)
+        existing = {a.id for a in h.state.allocs_by_job(job.id)}
+        host_n = host_oracle_count(h.state, ev, seed, existing)
+        with Recorder(convex, "relaxed_pref") as one_rel:
+            one_plan = dry_plan(h, "service-convex-gpu", ev, seed)
+        with batcher_for_schedulers(mb), \
+                ShardRecorder("sharded_relax") as rel, \
+                ShardRecorder("sharded_convex_round") as rnd:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = counted(total, f"mesh convex eval, {label}", relax_names,
+                           lambda: dry_plan(h, "service-convex-gpu", ev,
+                                            seed))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(mb.stats()["sharded_bases"] >= 1,
+              "mesh convex eval: the base was not sharded")
+        fresh = new_allocs(plan, existing)
+        check(len(fresh) == host_n == expect,
+              f"mesh convex {label}: placed {len(fresh)}, host {host_n}")
+        if expect == 8:
+            check(len({a.node_id for a in fresh}) == 8,
+                  f"mesh convex {label}: distinct_hosts violated")
+        check(len(one_rel.calls) == len(rel.calls) == len(rnd.calls) == 1,
+              f"mesh convex {label}: {len(rel.calls)} relaxations")
+        pref = joined(torch, rel.calls[0][2], 2)
+        one = one_rel.calls[0].out
+        err = (pref - one).abs().max().item()
+        if err > X_TOL:  # float32 drift: held by the float64 run
+            args = _double(one_rel.calls[0].inputs)
+            p64 = convex.relaxed_assignment_plain(*args)[2]
+            far = (pref.double() - p64).abs().max().item()
+            bound = 10 * (one.double() - p64).abs().max().item() + 1e-5
+            check(bound < CHAOS_CAP and far <= bound,
+                  f"mesh convex {label}: pref error {err}, float64 "
+                  f"distance {far}, bound {bound}")
+        mine, theirs = plan_nodes(plan), plan_nodes(one_plan)
+        differ = sum(mine[k] != theirs.get(k) for k in mine)
+        # Commit the mesh plan, then hold it as phase 8 holds its evals.
+        allocs = [a for per in plan.node_allocation.values() for a in per]
+        for a in allocs:
+            a.job = job
+        h.state.upsert_allocs(h.next_index(), allocs)
+        check_placements(h.state, job, plan)
+        figures[f"mesh_convex_eval_ms_{expect}"] = wall * 1000.0
+        print(f"mesh convex eval, {label}: placed {len(fresh)} (host oracle "
+              f"{host_n}) in {wall * 1000:.1f} ms; pref within {err:.3g} of "
+              f"the unsharded eval's; {differ} of {len(mine)} placements "
+              "differ from the unsharded eval's on the same state and key")
+        rec[("eval", expect)] = (rel.calls[0], rnd.calls[0])
+    # ---- a'. a convex storm through the mesh batcher, pre_resolve on
+    storm = Storm(storm_h, mb)
+    conv = lambda job, m: placement_config(job, m, True, "convex")  # noqa
+    try:
+        jobs = storm.jobs("mesh-convex", CONVEX_STORM_BATCH, storm_job)
+        with ShardRecorder("sharded_relax") as rel, \
+                ShardRecorder("sharded_convex_round") as rnd:
+            rows, results, plans, lat, wall = counted(
+                total, "mesh convex storm", relax_names,
+                lambda: storm.round(jobs, 150_000, conv))
+    finally:
+        storm.close()
+    placed = sum(len(a) for p in plans for a in p.node_allocation.values())
+    conflicted = conflicted_evals(rows, results)
+    figures.update(mesh_convex_storm_evals_per_s=CONVEX_STORM_BATCH / wall,
+                   mesh_convex_storm_p99_ms=float(
+                       np.percentile(lat, 99)) * 1000.0)
+    print(f"mesh convex storm: {CONVEX_STORM_BATCH} evals of config 4's job "
+          f"(pre_resolve, {MESH_SHARDS} shards) in {wall:.3f} s = "
+          f"{CONVEX_STORM_BATCH / wall:.2f} evals/s; per-eval p50 "
+          f"{np.percentile(lat, 50) * 1000:.2f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1000:.2f} ms; {placed} placed; "
+          f"conflicted evals: {conflicted}")
+    check_placed("mesh convex storm", results, placed,
+                 CONVEX_STORM_BATCH * 8)
+    check(conflicted == 0, f"mesh convex storm: {conflicted} conflicted")
+    check(len(rel.calls) == len(rnd.calls) == CONVEX_STORM_BATCH,
+          f"mesh convex storm: {len(rel.calls)} relaxations")
+    rec["storm"] = list(zip(rel.calls, rnd.calls))
+    # ---- b. the defrag solve over the mesh on phase 8's fragmented layout
+    warm = WarmState()
+    plans = {}
+    with ShardRecorder("sharded_relax") as sol:
+        for label in ("cold", "warm"):
+            plan = counted(
+                total, f"mesh defrag solve, {label}",
+                ("sharded_defrag_solve",),
+                lambda: compute_defrag_plan(
+                    frag_h.state.snapshot(), ["dc1", "dc2"],
+                    max_moves=DEFRAG_MOVES, min_gain=0.0, warm=warm,
+                    class_compress=False, mesh=mesh))
+            plans[label] = plan
+            print(f"mesh defrag {label}: K = {plan.k} over {plan.n} nodes "
+                  f"({MESH_SHARDS} shards), {plan.movable} movable, warm "
+                  f"{plan.warm} ({plan.carried} carried), {plan.candidates} "
+                  f"candidates, {len(plan.moves)} moves, fragmentation "
+                  f"{plan.frag_before:.6f} -> {plan.frag_after:.6f}, round "
+                  f"{plan.solve_ms:.1f} ms (host)")
+            check(plan.frag_after <= plan.frag_before,
+                  f"mesh defrag {label}: fragmentation rose")
+            check(plan.warm == (label == "warm") and not plan.compressed,
+                  f"mesh defrag {label}: warm {plan.warm}")
+            check(plan.k == 512 and plan.n == BENCH_N,
+                  f"mesh defrag {label}: K = {plan.k}, N = {plan.n}")
+    check(len(sol.calls) == 2, f"{len(sol.calls)} sharded defrag solves")
+    rec["defrag"] = dict(zip(plans, sol.calls))
+    moves = plans["warm"].moves
+    check(moves, "mesh defrag found no move")
+    judged = 0
+    for ev in build_wave_evals(frag_h.state.snapshot(), moves):
+        ev_snap = frag_h.state.snapshot()
+        seen = len(frag_h.plans)
+        frag_h.process("service-gpu", ev)
+        for wave_plan in frag_h.plans[seen:]:
+            bad = judge_migration_plan(ev_snap, wave_plan)
+            check(not bad, f"mesh defrag wave plan: {bad[:3]}")
+            judged += 1
+    print(f"mesh defrag wave: {len(moves)} moves, {judged} plans judged by "
+          "judge_migration_plan (clean)")
+    # ---- c. phase 6's gang programs on a node-sharded GangState
+    for jid in ("g-free", "g-slice-ici", "b-spread"):
+        call = gang_programs[jid]
+        state, ask_res, ask_bw, ask_ports, active, key, config, _d = \
+            call.inputs
+        names = ("threefry_uniform", "sharded_gang_scan")
+        if config.mode not in (GANG_MODE_FREE, GANG_MODE_AFFINITY):
+            names += ("group_capacity",)
+        with ShardRecorder("sharded_gang_scan") as gs:
+            got = counted(total, f"mesh gang {jid}", names, lambda: (
+                gang_placement(shard_gang_inputs(mesh, state), ask_res,
+                               ask_bw, ask_ports, active, key, config)))
+        want = call.out
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and int(got[2]) == int(want[2]),
+              f"mesh gang {jid}: differs from K7 on the same call")
+        rec[("gang", jid)] = gs.calls[0]
+        print(f"mesh gang {jid} ({config.mode}, K = {active.shape[0]}, "
+              f"g_pad {config.g_pad}): {int((got[0] >= 0).sum())} placed; "
+              "choices, scores and slice group equal to K7's")
+    return figures, rec
+
+
+def bench_mesh_programs(torch, np, rec):
+    """Holds and times of K10e, K10f, K10g-a and K10g-b on phase 9's own
+    calls: the gang programs, the defrag solves (cold, warm), the 512 +
+    512 convex eval's relaxation and rounding (B = 1 x K = 1,024) and
+    the mesh convex storm's 64 (K = 8, each eval alone: all held, the
+    first timed)."""
+    from nomad_tpu_torch.parallel import shard
+
+    dev = torch.device("cuda")
+    out = {}
+    w = MESH_SHARDS
+
+    def rerun(fn, call):
+        shards, args, res = call
+        return fn([cloned(sh) for sh in shards], *cloned(args))
+
+    # ---- K10e
+    for jid in ("g-free", "g-slice-ici", "b-spread"):
+        call = rec[("gang", jid)]
+        shards, (active, gnoise, cfg), res = call
+        label = f"K10e ({jid}, g_pad={cfg.g_pad})"
+        got, launches = launches_of("sharded_gang_scan", lambda: rerun(
+            shard.sharded_gang_scan, call))
+        check(all(torch.equal(a, b) for a, b in zip(got, res)),
+              f"{label}: the re-run differs from the recorded call")
+        kern = [cloned(sh) for sh in shards]
+        plain = [cloned(sh) for sh in shards]
+        ch, sc, sg = shard.sharded_gang_scan(kern, active, gnoise, cfg)
+        ch_p, sc_p, sg_p = shard.sharded_gang_scan_plain(plain, active,
+                                                         gnoise, cfg)
+        err = (sc - sc_p).abs().max().item()
+        check(torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+              and err <= SCORE_TOL,
+              f"{label}: differs from the plain version (score error {err})")
+        for a, b in zip(kern, plain):
+            for name in ("util", "bw_used", "ports_free"):
+                check(torch.equal(getattr(a.state, name),
+                                  getattr(b.state, name)),
+                      f"{label}: final {name} differs")
+            check(torch.equal(a.placed, b.placed) and torch.equal(
+                a.group_members, b.group_members),
+                f"{label}: placed or group members differ")
+        n = sum(sh.state.capacity.shape[0] for sh in shards)
+        k = active.shape[0]
+        box = {}
+        setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
+        ms = time_cuda(torch, lambda: shard.sharded_gang_scan(
+            box["s"], active, gnoise, cfg), 5 if k > 64 else RUNS,
+            setup=setup, warmup=1)
+        plain_ms = time_cuda(torch, lambda: shard.sharded_gang_scan_plain(
+            box["s"], active, gnoise, cfg), 1, setup=setup, warmup=0)
+        chain = chain_ms(torch, k, dev)
+        rows = torch.unique(ch[ch >= 0]).numel()
+        bytes_ = (n * 73 + 24 + k + k * n * 4 + cfg.g_pad * (4 + 4 * w)
+                  + k * 8 + 4 + rows * 28)
+        flops = k * n * 60 + n * 20
+        print(f"{label}: {int((ch >= 0).sum())} placed; held against the "
+              f"plain version (score error {err:.3g}); {launches} launches "
+              "a call")
+        out.setdefault("sharded_gang_scan", {})[(k, cfg.g_pad)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            library_ms=None, chain_ms=chain, launches_per_call=launches,
+            shards=w)
+        torch.cuda.empty_cache()
+    # ---- K10f on the defrag rounds' own calls
+    for label, call in rec["defrag"].items():
+        shards, (iters,), res = call
+        got, launches = launches_of("sharded_defrag_solve", lambda: rerun(
+            shard.sharded_relax, call))
+        check(all(torch.equal(a, b) for o, r in zip(got, res)
+                  for a, b in zip(o, r)),
+              f"K10f {label}: the re-run differs from the recorded call")
+        plain = shard.sharded_relax_plain([cloned(sh) for sh in shards],
+                                          iters)
+        kinds = ("logits", "x")
+        kind_errs, far = hold_outputs(
+            f"K10f {label}", [joined(torch, res, i) for i in (0, 1)],
+            [joined(torch, plain, i) for i in (0, 1)],
+            lambda: [joined(torch, shard.sharded_relax_plain(
+                [_double(sh) for sh in shards], iters), i) for i in (0, 1)],
+            kinds)
+        err = (joined(torch, res, 1) - joined(torch, plain, 1)).abs().max() \
+            .item()
+        k, n = res[0][0].shape[0], sum(r[0].shape[1] for r in res)
+        print(f"K10f {label} (K={k}, N={n}, {iters} iterations, {w} shards): "
+              f"x absolute error {err:.3g}; in RELAX_TOLS' terms {kind_errs};"
+              f" held by the float64 run {far}; {launches} launches a call")
+        box = {}
+        setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
+        ms = time_cuda(torch, lambda: shard.sharded_relax(box["s"], iters),
+                       RUNS, setup=setup)
+        plain_ms = time_cuda(torch, lambda: shard.sharded_relax_plain(
+            box["s"], iters), 3, warmup=1, setup=setup)
+        bytes_ = k * n * 4 + n * (16 * 3 + 4 * 3 + 1) + k * 29 + 2 * k * n * 4
+        out.setdefault("sharded_defrag_solve", {})[(label, k, n)] = dict(
+            max_abs_err=err, errs=kind_errs, float64=far, ms=ms,
+            plain_ms=plain_ms,
+            **bound(bytes_, k * n * (40 + 55 * iters) / FP32_FLOPS),
+            library_ms=None,
+            pass_bound_ms=iters * 3 * k * n * 4 / HBM_BYTES_S * 1000.0,
+            launches_per_call=launches, shards=w)
+        torch.cuda.empty_cache()
+    # ---- K10g-a and K10g-b on the 512 + 512 eval and the storm
+    for key, calls in (("eval", [rec[("eval", 1024)]]),
+                       ("storm", rec["storm"])):
+        errs, kinds, far, rerrs = [], {}, {}, []
+        for rel_call, rnd_call in calls:
+            shards, (iters, penalty), res = rel_call
+            got, rel_launches = launches_of(
+                "sharded_convex_relax",
+                lambda: rerun(shard.sharded_relax, rel_call))
+            check(all(torch.equal(a, b) for o, r in zip(got, res)
+                      for a, b in zip(o, r)),
+                  f"K10g-a {key}: the re-run differs from the recorded call")
+            plain = shard.sharded_relax_plain(
+                [cloned(sh) for sh in shards], iters, penalty)
+            kind_errs, kind_far = hold_outputs(
+                f"K10g-a {key}", [joined(torch, res, i) for i in range(3)],
+                [joined(torch, plain, i) for i in range(3)],
+                lambda: [joined(torch, shard.sharded_relax_plain(
+                    [_double(sh) for sh in shards], iters, penalty), i)
+                    for i in range(3)], ("logits", "x", "pref"))
+            errs.append(max((joined(torch, res, i) - joined(torch, plain, i))
+                            .abs().max().item() for i in (1, 2)))
+            for kind, e in kind_errs.items():
+                kinds[kind] = max(kinds.get(kind, 0.0), e)
+            for kind, pair in kind_far.items():
+                far[kind] = max(far.get(kind, pair), pair)
+            rerr, rnd_launches = hold_shards(torch, f"K10g-b {key}",
+                                             rnd_call)
+            rerrs.append(rerr)
+        rel_call, rnd_call = calls[0]
+        shards, (iters, penalty), res = rel_call
+        b, k, _n = res[0][2].shape
+        n = sum(r[2].shape[-1] for r in res)
+        g = shards[0].feasible.shape[2]
+        print(f"K10g-a ({key}, B={b}, K={k}, N={n}, {w} shards): "
+              f"{len(calls)} call(s) held, max x / pref absolute error "
+              f"{max(errs):.3g}, in RELAX_TOLS' terms {kinds}; held by the "
+              f"float64 run {far}; {rel_launches} launches a call; K10g-b: "
+              f"choices and carry equal the plain version's and K8b's, max "
+              f"score error {max(rerrs):.3g}; {rnd_launches} launches a call")
+        box = {}
+        setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
+        ms = time_cuda(torch, lambda: shard.sharded_relax(
+            box["s"], iters, penalty), RUNS, setup=setup)
+        plain_ms = time_cuda(torch, lambda: shard.sharded_relax_plain(
+            box["s"], iters, penalty), 3, warmup=1, setup=setup)
+        out.setdefault("sharded_convex_relax", {})[(key, k)] = dict(
+            max_abs_err=max(errs), errs=kinds, float64=far, ms=ms,
+            plain_ms=plain_ms,
+            **bound(relax_bytes(b, n, g, k, 1),
+                    relax_flops(b, n, k, iters) / FP32_FLOPS),
+            library_ms=None,
+            pass_bound_ms=iters * 3 * b * k * n * 4 / HBM_BYTES_S * 1000.0,
+            launches_per_call=rel_launches, shards=w, calls_held=len(calls))
+        shards, (penalty, *_s), res = rnd_call
+        setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
+        ms = time_cuda(torch, lambda: shard.sharded_convex_round(
+            box["s"], penalty), 5 if k > 64 else RUNS, setup=setup, warmup=1)
+        plain_ms = time_cuda(torch, lambda: shard.sharded_convex_round_plain(
+            box["s"], penalty), 1 if k > 64 else 3, warmup=0, setup=setup)
+        chain = chain_ms(torch, k, dev)
+        rows, cells = rows_written(torch, res[0], shards[0].asks.tg_index, n,
+                                   g)
+        bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
+                  + b * k * (ASK_BYTES + 8) + b * (1 + g)
+                  + 2 * b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
+        out.setdefault("sharded_convex_round", {})[(key, k)] = dict(
+            max_abs_err=max(rerrs), ms=ms, plain_ms=plain_ms,
+            **bound(bytes_, max(b * k * n * 85 / FP32_FLOPS,
+                                chain / 1000.0)),
+            library_ms=None, chain_ms=chain,
+            launches_per_call=rnd_launches, shards=w, calls_held=len(calls))
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- convex
 
 CONVEX_STORM_BATCH = 64
@@ -2344,6 +2787,10 @@ DEFRAG_MOVES = 8
 # comparison holds nothing.
 RELAX_TOLS = {"logits": 1e-4, "x": 1e-3, "pref": 1e-3}
 CHAOS_CAP = 0.1
+# The mesh convex eval's pref against the unsharded eval's, both on the
+# card (tests/test_torch_convex.py X_TOL): the cross-shard softmax sums
+# in another order.
+X_TOL = 5e-3
 
 
 def build_fragmented_cluster(harness, n_nodes):
@@ -2603,7 +3050,21 @@ def run_convex(seed, torch, total, main_h, storm_h):
     print(f"defrag wave: {len(moves)} moves in {len(evals)} evals through "
           f"service-gpu, {judged} plans judged by judge_migration_plan "
           f"(clean) in {time.perf_counter() - t0:.1f} s")
+    rec["frag_h"] = frag_h
     return rec
+
+
+def relax_bytes(b, n, g, k, outputs):
+    """Node rows, the carry, the counts and feasibility, every ask, read
+    once; ``outputs`` [B,K,N] f32 arrays written once."""
+    return (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
+            + b * k * ASK_BYTES + b * (1 + g) + outputs * b * k * n * 4)
+
+
+def relax_flops(b, n, k, iters):
+    """A prologue of ~40 flops a pair (two pow), then per iteration ~55
+    a pair (two exp, the six contractions and the gradient)."""
+    return b * k * n * (40 + 55 * iters)
 
 
 def relax_err(got, want, kind):
@@ -2697,17 +3158,6 @@ def bench_convex(torch, np, rec):
 
     dev = torch.device("cuda")
     out = {}
-
-    def relax_bytes(b, n, g, k, outputs):
-        # Node rows, the carry, the counts and feasibility, every ask,
-        # read once; ``outputs`` [B,K,N] f32 arrays written once.
-        return (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
-                + b * k * ASK_BYTES + b * (1 + g) + outputs * b * k * n * 4)
-
-    def relax_flops(b, n, k, iters):
-        # A prologue of ~40 flops a pair (two pow), then per iteration
-        # ~55 a pair (two exp, the six contractions and the gradient).
-        return b * k * n * (40 + 55 * iters)
 
     # ---- K8a and K8b on the K = 1,024 eval and the storm
     for key, calls, name_round in (
@@ -2843,6 +3293,14 @@ REPLACES = {
                             "nomad_tpu/parallel/mesh.py:212"),
     "sharded_uniform_topk": ("nomad_tpu_torch/csrc/sharded_topk.cu",
                              "nomad_tpu/ops/binpack.py:302"),
+    "sharded_gang_scan": ("nomad_tpu_torch/csrc/sharded_gang.cu",
+                          "nomad_tpu/parallel/mesh.py:175"),
+    "sharded_defrag_solve": ("nomad_tpu_torch/csrc/sharded_relax.cu",
+                             "nomad_tpu/parallel/mesh.py:201"),
+    "sharded_convex_relax": ("nomad_tpu_torch/csrc/sharded_relax.cu",
+                             "nomad_tpu/kernels/convex.py:136"),
+    "sharded_convex_round": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+                             "nomad_tpu/kernels/convex.py:224"),
 }
 # The shape each kernel's JSON record leads with (the others ride
 # along under "shapes").
@@ -2855,7 +3313,11 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "convex_round_seq": ("storm", 8),
            "defrag_solve": ("cold", 512, BENCH_N),
            "sharded_base_delta": 256, "group_capacity": BENCH_N,
-           "sharded_greedy_scan": (1, BENCH_K), "sharded_uniform_topk": 64}
+           "sharded_greedy_scan": (1, BENCH_K), "sharded_uniform_topk": 64,
+           "sharded_gang_scan": (1024, 256),
+           "sharded_defrag_solve": ("cold", 512, BENCH_N),
+           "sharded_convex_relax": ("eval", 1024),
+           "sharded_convex_round": ("eval", 1024)}
 
 
 def main(argv=None) -> int:
@@ -2907,9 +3369,13 @@ def main(argv=None) -> int:
         storm, storm_h = run_storm(args.seed, torch, total)
         print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
         k6 = run_preemption(args.seed, torch, total)
-        gangs = run_gangs(args.seed, torch, total)
+        gangs, gang_programs = run_gangs(args.seed, torch, total)
         convex_calls = run_convex(args.seed, torch, total, main_h, storm_h)
         mesh_figures, mesh_calls = run_mesh(args.seed, torch, total, storm_h)
+        more, more_calls = run_mesh_programs(
+            args.seed, torch, total, main_h, storm_h,
+            convex_calls.pop("frag_h"), gang_programs)
+        mesh_figures.update(more)
         print(f"mesh figures: {json.dumps(mesh_figures, sort_keys=True)}")
         del main_h, storm_h
         results = bench_kernels(torch, np, args.seed)
@@ -2917,6 +3383,7 @@ def main(argv=None) -> int:
         results.update(bench_legs(torch, k6, gangs))
         results.update(bench_convex(torch, np, convex_calls))
         results.update(bench_mesh(torch, np, mesh_calls))
+        results.update(bench_mesh_programs(torch, np, more_calls))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

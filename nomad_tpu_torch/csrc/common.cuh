@@ -56,6 +56,52 @@ __device__ __forceinline__ float nt_node_score(
   return fits ? s : NT_NEG_INF;
 }
 
+// The convex kernel's rounding bias (kernels/convex.py ROUND_BIAS and
+// STRAND_BIAS): ROUND_BIAS x the relaxation's preference, minus
+// STRAND_BIAS x the strand penalty of nt_strand_pen.
+#define NT_ROUND_BIAS 8.0f
+#define NT_STRAND_BIAS 12.0f
+
+// The strand penalty of placing ask a on node n at the carried state:
+// the post-placement headroom over the dimensions the ask uses,
+// normalized by schedulable capacity, 0 where another such ask still
+// fits (csrc/convex_round.cu K8b, csrc/sharded_scan.cu K10g-b).
+__device__ __forceinline__ float nt_strand_pen(
+    int n, const float4* __restrict__ capacity,
+    const float4* __restrict__ sched, const float4* util, float4 a) {
+  const float4 c = capacity[n];
+  const float4 u = util[n];
+  const float4 sc = sched[n];
+  const float h0 = __fsub_rn(__fsub_rn(c.x, u.x), a.x);
+  const float h1 = __fsub_rn(__fsub_rn(c.y, u.y), a.y);
+  const float h2 = __fsub_rn(__fsub_rn(c.z, u.z), a.z);
+  const float h3 = __fsub_rn(__fsub_rn(c.w, u.w), a.w);
+  if (h0 >= a.x && h1 >= a.y && h2 >= a.z && h3 >= a.w) return 0.0f;
+  const float u0 = a.x > 0.0f ? 1.0f : 0.0f, u1 = a.y > 0.0f ? 1.0f : 0.0f;
+  const float u2 = a.z > 0.0f ? 1.0f : 0.0f, u3 = a.w > 0.0f ? 1.0f : 0.0f;
+  const float w0 = __fdiv_rn(fmaxf(h0, 0.0f), fmaxf(sc.x, 1.0f));
+  const float w1 = __fdiv_rn(fmaxf(h1, 0.0f), fmaxf(sc.y, 1.0f));
+  const float w2 = __fdiv_rn(fmaxf(h2, 0.0f), fmaxf(sc.z, 1.0f));
+  const float w3 = __fdiv_rn(fmaxf(h3, 0.0f), fmaxf(sc.w, 1.0f));
+  const float sum = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(w0, u0), __fmul_rn(w1, u1)),
+                __fmul_rn(w2, u2)),
+      __fmul_rn(w3, u3));
+  const float used = __fadd_rn(__fadd_rn(__fadd_rn(u0, u1), u2), u3);
+  return __fdiv_rn(sum, fmaxf(used, 1.0f));
+}
+
+// The rounding bias of node n: ROUND_BIAS x pref - STRAND_BIAS x
+// strand penalty, in the plain version's order of rounded operations.
+__device__ __forceinline__ float nt_round_bias(
+    int n, const float4* __restrict__ capacity,
+    const float4* __restrict__ sched, const float4* util, float4 a,
+    float pref) {
+  return __fsub_rn(__fmul_rn(NT_ROUND_BIAS, pref),
+                   __fmul_rn(NT_STRAND_BIAS,
+                             nt_strand_pen(n, capacity, sched, util, a)));
+}
+
 // (s, i) ranks before (bs, bi).
 __device__ __forceinline__ bool nt_better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);

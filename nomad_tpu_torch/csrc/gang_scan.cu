@@ -36,45 +36,10 @@
 // the units pass and the group sums run once per launch (N / 1024
 // chunks, each three barriers and a 1024-entry scan by the group
 // threads).
-#include "common.cuh"
+#include "gang.cuh"
 
 #define NT_GANG_THREADS 1024
 #define NT_GANG_SHARED_GROUPS 1024
-#define NT_GANG_BIG 1e9f
-#define NT_GANG_AFFINITY_BONUS 5.0f
-
-enum { NT_GANG_FREE = 0, NT_GANG_SLICE = 1, NT_GANG_SPREAD = 2,
-       NT_GANG_AFFINITY = 3 };
-
-__device__ __forceinline__ float nt_units_dim(float free, float ask) {
-  return ask > 0.0f ? floorf(__fdiv_rn(free, fmaxf(ask, 1e-9f)))
-                    : NT_GANG_BIG;
-}
-
-__device__ __forceinline__ float nt_member_units(
-    int n, int mode, bool dh, const float4* __restrict__ capacity,
-    const float4* util, const float* __restrict__ bw_avail,
-    const float* bw_used, const float* ports_free,
-    const unsigned char* __restrict__ feas_row,
-    const int* __restrict__ dh_presence, const int* __restrict__ topo_ids,
-    float4 a, float abw, float aports) {
-  const float4 c = capacity[n];
-  const float4 u = util[n];
-  float units = fminf(fminf(nt_units_dim(__fsub_rn(c.x, u.x), a.x),
-                            nt_units_dim(__fsub_rn(c.y, u.y), a.y)),
-                      fminf(nt_units_dim(__fsub_rn(c.z, u.z), a.z),
-                            nt_units_dim(__fsub_rn(c.w, u.w), a.w)));
-  units = fminf(units, nt_units_dim(__fsub_rn(bw_avail[n], bw_used[n]), abw));
-  units = fminf(units, nt_units_dim(ports_free[n], aports));
-  units = fmaxf(units, 0.0f);
-  if (!feas_row[n]) units = 0.0f;
-  if (dh) {
-    units = fminf(units, 1.0f);
-    if (dh_presence[n] > 0) units = 0.0f;
-  }
-  if (mode == NT_GANG_SLICE && topo_ids[n] < 0) units = 0.0f;
-  return units;
-}
 
 // Block-wide argmax of (s, i), lowest index on ties; every thread gets
 // the result. s_best/i_best hold one entry a warp.

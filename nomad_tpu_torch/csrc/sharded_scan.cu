@@ -39,6 +39,17 @@
 // drawn from the global counters (csrc/threefry.cu), and the reported
 // score recomputed on the owning shard.
 //
+// K10g-b, the convex kernel's rounding scan over node shards
+// (kernels/convex.py convex_placement_program's body scan over a
+// node-sharded base in the JAX package), is the same pair of kernels
+// with the rounding bias: given ``pref`` (the shard's columns of the
+// relaxation's preference, [B,K,N]), nt_shard_step packs score +
+// ROUND_BIAS x pref - STRAND_BIAS x strand penalty (csrc/common.cuh
+// nt_round_bias, K8b's arithmetic), the strand penalty read from the
+// shard's own carried rows, and thread 0 still reports the score
+// without the noise and the bias, as K8b does. The winner's validity
+// (its packed value above NEG_INF / 2, the ask active) is K8b's.
+//
 // Bound on the card: launches. An eval is K x (W + 1) + W launches of
 // a few microseconds each; every step kernel scores N / 1024 nodes a
 // thread. The chain of K dependent argmaxes stays, now across launches.
@@ -100,8 +111,8 @@ __global__ void __launch_bounds__(NT_SHARD_THREADS) nt_shard_step_kernel(
     const float* __restrict__ ask_ports, const int* __restrict__ tg_index,
     const unsigned char* __restrict__ job_dh,
     const unsigned char* __restrict__ tg_dh,
-    const float* __restrict__ noise, const int* __restrict__ win,
-    unsigned long long* __restrict__ part_key,
+    const float* __restrict__ noise, const float* __restrict__ pref,
+    const int* __restrict__ win, unsigned long long* __restrict__ part_key,
     float* __restrict__ part_score) {
   __shared__ unsigned long long s_key[NT_SHARD_THREADS / 32];
   const int e = seq ? e_seq : blockIdx.x;
@@ -136,12 +147,14 @@ __global__ void __launch_bounds__(NT_SHARD_THREADS) nt_shard_step_kernel(
   const int* jc = job_count + (size_t)e * N;
   const int* tgc = tg_count + (size_t)e * N * G;
   const unsigned char* fe = feasible + (size_t)e * N * G;
+  const float* pr = pref ? pref + ((size_t)e * K + k) * N : nullptr;
 
   unsigned long long best = 0ull;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float s = nt_node_score(n, G, tg, jdh, tdh, penalty, capacity,
-                                  sched, bw_avail, node_ok, u, bw, pf, jc,
-                                  tgc, fe, a, abw, aports, nz[n]);
+    float s = nt_node_score(n, G, tg, jdh, tdh, penalty, capacity, sched,
+                            bw_avail, node_ok, u, bw, pf, jc, tgc, fe, a, abw,
+                            aports, nz[n]);
+    if (pr) s = __fadd_rn(s, nt_round_bias(n, capacity, sched, u, a, pr[n]));
     best = nt_key_max(best, nt_pack(s, lo + n));
   }
   best = nt_block_key_max(best, s_key);
@@ -187,7 +200,8 @@ __global__ void nt_shard_winner_kernel(
 // f32 (seq: [N,4], [N]); job_count [B,N] i32; tg_count, feasible
 // [B,N,G]; ask_res [B,K,4] f32; ask_bw/ask_ports [B,K] f32; tg_index
 // [B,K] i32; job_dh [B] u8; tg_dh [B,G] u8; noise [B,K,N] f32 (the
-// shard's window); win [B] i32 (the last step's winners); part_key
+// shard's window); pref [B,K,N] f32 (the shard's columns; null: no
+// rounding bias); win [B] i32 (the last step's winners); part_key
 // [B] u64 and part_score [B] f32 out (this shard's candidates);
 // stacked: capacity/sched/bw_avail/node_ok carry the batch axis. Under
 // seq (e, k) is the step and (pe, pk) the previous one (pk = -1:
@@ -202,8 +216,8 @@ NT_API int nt_shard_step(int B, int N, int G, int K, int lo, float penalty,
                          const void* ask_bw, const void* ask_ports,
                          const void* tg_index, const void* job_dh,
                          const void* tg_dh, const void* noise,
-                         const void* win, void* part_key, void* part_score,
-                         void* stream) {
+                         const void* pref, const void* win, void* part_key,
+                         void* part_score, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   nt_shard_step_kernel<<<seq ? 1 : B, NT_SHARD_THREADS, 0,
                          (cudaStream_t)stream>>>(
@@ -215,8 +229,8 @@ NT_API int nt_shard_step(int B, int N, int G, int K, int lo, float penalty,
       (const unsigned char*)feasible, (const float4*)ask_res,
       (const float*)ask_bw, (const float*)ask_ports, (const int*)tg_index,
       (const unsigned char*)job_dh, (const unsigned char*)tg_dh,
-      (const float*)noise, (const int*)win, (unsigned long long*)part_key,
-      (float*)part_score);
+      (const float*)noise, (const float*)pref, (const int*)win,
+      (unsigned long long*)part_key, (float*)part_score);
   return (int)cudaGetLastError();
 }
 

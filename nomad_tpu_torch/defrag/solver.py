@@ -21,10 +21,13 @@ only the best-gain prefix that STRICTLY reduces the fragmentation score
 A move is only a *preference* on a defrag eval; the replacement
 placement runs the scheduler's full feasibility stack.
 
+With a ``mesh`` (parallel/mesh.py) the uncompressed solve splits x's
+node columns over the mesh's node shards (K10f, parallel/shard.py
+``sharded_relax``), as the JAX package's GSPMD input shardings do.
+
 The JAX package's jit accounting (``solve_cache_size``) has no
 counterpart here: PyTorch runs eagerly, so there are no compiled
-programs to count. Its node-axis sharding (``mesh``) waits for the
-multi-device slice.
+programs to count.
 """
 
 from __future__ import annotations
@@ -175,6 +178,16 @@ def cluster_fragmentation(state, datacenters) -> float:
                       np.asarray(base.node_ok, bool), refs)
 
 
+# defrag_solve's boolean arguments: fresh, node_ok, active.
+_BOOL_ARGS = (1, 5, 12)
+
+
+def _typed(arrays):
+    """The solve's host arrays as the kernels take them."""
+    return [np.ascontiguousarray(a, bool if i in _BOOL_ARGS else np.float32)
+            for i, a in enumerate(arrays)]
+
+
 def _solve(iters, *arrays):
     """K9 on the port's default device over host arrays (the order of
     kernels/convex.py defrag_solve's arguments); returns (logits, x)
@@ -185,13 +198,28 @@ def _solve(iters, *arrays):
     from ..kernels.convex import defrag_solve
 
     dev = default_device()
-    bools = (1, 5, 12)  # fresh, node_ok, active
-    tensors = [
-        torch.from_numpy(np.ascontiguousarray(
-            a, bool if i in bools else np.float32)).to(dev)
-        for i, a in enumerate(arrays)]
+    tensors = [torch.from_numpy(a).to(dev) for a in _typed(arrays)]
     logits, x = defrag_solve(*tensors, iters)
     return logits.cpu().numpy(), x.cpu().numpy()
+
+
+def _solve_sharded(mesh, iters, *arrays):
+    """K10f: the solve with x's node columns split over the node shards
+    of ``mesh``'s first dp row (parallel/mesh.py shard_defrag_inputs,
+    parallel/shard.py sharded_relax). Returns (logits, x) as host
+    float32 arrays in global node order, the columns gathered from the
+    shards in order."""
+    from ..parallel.mesh import Mesh, shard_defrag_inputs
+    from ..parallel.shard import DefragShard, sharded_relax
+
+    row = Mesh([mesh.row(0)])
+    placed = shard_defrag_inputs(row, _typed(arrays))
+    los = placed[0].lo
+    shards = [DefragShard(lo, *(x.parts[0][s] for x in placed))
+              for s, lo in enumerate(los)]
+    out = sharded_relax(shards, iters)
+    return tuple(np.concatenate([o[i].cpu().numpy() for o in out], axis=1)
+                 for i in (0, 1))
 
 
 def _k_bucket(k: int) -> int:
@@ -227,7 +255,8 @@ def movable_allocs(state, row_of: Dict[str, int], node_ok) -> List:
 def compute_defrag_plan(state, datacenters, *, max_moves: int,
                         min_gain: float, warm: WarmState,
                         movable_cap: int = MAX_SOLVE_ALLOCS,
-                        class_compress: Optional[bool] = None) -> DefragPlan:
+                        class_compress: Optional[bool] = None,
+                        mesh=None) -> DefragPlan:
     """One defrag round against an MVCC snapshot: resolve the resident
     cluster base (the same cacheable path the schedulers ride — in
     steady state this is a cache hit, not a rebuild), solve the relaxed
@@ -245,7 +274,11 @@ def compute_defrag_plan(state, datacenters, *, max_moves: int,
     choice that no member can absorb rounds to nothing.
 
     The solve (K9) runs on the port's default device: CUDA, or the CPU
-    when asked for (device.set_default_device)."""
+    when asked for (device.set_default_device). ``mesh``
+    (parallel/mesh.py) splits the uncompressed solve's node columns over
+    its node shards (K10f), as the JAX package's GSPMD shardings do, when
+    the node count divides over them; the compressed solve, and a node
+    count that does not divide, solve on one device."""
     from ..models.matrix import (
         _alloc_usage,
         resolve_cluster_base,
@@ -366,9 +399,14 @@ def compute_defrag_plan(state, datacenters, *, max_moves: int,
     plan.warm = n_carried >= max(1, int(k_real * WARM_MIN_CARRY))
     iters = WARM_ITERS if plan.warm else COLD_ITERS
 
-    logits, x = _solve(iters, logits0, fresh, solve_util, solve_cap,
-                       solve_sched, solve_ok, solve_bw_avail, solve_bw_used,
-                       solve_ports, ask_res, ask_bw, ask_ports, active)
+    solve_args = (logits0, fresh, solve_util, solve_cap, solve_sched,
+                  solve_ok, solve_bw_avail, solve_bw_used, solve_ports,
+                  ask_res, ask_bw, ask_ports, active)
+    if mesh is not None and not compress \
+            and base.n % int(mesh.shape["nodes"]) == 0:
+        logits, x = _solve_sharded(mesh, iters, *solve_args)
+    else:
+        logits, x = _solve(iters, *solve_args)
     warm.store(key, {a.id: logits[i] for i, a in enumerate(movable)})
     if compress:
         # Expand the class-granular solution back to node granularity

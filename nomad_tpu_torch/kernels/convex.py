@@ -27,6 +27,8 @@ its plain PyTorch version beside it for CPU tensors.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..ops import cuda
@@ -80,6 +82,31 @@ def _fitness(util, ask_res, sched):
 # ------------------------------------------------------------ mirror descent
 
 
+def _md_step(logits, x, lin, res_active, bw_active, ports_active,
+             base_frac, base_bw_frac, denom_nr, bw_denom, ports_denom):
+    """One mirror-descent step at x = softmax(logits + mask) * active:
+    the node contractions of x, the closed-form gradient back on
+    [..., K, N], and logits + SOLVE_STEP * g."""
+    xt = x.transpose(-1, -2)
+    exp_load = base_frac + (xt @ res_active) / denom_nr
+    over = torch.clamp(exp_load - 1.0, min=0.0)
+    over_bw = torch.clamp(
+        base_bw_frac + (xt @ bw_active[..., None])[..., 0] / bw_denom
+        - 1.0, min=0.0)
+    over_ports = torch.clamp(
+        (xt @ ports_active[..., None])[..., 0] / ports_denom - 1.0, min=0.0)
+    tot = exp_load.sum(-1) / NUM_RESOURCES
+    node_term = (PACK_REWARD / NUM_RESOURCES) * tot[..., None] \
+        - 2.0 * OVER_PENALTY * over
+    g = (lin
+         + res_active @ (node_term / denom_nr).transpose(-1, -2)
+         - 2.0 * OVER_PENALTY
+         * (bw_active[..., :, None] * (over_bw / bw_denom)[..., None, :]
+            + ports_active[..., :, None]
+            * (over_ports / ports_denom)[..., None, :]))
+    return logits + SOLVE_STEP * g
+
+
 def mirror_descent_plain(logits, lin, mask, res_active, bw_active,
                          ports_active, base_frac, base_bw_frac, denom_nr,
                          bw_denom, ports_denom, active, iters: int):
@@ -88,25 +115,9 @@ def mirror_descent_plain(logits, lin, mask, res_active, bw_active,
     batch axes: ``iters`` steps of logits += SOLVE_STEP * g."""
     for _ in range(iters):
         x = _softmax(logits + mask) * active
-        xt = x.transpose(-1, -2)
-        exp_load = base_frac + (xt @ res_active) / denom_nr
-        over = torch.clamp(exp_load - 1.0, min=0.0)
-        over_bw = torch.clamp(
-            base_bw_frac + (xt @ bw_active[..., None])[..., 0] / bw_denom
-            - 1.0, min=0.0)
-        over_ports = torch.clamp(
-            (xt @ ports_active[..., None])[..., 0] / ports_denom - 1.0,
-            min=0.0)
-        tot = exp_load.sum(-1) / NUM_RESOURCES
-        node_term = (PACK_REWARD / NUM_RESOURCES) * tot[..., None] \
-            - 2.0 * OVER_PENALTY * over
-        g = (lin
-             + res_active @ (node_term / denom_nr).transpose(-1, -2)
-             - 2.0 * OVER_PENALTY
-             * (bw_active[..., :, None] * (over_bw / bw_denom)[..., None, :]
-                + ports_active[..., :, None]
-                * (over_ports / ports_denom)[..., None, :]))
-        logits = logits + SOLVE_STEP * g
+        logits = _md_step(logits, x, lin, res_active, bw_active,
+                          ports_active, base_frac, base_bw_frac, denom_nr,
+                          bw_denom, ports_denom)
     return logits
 
 
@@ -169,13 +180,30 @@ def convex_pref(x):
             * 0.5).contiguous()
 
 
-def relaxed_assignment_plain(capacity, sched_capacity, bw_avail, node_ok,
-                             carry, feasible, asks: Asks, penalty):
-    """The plain PyTorch version of K8a (the JAX package's
-    _relaxed_assignment, convex.py:136, plus the preference): the mask
-    and linear term at the carry's state, SOLVE_ITERS mirror-descent
-    steps from lin, x = softmax(logits + mask), pref. Returns (logits,
-    x, pref), each [B, K, N]."""
+class Terms(NamedTuple):
+    """The loop's operands (mirror_descent's arguments after the
+    logits): lin and mask [..., K, N], the asks scaled by activity
+    [..., K, 4] / [..., K], the per-node fractions and denominators
+    [..., N, 4] / [..., N], and active [..., K, 1]."""
+
+    lin: torch.Tensor
+    mask: torch.Tensor
+    res_active: torch.Tensor
+    bw_active: torch.Tensor
+    ports_active: torch.Tensor
+    base_frac: torch.Tensor
+    base_bw_frac: torch.Tensor
+    denom_nr: torch.Tensor
+    bw_denom: torch.Tensor
+    ports_denom: torch.Tensor
+    active: torch.Tensor
+
+
+def placement_terms(capacity, sched_capacity, bw_avail, node_ok, carry,
+                    feasible, asks: Asks, penalty) -> Terms:
+    """K8a's prologue (the JAX package's _relaxed_assignment up to the
+    loop): the mask and linear term at the carry's state, per (eval,
+    ask, node), over any slice of the node axis."""
     util, bw_used, ports_free, job_count, tg_count = carry
     b, n, _g = feasible.shape
     k = asks.resources.shape[1]
@@ -203,16 +231,27 @@ def relaxed_assignment_plain(capacity, sched_capacity, bw_avail, node_ok,
     affinity = _fitness(util, res, sched_capacity) \
         - penalty * job_count.to(torch.float32)[:, None, :]
     active = asks.active.to(torch.float32)[:, :, None]
-    mask = torch.where(feas, 0.0, NEG_INF)
     denom_nr = torch.clamp(sched_capacity, min=1.0)
     bw_denom = torch.clamp(bw_avail, min=1.0)
-    lin = torch.where(feas, affinity, torch.zeros_like(affinity))
-    logits = mirror_descent_plain(
-        lin, lin, mask, res * active, asks.bw * active[..., 0],
-        asks.ports * active[..., 0], util / denom_nr, bw_used / bw_denom,
-        denom_nr, bw_denom, torch.clamp(ports_free, min=1.0), active,
-        SOLVE_ITERS)
-    x = _softmax(logits + mask)
+    return Terms(
+        torch.where(feas, affinity, torch.zeros_like(affinity)),
+        torch.where(feas, 0.0, NEG_INF), res * active,
+        asks.bw * active[..., 0], asks.ports * active[..., 0],
+        util / denom_nr, bw_used / bw_denom, denom_nr, bw_denom,
+        torch.clamp(ports_free, min=1.0), active)
+
+
+def relaxed_assignment_plain(capacity, sched_capacity, bw_avail, node_ok,
+                             carry, feasible, asks: Asks, penalty):
+    """The plain PyTorch version of K8a (the JAX package's
+    _relaxed_assignment, convex.py:136, plus the preference): the mask
+    and linear term at the carry's state, SOLVE_ITERS mirror-descent
+    steps from lin, x = softmax(logits + mask), pref. Returns (logits,
+    x, pref), each [B, K, N]."""
+    t = placement_terms(capacity, sched_capacity, bw_avail, node_ok, carry,
+                        feasible, asks, penalty)
+    logits = mirror_descent_plain(t.lin, *t, SOLVE_ITERS)
+    x = _softmax(logits + t.mask)
     return logits, x, convex_pref(x)
 
 
@@ -301,13 +340,12 @@ def _relax(capacity, sched_capacity, bw_avail, node_ok, carry, feasible,
 # ------------------------------------------------------------ K9
 
 
-def defrag_solve_plain(logits0, fresh, base_util, capacity, sched_capacity,
-                       node_ok, bw_avail, bw_used, ports_free, ask_res,
-                       ask_bw, ask_ports, active, iters: int):
-    """The plain PyTorch version of K9 (the JAX package's
-    defrag/solver.py _solve_jit.solve, :213): the residual-state
-    prologue, the warm start, ``iters`` mirror-descent steps, and x =
-    softmax(logits + mask) * active. Returns (logits, x), [K, N]."""
+def defrag_terms(base_util, capacity, sched_capacity, node_ok, bw_avail,
+                 bw_used, ports_free, ask_res, ask_bw, ask_ports,
+                 active) -> Terms:
+    """K9's prologue (the JAX package's _solve_jit.solve up to the warm
+    start): the residual state's mask and linear term per (alloc,
+    node), over any slice of the node axis."""
     denom_nr = torch.clamp(sched_capacity, min=1.0)
     headroom = capacity - base_util
     feas = node_ok[None, :] & (capacity[None, :, 0] > 0)
@@ -315,18 +353,29 @@ def defrag_solve_plain(logits0, fresh, base_util, capacity, sched_capacity,
         feas = feas & (ask_res[:, r, None] <= headroom[None, :, r])
     feas = feas & (ask_bw[:, None] <= (bw_avail - bw_used)[None, :])
     feas = feas & (ask_ports[:, None] <= ports_free[None, :])
-    mask = torch.where(feas, 0.0, NEG_INF)
     fitness = _fitness(base_util, ask_res, sched_capacity)
-    lin = torch.where(feas, fitness, torch.zeros_like(fitness))
     active_col = active.to(torch.float32)[:, None]
     bw_denom = torch.clamp(bw_avail, min=1.0)
-    logits = torch.where(fresh[:, None], lin, logits0)
-    logits = mirror_descent_plain(
-        logits, lin, mask, ask_res * active_col, ask_bw * active_col[:, 0],
-        ask_ports * active_col[:, 0], base_util / denom_nr,
-        bw_used / bw_denom, denom_nr, bw_denom,
-        torch.clamp(ports_free, min=1.0), active_col, iters)
-    return logits, _softmax(logits + mask) * active_col
+    return Terms(
+        torch.where(feas, fitness, torch.zeros_like(fitness)),
+        torch.where(feas, 0.0, NEG_INF), ask_res * active_col,
+        ask_bw * active_col[:, 0], ask_ports * active_col[:, 0],
+        base_util / denom_nr, bw_used / bw_denom, denom_nr, bw_denom,
+        torch.clamp(ports_free, min=1.0), active_col)
+
+
+def defrag_solve_plain(logits0, fresh, base_util, capacity, sched_capacity,
+                       node_ok, bw_avail, bw_used, ports_free, ask_res,
+                       ask_bw, ask_ports, active, iters: int):
+    """The plain PyTorch version of K9 (the JAX package's
+    defrag/solver.py _solve_jit.solve, :213): the residual-state
+    prologue, the warm start, ``iters`` mirror-descent steps, and x =
+    softmax(logits + mask) * active. Returns (logits, x), [K, N]."""
+    t = defrag_terms(base_util, capacity, sched_capacity, node_ok, bw_avail,
+                     bw_used, ports_free, ask_res, ask_bw, ask_ports, active)
+    logits = torch.where(fresh[:, None], t.lin, logits0)
+    logits = mirror_descent_plain(logits, *t, iters)
+    return logits, _softmax(logits + t.mask) * t.active
 
 
 def defrag_solve(logits0, fresh, base_util, capacity, sched_capacity,
@@ -387,6 +436,24 @@ def defrag_solve(logits0, fresh, base_util, capacity, sched_capacity,
 # ------------------------------------------------------------ K8b
 
 
+def round_bias_plain(capacity, sched_capacity, util, ask_res, pref):
+    """K8b's bias of one ask per eval on each node (convex.py:257-290):
+    ROUND_BIAS x pref minus STRAND_BIAS x the strand penalty, the waste
+    a placement leaves on a node that then cannot fit another such ask
+    (its headroom over the dimensions the ask uses, normalized by
+    schedulable capacity). util [B,N,4], ask_res [B,4], pref [B,N];
+    capacity / sched_capacity shared [N,4] or stacked [B,N,4]."""
+    head = capacity - util - ask_res[:, None, :]
+    fits_another = (head >= ask_res[:, None, :]).all(-1)
+    used = (ask_res > 0).to(torch.float32)[:, None, :]
+    w = torch.clamp(head, min=0.0) / torch.clamp(sched_capacity, min=1.0) \
+        * used
+    waste = (((w[..., 0] + w[..., 1]) + w[..., 2]) + w[..., 3]) \
+        / torch.clamp(used.sum(-1), min=1.0)
+    strand = torch.where(fits_another, torch.zeros_like(waste), waste)
+    return ROUND_BIAS * pref - STRAND_BIAS * strand
+
+
 def convex_round_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
                        feasible, asks: Asks, noise, penalty, pref,
                        seq=False):
@@ -403,7 +470,6 @@ def convex_round_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
     k = asks.resources.shape[1]
     dev = capacity.device
     ar = torch.arange(b, device=dev)
-    sched = torch.clamp(sched_capacity, min=1.0)
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     for j in range(k):
@@ -416,14 +482,8 @@ def convex_round_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
             capacity, sched_capacity, bw_avail, util, bw_used, ports_free,
             job_count, tg_count[ar, :, tg], feas_row, ask_res, asks.bw[:, j],
             asks.ports[:, j], asks.job_distinct_hosts, tg_dh, penalty, nz)
-        head = capacity - util - ask_res[:, None, :]
-        fits_another = (head >= ask_res[:, None, :]).all(-1)
-        used = (ask_res > 0).to(torch.float32)[:, None, :]
-        w = torch.clamp(head, min=0.0) / sched * used
-        waste = (((w[..., 0] + w[..., 1]) + w[..., 2]) + w[..., 3]) \
-            / torch.clamp(used.sum(-1), min=1.0)
-        strand = torch.where(fits_another, torch.zeros_like(waste), waste)
-        biased = score + (ROUND_BIAS * pref[:, j] - STRAND_BIAS * strand)
+        biased = score + round_bias_plain(capacity, sched_capacity, util,
+                                          ask_res, pref[:, j])
         best = torch.argmax(biased, dim=1)
         valid = (biased[ar, best] > NEG_INF / 2) & asks.active[:, j]
         choices[:, j] = torch.where(valid, best, -1).to(torch.int32)
@@ -518,3 +578,34 @@ def convex_placement_program(capacity, sched_capacity, util, bw_avail,
                                  noise[one], penalty, pref, True))
     return (torch.cat([o[0] for o in outs]),
             torch.cat([o[1] for o in outs]), carry)
+
+
+def convex_shard_program(shards, config: PlacementConfig, seq: bool = False):
+    """The ``convex`` kernel over B evals on node shards (K10g; the
+    convex kernel over a node-sharded base, which GSPMD runs in the JAX
+    package): the relaxation (K10g-a, parallel/shard.py sharded_relax:
+    x from the cross-shard softmax, then pref from the cross-shard
+    maxima of each row of x and of y = sum_k x), then the rounding scan
+    (K10g-b, sharded_convex_round). ``shards`` are parallel/shard.py
+    NodeShards with the noise drawn [B,K,N] and a fresh carry, updated
+    in place. Under ``seq`` (pre_resolve) each eval's relaxation and
+    rounding run on the capacity the earlier evals claimed, eval by
+    eval, as ``convex_placement_program`` does. Returns (choices,
+    scores) [B,K] on the first shard's device."""
+    from ..parallel.shard import _by_eval, sharded_convex_round, \
+        sharded_relax
+
+    penalty = config.anti_affinity_penalty
+
+    def run(group):
+        prefs = sharded_relax(group, SOLVE_ITERS, penalty)
+        return sharded_convex_round(
+            [sh._replace(pref=out[2]) for sh, out in zip(group, prefs)],
+            penalty)
+
+    if not seq:
+        return run(shards)
+    outs = [run(_by_eval(shards, e))
+            for e in range(shards[0].feasible.shape[0])]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))

@@ -35,8 +35,9 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "expand_overlay.cu", "base_delta.cu", "preempt_scan.cu",
            "gang_scan.cu", "convex_relax.cu", "convex_round.cu",
-           "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu")
-HEADERS = ("common.cuh",)
+           "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu",
+           "sharded_gang.cu", "sharded_relax.cu")
+HEADERS = ("common.cuh", "gang.cuh", "relax.cuh")
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
 # ops do through explicit round-to-nearest intrinsics (csrc/common.cuh),
@@ -64,10 +65,22 @@ SIGNATURES: Dict[str, List] = {
     "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
     "nt_group_partial": [_I, _I] + [_P] * 4,
     "nt_group_combine": [_I, _I] + [_P] * 3,
-    "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 21,
+    "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 22,
     "nt_shard_winner": [_I] * 6 + [_P] * 7,
     "nt_shard_topk": [_I] * 6 + [_F] + [_I] * 4 + [_P] * 22,
     "nt_shard_merge": [_I] * 7 + [_P] * 9,
+    "nt_gang_units": [_I] * 3 + [_P] * 13,
+    "nt_gang_pick": [_I] * 3 + [_P] * 5,
+    "nt_gang_step": [_I] * 6 + [_F] + [_I] * 2 + [_P] * 22,
+    "nt_gang_winner": [_I] * 2 + [_P] * 8,
+    "nt_gang_finish": [_I] + [_P] * 6,
+    "nt_srelax_prologue": [_I] * 5 + [_F] + [_I] * 2 + [_P] * 26,
+    "nt_srelax_rows": [_I] * 3 + [_P] * 4,
+    "nt_srelax_combine": [_I] * 3 + [_P] * 3,
+    "nt_srelax_cols": [_I] * 3 + [_P] * 9,
+    "nt_srelax_x": [_I] * 4 + [_P] * 7,
+    "nt_srelax_max": [_I] * 3 + [_P] * 4,
+    "nt_srelax_pref": [_I] * 3 + [_P] * 5,
 }
 
 _lock = threading.Lock()

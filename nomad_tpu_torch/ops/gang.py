@@ -199,6 +199,81 @@ def group_capacity(units, topo_ids, g_pad: int, out=None):
     return out
 
 
+def gang_pick_plain(group_cap, group_noise, k_actual, k: int,
+                    config: GangConfig):
+    """The slice choice and the spread cap from the group capacities
+    (None in free and affinity mode): (chosen group or -1, the ``match``
+    id a node's topology id must equal in slice mode, g_pad + 1 when no
+    group covers the gang and None in the other modes, the spread cap
+    [] f32)."""
+    dev = group_noise.device
+    chosen, match = -1, None
+    if config.mode == GANG_MODE_SLICE:
+        covers = group_cap >= k_actual
+        gscore = torch.where(covers, -group_cap + group_noise,
+                             torch.full_like(group_cap, NEG_INF))
+        best = int(torch.argmax(gscore))
+        any_group = bool(gscore[best] > NEG_INF / 2)
+        chosen = best if any_group else -1
+        # No covering group: g_pad + 1 matches no node.
+        match = best if any_group else config.g_pad + 1
+    spread_cap = torch.tensor(float(k), dtype=torch.float32, device=dev)
+    if config.mode == GANG_MODE_SPREAD:
+        eligible = torch.clamp((group_cap >= 1.0).to(torch.float32).sum(),
+                               min=1.0)
+        spread_cap = torch.ceil(k_actual / eligible)
+    return chosen, match, spread_cap
+
+
+def gang_scores_plain(state: GangState, ask_res, ask_bw, ask_ports,
+                      config: GangConfig, placed, group_members, match,
+                      spread_cap, noise_row):
+    """[N] f32: one member's gang score plus its noise on every node of
+    ``state`` at the carried state, NEG_INF where it does not fit (the
+    scan body of the JAX package's gang_placement_program)."""
+    g_pad = config.g_pad
+    has_topo = state.topo_ids >= 0
+    gidx = torch.clamp(torch.where(has_topo, state.topo_ids,
+                                   torch.full_like(state.topo_ids, g_pad)),
+                       0, g_pad - 1).long()
+    new_util = state.util + ask_res[None, :]
+    fits = (new_util <= state.capacity).all(dim=1)
+    fits &= state.bw_used + ask_bw <= state.bw_avail
+    fits &= state.ports_free >= ask_ports
+    fits &= state.feas_row
+    if match is not None:
+        fits &= state.topo_ids == match
+    if config.distinct_hosts:
+        fits &= (placed == 0) & (state.dh_presence == 0)
+    gcount = group_members[gidx]
+    if config.mode == GANG_MODE_SPREAD:
+        fits &= ~has_topo | (gcount < spread_cap)
+    denom = torch.clamp(state.sched_capacity, min=1.0)
+    free_frac = 1.0 - new_util / denom
+    fitness = 20.0 - (torch.pow(10.0, free_frac[:, R_CPU])
+                      + torch.pow(10.0, free_frac[:, R_MEM]))
+    fitness = torch.clamp(fitness, 0.0, 18.0)
+    zero_cap = ((state.sched_capacity[:, R_CPU] <= 0)
+                | (state.sched_capacity[:, R_MEM] <= 0))
+    fitness = torch.where(zero_cap, torch.zeros_like(fitness), fitness)
+    score = fitness - config.anti_affinity_penalty * (
+        state.job_count + placed).to(torch.float32)
+    if config.mode == GANG_MODE_AFFINITY:
+        score = score + GANG_AFFINITY_BONUS * torch.where(
+            has_topo, gcount, torch.zeros_like(gcount))
+    score = score + noise_row
+    return torch.where(fits, score, torch.full_like(score, NEG_INF))
+
+
+def place_member_plain(state: GangState, ask_res, ask_bw, ask_ports, row,
+                       placed):
+    """Add the member's ask to ``row`` of the carried state."""
+    state.util[row] += ask_res
+    state.bw_used[row] += ask_bw
+    state.ports_free[row] += -ask_ports
+    placed[row] += 1
+
+
 def gang_scan_plain(state: GangState, ask_res, ask_bw, ask_ports, active,
                     noise, group_noise, config: GangConfig, placed,
                     group_members):
@@ -208,75 +283,31 @@ def gang_scan_plain(state: GangState, ask_res, ask_bw, ask_ports, active,
     i32 and ``group_members`` [g_pad] f32 are the carry, updated in
     place (pass zeros for the last two). Returns (choices [K] i32,
     scores [K] f32, slice_group [] i32)."""
-    n = state.util.shape[0]
     k = active.shape[0]
     g_pad = config.g_pad
     dev = state.capacity.device
     k_actual = active.to(torch.float32).sum()
-    units = member_units_plain(state, ask_res, ask_bw, ask_ports, config)
-    group_cap = group_capacity_plain(units, state.topo_ids, g_pad)
-
-    chosen_group = -1
-    slice_mask = torch.ones(n, dtype=torch.bool, device=dev)
-    if config.mode == GANG_MODE_SLICE:
-        covers = group_cap >= k_actual
-        gscore = torch.where(covers, -group_cap + group_noise,
-                             torch.full_like(group_cap, NEG_INF))
-        best = int(torch.argmax(gscore))
-        any_group = bool(gscore[best] > NEG_INF / 2)
-        chosen_group = best if any_group else -1
-        # No covering group: g_pad + 1 matches no node.
-        slice_mask = state.topo_ids == (best if any_group else g_pad + 1)
-    spread_cap = torch.tensor(float(k), dtype=torch.float32, device=dev)
-    if config.mode == GANG_MODE_SPREAD:
-        eligible = torch.clamp((group_cap >= 1.0).to(torch.float32).sum(),
-                               min=1.0)
-        spread_cap = torch.ceil(k_actual / eligible)
-
-    has_topo = state.topo_ids >= 0
-    gidx = torch.clamp(torch.where(has_topo, state.topo_ids,
-                                   torch.full_like(state.topo_ids, g_pad)),
-                       0, g_pad - 1).long()
-    denom = torch.clamp(state.sched_capacity, min=1.0)
-    zero_cap = ((state.sched_capacity[:, R_CPU] <= 0)
-                | (state.sched_capacity[:, R_MEM] <= 0))
-    util, bw_used, ports_free = state.util, state.bw_used, state.ports_free
+    group_cap = None
+    if config.mode in (GANG_MODE_SLICE, GANG_MODE_SPREAD):
+        units = member_units_plain(state, ask_res, ask_bw, ask_ports,
+                                   config)
+        group_cap = group_capacity_plain(units, state.topo_ids, g_pad)
+    chosen_group, match, spread_cap = gang_pick_plain(
+        group_cap, group_noise, k_actual, k, config)
     choices = torch.full((k,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros((k,), dtype=torch.float32, device=dev)
     for j in range(k):
         if not bool(active[j]):
             continue
-        new_util = util + ask_res[None, :]
-        fits = (new_util <= state.capacity).all(dim=1)
-        fits &= bw_used + ask_bw <= state.bw_avail
-        fits &= ports_free >= ask_ports
-        fits &= state.feas_row & slice_mask
-        if config.distinct_hosts:
-            fits &= (placed == 0) & (state.dh_presence == 0)
-        gcount = group_members[gidx]
-        if config.mode == GANG_MODE_SPREAD:
-            fits &= ~has_topo | (gcount < spread_cap)
-        free_frac = 1.0 - new_util / denom
-        fitness = 20.0 - (torch.pow(10.0, free_frac[:, R_CPU])
-                          + torch.pow(10.0, free_frac[:, R_MEM]))
-        fitness = torch.clamp(fitness, 0.0, 18.0)
-        fitness = torch.where(zero_cap, torch.zeros_like(fitness), fitness)
-        score = fitness - config.anti_affinity_penalty * (
-            state.job_count + placed).to(torch.float32)
-        if config.mode == GANG_MODE_AFFINITY:
-            score = score + GANG_AFFINITY_BONUS * torch.where(
-                has_topo, gcount, torch.zeros_like(gcount))
-        score = score + noise[j]
-        score = torch.where(fits, score, torch.full_like(score, NEG_INF))
+        score = gang_scores_plain(state, ask_res, ask_bw, ask_ports, config,
+                                  placed, group_members, match, spread_cap,
+                                  noise[j])
         choice = int(torch.argmax(score))
         if not bool(score[choice] > NEG_INF / 2):
             continue
         choices[j] = choice
         scores[j] = score[choice] - noise[j, choice]
-        util[choice] += ask_res
-        bw_used[choice] += ask_bw
-        ports_free[choice] += -ask_ports
-        placed[choice] += 1
+        place_member_plain(state, ask_res, ask_bw, ask_ports, choice, placed)
         gid = int(state.topo_ids[choice])
         if 0 <= gid < g_pad:
             group_members[gid] += 1.0
@@ -376,17 +407,62 @@ def gang_placement_plain(state: GangState, ask_res, ask_bw, ask_ports,
 
 
 def gang_placement(state: GangState, ask_res, ask_bw, ask_ports, active,
-                   key, config: GangConfig, device):
+                   key, config: GangConfig, device=None):
     """Place one gang of K uniform members (the JAX package's
     ``gang_placement_program_jit``). ``state`` and the ask are host
     numpy (make_gang_state; ask_res [4], ask_bw and ask_ports scalars,
     active [K] bool); they cross to ``device`` in one copy, the member
-    and group noise are drawn there (K0 twice) and K7 runs. Returns
-    (choices [K] i32, scores [K] f32, slice_group [] i32) on
-    ``device``: every choice >= 0 (a whole gang) or every one -1."""
+    and group noise are drawn there (K0 twice) and K7 runs. A ``state``
+    from parallel/mesh.py shard_gang_inputs (``Sharded`` fields) runs
+    over its node shards instead (``device`` is not read): the member
+    noise a shard over the global counters, the group noise on the
+    first shard's device, and K10e (parallel/shard.py
+    sharded_gang_scan). Returns (choices [K] i32, scores [K] f32,
+    slice_group [] i32) on ``device`` (or the first shard's): every
+    choice >= 0 (a whole gang) or every one -1."""
+    from ..parallel.mesh import is_sharded
+
     f32 = _np.float32
-    fields = (*state, _np.asarray(ask_res, f32), _np.asarray(ask_bw, f32),
-              _np.asarray(ask_ports, f32), _np.asarray(active, bool))
-    up = device_resident(fields, device)
+    ask = (_np.asarray(ask_res, f32), _np.asarray(ask_bw, f32),
+           _np.asarray(ask_ports, f32))
+    if is_sharded(state.capacity):
+        return _sharded_program(state, ask, _np.asarray(active, bool), key,
+                                config)
+    up = device_resident((*state, *ask, _np.asarray(active, bool)), device)
     ns = len(state)
     return _program(GangState(*up[:ns]), *up[ns:], key, config, plain=False)
+
+
+def _sharded_program(state: GangState, ask, active, key, config: GangConfig):
+    """The gang program over a GangState of ``Sharded`` fields (dp row
+    0 of its mesh): the ask to each shard's device, the draws, fresh
+    carries, then K10e."""
+    from ..parallel.shard import GangShard, _on, sharded_gang_scan
+
+    parts = [f.parts[0] for f in state]
+    los = state.capacity.lo
+    devices = [p.device for p in parts[0]]
+    home = devices[0]
+    n_total = sum(p.shape[0] for p in parts[0])
+    k = active.shape[0]
+    asks = {dev: device_resident(ask, dev) for dev in dict.fromkeys(devices)}
+    (active_t,) = device_resident((active,), home)
+    with _on(home):
+        group_noise = threefry_uniform(
+            keys_tensor(fold_in(key, 1), home), (config.g_pad,), 0.0, 1.0)[0]
+    shards = []
+    for s, dev in enumerate(devices):
+        st = GangState(*(p[s] for p in parts))
+        n = st.capacity.shape[0]
+        with _on(dev):
+            noise = threefry_uniform(
+                keys_tensor(key, dev), (k, n), 0.0, config.noise_scale,
+                window=(los[s], n_total))[0]
+        carried = st._replace(util=st.util.clone(),
+                              bw_used=st.bw_used.clone(),
+                              ports_free=st.ports_free.clone())
+        shards.append(GangShard(
+            los[s], carried, *asks[dev], noise,
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(config.g_pad, dtype=torch.float32, device=dev)))
+    return sharded_gang_scan(shards, active_t, group_noise, config)

@@ -264,24 +264,74 @@ def shard_placement_inputs(mesh: Mesh, state: NodeState, asks: Asks, keys,
     return (NodeState(*placed[:10]), Asks(*placed[10:17]), placed[17])
 
 
+def gang_state_specs():
+    """Layouts of ops/gang.py's GangState, IN FIELD ORDER: every field
+    is per node and splits over NODE_AXIS. The group sums and each
+    member's argmax cross shards in the program (parallel/shard.py
+    sharded_gang_scan, K10e)."""
+    from ..ops.gang import GangState
+
+    vec = (NODE_AXIS,)
+    mat = (NODE_AXIS, None)
+    return GangState(
+        capacity=mat, sched_capacity=mat, util=mat, bw_avail=vec,
+        bw_used=vec, ports_free=vec, feas_row=vec, job_count=vec,
+        dh_presence=vec, topo_ids=vec)
+
+
+def shard_gang_inputs(mesh: Mesh, state):
+    """A host GangState (ops/gang.py make_gang_state) onto the mesh,
+    the node axis split: a GangState of ``Sharded`` fields, which
+    ops/gang.py gang_placement takes. One copy per distinct device."""
+    from ..ops.gang import GangState
+
+    return GangState(*place(mesh, list(state), list(gang_state_specs())))
+
+
+def defrag_solve_specs() -> Tuple:
+    """Layouts of the defrag solve's arguments, IN kernels/convex.py
+    defrag_solve's order: (logits0, fresh, base_util, capacity,
+    sched_capacity, node_ok, bw_avail, bw_used, ports_free, ask_res,
+    ask_bw, ask_ports, active). x[K, N] (logits0 and the solve's
+    iterates) splits over its node columns, the node rows over the
+    nodes; the ask-axis arrays replicate."""
+    vec = (NODE_AXIS,)
+    mat = (NODE_AXIS, None)
+    return ((None, NODE_AXIS), (), mat, mat, mat, vec, vec, vec, vec,
+            (None, None), (), (), ())
+
+
+def shard_defrag_inputs(mesh: Mesh, args: Sequence) -> Tuple[Sharded, ...]:
+    """The defrag solve's host arguments (defrag_solve_specs order) onto
+    the mesh: one copy per distinct device."""
+    return place(mesh, args, defrag_solve_specs())
+
+
 # ------------------------------------------------------------ programs
 
 
 def _shard_batch(static, overlays, asks_of, keys_of, config, seq: bool,
                  n_total: int):
-    """B evals over node shards (the sharded ``_placement_batch``, the
-    native greedy program only): per shard the noise window (K0) and a
-    fresh carry, then K10c or K10d. ``static`` is one (lo, capacity,
-    sched_capacity, util, bw_avail, bw_used, ports_free, node_ok) per
-    shard, ``overlays`` one (job_count, tg_count, feasible) per shard,
-    ``asks_of``/``keys_of`` the batch's asks and int64 keys by device.
-    Returns (choices [B,K], scores [B,K] on the first shard's device,
-    [carry per shard])."""
+    """B evals over node shards (the sharded ``_placement_batch``): per
+    shard the noise window (K0) and a fresh carry, then the kernel that
+    ``config.kernel`` names in its sharded form: the native greedy
+    program (K10c, or K10d for a uniform distinct_hosts batch) or the
+    convex kernel (K10g: kernels/convex.py convex_shard_program).
+    ``static`` is one (lo, capacity, sched_capacity, util, bw_avail,
+    bw_used, ports_free, node_ok) per shard, ``overlays`` one
+    (job_count, tg_count, feasible) per shard, ``asks_of``/``keys_of``
+    the batch's asks and int64 keys by device. Returns (choices [B,K],
+    scores [B,K] on the first shard's device, [carry per shard])."""
     from ..ops.binpack import fresh_carry
     from ..ops.prng import threefry_uniform
     from .shard import NodeShard, _on, sharded_greedy_scan, \
         sharded_uniform_topk
 
+    if config.kernel not in ("greedy", "convex"):
+        raise ValueError(f"placement kernel {config.kernel!r} has no "
+                         "node-sharded program: the greedy and convex "
+                         "kernels do")
+    uniform = config.kernel == "greedy" and config.uniform_dh
     shards = []
     for (lo, cap, sched, util, bw_avail, bw_used, ports, ok), \
             (jc, tgc, feas) in zip(static, overlays):
@@ -289,24 +339,21 @@ def _shard_batch(static, overlays, asks_of, keys_of, config, seq: bool,
         asks = asks_of[dev]
         b, n = feas.shape[0], feas.shape[1]
         k = asks.resources.shape[1]
-        shape = (n,) if config.uniform_dh else (k, n)
+        shape = (n,) if uniform else (k, n)
         with _on(dev):
             noise = threefry_uniform(keys_of[dev], shape, 0.0,
                                      config.noise_scale, window=(lo, n_total))
         carry = fresh_carry(util, bw_used, ports, jc, tgc, b, seq)
         shards.append(NodeShard(lo, cap, sched, bw_avail, ok, carry,
                                 feas.contiguous(), asks, noise))
-    scan = sharded_uniform_topk if config.uniform_dh else sharded_greedy_scan
-    choices, scores = scan(shards, config.anti_affinity_penalty, seq)
+    if config.kernel == "convex":
+        from ..kernels.convex import convex_shard_program
+
+        choices, scores = convex_shard_program(shards, config, seq)
+    else:
+        scan = sharded_uniform_topk if uniform else sharded_greedy_scan
+        choices, scores = scan(shards, config.anti_affinity_penalty, seq)
     return choices, scores, [sh.carry for sh in shards]
-
-
-def _require_greedy(config, layout: str) -> None:
-    if config.kernel != "greedy":
-        raise NotImplementedError(
-            f"placement kernel {config.kernel!r} has no sharded form: the "
-            f"{layout} layout over a node-sharded base runs the native "
-            "greedy program only")
 
 
 def sharded_placement(mesh: Mesh, state: NodeState, asks: Asks, keys,
@@ -315,12 +362,13 @@ def sharded_placement(mesh: Mesh, state: NodeState, asks: Asks, keys,
     sharded_placement: placement_program_jit, or batched_placement_
     program over a [B] batch). Each dp row takes its own disjoint evals
     and runs them independently over its node shards (K0 windows, then
-    K10c or K10d). Host inputs as shard_placement_inputs takes them.
+    K10c or K10d, or K10g for the convex kernel). Host inputs as
+    shard_placement_inputs takes them.
     A batched state is stacked (a base per eval), as
-    batched_placement_program takes it. Returns (choices, scores) on the
-    mesh's first device ([K], or [B, K] batched) and the final NodeState
-    as ``Sharded`` arrays."""
-    _require_greedy(config, "stacked-state" if batched else "lone")
+    batched_placement_program takes it. ``config.kernel`` is the greedy
+    or the convex kernel. Returns (choices, scores) on the mesh's first
+    device ([K], or [B, K] batched) and the final NodeState as
+    ``Sharded`` arrays."""
     state_sh, asks_sh, keys_sh = shard_placement_inputs(
         mesh, state, asks, keys, batched)
     n_total = int(_np.shape(state.node_ok)[-1])
@@ -405,7 +453,6 @@ def sharded_dispatch(base: Tuple[Sharded, ...], placed: Sequence[Sharded],
     from ..ops.binpack import CompactOverlay, expand_overlay
     from .shard import _on
 
-    _require_greedy(config, "compact" if compact else "overlay")
     row = base[0].parts[0]
     n_total = sum(p.shape[0] for p in row)
     keys_sh, asks_sh, over_sh = placed[0], placed[1:8], placed[8:]

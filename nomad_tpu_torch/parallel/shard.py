@@ -28,7 +28,7 @@ shape, so the JAX package's ``shard_cache_size`` has no counterpart.
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -36,6 +36,7 @@ from ..ops import cuda
 from ..ops.binpack import (
     NEG_INF,
     Asks,
+    _check,
     _score_plain,
     _update_rows,
     base_delta_rows,
@@ -203,7 +204,9 @@ class NodeShard(NamedTuple):
     bw_used, ports_free, job_count, tg_count) as binpack's scans take
     it, updated in place; ``feasible`` [B,N,G]; ``asks`` the batch's
     Asks ([B,K] leading); ``noise`` the shard's window of the batch's
-    noise, [B,K,N] (greedy) or [B,N] (uniform)."""
+    noise, [B,K,N] (greedy) or [B,N] (uniform); ``pref`` the shard's
+    columns of the convex relaxation's preference [B,K,N], which only
+    the convex rounding scan (K10g-b) reads."""
 
     lo: int
     capacity: torch.Tensor
@@ -214,6 +217,7 @@ class NodeShard(NamedTuple):
     feasible: torch.Tensor
     asks: Asks
     noise: torch.Tensor
+    pref: Optional[torch.Tensor] = None
 
 
 def _check_shards(shards: List[NodeShard], seq: bool, uniform: bool):
@@ -251,7 +255,8 @@ def _by_eval(shards: List[NodeShard], e: int) -> List[NodeShard]:
         out.append(sh._replace(
             carry=(util[None], bw[None], ports[None], jc[one], tgc[one]),
             feasible=sh.feasible[one], asks=Asks(*(x[one] for x in sh.asks)),
-            noise=sh.noise[one]))
+            noise=sh.noise[one],
+            pref=None if sh.pref is None else sh.pref[one]))
     return out
 
 
@@ -275,14 +280,16 @@ def _shard_score(sh: NodeShard, j: int, penalty: float, noise):
         penalty, noise)
 
 
-def sharded_greedy_scan_plain(shards: List[NodeShard], penalty: float,
-                              seq: bool = False):
-    """The plain PyTorch version of K10c: per step, each shard's local
-    argmax (torch.argmax: the first maximum, its lowest index), then the
+def _steps_plain(shards: List[NodeShard], penalty: float, biased: bool):
+    """The independent layout of the plain sharded scans: per step each
+    shard's local argmax (torch.argmax: the first maximum, its lowest
+    index) of the score, plus K8b's rounding bias when ``biased``; the
     best of the W in shard order (the first maximum again: the lowest
-    global index on ties), and the owning shard's one-row update."""
-    if seq:
-        return _in_order(sharded_greedy_scan_plain, shards, penalty)
+    global index on ties); the owning shard's one-row update. The
+    reported score is the score at the winner without the noise (and
+    the bias)."""
+    from ..kernels.convex import round_bias_plain
+
     b, k = shards[0].asks.active.shape
     dev = shards[0].feasible.device
     ar = torch.arange(b, device=dev)
@@ -293,11 +300,15 @@ def sharded_greedy_scan_plain(shards: List[NodeShard], penalty: float,
         for sh in shards:
             nz = sh.noise[:, j]
             score = _shard_score(sh, j, penalty, nz)
-            best = torch.argmax(score, dim=1)
-            top = score[ar, best]
-            tops.append(top)
+            value = score
+            if biased:
+                value = score + round_bias_plain(
+                    sh.capacity, sh.sched_capacity, sh.carry[0],
+                    sh.asks.resources[:, j], sh.pref[:, j])
+            best = torch.argmax(value, dim=1)
+            tops.append(value[ar, best])
             bests.append(best)
-            cleans.append(top - nz[ar, best])
+            cleans.append(score[ar, best] - nz[ar, best])
         tops = torch.stack(tops)
         owner = torch.argmax(tops, dim=0)
         top = tops[owner, ar]
@@ -315,6 +326,25 @@ def sharded_greedy_scan_plain(shards: List[NodeShard], penalty: float,
                          sh.asks.ports[vb, j],
                          sh.asks.tg_index[vb, j].long())
     return choices, scores
+
+
+def sharded_greedy_scan_plain(shards: List[NodeShard], penalty: float,
+                              seq: bool = False):
+    """The plain PyTorch version of K10c (``_steps_plain`` unbiased;
+    under ``seq`` the evals one after another over the shared carry)."""
+    if seq:
+        return _in_order(sharded_greedy_scan_plain, shards, penalty)
+    return _steps_plain(shards, penalty, False)
+
+
+def sharded_convex_round_plain(shards: List[NodeShard], penalty: float,
+                               seq: bool = False):
+    """The plain PyTorch version of K10g-b: K10c's plain steps with K8b's
+    rounding bias from each shard's ``pref`` (the strand penalty read
+    from the shard's own carried rows)."""
+    if seq:
+        return _in_order(sharded_convex_round_plain, shards, penalty)
+    return _steps_plain(shards, penalty, True)
 
 
 def sharded_uniform_topk_plain(shards: List[NodeShard], penalty: float,
@@ -379,38 +409,46 @@ class _Partials:
     buffer and reads the winners in place; a shard on another card gets
     buffers of its own, whose candidates cross after its launch and the
     winners after the combine (device-to-device ``copy_``, ordered by
-    PyTorch against both devices' current streams)."""
+    PyTorch against both devices' current streams). A candidate is a
+    packed key (int64) and a score (f32), with ``gid`` a topology group
+    id (int32) too; ``local[s]`` is shard s's (key, score, win, gid)."""
 
-    def __init__(self, shards, home, key_shape, win_shape):
-        w = len(shards)
+    def __init__(self, devices, home, key_shape, win_shape, gid=False):
+        w = len(devices)
+        types = {"key": torch.int64, "score": torch.float32}
+        if gid:
+            types["gid"] = torch.int32
         self.home = home
-        self.key = torch.empty((w, *key_shape), dtype=torch.int64,
-                               device=home)
-        self.score = torch.empty((w, *key_shape), dtype=torch.float32,
-                                 device=home)
+        self.part = {name: torch.empty((w, *key_shape), dtype=t, device=home)
+                     for name, t in types.items()}
+        self.key, self.score = self.part["key"], self.part["score"]
+        self.gid = self.part.get("gid")
         self.win = torch.full(win_shape, -1, dtype=torch.int32, device=home)
         self.local = []
-        for s, sh in enumerate(shards):
-            dev = sh.feasible.device
+        for s, dev in enumerate(devices):
             if dev == home:
-                self.local.append((self.key[s], self.score[s], self.win))
+                mine = {name: x[s] for name, x in self.part.items()}
+                win = self.win
             else:
-                self.local.append((
-                    torch.empty(key_shape, dtype=torch.int64, device=dev),
-                    torch.empty(key_shape, dtype=torch.float32, device=dev),
-                    torch.full(win_shape, -1, dtype=torch.int32,
-                               device=dev)))
+                mine = {name: torch.empty(key_shape, dtype=t, device=dev)
+                        for name, t in types.items()}
+                win = torch.full(win_shape, -1, dtype=torch.int32,
+                                 device=dev)
+            self.local.append((mine["key"], mine["score"], win,
+                               mine.get("gid")))
 
     def gather(self, s):
         """Shard s's candidates onto the combining device."""
-        key, score, _win = self.local[s]
+        key, score, _win, gid = self.local[s]
         if key.device != self.home:
-            self.key[s].copy_(key, non_blocking=True)
-            self.score[s].copy_(score, non_blocking=True)
+            for mine, theirs in ((key, self.key), (score, self.score),
+                                 (gid, self.gid)):
+                if mine is not None:
+                    theirs[s].copy_(mine, non_blocking=True)
 
     def spread(self):
         """The winners onto every other card."""
-        for _key, _score, win in self.local:
+        for _key, _score, win, _gid in self.local:
             if win.device != self.home:
                 win.copy_(self.win, non_blocking=True)
 
@@ -433,16 +471,29 @@ def sharded_greedy_scan(shards: List[NodeShard], penalty: float,
     noise-free score); a last step launch per shard applies the last
     winner. K x (W + 1) + W launches an eval (B x that under ``seq``),
     so launches bound it: the one-card form is slower than K1."""
-    b, n_total, g, k, stacked = _check_shards(shards, seq, False)
+    dims = _check_shards(shards, seq, False)
     if _kind(sh.feasible for sh in shards) == "cpu":
         return sharded_greedy_scan_plain(shards, penalty, seq)
+    return _steps_on_card(shards, penalty, seq, dims, False,
+                          "sharded_greedy_scan")
+
+
+def _steps_on_card(shards: List[NodeShard], penalty: float, seq: bool,
+                   dims, biased: bool, name: str):
+    """The host loop of K10c and K10g-b over csrc/sharded_scan.cu: per
+    step one nt_shard_step a shard (with the shard's ``pref`` when
+    ``biased``) and one nt_shard_winner; the launches count under
+    ``name``. ``dims`` is _check_shards' result."""
+    b, _n_total, g, k, stacked = dims
     home = shards[0].feasible.device
     active = shards[0].asks.active.to(home)
     choices = torch.empty((b, k), dtype=torch.int32, device=home)
     scores = torch.empty((b, k), dtype=torch.float32, device=home)
-    part = _Partials(shards, home, (b,), (b,))
+    part = _Partials([sh.feasible.device for sh in shards], home, (b,),
+                     (b,))
     w = len(shards)
-    fixed = [(sh.feasible.shape[1], sh.lo, _ptrs(sh),
+    fixed = [(sh.feasible.shape[1], sh.lo,
+              (*_ptrs(sh), sh.pref.data_ptr() if biased else 0),
               part.local[s][0].data_ptr(), part.local[s][1].data_ptr(),
               part.local[s][2].data_ptr(), sh.feasible.device)
              for s, sh in enumerate(shards)]
@@ -456,9 +507,9 @@ def sharded_greedy_scan(shards: List[NodeShard], penalty: float,
                                scores.data_ptr())
     launches = 0
 
-    def check(err, name):
+    def check(err, what):
         if err != 0:
-            raise RuntimeError(f"{name}: CUDA error {err}")
+            raise RuntimeError(f"{what}: CUDA error {err}")
 
     # (e, k) steps in order; (pe, pk) the step before (pk = -1: none).
     if seq:
@@ -486,8 +537,37 @@ def sharded_greedy_scan(shards: List[NodeShard], penalty: float,
         launches += 1
         part.spread()
         prev = (e, j)
-    cuda.count_launch("sharded_greedy_scan", launches)
+    cuda.count_launch(name, launches)
     return choices, scores
+
+
+def sharded_convex_round(shards: List[NodeShard], penalty: float,
+                         seq: bool = False):
+    """K10g-b: the convex kernel's rounding scan of B evals over node
+    shards (K8b with the node axis split: K10c's step and winner
+    kernels with the rounding bias). Replaces the GSPMD form of the
+    body scan of ``convex_placement_program`` (kernels/convex.py:224 in
+    the JAX package) over a node-sharded base. Arguments and results as
+    ``sharded_greedy_scan``, with each shard's ``pref`` [B,K,N] set (its
+    columns of the relaxation's preference, K10g-a).
+
+    On the card (csrc/sharded_scan.cu) each shard's step packs score +
+    ROUND_BIAS x pref - STRAND_BIAS x strand penalty, its strand penalty
+    read from its own carried rows, and reports the score without the
+    noise and the bias, as K8b does. K x (W + 1) + W launches an eval:
+    launches bound it, as K10c."""
+    dims = _check_shards(shards, seq, False)
+    b, _n_total, _g, k, _stacked = dims
+    for sh in shards:
+        if sh.pref is None:
+            raise ValueError("the convex rounding scan needs each shard's "
+                             "pref")
+        _check("pref", sh.pref, torch.float32,
+               (b, k, sh.feasible.shape[1]), sh.feasible.device)
+    if _kind(sh.feasible for sh in shards) == "cpu":
+        return sharded_convex_round_plain(shards, penalty, seq)
+    return _steps_on_card(shards, penalty, seq, dims, True,
+                          "sharded_convex_round")
 
 
 def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
@@ -514,7 +594,8 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
     active = shards[0].asks.active.to(home)
     choices = torch.empty((b, k), dtype=torch.int32, device=home)
     scores = torch.empty((b, k), dtype=torch.float32, device=home)
-    part = _Partials(shards, home, (b, k), (b, k))
+    part = _Partials([sh.feasible.device for sh in shards], home, (b, k),
+                     (b, k))
     m_pad = 1 << max(w * k - 1, 0).bit_length()
     merge_keys = merge_slot = None
     if m_pad * 12 > _SMEM_MAX:
@@ -583,3 +664,521 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
         shard_pass(-1, 0, False)
     cuda.count_launch("sharded_uniform_topk", launches)
     return choices, scores
+
+
+# ------------------------------------------------------------ K10f, K10g-a
+
+
+class DefragShard(NamedTuple):
+    """One node shard of the defrag solve (K10f), on the shard's device:
+    kernels/convex.py ``defrag_solve``'s arguments with the node columns
+    split (parallel/mesh.py defrag_solve_specs): the carried logits'
+    columns [K,N] and the residual state's rows from global node
+    ``lo``; fresh, the asks and active replicated."""
+
+    lo: int
+    logits0: torch.Tensor  # [K, N] f32
+    fresh: torch.Tensor  # [K] bool
+    base_util: torch.Tensor  # [N, 4] f32
+    capacity: torch.Tensor  # [N, 4] f32
+    sched_capacity: torch.Tensor  # [N, 4] f32
+    node_ok: torch.Tensor  # [N] bool
+    bw_avail: torch.Tensor  # [N] f32
+    bw_used: torch.Tensor  # [N] f32
+    ports_free: torch.Tensor  # [N] f32
+    ask_res: torch.Tensor  # [K, 4] f32
+    ask_bw: torch.Tensor  # [K] f32
+    ask_ports: torch.Tensor  # [K] f32
+    active: torch.Tensor  # [K] bool
+
+
+class _Exchange:
+    """Float partial rows of the W shards gathered on the combining
+    device, and the combined row sent back (the sharded relaxation's
+    softmax statistics and pref maxima). As with ``_Partials``, a shard
+    on the combining device writes its row of the combining buffer and
+    reads the combined row in place; a shard on another card has
+    buffers of its own, copied across outside the kernels."""
+
+    def __init__(self, devices, home, part_len: int, out_len: int):
+        f32 = torch.float32
+        self.home = home
+        self.part = torch.empty((len(devices), part_len), dtype=f32,
+                                device=home)
+        self.out = torch.empty(out_len, dtype=f32, device=home)
+        self.local = [
+            (self.part[s], self.out) if dev == home else
+            (torch.empty(part_len, dtype=f32, device=dev),
+             torch.empty(out_len, dtype=f32, device=dev))
+            for s, dev in enumerate(devices)]
+
+    def gather(self, s):
+        part, _out = self.local[s]
+        if part.device != self.home:
+            self.part[s].copy_(part, non_blocking=True)
+
+    def spread(self):
+        for _part, out in self.local:
+            if out.device != self.home:
+                out.copy_(self.out, non_blocking=True)
+
+
+def _check_defrag_shards(shards: List[DefragShard]):
+    """Validate a defrag solve's shards against defrag_solve's checks;
+    returns K."""
+    k = shards[0].logits0.shape[0]
+    n_total = 0
+    for sh in shards:
+        n = sh.logits0.shape[1]
+        dev = sh.logits0.device
+        f32, u8 = torch.float32, torch.bool
+        for name, t, dtype, shape in (
+                ("logits0", sh.logits0, f32, (k, n)),
+                ("fresh", sh.fresh, u8, (k,)),
+                ("base_util", sh.base_util, f32, (n, 4)),
+                ("capacity", sh.capacity, f32, (n, 4)),
+                ("sched_capacity", sh.sched_capacity, f32, (n, 4)),
+                ("node_ok", sh.node_ok, u8, (n,)),
+                ("bw_avail", sh.bw_avail, f32, (n,)),
+                ("bw_used", sh.bw_used, f32, (n,)),
+                ("ports_free", sh.ports_free, f32, (n,)),
+                ("ask_res", sh.ask_res, f32, (k, 4)),
+                ("ask_bw", sh.ask_bw, f32, (k,)),
+                ("ask_ports", sh.ask_ports, f32, (k,)),
+                ("active", sh.active, u8, (k,))):
+            _check(name, t, dtype, shape, dev)
+        if sh.lo != n_total:
+            raise ValueError(f"shard columns start at {sh.lo}, expected "
+                             f"{n_total}: shards cover the nodes in order")
+        n_total += n
+    return k
+
+
+def _check_relax_shards(shards: List[NodeShard]):
+    """Validate a placement relaxation's shards against K8a's checks
+    (the noise is not read); returns (B, G, K)."""
+    from ..ops.binpack import _check_scan_args
+
+    dims = None
+    n_total = 0
+    for sh in shards:
+        b, n, g, k, _stacked = _check_scan_args(
+            sh.capacity, sh.sched_capacity, sh.bw_avail, sh.node_ok,
+            sh.carry, sh.feasible, sh.asks, None, (),
+            sh.carry[0].dim() == 2)
+        if dims is not None and dims != (b, g, k):
+            raise ValueError("shards disagree on B, G or K")
+        dims = (b, g, k)
+        if sh.lo != n_total:
+            raise ValueError(f"shard rows start at {sh.lo}, expected "
+                             f"{n_total}: shards cover the nodes in order")
+        n_total += n
+    return dims
+
+
+def _softmax_over_shards(values):
+    """The softmax over the last axis of [..., N] split into the shards'
+    ``values``: each shard's max m_s and sum s_s of exp, combined in
+    shard order as the kernels' combine does (m = max m_s, s = sum s_s
+    exp(m_s - m)). One shard gives the one-device softmax bit for bit."""
+    home = values[0].device
+    ms = [v.amax(-1) for v in values]
+    ss = [torch.exp(v - m[..., None]).sum(-1) for v, m in zip(values, ms)]
+    m = torch.stack([x.to(home) for x in ms]).amax(0)
+    total = torch.zeros_like(m)
+    for m_s, s_s in zip(ms, ss):
+        total = total + s_s.to(home) * torch.exp(m_s.to(home) - m)
+    return [torch.exp(v - m.to(v.device)[..., None])
+            / total.to(v.device)[..., None] for v in values]
+
+
+def sharded_relax_plain(shards, iters: int, penalty: float = 0.0):
+    """The plain PyTorch version of K10f / K10g-a: each shard's prologue
+    on its columns (kernels/convex.py defrag_terms or placement_terms),
+    then ``iters`` mirror-descent steps whose softmax crosses the
+    shards (``_softmax_over_shards``) and whose gradient is node-local.
+    Returns one tuple a shard: (logits, x) [K,N] for DefragShards;
+    (logits, x, pref) [B,K,N] for NodeShards, pref from the cross-shard
+    maxima of each row of x and of y = sum_k x."""
+    from ..kernels.convex import _md_step, defrag_terms, placement_terms
+
+    defrag = isinstance(shards[0], DefragShard)
+    terms, logits = [], []
+    for sh in shards:
+        if defrag:
+            t = defrag_terms(sh.base_util, sh.capacity, sh.sched_capacity,
+                             sh.node_ok, sh.bw_avail, sh.bw_used,
+                             sh.ports_free, sh.ask_res, sh.ask_bw,
+                             sh.ask_ports, sh.active)
+            logits.append(torch.where(sh.fresh[:, None], t.lin, sh.logits0))
+        else:
+            t = placement_terms(sh.capacity, sh.sched_capacity, sh.bw_avail,
+                                sh.node_ok, sh.carry, sh.feasible, sh.asks,
+                                penalty)
+            logits.append(t.lin)
+        terms.append(t)
+    for _ in range(iters):
+        xs = _softmax_over_shards([lg + t.mask
+                                   for lg, t in zip(logits, terms)])
+        logits = [_md_step(lg, x * t.active, t.lin, *t[2:10])
+                  for lg, x, t in zip(logits, xs, terms)]
+    xs = _softmax_over_shards([lg + t.mask for lg, t in zip(logits, terms)])
+    if defrag:
+        return [(lg, x * t.active) for lg, x, t in zip(logits, xs, terms)]
+    home = xs[0].device
+    ys = [x.sum(-2) for x in xs]
+    rowmax = torch.stack([x.amax(-1).to(home) for x in xs]).amax(0)
+    ymax = torch.stack([y.amax(-1).to(home) for y in ys]).amax(0)
+    out = []
+    for lg, x, y in zip(logits, xs, ys):
+        rm, ym = rowmax.to(x.device), ymax.to(x.device)
+        pref = ((x / (rm[..., None] + 1e-9)
+                 + y[..., None, :] / (ym[..., None, None] + 1e-9))
+                * 0.5).contiguous()
+        out.append((lg, x, pref))
+    return out
+
+
+def sharded_relax(shards, iters: int, penalty: float = 0.0):
+    """K10f and K10g-a: the convex relaxation over node shards, in the
+    mode its shards name. DefragShards (K10f) replace the defrag solve
+    with x's node columns split (parallel/mesh.py:186,201 and
+    defrag/solver.py:457-461 in the JAX package); NodeShards (K10g-a,
+    their noise unread) replace the convex kernel's relaxation over a
+    node-sharded base (kernels/convex.py:102,136 there, with the
+    preference of :253). Returns one tuple a shard, on its device, as
+    ``sharded_relax_plain``.
+
+    On the card (csrc/sharded_relax.cu): the prologue a shard, then per
+    iteration the row pass a shard (each row's softmax max and sum over
+    the shard's columns), the combine on the first shard's device (m =
+    max m_s, s = sum s_s exp(m_s - m) in shard order) and the
+    node-local column pass a shard; then x, and in placement mode the
+    cross-shard maxima and pref. 3 W + iters x (2 W + 1) + 2 W + 1
+    launches (+ 2 W + 1 for pref); no kernel writes another shard's
+    memory."""
+    from ..kernels.convex import _relax_scratch
+
+    defrag = isinstance(shards[0], DefragShard)
+    if defrag:
+        k = _check_defrag_shards(shards)
+        b, g = 1, 0
+        devices = [sh.logits0.device for sh in shards]
+    else:
+        b, g, k = _check_relax_shards(shards)
+        devices = [sh.feasible.device for sh in shards]
+    if {d.type for d in devices} == {"cpu"}:
+        return sharded_relax_plain(shards, iters, penalty)
+    if {d.type for d in devices} != {"cuda"}:
+        raise ValueError(f"shards on unsupported devices {devices}")
+    home = devices[0]
+    w = len(shards)
+    bk = b * k
+    lib = cuda.library()
+    stats = _Exchange(devices, home, 2 * bk, 2 * bk)
+    streams = [cuda.stream_ptr(d) for d in devices]
+    launches = 0
+
+    def run(fn, s, *args):
+        nonlocal launches
+        with _on(devices[s]):
+            err = getattr(lib, fn)(*args, streams[s])
+        if err != 0:
+            raise RuntimeError(f"{fn}: CUDA error {err}")
+        launches += 3 if fn == "nt_srelax_prologue" else 1
+
+    outs = []
+    for s, sh in enumerate(shards):
+        dev = devices[s]
+        if defrag:
+            n = sh.logits0.shape[1]
+            logits = sh.logits0.clone()
+            state = (1, 1, n, 0, k, 0.0, 0, 0, sh.capacity.data_ptr(),
+                     sh.sched_capacity.data_ptr(), sh.bw_avail.data_ptr(),
+                     sh.node_ok.data_ptr(), sh.base_util.data_ptr(),
+                     sh.bw_used.data_ptr(), sh.ports_free.data_ptr(), 0, 0,
+                     0, sh.ask_res.data_ptr(), sh.ask_bw.data_ptr(),
+                     sh.ask_ports.data_ptr(), 0, sh.active.data_ptr(), 0, 0,
+                     sh.fresh.data_ptr())
+        else:
+            n = sh.feasible.shape[1]
+            util, bw_used, ports_free, job_count, tg_count = sh.carry
+            a = sh.asks
+            logits = torch.empty((b, k, n), dtype=torch.float32, device=dev)
+            state = (0, b, n, g, k, float(penalty),
+                     int(sh.capacity.dim() == 3), int(util.dim() == 2),
+                     sh.capacity.data_ptr(), sh.sched_capacity.data_ptr(),
+                     sh.bw_avail.data_ptr(), sh.node_ok.data_ptr(),
+                     util.data_ptr(), bw_used.data_ptr(),
+                     ports_free.data_ptr(), job_count.data_ptr(),
+                     tg_count.data_ptr(), sh.feasible.data_ptr(),
+                     a.resources.data_ptr(), a.bw.data_ptr(),
+                     a.ports.data_ptr(), a.tg_index.data_ptr(),
+                     a.active.data_ptr(), a.job_distinct_hosts.data_ptr(),
+                     a.tg_distinct_hosts.data_ptr(), 0)
+        feas = torch.empty(logits.shape, dtype=torch.bool, device=dev)
+        scratch = _relax_scratch(b, n, k, dev)
+        x = torch.empty_like(logits)
+        outs.append((n, logits, feas, scratch, x))
+        run("nt_srelax_prologue", s, *state, logits.data_ptr(),
+            feas.data_ptr(), *(t.data_ptr() for t in scratch[:5]))
+
+    def combine(ex, count, mode):
+        for s, (n, logits, feas, _scr, _x) in enumerate(outs):
+            if mode == 0:
+                run("nt_srelax_rows", s, b, n, k, logits.data_ptr(),
+                    feas.data_ptr(), ex.local[s][0].data_ptr())
+            else:
+                run("nt_srelax_max", s, b, n, k, _x.data_ptr(),
+                    _scr[2].data_ptr(), ex.local[s][0].data_ptr())
+            ex.gather(s)
+        run("nt_srelax_combine", 0, w, count, mode, ex.part.data_ptr(),
+            ex.out.data_ptr())
+        ex.spread()
+
+    for _ in range(iters):
+        combine(stats, bk, 0)
+        for s, (n, logits, feas, scr, _x) in enumerate(outs):
+            run("nt_srelax_cols", s, b, n, k, logits.data_ptr(),
+                scr[0].data_ptr(), feas.data_ptr(), scr[1].data_ptr(),
+                scr[2].data_ptr(), scr[3].data_ptr(), scr[4].data_ptr(),
+                stats.local[s][1].data_ptr())
+    combine(stats, bk, 0)
+    for s, (n, logits, feas, scr, x) in enumerate(outs):
+        run("nt_srelax_x", s, int(defrag), b, n, k, logits.data_ptr(),
+            feas.data_ptr(), scr[2].data_ptr(), scr[4].data_ptr(),
+            stats.local[s][1].data_ptr(), x.data_ptr())
+    if defrag:
+        cuda.count_launch("sharded_defrag_solve", launches)
+        return [(logits, x) for _n, logits, _f, _s, x in outs]
+    maxima = _Exchange(devices, home, bk + b, bk + b)
+    combine(maxima, bk + b, 1)
+    result = []
+    for s, (n, logits, _f, scr, x) in enumerate(outs):
+        pref = torch.empty_like(x)
+        run("nt_srelax_pref", s, b, n, k, x.data_ptr(), scr[2].data_ptr(),
+            maxima.local[s][1].data_ptr(), pref.data_ptr())
+        result.append((logits, x, pref))
+    cuda.count_launch("sharded_convex_relax", launches)
+    return result
+
+
+# ------------------------------------------------------------ K10e
+
+
+class GangShard(NamedTuple):
+    """One node shard of a gang dispatch (K10e), all on the shard's
+    device: ``state`` the GangState's rows from global row ``lo`` (its
+    util, bw_used and ports_free carried, updated in place); the ask
+    (ask_res [4], ask_bw and ask_ports [] f32, replicated); ``noise``
+    the shard's window of the member noise [K,N]; ``placed`` [N] i32
+    and ``group_members`` [g_pad] f32, carried (zeros in), the member
+    counts replicated on every shard."""
+
+    lo: int
+    state: tuple
+    ask_res: torch.Tensor
+    ask_bw: torch.Tensor
+    ask_ports: torch.Tensor
+    noise: torch.Tensor
+    placed: torch.Tensor
+    group_members: torch.Tensor
+
+
+def _check_gang_shards(shards: List[GangShard], active, group_noise, config):
+    """Validate a gang dispatch's shards against K7's checks."""
+    from ..ops.gang import _check_gang_args
+
+    n_total = 0
+    home = shards[0].state.capacity.device
+    for sh in shards:
+        _check_gang_args(sh.state, sh.ask_res, sh.ask_bw, sh.ask_ports,
+                         active.to(sh.state.capacity.device), sh.noise,
+                         group_noise.to(sh.state.capacity.device), sh.placed,
+                         sh.group_members, config.g_pad)
+        if sh.lo != n_total:
+            raise ValueError(f"shard rows start at {sh.lo}, expected "
+                             f"{n_total}: shards cover the nodes in order")
+        n_total += sh.state.capacity.shape[0]
+    _check("active", active, torch.bool, active.shape, home)
+    _check("group_noise", group_noise, torch.float32, (config.g_pad,), home)
+
+
+def _shard_group_capacity(shards: List[GangShard], units, g_pad: int):
+    """K10b over the shards' member units [N] (one a shard): the group
+    capacities [g_pad] f32 on the first shard's device."""
+    devices = tuple(sh.state.capacity.device for sh in shards)
+    lo = tuple(sh.lo for sh in shards)
+    return sharded_group_capacity(Mesh([devices]), g_pad)(
+        Sharded((tuple(units),), lo, (NODE_AXIS,)),
+        Sharded((tuple(sh.state.topo_ids for sh in shards),), lo,
+                (NODE_AXIS,)))
+
+
+def sharded_gang_scan_plain(shards: List[GangShard], active, group_noise,
+                            config):
+    """The plain PyTorch version of K10e: each shard's member units and
+    partial group capacities (K10b's plain version), the slice or the
+    spread cap on the first shard's device, then per member each
+    shard's local argmax (the first maximum), the best of the W in
+    shard order (the lowest global index on ties), the owning shard's
+    row update and every shard's member count of the winner's group;
+    the all-K rewrite last."""
+    from ..ops.gang import (
+        GANG_MODE_SLICE,
+        GANG_MODE_SPREAD,
+        gang_pick_plain,
+        gang_scores_plain,
+        group_capacity_plain,
+        member_units_plain,
+        place_member_plain,
+    )
+
+    home = shards[0].state.capacity.device
+    k = active.shape[0]
+    g_pad = config.g_pad
+    group_cap = None
+    if config.mode in (GANG_MODE_SLICE, GANG_MODE_SPREAD):
+        group_cap = group_capacity_combine_plain(torch.stack([
+            group_capacity_plain(member_units_plain(
+                sh.state, sh.ask_res, sh.ask_bw, sh.ask_ports, config),
+                sh.state.topo_ids, g_pad).to(home) for sh in shards]))
+    chosen, match, spread_cap = gang_pick_plain(
+        group_cap, group_noise, active.to(torch.float32).sum(), k, config)
+    choices = torch.full((k,), -1, dtype=torch.int32, device=home)
+    scores = torch.zeros((k,), dtype=torch.float32, device=home)
+    for j in range(k):
+        if not bool(active[j]):
+            continue
+        tops, bests = [], []
+        for sh in shards:
+            score = gang_scores_plain(
+                sh.state, sh.ask_res, sh.ask_bw, sh.ask_ports, config,
+                sh.placed, sh.group_members, match,
+                spread_cap.to(sh.noise.device), sh.noise[j])
+            best = int(torch.argmax(score))
+            tops.append(score[best].to(home))
+            bests.append(best)
+        owner = int(torch.argmax(torch.stack(tops)))
+        if not bool(tops[owner] > NEG_INF / 2):
+            continue
+        sh, row = shards[owner], bests[owner]
+        choices[j] = sh.lo + row
+        scores[j] = tops[owner] - sh.noise[j, row].to(home)
+        place_member_plain(sh.state, sh.ask_res, sh.ask_bw, sh.ask_ports,
+                           row, sh.placed)
+        gid = int(sh.state.topo_ids[row])
+        if 0 <= gid < g_pad:
+            for other in shards:
+                other.group_members[gid] += 1.0
+    if bool((active & (choices < 0)).any()):
+        choices.fill_(-1)
+        scores.zero_()
+        chosen = -1
+    return (choices, scores,
+            torch.tensor(chosen, dtype=torch.int32, device=home))
+
+
+def sharded_gang_scan(shards: List[GangShard], active, group_noise, config):
+    """K10e: one gang's all-K placement over node shards (K7 with the
+    node axis split). Replaces the GSPMD form of
+    ``gang_placement_program_jit`` (ops/gang.py:264 in the JAX package)
+    on a GangState from ``shard_gang_inputs`` (parallel/mesh.py:149,175
+    there). ``active`` [K] bool and ``group_noise`` [g_pad] f32 lie on
+    the first shard's device. Returns (choices [K] i32 global node
+    indices, scores [K] f32, slice_group [] i32) there; each shard's
+    carry (util, bw_used, ports_free, placed, group_members) is updated
+    in place.
+
+    On the card (csrc/sharded_gang.cu): in slice and spread mode the
+    member units a shard and K10b's group capacities; the slice or the
+    spread cap on the first shard's device; K member steps of a step
+    kernel a shard and a winner kernel that carries the winner's
+    topology group id, read on its owning shard, so every shard adds
+    the member to the same group; the all-K rewrite. K x (W + 1) + 2 W
+    + 2 launches of its own, plus K10b's W + 1 in slice and spread
+    mode."""
+    from ..ops.gang import _MODE_IDS, GANG_MODE_SLICE, GANG_MODE_SPREAD
+
+    _check_gang_shards(shards, active, group_noise, config)
+    home = shards[0].state.capacity.device
+    if _kind(sh.state.capacity for sh in shards) == "cpu":
+        return sharded_gang_scan_plain(shards, active, group_noise, config)
+    k = active.shape[0]
+    g_pad, mode = config.g_pad, _MODE_IDS[config.mode]
+    dh = int(config.distinct_hosts)
+    penalty = float(config.anti_affinity_penalty)
+    w = len(shards)
+    lib = cuda.library()
+    devices = [sh.state.capacity.device for sh in shards]
+    streams = [cuda.stream_ptr(d) for d in devices]
+    launches = 0
+
+    def run(fn, dev, stream, *args):
+        nonlocal launches
+        with _on(dev):
+            err = getattr(lib, fn)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn}: CUDA error {err}")
+        launches += 1
+
+    group_cap = None
+    if config.mode in (GANG_MODE_SLICE, GANG_MODE_SPREAD):
+        units = []
+        for s, sh in enumerate(shards):
+            st = sh.state
+            u = torch.empty(st.capacity.shape[0], dtype=torch.float32,
+                            device=devices[s])
+            run("nt_gang_units", devices[s], streams[s], u.shape[0], mode,
+                dh, st.capacity.data_ptr(), st.util.data_ptr(),
+                st.bw_avail.data_ptr(), st.bw_used.data_ptr(),
+                st.ports_free.data_ptr(), st.feas_row.data_ptr(),
+                st.dh_presence.data_ptr(), st.topo_ids.data_ptr(),
+                sh.ask_res.data_ptr(), sh.ask_bw.data_ptr(),
+                sh.ask_ports.data_ptr(), u.data_ptr())
+            units.append(u)
+        group_cap = _shard_group_capacity(shards, units, g_pad)
+    meta = torch.empty(4, dtype=torch.int32, device=home)
+    run("nt_gang_pick", home, streams[0], k, g_pad, mode, active.data_ptr(),
+        0 if group_cap is None else group_cap.data_ptr(),
+        group_noise.data_ptr(), meta.data_ptr())
+    metas = [meta if d == home else meta.to(d, non_blocking=True)
+             for d in devices]
+    part = _Partials(devices, home, (1,), (2,), gid=True)
+    choices = torch.empty(k, dtype=torch.int32, device=home)
+    scores = torch.empty(k, dtype=torch.float32, device=home)
+    fixed = []
+    for s, sh in enumerate(shards):
+        st = sh.state
+        fixed.append((st.capacity.shape[0], sh.lo, (
+            st.capacity.data_ptr(), st.sched_capacity.data_ptr(),
+            st.util.data_ptr(), st.bw_avail.data_ptr(),
+            st.bw_used.data_ptr(), st.ports_free.data_ptr(),
+            st.feas_row.data_ptr(), st.job_count.data_ptr(),
+            st.dh_presence.data_ptr(), st.topo_ids.data_ptr(),
+            sh.ask_res.data_ptr(), sh.ask_bw.data_ptr(),
+            sh.ask_ports.data_ptr(), sh.noise.data_ptr(),
+            metas[s].data_ptr(), part.local[s][2].data_ptr(),
+            sh.placed.data_ptr(), sh.group_members.data_ptr(),
+            part.local[s][0].data_ptr(), part.local[s][1].data_ptr(),
+            part.local[s][3].data_ptr())))
+    prev = -1
+    for j in list(range(k)) + [-1]:
+        for s, (n, lo, ptrs) in enumerate(fixed):
+            run("nt_gang_step", devices[s], streams[s], n, k, g_pad, lo, mode,
+                dh, penalty, j, prev, *ptrs)
+            if j >= 0 and w > 1:
+                part.gather(s)
+        if j < 0:
+            break
+        run("nt_gang_winner", home, streams[0], w, j, part.key.data_ptr(),
+            part.score.data_ptr(), part.gid.data_ptr(), active.data_ptr(),
+            choices.data_ptr(), scores.data_ptr(), part.win.data_ptr())
+        part.spread()
+        prev = j
+    slice_group = torch.empty((), dtype=torch.int32, device=home)
+    run("nt_gang_finish", home, streams[0], k, active.data_ptr(),
+        meta.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+        slice_group.data_ptr())
+    cuda.count_launch("sharded_gang_scan", launches)
+    return choices, scores, slice_group

@@ -31,9 +31,9 @@ Given a ``mesh`` (parallel/mesh.py), a base of SHARD_MIN_NODES or more
 nodes lives sharded over the mesh's node axis: its upload splits into
 per-shard slices, a delta child derives shard by shard (K10a), and the
 shared-base dispatches run over the shards (K3 with a row offset, then
-K10c or K10d). The lone and stacked paths stay unsharded. The mesh is
-explicit: a registered placement kernel has no sharded form yet, and a
-dispatch of one over a sharded base raises NotImplementedError.
+K10c or K10d for the greedy kernel, K10g for the convex kernel). The
+lone and stacked paths stay unsharded. The mesh is explicit: without
+one, nothing shards.
 
 Two ways in: concurrent ``place()`` calls queue by shape key and one of
 them (or a dispatcher thread) dispatches the batch after an adaptive

@@ -858,9 +858,18 @@ def test_pre_resolve_cohort_on_the_mesh_matches_reference(big_cluster,
     assert ref.stats()["sharded_bases"] == 2
 
 
-def test_registered_kernel_over_a_sharded_base_raises(big_cluster):
-    """The convex kernel has no sharded form yet: its dispatch over a
-    sharded base raises NotImplementedError naming the layout."""
+def test_registered_kernel_over_a_sharded_base_raises(big_cluster,
+                                                      monkeypatch):
+    """The convex kernel over a sharded base (K0 and K3 a shard, the
+    sharded relaxation K10g-a, the rounding over shards K10g-b): a lone
+    eval, then a pre_resolve cohort of three, through place_cohort on a
+    mesh batcher place as the JAX batcher's convex dispatch over its
+    automatically sharded base (choices equal, scores within SCORE_TOL:
+    the relaxation's cross-shard softmax sums in another order, orders
+    below the noise's separation here). The batch is not padded: a
+    registered kernel's batch never is."""
+    from nomad_tpu_torch.kernels import convex as tconvex
+
     h, hp = big_cluster
     job = two_group_job((3, 1), "convex-mesh")  # both datacenters
     h.state.upsert_job(h.next_index(), job)
@@ -869,11 +878,36 @@ def test_registered_kernel_over_a_sharded_base_raises(big_cluster):
     m = ClusterMatrix(hp.state.snapshot(), hp.state.job_by_id(job.id))
     assert m.capacity.shape[0] >= batcher_mod.SHARD_MIN_NODES
     asks = tb.make_asks(*m.build_asks([0, 0, 0, 1]))
-    b = PlacementBatcher("cpu", mesh=cpu_mesh())
+    rm = RefMatrix(h.state.snapshot(), h.state.job_by_id(job.id))
+    rasks = jb.make_asks(*rm.build_asks([0, 0, 0, 1]))
+    b, ref = PlacementBatcher("cpu", mesh=cpu_mesh()), RefBatcher()
     cfg = CONFIG._replace(kernel="convex")
-    with pytest.raises(NotImplementedError, match="compact layout"):
-        b.place_cohort([(m, asks, tb.host_prng_key(2), cfg)])
-    assert b.stats()["sharded_bases"] == 1
+    rcfg = REF_CONFIG._replace(kernel="convex")
+    batches = []
+    program = tconvex.convex_shard_program
+
+    def spy(shards, config, seq=False):
+        batches.append(shards[0].feasible.shape[0])
+        return program(shards, config, seq)
+
+    monkeypatch.setattr(tconvex, "convex_shard_program", spy)
+    got = b.place_cohort([(m, asks, tb.host_prng_key(2), cfg)])
+    want = ref.place_cohort([(rm, rasks, jb.host_prng_key(2), rcfg, None)])
+    assert_result(got[0], want[0])
+    assert (np.asarray(got[0][0]) >= 0).sum() == 4
+    rr, pr = _cohort(h, hp, job, 3, "compact", 77)
+    cfg, rcfg = cfg._replace(pre_resolve=True), rcfg._replace(
+        pre_resolve=True)
+    got = b.place_cohort([(m_, tb.make_asks(*a), k, cfg)
+                          for m_, a, k in pr])
+    want = ref.place_cohort([(m_, jb.make_asks(*a), k, rcfg, None)
+                             for m_, a, k in rr])
+    for g_, w_ in zip(got, want):
+        assert_result(g_, w_)
+    assert batches == [1, 3]  # the live evals: no padding rows
+    st = b.stats()
+    assert st["sharded_bases"] == 1 and st["pre_resolve_dispatches"] == 1
+    assert ref.stats()["sharded_bases"] >= 1
 
 
 def test_batcher_takes_a_node_axis_mesh_only():

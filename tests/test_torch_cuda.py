@@ -628,9 +628,10 @@ def test_mirror_descent_matches_plain(dev):
         ("logits", "x"))
 
 
-@pytest.mark.parametrize("warm,k,w", [(False, 64, 700), (True, 64, 700),
-                                      (False, 16, 10240)])
-def test_defrag_solve_matches_plain(dev, warm, k, w):
+def defrag_args(warm, k, w, dev):
+    """K9's arguments over w nodes: a residual state with a node that
+    only the capacity[:, 0] > 0 rule keeps ask 0 off, 3 inactive asks,
+    and for the warm case carried logits on about 40% of the rows."""
     rng = np.random.default_rng(w + warm)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
     cap = np.tile(np.array([[4000, 8192, 100000, 150]], np.float32), (w, 1))
@@ -654,7 +655,13 @@ def test_defrag_solve_matches_plain(dev, warm, k, w):
             t(rng.integers(0, 8, w).astype(np.float32)), t(ask),
             t(np.zeros(k, np.float32)), t(np.zeros(k, np.float32)),
             t(active)]
-    iters = 5 if warm else 24
+    return args, 5 if warm else 24
+
+
+@pytest.mark.parametrize("warm,k,w", [(False, 64, 700), (True, 64, 700),
+                                      (False, 16, 10240)])
+def test_defrag_solve_matches_plain(dev, warm, k, w):
+    args, iters = defrag_args(warm, k, w, dev)
     got = convex.defrag_solve(*args, iters)
     plain = convex.defrag_solve_plain(*args, iters)
     plain64 = convex.defrag_solve_plain(*_double(tuple(args)), iters)
@@ -999,6 +1006,285 @@ def test_sharded_wrappers_count_their_launches(dev):
     assert counts["group_capacity"] == w + 1
 
 
+# ------------------------------ K10e-K10g: the last node-sharded programs
+
+
+def gang_shards(state, ask, abw, aports, noise, g_pad, w):
+    """A gang state split into w GangShards (copies), each with its
+    window of the member noise and fresh carries."""
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+    from nomad_tpu_torch.parallel.shard import GangShard
+
+    n = state.capacity.shape[0]
+    dev = state.capacity.device
+    return [GangShard(lo, gang.GangState(*(f[lo:hi].clone() for f in state)),
+                      ask, abw, aports, noise[:, lo:hi].contiguous(),
+                      torch.zeros(hi - lo, dtype=torch.int32, device=dev),
+                      torch.zeros(g_pad, dtype=torch.float32, device=dev))
+            for lo, hi in shard_bounds(n, w)]
+
+
+@pytest.mark.parametrize("mode,dh", GANG_CASES)
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("n,k_real,k,g_pad,rack,shuffle", [
+    (400, 12, 16, 64, 8, False), (3000, 200, 256, 1024, 3, False),
+    (2000, 64, 64, 2048, 1, True)])
+def test_sharded_gang_scan_matches_plain_and_k7(dev, mode, dh, w, n, k_real,
+                                                k, g_pad, rack, shuffle):
+    """K10e on w shards of the card in every mode, with and without
+    distinct_hosts, racks straddling the shard edges and singleton groups
+    shuffled over the node axis (past 1,024 groups): choices, slice group
+    and every shard's carry (util, bw_used, ports_free, placed, its copy
+    of the group member counts) equal the plain version's, scores within
+    1e-4; and K7 on the whole node axis bit for bit."""
+    from nomad_tpu_torch.parallel import shard
+
+    state, ask, abw, aports = gang_inputs(n, k_real + n, dev, rack=rack)
+    if shuffle:
+        perm = np.random.default_rng(n).permutation(n)
+        state = state._replace(topo_ids=state.topo_ids[torch.from_numpy(
+            perm).to(dev)].contiguous())
+    active = torch.zeros(k, dtype=torch.bool, device=dev)
+    active[:k_real] = True
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode,
+                          distinct_hosts=dh, g_pad=g_pad)
+    keys = torch.tensor([[0, k_real], [1, n]], device=dev)
+    noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
+    gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
+    runs = []
+    for fn in (shard.sharded_gang_scan, shard.sharded_gang_scan_plain):
+        shards = gang_shards(state, ask, abw, aports, noise, g_pad, w)
+        runs.append((fn(shards, active, gnoise, cfg), shards))
+    ((ch, sc, sg), shards), ((ch_p, sc_p, sg_p), shards_p) = runs
+    assert torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    for a, b in zip(shards, shards_p):
+        for name in ("util", "bw_used", "ports_free"):
+            assert torch.equal(getattr(a.state, name),
+                               getattr(b.state, name)), name
+        assert torch.equal(a.placed, b.placed)
+        assert torch.equal(a.group_members, b.group_members)
+    st = state._replace(util=state.util.clone(),
+                        bw_used=state.bw_used.clone(),
+                        ports_free=state.ports_free.clone())
+    placed = torch.zeros(n, dtype=torch.int32, device=dev)
+    members = torch.zeros(g_pad, dtype=torch.float32, device=dev)
+    ch1, sc1, sg1 = gang.gang_scan(st, ask, abw, aports, active, noise,
+                                   gnoise, cfg, placed, members)
+    assert torch.equal(ch, ch1) and torch.equal(sc, sc1)
+    assert int(sg) == int(sg1)
+    assert torch.equal(torch.cat([a.placed for a in shards]), placed)
+    assert torch.equal(torch.cat([a.state.util for a in shards]), st.util)
+    for a in shards:
+        assert torch.equal(a.group_members, members)
+    if n >= k_real:
+        assert (ch[:k_real] >= 0).any() or mode == "slice"
+
+
+def _double_any(x):
+    """Float tensors, alone or in (named) tuples, as float64; anything
+    else as is."""
+    if isinstance(x, tuple):
+        items = [_double_any(i) for i in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+        return x.double()
+    return x
+
+
+def relax_node_shards(static, c, feasible, asks, w):
+    """relax_inputs' arguments split into w NodeShards (no noise)."""
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+    from nomad_tpu_torch.parallel.shard import NodeShard
+
+    n = feasible.shape[1]
+    d = 1 if static[0].dim() == 3 else 0
+    own = 0 if c[0].dim() == 2 else 1
+    out = []
+    for lo, hi in shard_bounds(n, w):
+        cut = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa
+        out.append(NodeShard(
+            lo, *(cut(x, d) for x in static),
+            (cut(c[0], own), cut(c[1], own), cut(c[2], own), cut(c[3], 1),
+             cut(c[4], 1)), cut(feasible, 1), asks, None))
+    return out
+
+
+def joined_outputs(outs):
+    return [torch.cat([o[i] for o in outs], dim=-1)
+            for i in range(len(outs[0]))]
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("layout,b,n,k,g", [
+    ("independent", 3, 300, 24, 2), ("shared", 1, 776, 40, 3),
+    ("stacked", 2, 500, 16, 2), ("independent", 1, 10240, 8, 2)])
+def test_sharded_relax_placement_matches_plain(dev, layout, b, n, k, g, w):
+    """K10g-a on w shards of the card: logits, x and pref (joined in node
+    order) held to RELAX_TOLS against the plain version (the float64 run
+    where float32 itself drifts); one shard gives K8a's bits."""
+    from nomad_tpu_torch.parallel import shard
+
+    static, c, feasible, asks = relax_inputs(layout, n, k, g, b, n, dev)
+    shards = relax_node_shards(static, c, feasible, asks, w)
+    got = joined_outputs(shard.sharded_relax(shards, convex.SOLVE_ITERS,
+                                             10.0))
+    plain = joined_outputs(shard.sharded_relax_plain(
+        shards, convex.SOLVE_ITERS, 10.0))
+    plain64 = joined_outputs(shard.sharded_relax_plain(
+        [_double_any(sh) for sh in shards], convex.SOLVE_ITERS, 10.0))
+    assert_relax_agrees(got, plain, plain64, ("logits", "x", "pref"))
+    if w == 1:
+        one = convex.relaxed_assignment(*static, c, feasible, asks, 10.0)
+        for a, b_ in zip(got, one):
+            assert torch.equal(a, b_)
+
+
+def test_sharded_relax_all_infeasible_rows_are_uniform(dev):
+    """Rows with no feasible node on any shard come out 1 / N over the
+    whole node axis, not 1 / N_shard: the combine keeps the NEG_INF
+    offsets finite."""
+    from nomad_tpu_torch.parallel import shard
+
+    static, c, feasible, asks = relax_inputs("independent", 400, 16, 2, 1,
+                                             9, dev)
+    res = asks.resources.clone()
+    res[:, :4, 0] = 1e7
+    asks = asks._replace(resources=res)
+    for w in (2, 4):
+        x = joined_outputs(shard.sharded_relax(
+            relax_node_shards(static, c, feasible, asks, w),
+            convex.SOLVE_ITERS, 10.0))[1]
+        assert torch.allclose(x[0, :4], torch.full_like(x[0, :4], 1 / 400),
+                              rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("warm,k,n", [(False, 64, 700), (True, 64, 700),
+                                      (False, 16, 10240)])
+def test_sharded_defrag_solve_matches_plain(dev, warm, k, n, w):
+    """K10f on w shards of the card: logits and x (joined in node order)
+    held to RELAX_TOLS against the plain version (the float64 run where
+    float32 itself drifts); one shard gives K9's bits; inactive rows
+    carry no mass."""
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+    from nomad_tpu_torch.parallel.shard import (
+        DefragShard,
+        sharded_relax,
+        sharded_relax_plain,
+    )
+
+    args, iters = defrag_args(warm, k, n, dev)
+    node_dim = (1, None, 0, 0, 0, 0, 0, 0, 0, None, None, None, None)
+
+    def shards_of(xs):
+        return [DefragShard(lo, *(
+            x if d is None else x.narrow(d, lo, hi - lo).contiguous()
+            for x, d in zip(xs, node_dim))) for lo, hi in shard_bounds(n, w)]
+
+    got = joined_outputs(sharded_relax(shards_of(args), iters))
+    plain = joined_outputs(sharded_relax_plain(shards_of(args), iters))
+    plain64 = joined_outputs(sharded_relax_plain(
+        shards_of(_double_any(tuple(args))), iters))
+    assert_relax_agrees(got, plain, plain64, ("logits", "x"))
+    assert got[1][-3:].abs().max().item() == 0.0
+    if w == 1:
+        one = convex.defrag_solve(*args, iters)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("layout,b,n,k,g", [
+    ("independent", 3, 300, 48, 2), ("seq", 4, 776, 40, 3),
+    ("stacked", 2, 500, 64, 2), ("tight", 3, 300, 48, 2)])
+def test_sharded_convex_round_matches_plain_and_k8b(dev, layout, b, n, k, g,
+                                                    w):
+    """K10g-b on w shards of the card, fed one pref: choices and every
+    carried tensor equal the plain version's (scores within 1e-4), and
+    K8b's on the whole node axis bit for bit. "tight" makes the strand
+    term, read from each shard's own carried rows, decide."""
+    from nomad_tpu_torch.parallel import shard
+
+    static, base, feasible, asks = scan_inputs(n, k, g, b, n + 5, dev)
+    if layout == "tight":
+        rng = np.random.default_rng(n)
+        head = torch.from_numpy(rng.integers(8, 24, n) * 50.0).to(dev)
+        base = (base[0].clone(), *base[1:])
+        base[0][:, 0] = static[0][:, 0] - head.float()
+        asks = asks._replace(resources=torch.tensor(
+            [400.0, 256.0, 300.0, 0.0], device=dev).expand(b, k, 4)
+            .contiguous())
+    if layout == "stacked":
+        static = stacked_of(static, b, n, dev, w)
+    seq = layout == "seq"
+    keys = torch.arange(2 * b, device=dev).view(b, 2) + 3
+    pref = torch.rand((b, k, n), device=dev,
+                      generator=torch.Generator(dev).manual_seed(n))
+    if layout == "tight":
+        pref = torch.full_like(pref, 0.5)
+    runs = []
+    for fn in (shard.sharded_convex_round, shard.sharded_convex_round_plain):
+        shards = [sh._replace(pref=pref[..., sh.lo:sh.lo + sh.noise.shape[
+            -1]].contiguous()) for sh in shard_split(
+                static, base, feasible, asks, keys, w, False, seq)]
+        runs.append((*fn(shards, 10.0, seq), join_carry(shards, seq)))
+    assert_scans_agree(*runs)
+    c = shared_carry(base) if seq else fresh(base, b, n)
+    noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    ch, sc = convex.convex_round(*static, c, feasible, asks, noise, 10.0,
+                                 pref, seq)
+    assert torch.equal(runs[0][0], ch) and torch.equal(runs[0][1], sc)
+    for name, x, y in zip(CARRY, runs[0][2], c):
+        assert torch.equal(x, y), name
+    assert (ch >= 0).any()
+
+
+def test_mesh_kernel_wrappers_count_their_launches(dev):
+    """K10g-b: K x (W + 1) + W a call; K10g-a: 3 W + iters x (2 W + 1) +
+    2 x (2 W + 1); K10f: 3 W + iters x (2 W + 1) + 2 W + 1; K10e in
+    slice mode: W + 1 + K x (W + 1) + W + 1, and K10b's W + 1; plain
+    versions count nothing."""
+    from nomad_tpu_torch.parallel import shard
+
+    b, n, k, w, it = 1, 512, 5, 4, convex.SOLVE_ITERS
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, 1, dev)
+    keys = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    cuda.reset_launch_counts()
+    shards = shard_split(static, base, feasible, asks, keys, w, False, False)
+    outs = shard.sharded_relax(shards, it, 10.0)
+    shard.sharded_relax_plain(shards, it, 10.0)
+    shards = [sh._replace(pref=o[2]) for sh, o in zip(shards, outs)]
+    shard.sharded_convex_round(shards, 10.0)
+    shard.sharded_convex_round_plain([sh._replace(pref=o[2]) for sh, o in zip(
+        shard_split(static, base, feasible, asks, keys, w, False, False),
+        outs)], 10.0)
+    args, iters = defrag_args(False, 16, 700, dev)
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+
+    node_dim = (1, None, 0, 0, 0, 0, 0, 0, 0, None, None, None, None)
+    dshards = [shard.DefragShard(lo, *(
+        x if d is None else x.narrow(d, lo, hi - lo).contiguous()
+        for x, d in zip(args, node_dim))) for lo, hi in shard_bounds(700, w)]
+    shard.sharded_relax(dshards, iters)
+    state, ask, abw, aports = gang_inputs(400, 3, dev)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode="slice", g_pad=64)
+    noise = torch.zeros((8, 400), device=dev)
+    gnoise = torch.zeros(64, device=dev)
+    shard.sharded_gang_scan(gang_shards(state, ask, abw, aports, noise, 64,
+                                        w), active, gnoise, cfg)
+    shard.sharded_gang_scan_plain(gang_shards(state, ask, abw, aports, noise,
+                                              64, w), active, gnoise, cfg)
+    counts = cuda.launch_counts()
+    assert counts["sharded_convex_round"] == k * (w + 1) + w
+    assert counts["sharded_convex_relax"] == \
+        3 * w + it * (2 * w + 1) + 2 * (2 * w + 1)
+    assert counts["sharded_defrag_solve"] == \
+        3 * w + iters * (2 * w + 1) + 2 * w + 1
+    assert counts["sharded_gang_scan"] == w + 1 + 8 * (w + 1) + w + 1
+    assert counts["group_capacity"] == w + 1
+
+
 def _to(x, device):
     """Tensors, alone or in (named) tuples, moved to ``device``."""
     if isinstance(x, torch.Tensor):
@@ -1064,3 +1350,68 @@ def test_sharded_paths_on_distinct_cards(dev):
     for x, y in zip(out[0][0], out[1][0]):
         assert torch.equal(x, y)
     assert torch.equal(out[0][1], out[1][1])
+
+
+def test_mesh_programs_on_distinct_cards(dev):
+    """K10e, K10f, K10g-a and K10g-b on four shards over the cards
+    round-robin (meta, candidates, winners and softmax statistics
+    crossing between cards) give what four shards of one card give, bit
+    for bit. Skips on a machine with one card."""
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: the distinct-card path")
+    w = 4
+    spread = [torch.device("cuda", s % cards) for s in range(w)]
+    # K10e, spread mode: the group counts cross cards with the winners.
+    state, ask, abw, aports = gang_inputs(2000, 7, dev, rack=3)
+    active = torch.ones(64, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode="spread",
+                          g_pad=1024)
+    keys = torch.tensor([[0, 5], [1, 9]], device=dev)
+    noise = prng.threefry_uniform(keys[:1], (64, 2000), 0.0, 2.0)[0]
+    gnoise = prng.threefry_uniform(keys[1:], (1024,), 0.0, 1.0)[0]
+    one = gang_shards(state, ask, abw, aports, noise, 1024, w)
+    many = [_to(sh, d) for sh, d in zip(
+        gang_shards(state, ask, abw, aports, noise, 1024, w), spread)]
+    want = shard.sharded_gang_scan(one, active, gnoise, cfg)
+    got = shard.sharded_gang_scan(many, active, gnoise, cfg)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for a, b in zip(one, many):
+        assert torch.equal(a.group_members, b.group_members.to(dev))
+        assert torch.equal(a.placed, b.placed.to(dev))
+    # K10f
+    args, iters = defrag_args(False, 64, 700, dev)
+    node_dim = (1, None, 0, 0, 0, 0, 0, 0, 0, None, None, None, None)
+    dshards = [shard.DefragShard(lo, *(
+        x if d is None else x.narrow(d, lo, hi - lo).contiguous()
+        for x, d in zip(args, node_dim))) for lo, hi in shard_bounds(700, w)]
+    want = shard.sharded_relax(dshards, iters)
+    got = shard.sharded_relax([_to(sh, d) for sh, d in zip(dshards, spread)],
+                              iters)
+    for o, r in zip(got, want):
+        for x, y in zip(o, r):
+            assert torch.equal(x.to(dev), y)
+    # K10g-a, then K10g-b fed its pref
+    b, n, k, g = 2, 1000, 24, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 33, dev)
+    keys = torch.arange(2 * b, device=dev).view(b, 2)
+    one = shard_split(static, base, feasible, asks, keys, w, False, False)
+    many = [_to(sh, d) for sh, d in zip(shard_split(
+        static, base, feasible, asks, keys, w, False, False), spread)]
+    want = shard.sharded_relax(one, convex.SOLVE_ITERS, 10.0)
+    got = shard.sharded_relax(many, convex.SOLVE_ITERS, 10.0)
+    for o, r in zip(got, want):
+        for x, y in zip(o, r):
+            assert torch.equal(x.to(dev), y)
+    one = [sh._replace(pref=o[2]) for sh, o in zip(one, want)]
+    many = [sh._replace(pref=o[2]) for sh, o in zip(many, got)]
+    want = shard.sharded_convex_round(one, 10.0)
+    got = shard.sharded_convex_round(many, 10.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, c in zip(one, many):
+        for x, y in zip(a.carry, c.carry):
+            assert torch.equal(x, y.to(dev))

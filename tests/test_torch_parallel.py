@@ -458,15 +458,32 @@ def test_dense_overlay_dispatch_over_shards():
 
 
 def test_registered_kernel_has_no_sharded_form():
-    """A registered kernel dispatched over a sharded base raises,
-    naming the layout."""
+    """The registered convex kernel dispatched over a sharded base (the
+    compact layout, K10g), against the JAX compact program on a base
+    sharded over its mesh: choices equal, scores within SCORE_TOL (the
+    cross-shard softmax sums in another order). The port's unsharded
+    compact program gives the same choices and scores."""
     base, overlay, asks, keys = compact_batch(128, 2, 4, 2, 3, False)
+    cfg = CONFIG._replace(kernel="convex")
     dev = tmesh.upload_base(cpu_mesh(2), base)
     placed, _ = tmesh.place_payload(
         dev, [keys.astype(np.int64), *asks, *overlay], True)
-    with pytest.raises(NotImplementedError, match="compact layout"):
-        tmesh.sharded_dispatch(dev, placed, True,
-                               CONFIG._replace(kernel="convex"))
+    got = tmesh.sharded_dispatch(dev, placed, True, cfg)
+    from jax.sharding import NamedSharding
+
+    jm = jmesh.make_mesh(2, dp=1)
+    jbase = jax.device_put(tuple(base), tuple(
+        NamedSharding(jm, s) for s in jmesh.base_specs()))
+    ref = jb.batched_placement_program_compact(
+        *jbase, jb.CompactOverlay(*overlay), jb.Asks(*asks), keys,
+        REF_CONFIG._replace(kernel="convex"))
+    assert_same_choices(got, ref)
+    flat = tb.device_resident([*base, *overlay, *asks], "cpu")
+    want = tb.batched_placement_program_compact(
+        *flat[:8], tb.CompactOverlay(*flat[8:13]), tb.Asks(*flat[13:]),
+        tb.keys_tensor(keys, "cpu"), cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (np.asarray(got[0]) >= 0).sum() > 0
 
 
 def test_per_shard_occupancy():
