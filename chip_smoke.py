@@ -142,7 +142,11 @@ Phases (any failure exits non-zero and prints no result):
    (K10e, with K10b's group sums), equal to K7's choices, scores and
    slice group on the same call. Phase 7 holds K10a-K10g against their
    plain versions on these calls, with each record's launches a call
-   read from the launch counts around one call.
+   read from the launch counts around one call, and K10d's per-shard
+   path (csrc/sharded_topk.cu, which the one-card mesh never takes) on
+   the first storm call's rows re-split into 16 shards of cuda:0:
+   choices, scores and carry equal the plain version's and K2's, its
+   launches (W + 1 an eval and W) counted around that one call.
 
 Every path of phases 3 to 6, 8 and 9 runs with the launch counts set to 0
 just before it and read just after, and fails if a kernel of that path
@@ -1477,6 +1481,33 @@ def time_cuda(torch, fn, runs, setup=None, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, runs, setup=None, match=None):
+    """Device time of ``fn`` a call under torch.profiler: the card's
+    kernel time (kernels whose name holds ``match``; every kernel when
+    None) summed over ``runs`` calls, over ``runs``. The call's
+    CUDA-event time (time_cuda) also holds the host's issue of the
+    launch; this is the kernels alone. None when the profiler records
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        if setup:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            if setup:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0
+                and (match is None or match in e.key))
+    return total / 1000.0 / runs if total > 0 else None
+
+
 def kernel_inputs(torch, np, n, k, g, b, seed, device):
     """A seeded state of the north-star widths, as tensors. Free ports
     (0 to 6 a node, against asks of 2) and distinct_hosts on task group
@@ -1646,10 +1677,18 @@ def bench_kernels(torch, np, seed):
             *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.uniform_topk_plain(
             *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh)
+        dev_ms = device_ms(torch, lambda: binpack.uniform_topk(
+            *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh,
+            match="topk")
         score = torch.randn((b, n), device=dev)
         k_eff = min(k, n)
         lib_ms = time_cuda(torch, lambda: torch.topk(score, k_eff, dim=1),
                            RUNS)
+        lib_dev = device_ms(torch, lambda: torch.topk(score, k_eff, dim=1),
+                            RUNS)
+        print(f"uniform_topk B={b} K={k}: {ms:.4f} ms a call, kernel "
+              f"{dev_ms} ms on the device; torch.topk {lib_ms:.4f} ms a "
+              f"call, {lib_dev} ms on the device")
         # Node rows; the carry with one task group's column of tg_count,
         # that column of feasible, and the noise, read once; ask 0 and
         # its two distinct_hosts flags; active and the two outputs of
@@ -1660,7 +1699,8 @@ def bench_kernels(torch, np, seed):
         ops = b * n * (60 + 10)  # one scoring pass + a k-selection
         out.setdefault("uniform_topk", {})[b] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, ops / FP32_FLOPS), library_ms=lib_ms)
+            **bound(bytes_, ops / FP32_FLOPS), library_ms=lib_ms,
+            device_ms=dev_ms, library_device_ms=lib_dev)
         # ---- K3
         ov, class_ids = overlay_inputs(torch, np, n, g, b, seed, dev)
         got = binpack.expand_overlay(class_ids, ov, n)
@@ -1681,8 +1721,8 @@ def bench_kernels(torch, np, seed):
             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
             **bound(bytes_, b * (n * g + j) / INT32_OPS), library_ms=None)
         torch.cuda.empty_cache()
-    # K2 past the shared-memory limit (32,768 keys sort in global
-    # scratch): the node bucket of a 20k-node cluster.
+    # K2 at the node bucket of a 20k-node cluster (K = 64: the radix
+    # select over 2,560-node slices).
     n2 = 20_480
     base, jc, tgc, feas, _asks, uasks, keys = kernel_inputs(
         torch, np, n2, 64, g, 2, seed, dev)
@@ -1693,8 +1733,8 @@ def bench_kernels(torch, np, seed):
     for fn in (binpack.uniform_topk, binpack.uniform_topk_plain):
         c = new_carry(torch, base, jc, tgc)
         runs.append((*fn(*static, c, feas, uasks, unoise, 10.0), c))
-    check_scan(torch, f"K2 at N={n2} (global-scratch sort)", *runs)
-    print(f"uniform_topk at N={n2} (global-scratch sort): matches")
+    check_scan(torch, f"K2 at N={n2} (radix select)", *runs)
+    print(f"uniform_topk at N={n2} (radix select, K = 64): matches")
     return out
 
 
@@ -1861,22 +1901,36 @@ def bench_new_kernels(torch, np, seed):
           "limit; choices, scores and all five carried tensors match")
     box = {}
     fresh = lambda: box.__setitem__("c", seq_carry(base, jc, tgc))
+    _out, launches = launches_of("uniform_topk_seq", lambda: (
+        fresh(), binpack.uniform_topk(*static, box["c"], feas, uasks, unoise,
+                                      10.0, True)))
     ms = time_cuda(torch, lambda: binpack.uniform_topk(
         *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
         setup=fresh)
+    dev_ms = device_ms(torch, lambda: binpack.uniform_topk(
+        *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
+        setup=fresh, match="topk")
     plain_ms = time_cuda(torch, lambda: binpack.uniform_topk_plain(
         *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
         setup=fresh)
     score = torch.randn((b, n), device=dev)
     lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1), RUNS)
+    lib_dev = device_ms(torch, lambda: torch.topk(score, k, dim=1), RUNS)
     rows, cells = rows_written(torch, ch, uasks.tg_index, n, g)
     nodes = torch.unique(ch[ch >= 0]).numel()
+    chain = chain_ms(torch, b, dev)
     bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
               + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
               + nodes * 24 + rows * 4 + cells * 4)
+    print(f"uniform_topk_seq B={b} K={k}: {ms:.4f} ms a call, kernel "
+          f"{dev_ms} ms on the device, {launches} launch(es) a call; chain "
+          f"of {b} block reductions {chain:.4f} ms; torch.topk "
+          f"{lib_ms:.4f} ms a call, {lib_dev} ms on the device")
     out["uniform_topk_seq"] = {b: dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(bytes_, b * n * 70 / FP32_FLOPS), library_ms=lib_ms)}
+        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
+        library_ms=lib_ms, chain_ms=chain, launches_per_call=launches,
+        device_ms=dev_ms, library_device_ms=lib_dev)}
     # ---- K5b: the stacked layouts at B = 4 (K1 at K = 1,024, K2 at 8)
     b = 4
     for name, k in (("greedy_scan_stacked", BENCH_K),
@@ -1917,12 +1971,23 @@ def bench_new_kernels(torch, np, seed):
             score = torch.randn((b, n), device=dev)
             lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1),
                                RUNS)
+            extra = dict(
+                device_ms=device_ms(torch, lambda: fn(
+                    *static, box["c"], feas, a, noise, 10.0), RUNS,
+                    setup=fresh, match="topk"),
+                library_device_ms=device_ms(
+                    torch, lambda: torch.topk(score, k, dim=1), RUNS))
+            print(f"{name} B={b} K={k}: {ms:.4f} ms a call, kernel "
+                  f"{extra['device_ms']} ms on the device; torch.topk "
+                  f"{lib_ms:.4f} ms a call, {extra['library_device_ms']} ms "
+                  "on the device")
             bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 4 + 1 + 4)
                       + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
                       + rows * CARRY_ROW_BYTES + cells * 4)
             ops_s = b * n * 70 / FP32_FLOPS
         out[name] = {b: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             **bound(bytes_, ops_s), library_ms=lib_ms)}
+                             **bound(bytes_, ops_s), library_ms=lib_ms,
+                             **({} if greedy else extra))}
         torch.cuda.empty_cache()
     return out
 
@@ -2228,6 +2293,31 @@ def joined_carry(torch, shards, seq):
                            dim=own if i < 3 else 1) for i in range(5))
 
 
+def resharded(torch, shards, seq, w):
+    """A recorded scan call's node shards joined on the first shard's
+    device and split again into ``w`` equal shards there: the same
+    rows, carry, noise and asks over another layout."""
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+    from nomad_tpu_torch.parallel.shard import NodeShard
+
+    dev = shards[0].feasible.device
+    d = 1 if shards[0].capacity.dim() == 3 else 0
+    static = [torch.cat([getattr(sh, f).to(dev) for sh in shards], dim=d)
+              for f in ("capacity", "sched_capacity", "bw_avail", "node_ok")]
+    carry = [c.to(dev) for c in joined_carry(torch, shards, seq)]
+    feas, noise = (torch.cat([getattr(sh, f).to(dev) for sh in shards],
+                             dim=1) for f in ("feasible", "noise"))
+    own = 0 if seq else 1
+    out = []
+    for lo, hi in shard_bounds(feas.shape[1], w):
+        part = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa: E731
+        out.append(NodeShard(
+            lo, *(part(x, d) for x in static),
+            tuple(part(c, own if i < 3 else 1) for i, c in enumerate(carry)),
+            part(feas, 1), shards[0].asks, part(noise, 1)))
+    return out
+
+
 def bench_mesh(torch, np, rec):
     """Holds and times of K10a-K10d on the mesh phase's own inputs: the
     round-2 base delta, both group capacities, the 512 + 512 eval's
@@ -2355,20 +2445,53 @@ def bench_mesh(torch, np, rec):
     plain_ms = time_cuda(torch, lambda: shard.sharded_uniform_topk_plain(
         box["s"], penalty, seq), 3, warmup=1,
         setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]))
+    dev_ms = device_ms(torch, lambda: shard.sharded_uniform_topk(
+        box["s"], penalty, seq), RUNS,
+        setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]),
+        match="topk")
     score = torch.randn((b, n), device="cuda")
     lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1), RUNS)
+    lib_dev = device_ms(torch, lambda: torch.topk(score, k, dim=1), RUNS)
     tg = inputs[0].asks.tg_index
     rows, cells = rows_written(torch, res[0], tg, n, g)
     nodes = torch.unique(res[0][res[0] >= 0]).numel()
+    chain = chain_ms(torch, b if seq else 1, torch.device("cuda"))
     bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
               + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
               + nodes * 24 + rows * 4 + cells * 4)
     out["sharded_uniform_topk"] = {b: dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        **bound(bytes_, b * n * 70 / FP32_FLOPS), library_ms=lib_ms,
-        launches_per_call=held[0][1], shards=w, calls_held=len(errs))}
+        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
+        library_ms=lib_ms, chain_ms=chain, launches_per_call=held[0][1],
+        device_ms=dev_ms, library_device_ms=lib_dev, shards=w,
+        calls_held=len(errs))}
     print(f"K10d: {len(errs)} storm calls (B x K = {b} x {k}, seq {seq}) "
-          "held against the plain version and K2")
+          f"held against the plain version and K2; {held[0][1]} launch(es) "
+          f"a call, {ms:.4f} ms a call, kernel {dev_ms} ms on the device; "
+          f"torch.topk {lib_ms:.4f} ms a call, {lib_dev} ms on the device")
+    # ---- K10d's per-shard path (csrc/sharded_topk.cu): the first storm
+    # call's rows over 16 shards of one card, more than a cluster's 8
+    wide = 16
+    call = (resharded(torch, inputs, seq, wide), (penalty, seq), res)
+    err, launches = hold_shards(
+        torch, f"K10d per-shard path ({wide} shards) storm call 0", call)
+    want = b * (wide + 1) + wide if seq else 2 * wide + 1
+    check(launches == want, f"K10d per-shard path: {launches} launches a "
+          f"call, expected {want}")
+    fresh = lambda: box.__setitem__(  # noqa: E731
+        "s", [cloned(sh) for sh in call[0]])
+    ms = time_cuda(torch, lambda: shard.sharded_uniform_topk(
+        box["s"], penalty, seq), RUNS, setup=fresh)
+    plain_ms = time_cuda(torch, lambda: shard.sharded_uniform_topk_plain(
+        box["s"], penalty, seq), 3, warmup=1, setup=fresh)
+    out["sharded_uniform_topk_shards"] = {b: dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
+        library_ms=lib_ms, chain_ms=chain, launches=launches,
+        launches_per_call=launches, shards=wide)}
+    print(f"K10d per-shard path: the storm call on {wide} shards of one card "
+          f"held against the plain version and K2; {launches} launches a "
+          f"call, {ms:.4f} ms a call")
     return out
 
 
@@ -3291,8 +3414,10 @@ REPLACES = {
                        "nomad_tpu/parallel/shard.py:109"),
     "sharded_greedy_scan": ("nomad_tpu_torch/csrc/sharded_scan.cu",
                             "nomad_tpu/parallel/mesh.py:212"),
-    "sharded_uniform_topk": ("nomad_tpu_torch/csrc/sharded_topk.cu",
+    "sharded_uniform_topk": ("nomad_tpu_torch/csrc/uniform_topk.cu",
                              "nomad_tpu/ops/binpack.py:302"),
+    "sharded_uniform_topk_shards": ("nomad_tpu_torch/csrc/sharded_topk.cu",
+                                    "nomad_tpu/ops/binpack.py:302"),
     "sharded_gang_scan": ("nomad_tpu_torch/csrc/sharded_gang.cu",
                           "nomad_tpu/parallel/mesh.py:175"),
     "sharded_defrag_solve": ("nomad_tpu_torch/csrc/sharded_relax.cu",
@@ -3303,7 +3428,8 @@ REPLACES = {
                              "nomad_tpu/kernels/convex.py:224"),
 }
 # The shape each kernel's JSON record leads with (the others ride
-# along under "shapes").
+# along under "shapes"). A record off the main paths (K10d's per-shard
+# path) carries the launches of its own held call.
 PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "expand_overlay": 1, "base_delta": 256,
            "greedy_scan_seq": (4, 1024), "uniform_topk_seq": 64,
@@ -3314,6 +3440,7 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "defrag_solve": ("cold", 512, BENCH_N),
            "sharded_base_delta": 256, "group_capacity": BENCH_N,
            "sharded_greedy_scan": (1, BENCH_K), "sharded_uniform_topk": 64,
+           "sharded_uniform_topk_shards": 64,
            "sharded_gang_scan": (1024, 256),
            "sharded_defrag_solve": ("cold", 512, BENCH_N),
            "sharded_convex_relax": ("eval", 1024),

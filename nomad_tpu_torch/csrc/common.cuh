@@ -19,8 +19,39 @@
 
 #define NT_NEG_INF (-1e30f)
 
+// One ask's feasibility mask and BestFit-v3 score on a node whose rows
+// are already loaded: u, cap, sc the util, capacity and sched rows;
+// feas the ask's task-group column of feasible; jc and tgc the job's
+// and task group's counts (tgc read only under tdh).
+__device__ __forceinline__ float nt_score_of(
+    float4 u, float4 cap, float4 sc, float bw_used, float bw_avail,
+    float ports_free, bool feas, bool ok, int jc, int tgc, bool jdh,
+    bool tdh, float penalty, float4 a, float abw, float aports,
+    float noise) {
+  const float nu0 = __fadd_rn(u.x, a.x);
+  const float nu1 = __fadd_rn(u.y, a.y);
+  const float nu2 = __fadd_rn(u.z, a.z);
+  const float nu3 = __fadd_rn(u.w, a.w);
+  bool fits = (nu0 <= cap.x) && (nu1 <= cap.y) && (nu2 <= cap.z) &&
+              (nu3 <= cap.w);
+  fits = fits && (__fadd_rn(bw_used, abw) <= bw_avail);
+  fits = fits && (ports_free >= aports);
+  fits = fits && feas && ok;
+  if (jdh) fits = fits && (jc == 0);
+  if (tdh) fits = fits && (tgc == 0);
+  const float f0 = __fsub_rn(1.0f, __fdiv_rn(nu0, fmaxf(sc.x, 1.0f)));
+  const float f1 = __fsub_rn(1.0f, __fdiv_rn(nu1, fmaxf(sc.y, 1.0f)));
+  float fit = __fsub_rn(20.0f, __fadd_rn(powf(10.0f, f0), powf(10.0f, f1)));
+  fit = fminf(fmaxf(fit, 0.0f), 18.0f);
+  if (sc.x <= 0.0f || sc.y <= 0.0f) fit = 0.0f;
+  const float s = __fadd_rn(__fsub_rn(fit, __fmul_rn(penalty, (float)jc)),
+                            noise);
+  return fits ? s : NT_NEG_INF;
+}
+
 // One ask's feasibility mask and BestFit-v3 score on node n. The
 // arguments are the eval's rows (already offset by the batch index).
+// Every row loads before any test, so the loads overlap.
 __device__ __forceinline__ float nt_node_score(
     int n, int G, int tg, bool jdh, bool tdh, float penalty,
     const float4* __restrict__ capacity,
@@ -31,29 +62,11 @@ __device__ __forceinline__ float nt_node_score(
     const int* job_count, const int* tg_count,
     const unsigned char* __restrict__ feasible,
     float4 a, float abw, float aports, float noise) {
-  const float4 u = util[n];
-  const float4 cap = capacity[n];
-  const float4 sc = sched[n];
-  const float nu0 = __fadd_rn(u.x, a.x);
-  const float nu1 = __fadd_rn(u.y, a.y);
-  const float nu2 = __fadd_rn(u.z, a.z);
-  const float nu3 = __fadd_rn(u.w, a.w);
-  bool fits = (nu0 <= cap.x) && (nu1 <= cap.y) && (nu2 <= cap.z) &&
-              (nu3 <= cap.w);
-  fits = fits && (__fadd_rn(bw_used[n], abw) <= bw_avail[n]);
-  fits = fits && (ports_free[n] >= aports);
-  fits = fits && feasible[(size_t)n * G + tg] && node_ok[n];
-  const int jc = job_count[n];
-  if (jdh) fits = fits && (jc == 0);
-  if (tdh) fits = fits && (tg_count[(size_t)n * G + tg] == 0);
-  const float f0 = __fsub_rn(1.0f, __fdiv_rn(nu0, fmaxf(sc.x, 1.0f)));
-  const float f1 = __fsub_rn(1.0f, __fdiv_rn(nu1, fmaxf(sc.y, 1.0f)));
-  float fit = __fsub_rn(20.0f, __fadd_rn(powf(10.0f, f0), powf(10.0f, f1)));
-  fit = fminf(fmaxf(fit, 0.0f), 18.0f);
-  if (sc.x <= 0.0f || sc.y <= 0.0f) fit = 0.0f;
-  const float s = __fadd_rn(__fsub_rn(fit, __fmul_rn(penalty, (float)jc)),
-                            noise);
-  return fits ? s : NT_NEG_INF;
+  const size_t cell = (size_t)n * G + tg;
+  return nt_score_of(util[n], capacity[n], sched[n], bw_used[n], bw_avail[n],
+                     ports_free[n], feasible[cell] != 0, node_ok[n] != 0,
+                     job_count[n], tdh ? tg_count[cell] : 0, jdh, tdh,
+                     penalty, a, abw, aports, noise);
 }
 
 // The convex kernel's rounding bias (kernels/convex.py ROUND_BIAS and

@@ -45,6 +45,7 @@ this module or ops/prng.py, for CPU tensors:
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import numpy as _np
@@ -58,9 +59,9 @@ R_CPU, R_MEM, R_DISK, R_IOPS = 0, 1, 2, 3
 NUM_RESOURCES = 4
 
 NEG_INF = -1e30
-# Shared memory one block of the top-k kernel may take for its keys
-# (csrc/uniform_topk.cu); a larger node bucket sorts in global scratch.
-_TOPK_SMEM_MAX = 227 * 1024
+# CTAs a thread-block cluster of the top-k kernel (csrc/topk.cuh
+# NT_TOPK_CLUSTER, the portable maximum).
+TOPK_CLUSTER = 8
 
 
 class PlacementConfig(NamedTuple):
@@ -331,6 +332,9 @@ def _score_plain(capacity, sched, bw_avail, util, bw_used, ports_free,
 
 
 def _check(name, t, dtype, shape, device):
+    if (t.dtype == dtype and t.shape == tuple(shape) and t.device == device
+            and t.is_contiguous()):
+        return
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -572,13 +576,16 @@ def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
     except noise [B, N] (one draw per node). Every active ask must be
     ask 0's task group (uniform_dh_flag).
 
-    On the card (csrc/uniform_topk.cu) the bound is the sort's
-    dependent stages, not bytes: one block per eval packs each node's
-    (score, index) into a 64-bit key ordered as lax.top_k orders,
-    bitonic-sorts the keys in shared memory (global scratch past the
-    shared-memory limit), and updates the chosen, distinct rows. With
-    ``seq`` one block runs the B evals in order, a barrier after each
-    eval's row updates.
+    On the card (csrc/uniform_topk.cu, one launch) the bound is one
+    pass over the node rows and, under ``seq``, the chain of B
+    dependent selections: a thread-block cluster of 8 CTAs (the
+    portable maximum) splits the node axis, each CTA selects from its
+    slice (register lists up to K = 32, a radix select above;
+    csrc/topk.cuh) and, after one cluster barrier, every CTA selects
+    the eval's top K from the cluster's candidates through distributed
+    shared memory; the CTA owning a winner's row updates it. A cluster
+    an eval, or with ``seq`` one cluster walking the B evals, each CTA
+    keeping its slice's rows in shared memory where they fit.
     """
     b, n, g, k, stacked = _check_scan_args(
         capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
@@ -590,26 +597,41 @@ def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
                                   penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n_pad = 1 << max(n - 1, 0).bit_length()
-    scratch = None
-    if n_pad * 8 > _TOPK_SMEM_MAX:
-        scratch = torch.empty((1 if seq else b, n_pad), dtype=torch.int64,
-                              device=dev)
+    segs = [(0, n, (capacity, sched_capacity, bw_avail, node_ok, *carry,
+                    feasible, noise))]
+    return uniform_topk_cluster(
+        _launch_name("uniform_topk", seq, stacked), segs, asks, g, n,
+        penalty, seq, stacked, TOPK_CLUSTER)
+
+
+def uniform_topk_cluster(name, segs, asks, g, n_total, penalty, seq,
+                         stacked, cps, *, resident=True):
+    """One launch of csrc/uniform_topk.cu's cluster kernel over the node
+    segments ``segs``: (global row offset, rows, (capacity,
+    sched_capacity, bw_avail, node_ok, util, bw_used, ports_free,
+    job_count, tg_count, feasible, noise)) each, all on one card and
+    in node order, ``cps`` CTAs a segment (a cluster of cps x W <= 8
+    CTAs), the rows kept in shared memory under ``seq`` where they fit.
+    Counts one launch under ``name``; returns (choices, scores) [B, K].
+    ``resident=False`` streams the rows even where they fit: the tests
+    hold that layout through it; no wrapper passes it."""
+    b, k = asks.active.shape
+    dev = asks.active.device
+    dims = (ctypes.c_longlong * (2 * len(segs)))(
+        *[x for lo, rows, _t in segs for x in (lo, rows)])
+    ptrs = (ctypes.c_void_p * (11 * len(segs)))(
+        *[t.data_ptr() for _lo, _rows, ts in segs for t in ts])
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
-    util, bw_used, ports_free, job_count, tg_count = carry
     cuda.launch(
-        "nt_uniform_topk", b, n, n_pad, g, k, float(penalty), int(seq),
-        int(stacked), capacity.data_ptr(), sched_capacity.data_ptr(),
-        bw_avail.data_ptr(), node_ok.data_ptr(), util.data_ptr(),
-        bw_used.data_ptr(), ports_free.data_ptr(), job_count.data_ptr(),
-        tg_count.data_ptr(), feasible.data_ptr(), asks.resources.data_ptr(),
-        asks.bw.data_ptr(), asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-        asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(),
-        choices.data_ptr(), scores.data_ptr(), cuda.stream_ptr(dev))
-    cuda.count_launch(_launch_name("uniform_topk", seq, stacked))
+        "nt_uniform_topk", b, g, k, len(segs), n_total, float(penalty),
+        int(seq), int(stacked), int(cps), int(resident), dims, ptrs,
+        asks.resources.data_ptr(), asks.bw.data_ptr(), asks.ports.data_ptr(),
+        asks.tg_index.data_ptr(), asks.active.data_ptr(),
+        asks.job_distinct_hosts.data_ptr(),
+        asks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
+        scores.data_ptr(), cuda.stream_ptr(dev))
+    cuda.count_launch(name)
     return choices, scores
 
 

@@ -37,7 +37,7 @@ SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "gang_scan.cu", "convex_relax.cu", "convex_round.cu",
            "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu",
            "sharded_gang.cu", "sharded_relax.cu")
-HEADERS = ("common.cuh", "gang.cuh", "relax.cuh")
+HEADERS = ("common.cuh", "gang.cuh", "relax.cuh", "topk.cuh")
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
 # ops do through explicit round-to-nearest intrinsics (csrc/common.cuh),
@@ -54,7 +54,8 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, List] = {
     "nt_threefry_uniform": [_P, _P, _L, _L, _L, _L, _I, _F, _F, _P],
     "nt_greedy_scan": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 21,
-    "nt_uniform_topk": [_I, _I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
+    "nt_uniform_topk": [_I] * 5 + [_F] + [_I] * 4 + [_P] * 12,
+    "nt_uniform_topk_occupancy": [_I] * 6 + [_P],
     "nt_expand_overlay": [_I] * 7 + [_P] * 10,
     "nt_base_delta": [_I, _I, _I] + [_P] * 10,
     "nt_argmax_chain": [_I, _P, _P],
@@ -67,8 +68,8 @@ SIGNATURES: Dict[str, List] = {
     "nt_group_combine": [_I, _I] + [_P] * 3,
     "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 22,
     "nt_shard_winner": [_I] * 6 + [_P] * 7,
-    "nt_shard_topk": [_I] * 6 + [_F] + [_I] * 4 + [_P] * 22,
-    "nt_shard_merge": [_I] * 7 + [_P] * 9,
+    "nt_shard_topk": [_I] * 5 + [_F] + [_I] * 4 + [_P] * 21,
+    "nt_shard_merge": [_I] * 6 + [_P] * 7,
     "nt_gang_units": [_I] * 3 + [_P] * 13,
     "nt_gang_pick": [_I] * 3 + [_P] * 5,
     "nt_gang_step": [_I] * 6 + [_F] + [_I] * 2 + [_P] * 22,

@@ -16,8 +16,9 @@ outside the kernels (parallel/mesh.py's module docstring says how):
   (csrc/group_capacity.cu), and the W partials add up in shard order.
 - ``sharded_greedy_scan`` (K10c): K1 over node shards, two launches a
   step (csrc/sharded_scan.cu).
-- ``sharded_uniform_topk`` (K10d): K2 over node shards, a local top-K
-  per shard and a merge (csrc/sharded_topk.cu).
+- ``sharded_uniform_topk`` (K10d): K2 over node shards: one launch of
+  K2's cluster kernel for the shards of one card (csrc/uniform_topk.cu),
+  else a local top-K per shard and a merge (csrc/sharded_topk.cu).
 
 Every wrapper runs its plain PyTorch version when its tensors lie on
 the CPU, and launches its kernel (or raises) when they lie on CUDA
@@ -35,17 +36,16 @@ import torch
 from ..ops import cuda
 from ..ops.binpack import (
     NEG_INF,
+    TOPK_CLUSTER,
     Asks,
     _check,
     _score_plain,
     _update_rows,
     base_delta_rows,
+    uniform_topk_cluster,
 )
 from .mesh import NODE_AXIS, Mesh, Sharded, delta_row_specs, is_sharded, \
     place
-
-# Shared memory a block of the shard kernels may take (227 KB on sm_90).
-_SMEM_MAX = 227 * 1024
 
 
 def node_shard_count(mesh: Mesh) -> int:
@@ -570,6 +570,19 @@ def sharded_convex_round(shards: List[NodeShard], penalty: float,
                           "sharded_convex_round")
 
 
+def uniform_topk_ctas(devices) -> int:
+    """The CTAs a shard of K10d's one-launch path for shards on
+    ``devices`` (in shard order), or 0 for the per-shard path: shards
+    that share one card, at most TOPK_CLUSTER of them, split one
+    thread-block cluster, ``TOPK_CLUSTER // W`` CTAs each (the kernel
+    launches that many a shard); shards on distinct cards, or more
+    shards than a cluster has CTAs, take a launch a shard."""
+    devices = list(devices)
+    if len(set(devices)) != 1 or len(devices) > TOPK_CLUSTER:
+        return 0
+    return max(1, TOPK_CLUSTER // len(devices))
+
+
 def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
                          seq: bool = False):
     """K10d: the uniform distinct-hosts placement of B evals over node
@@ -580,48 +593,44 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
     N] (one draw a node). Returns (choices, scores) [B,K] on the first
     shard's device.
 
-    On the card (csrc/sharded_topk.cu): one nt_shard_topk launch per
-    shard (the last eval's winners update their rows in its prologue;
-    the slice's keys sorted, its top K kept) and one nt_shard_merge on
-    the first shard's device (the W x K candidates sorted, the first
-    min(K, N) K2's choices); W + 1 launches an eval under ``seq`` (all
-    evals at once otherwise) and W more to apply the last winners."""
+    On the card the path is ``uniform_topk_ctas``' choice. Shards of
+    one card (W <= 8): one launch a call of K2's cluster kernel
+    (csrc/uniform_topk.cu), its CTAs' slices at the shards' boundaries,
+    each shard's rows and noise window its own segment; under ``seq``
+    the B evals run inside that launch. Otherwise (csrc/sharded_topk.cu)
+    one nt_shard_topk launch per shard (the last eval's winners update
+    their rows in its prologue; the slice's top K selected) and one
+    nt_shard_merge on the first shard's device (the top K of the W x K
+    candidates, K2's choices); W + 1 launches an eval under ``seq``
+    (all evals at once otherwise) and W more to apply the last
+    winners."""
     b, n_total, g, k, stacked = _check_shards(shards, seq, True)
     if _kind(sh.feasible for sh in shards) == "cpu":
         return sharded_uniform_topk_plain(shards, penalty, seq)
-    home = shards[0].feasible.device
     w = len(shards)
+    cps = uniform_topk_ctas(sh.feasible.device for sh in shards)
+    if cps:
+        segs = [(sh.lo, sh.feasible.shape[1],
+                 (sh.capacity, sh.sched_capacity, sh.bw_avail, sh.node_ok,
+                  *sh.carry, sh.feasible, sh.noise)) for sh in shards]
+        with _on(shards[0].feasible.device):
+            return uniform_topk_cluster(
+                "sharded_uniform_topk", segs, shards[0].asks, g, n_total,
+                penalty, seq, stacked, cps)
+    home = shards[0].feasible.device
     active = shards[0].asks.active.to(home)
     choices = torch.empty((b, k), dtype=torch.int32, device=home)
     scores = torch.empty((b, k), dtype=torch.float32, device=home)
     part = _Partials([sh.feasible.device for sh in shards], home, (b, k),
                      (b, k))
-    m_pad = 1 << max(w * k - 1, 0).bit_length()
-    merge_keys = merge_slot = None
-    if m_pad * 12 > _SMEM_MAX:
-        rows = 1 if seq else b
-        merge_keys = torch.empty((rows, m_pad), dtype=torch.int64,
-                                 device=home)
-        merge_slot = torch.empty((rows, m_pad), dtype=torch.int32,
-                                 device=home)
-    fixed = []
-    for s, sh in enumerate(shards):
-        n = sh.feasible.shape[1]
-        n_pad = 1 << max(n - 1, 0).bit_length()
-        scratch = None
-        if n_pad * 8 > _SMEM_MAX:
-            scratch = torch.empty((1 if seq else b, n_pad),
-                                  dtype=torch.int64, device=sh.feasible.device)
-        fixed.append((n, n_pad, sh.lo, _ptrs(sh),
-                      0 if scratch is None else scratch.data_ptr(),
-                      part.local[s][2].data_ptr(),
-                      part.local[s][0].data_ptr(),
-                      part.local[s][1].data_ptr(), sh.feasible.device,
-                      scratch))
+    fixed = [(sh.feasible.shape[1], sh.lo, _ptrs(sh),
+              part.local[s][2].data_ptr(), part.local[s][0].data_ptr(),
+              part.local[s][1].data_ptr(), sh.feasible.device)
+             for s, sh in enumerate(shards)]
     lib = cuda.library()
     topk, merge = lib.nt_shard_topk, lib.nt_shard_merge
     home_stream = cuda.stream_ptr(home)
-    streams = [cuda.stream_ptr(f[8]) for f in fixed]
+    streams = [cuda.stream_ptr(f[6]) for f in fixed]
     launches = 0
 
     def check(err, name):
@@ -630,11 +639,10 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
 
     def shard_pass(e, pe, gather):
         nonlocal launches
-        for s, (n, n_pad, lo, ptrs, scr, win_p, key_p, score_p, dev,
-                _keep) in enumerate(fixed):
+        for s, (n, lo, ptrs, win_p, key_p, score_p, dev) in enumerate(fixed):
             with _on(dev):
-                check(topk(b, n, n_pad, g, k, lo, float(penalty), int(seq),
-                           int(stacked), e, pe, *ptrs, scr, win_p, key_p,
+                check(topk(b, n, g, k, lo, float(penalty), int(seq),
+                           int(stacked), e, pe, *ptrs, win_p, key_p,
                            score_p, streams[s]), "nt_shard_topk")
             launches += 1
             if gather and w > 1:
@@ -643,11 +651,8 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
     def merge_pass(e):
         nonlocal launches
         with _on(home):
-            check(merge(w, b, k, n_total, m_pad, int(seq), e,
-                        part.key.data_ptr(), part.score.data_ptr(),
-                        active.data_ptr(),
-                        0 if merge_keys is None else merge_keys.data_ptr(),
-                        0 if merge_slot is None else merge_slot.data_ptr(),
+            check(merge(w, b, k, n_total, int(seq), e, part.key.data_ptr(),
+                        part.score.data_ptr(), active.data_ptr(),
                         choices.data_ptr(), scores.data_ptr(),
                         part.win.data_ptr(), home_stream), "nt_shard_merge")
         launches += 1

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes that reach every branch: free ports and
 distinct_hosts (per task group and per job) that limit where asks fit,
-inactive asks, asks past the node count, a node bucket whose top-k
-sorts in global scratch, overlay rows padded with N, the sequential
+inactive asks, asks past the node count, the top-k's two selections,
+cluster slices and resident rows, overlay rows padded with N, the sequential
 (pre_resolve) and stacked batch layouts of the scans, base deltas
 with padding rows, preemption where victims, ports and distinct_hosts
 bind, every gang mode, and the convex kernel's relaxation (placement
@@ -199,6 +199,136 @@ def test_uniform_topk_seq_matches_plain(dev, b, n, k):
         c = shared_carry(base)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, True), c))
     assert_scans_agree(*runs)
+
+
+def uniform_inputs(b, n, k, seed, dev, stacked=False):
+    """scan_inputs with K2's asks (every ask is ask 0 of task group 0)
+    and one noise draw a node; every ask active when K < 4."""
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, seed, dev)
+    if stacked:
+        static = stacked_of(static, b, n, dev, seed)
+    asks = uniform_asks(asks, b, k)
+    if k < 4:
+        asks = asks._replace(active=torch.ones_like(asks.active))
+    noise = prng.threefry_uniform(
+        torch.arange(2 * b, device=dev).view(b, 2), (n,), 0.0, 2.0)
+    return static, base, feasible, asks, noise
+
+
+def cluster_topk(ctas, resident=True):
+    """K2 launched with ``ctas`` CTAs a cluster (one segment) and the
+    seq rows streamed where ``resident`` is False (uniform_topk
+    launches 8, resident where the rows fit)."""
+    def run(capacity, sched, bw_avail, node_ok, carry, feasible, asks,
+            noise, penalty, seq=False):
+        _b, n, g = feasible.shape
+        segs = [(0, n, (capacity, sched, bw_avail, node_ok, *carry, feasible,
+                        noise))]
+        return binpack.uniform_topk_cluster(
+            "uniform_topk", segs, asks, g, n, penalty, seq,
+            capacity.dim() == 3, ctas, resident=resident)
+    return run
+
+
+def run_uniform(static, base, feasible, asks, noise, seq,
+                kernel=binpack.uniform_topk):
+    """K2 and its plain version on copies of the carry."""
+    b, n, _g = feasible.shape
+    runs = []
+    for fn in (kernel, binpack.uniform_topk_plain):
+        c = shared_carry(base) if seq else fresh(base, b, n)
+        runs.append((*fn(*static, c, feasible, asks, noise, 10.0, seq), c))
+    assert_scans_agree(*runs)
+    return runs[0]
+
+
+@pytest.mark.parametrize("layout", ["independent", "seq", "stacked"])
+@pytest.mark.parametrize("n,k", [(5, 8), (7, 3), (1003, 1), (1003, 8),
+                                 (1003, 9), (1003, 32), (1003, 33),
+                                 (2000, 1024), (300, 1024)])
+def test_uniform_topk_selection_matches_plain(dev, layout, n, k):
+    """K on both sides of the register-list limit (32) and at 1 and
+    1,024 (radix select); N not a multiple of the cluster's 8 CTAs,
+    below it (empty slices), and below K (surplus asks -1)."""
+    b = 4
+    static, base, feasible, asks, noise = uniform_inputs(
+        b, n, k, 3 * n + k, dev, stacked=layout == "stacked")
+    ch, _sc, _c = run_uniform(static, base, feasible, asks, noise,
+                              layout == "seq")
+    assert (ch >= 0).any()
+    if k > n:
+        assert (ch[:, n:] == -1).all()
+
+
+@pytest.mark.parametrize("k", [8, 64])
+def test_uniform_topk_all_infeasible_eval(dev, k):
+    """An eval no node fits: every ask -1 with score 0, and the evals
+    around it (seq: after it) place as the plain version does."""
+    b, n = 3, 1000
+    static, base, feasible, asks, noise = uniform_inputs(b, n, k, 5, dev)
+    feasible[1] = False
+    for seq in (False, True):
+        ch, sc, _c = run_uniform(static, base, feasible, asks, noise, seq)
+        assert (ch[1] == -1).all() and (sc[1] == 0).all()
+        assert (ch[0] >= 0).any() and (ch[2] >= 0).any()
+
+
+@pytest.mark.parametrize("k,rows", [(3, (31, 32)), (6, range(28, 40)),
+                                    (40, range(20, 61)), (40, range(256))])
+def test_uniform_topk_ties_across_cta_slices(dev, k, rows):
+    """Equal nodes with the noise off: every score ties, so the choices
+    are the fitting rows lowest index first, across the CTA slices'
+    boundaries (32-row slices at N = 256) in both selections."""
+    n = 256
+    static, base, feasible, asks = tie_inputs(n, k, dev, list(rows))
+    asks = uniform_asks(asks, 1, k)
+    noise = torch.zeros((1, n), device=dev)
+    for seq in (False, True):
+        ch, _sc, _c = run_uniform(static, base, feasible, asks, noise, seq)
+        want = (list(rows) + [-1] * k)[:k]
+        assert ch[0].tolist() == want
+
+
+def test_uniform_topk_seq_runs_out_of_ports(dev):
+    """16 evals of 8 asks over 64 nodes in order: later evals see the
+    shared ports earlier ones claimed, and nodes run out of them."""
+    b, n, k = 16, 64, 8
+    static, base, feasible, asks, noise = uniform_inputs(b, n, k, 9, dev)
+    _ch, _sc, c = run_uniform(static, base, feasible, asks, noise, True)
+    assert ((base[2] >= 2) & (c[2] < 2)).any()
+
+
+@pytest.mark.parametrize("n,resident", [(10000, True), (10000, False),
+                                        (40000, True)])
+def test_uniform_topk_seq_resident_and_streamed(dev, n, resident):
+    """Under seq the slices' rows sit in shared memory where they fit
+    (N = 10,000 on 8 CTAs) and are read from global memory where they
+    do not (N = 40,000) or when asked: the same choices either way."""
+    b, k = 6, 8
+    static, base, feasible, asks, noise = uniform_inputs(b, n, k, n, dev)
+    ch, _sc, _c = run_uniform(static, base, feasible, asks, noise, True,
+                              cluster_topk(8, resident))
+    assert (ch >= 0).sum() > b * k // 2
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 3, 5, 8])
+def test_uniform_topk_any_cluster_size(dev, ctas):
+    """A cluster of 1 to 8 CTAs, a power of two or not (K10d's W = 3,
+    5-7 shards of one card), selects the same top K."""
+    for k in (8, 64):
+        static, base, feasible, asks, noise = uniform_inputs(
+            4, 3000, k, ctas + k, dev)
+        run_uniform(static, base, feasible, asks, noise, True,
+                    cluster_topk(ctas))
+
+
+def test_uniform_topk_refused_launch_raises(dev):
+    """A launch the kernel refuses (more CTAs than a portable cluster)
+    raises out of the wrapper; no other path runs."""
+    static, base, feasible, asks, noise = uniform_inputs(1, 500, 8, 1, dev)
+    with pytest.raises(RuntimeError, match="nt_uniform_topk"):
+        cluster_topk(9, True)(*static, fresh(base, 1, 500), feasible, asks,
+                              noise, 10.0)
 
 
 @pytest.mark.parametrize("uniform", [False, True])
@@ -777,15 +907,18 @@ def stacked_of(static, b, n, dev, seed):
 
 
 @pytest.mark.parametrize("layout", ["independent", "seq", "stacked"])
-@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 9])
 @pytest.mark.parametrize("uniform", [False, True], ids=["greedy", "uniform"])
 def test_sharded_scans_match_plain_and_unsharded(dev, uniform, w, layout):
     """K10c / K10d on w shards of the card: choices, scores and every
     carried tensor equal the plain sharded version's (scores within
-    1e-4), and equal K1 / K2 on the whole node axis bit for bit."""
+    1e-4), and equal K1 / K2 on the whole node axis bit for bit. K10d
+    takes its one-launch path at w <= 8 (a cluster of 6 CTAs at w = 3)
+    and its per-shard path at w = 9 (N = 1,008 where 1,000 does not
+    split)."""
     from nomad_tpu_torch.parallel import shard
 
-    b, n, k, g = 3, 1000, 40, 2
+    b, n, k, g = 3, 1008 if w in (3, 9) else 1000, 40, 2
     seq = layout == "seq"
     static, base, feasible, asks = scan_inputs(n, k, g, b, 11 * w, dev)
     if layout == "stacked":
@@ -880,8 +1013,9 @@ def test_sharded_uniform_topk_tie_across_a_boundary(dev, w):
 
 @pytest.mark.parametrize("w", [1, 2, 4])
 def test_sharded_uniform_topk_global_scratch_and_surplus(dev, w):
-    """Shards whose slice sorts in global scratch (n_local past the
-    shared-memory limit at w = 1, 2), and more asks than nodes fit."""
+    """Shards of 15,000 to 60,000 nodes (past the shared-memory
+    residency of their CTAs' slices, the rows read from global memory),
+    and more asks than nodes fit."""
     from nomad_tpu_torch.parallel import shard
 
     b, n, k = 2, 60000, 64
@@ -980,9 +1114,9 @@ def test_noise_window_at_an_offset(dev, w):
 
 
 def test_sharded_wrappers_count_their_launches(dev):
-    """K x (W + 1) + W launches for a greedy scan of one eval, W + 1 +
-    W for an independent top-k, W + 1 for a group capacity, W for a
-    delta; plain versions count nothing."""
+    """K x (W + 1) + W launches for a greedy scan of one eval, one for
+    an independent top-k on the shards of one card, W + 1 for a group
+    capacity, W for a delta; plain versions count nothing."""
     from nomad_tpu_torch.parallel import shard
     from nomad_tpu_torch.parallel.mesh import make_mesh
 
@@ -1002,8 +1136,27 @@ def test_sharded_wrappers_count_their_launches(dev):
         np.ones(n, np.float32), np.zeros(n, np.int32))
     counts = cuda.launch_counts()
     assert counts["sharded_greedy_scan"] == k * (w + 1) + w
-    assert counts["sharded_uniform_topk"] == 2 * w + 1
+    assert counts["sharded_uniform_topk"] == 1
     assert counts["group_capacity"] == w + 1
+
+
+@pytest.mark.parametrize("w,seq,launches", [(4, False, 1), (4, True, 1),
+                                            (9, False, 19), (9, True, 39)])
+def test_sharded_uniform_topk_launches_per_path(dev, w, seq, launches):
+    """K10d: one launch a call for the shards of one card (W <= 8);
+    past a cluster's 8 CTAs the per-shard path's W + 1 launches an eval
+    (seq; one of each for independent evals) and W to apply the last
+    winners."""
+    from nomad_tpu_torch.parallel import shard
+
+    b, n, k = 3, 900, 5
+    static, base, feasible, asks = scan_inputs(n, k, 2, b, 2, dev)
+    ua = uniform_asks(asks, b, k)
+    keys = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    cuda.reset_launch_counts()
+    shard.sharded_uniform_topk(shard_split(static, base, feasible, ua, keys,
+                                           w, True, seq), 10.0, seq)
+    assert cuda.launch_counts()["sharded_uniform_topk"] == launches
 
 
 # ------------------------------ K10e-K10g: the last node-sharded programs

@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "nomad_tpu")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "topk_profile.py"]
     assert len(files) > 30
     return files
 
