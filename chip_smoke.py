@@ -124,7 +124,9 @@ Phases (any failure exits non-zero and prints no result):
    rows; the 512 + 512 eval through K10c (B = 1: a sharded base runs
    the live rows only), equal to K1's; K10b over one-node groups
    (g_pad 10,240) and racks of 40 (g_pad 256), equal to the one-device
-   node-order sum. Then the last three node-sharded programs on the
+   node-order sum; K10a's and K10b's launches counted around their
+   calls, one a call on a card (K10b's combine adds one where the
+   shards span cards). Then the last three node-sharded programs on the
    same mesh: config 4's job and the 512 + 512 job through
    ``service-convex-gpu`` on a mesh batcher on phase 3's cluster (K0 and
    K3 a shard, K10g-a's relaxation with its cross-shard softmax and
@@ -142,7 +144,12 @@ Phases (any failure exits non-zero and prints no result):
    (K10e, with K10b's group sums), equal to K7's choices, scores and
    slice group on the same call. Phase 7 holds K10a-K10g against their
    plain versions on these calls, with each record's launches a call
-   read from the launch counts around one call, and K10d's per-shard
+   read from the launch counts around one call (K10a and K10b held to
+   one a card, and given their device time, the library's, and the
+   host span of a call beside its device time; topk_profile.py
+   --sections shards splits that span into its parts; K10a's library
+   also on the call's footing, the host payload split by shard,
+   uploaded and set by torch.index_put a shard), and K10d's per-shard
    path (csrc/sharded_topk.cu, which the one-card mesh never takes) on
    the first storm call's rows re-split into 16 shards of cuda:0:
    choices, scores and carry equal the plain version's and K2's, its
@@ -1481,6 +1488,22 @@ def time_cuda(torch, fn, runs, setup=None, warmup=2):
     return statistics.median(times)
 
 
+def host_ms(torch, fn, runs):
+    """Median host span of ``fn()`` in ms, the card synchronised before
+    each call (no queue of earlier work delays the launch): the host's
+    issue of a call, against its device time (device_ms)."""
+    for _ in range(3):
+        fn()
+    spans = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        spans.append((time.perf_counter() - t0) * 1000.0)
+    torch.cuda.synchronize()
+    return statistics.median(spans)
+
+
 def device_ms(torch, fn, runs, setup=None, match=None):
     """Device time of ``fn`` a call under torch.profiler: the card's
     kernel time (kernels whose name holds ``match``; every kernel when
@@ -2035,13 +2058,57 @@ class ShardRecorder:
         setattr(self.module, self.name, self.orig)
 
 
+class FactoryCalls:
+    """Counts, while the block runs, the calls of the functions that
+    ``parallel.shard.<name>(...)`` returns (the K10a and K10b wrappers
+    are factories over a mesh)."""
+
+    def __init__(self, name):
+        from nomad_tpu_torch.parallel import shard
+
+        self.module, self.name, self.calls = shard, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def factory(*args, **kwargs):
+            fn = self.orig(*args, **kwargs)
+
+            def call(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+
+            return call
+
+        setattr(self.module, self.name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def card_launches(devices, combine=False):
+    """Launches a call of K10a (``combine`` False) or K10b over shards
+    on ``devices``: one a card, and K10b's combine where the shards
+    span cards."""
+    cards = len({str(d) for d in devices})
+    return cards + (1 if combine and cards > 1 else 0)
+
+
+def require_per_call(label, launches, calls, per_call):
+    check(calls > 0 and launches == calls * per_call,
+          f"{label}: {launches} launches in {calls} calls, expected "
+          f"{per_call} a call")
+    print(f"{label}: {calls} calls, {per_call} launch(es) a call")
+
+
 def run_mesh(seed, torch, total, storm_h):
     """Phase 9: the node-sharded mesh path on a 4-shard mesh. Returns
     the recorded calls for the holds (bench_mesh)."""
     import numpy as np
 
+    from nomad_tpu_torch.ops import cuda
     from nomad_tpu_torch.parallel.mesh import make_mesh
-    from nomad_tpu_torch.parallel.shard import sharded_group_capacity
     from nomad_tpu_torch.scheduler.batcher import (
         PlacementBatcher,
         _delta_payload,
@@ -2075,7 +2142,8 @@ def run_mesh(seed, torch, total, storm_h):
 
         def mesh_storm():
             out = []
-            with ShardRecorder("sharded_uniform_topk") as topk:
+            with ShardRecorder("sharded_uniform_topk") as topk, \
+                    FactoryCalls("sharded_base_delta") as deltas:
                 for r, jobs in enumerate(rounds):
                     before = mb.stats()
                     out.append(storm.round(jobs, 110_000 + r * STORM_BATCH,
@@ -2084,12 +2152,16 @@ def run_mesh(seed, torch, total, storm_h):
                         before, mb.stats())) / 1000.0)
                     storm.commit(out[-1][2])
             rec["topk"] = topk.calls
+            rec["delta_calls"] = deltas.calls
             return out
 
         with GcPauses() as gc_pauses:
             done = counted(total, "mesh storm", (
                 "threefry_uniform", "expand_overlay", "sharded_uniform_topk",
                 "sharded_base_delta"), mesh_storm)
+        require_per_call("mesh storm K10a", cuda.launch_counts().get(
+            "sharded_base_delta", 0), rec.pop("delta_calls"),
+            card_launches(devices))
         st = stats_delta(s0, mb.stats())
         lat = [t for r in done for t in r[3]]
         wall = sum(r[4] for r in done)
@@ -2199,11 +2271,18 @@ def run_mesh(seed, torch, total, storm_h):
                                      -1).astype(np.int32)}
 
         def capacities():
-            return {g_pad: sharded_group_capacity(mesh, g_pad)(units, ids)
-                    for g_pad, ids in groups.items()}
+            from nomad_tpu_torch.parallel import shard
 
-        caps = counted(total, "mesh group capacity", ("group_capacity",),
-                       capacities)
+            return {g_pad: shard.sharded_group_capacity(mesh, g_pad)(
+                units, ids) for g_pad, ids in groups.items()}
+
+        with FactoryCalls("sharded_group_capacity") as group_calls:
+            caps = counted(total, "mesh group capacity", ("group_capacity",),
+                           capacities)
+        require_per_call(
+            "mesh group capacity K10b",
+            cuda.launch_counts().get("group_capacity", 0), group_calls.calls,
+            card_launches(devices, combine=True))
         for g_pad, ids in groups.items():
             want = np.zeros(g_pad, np.float32)
             np.add.at(want, ids[ids >= 0], units[ids >= 0])
@@ -2318,6 +2397,35 @@ def resharded(torch, shards, seq, w):
     return out
 
 
+def library_delta(torch, np, targets, payload):
+    """K10a's function by library calls from the call's own inputs (the
+    sharded parent and the host payload): the payload's rows split by
+    shard on the host, uploaded in one copy a card
+    (``binpack.device_resident``), then ``torch.index_put`` of each
+    array on each shard (a new tensor, as the call's children are).
+    Returns [shard][array]."""
+    from nomad_tpu_torch.ops.binpack import device_resident
+
+    rows = np.asarray(payload[0])
+    vals = [np.asarray(v) for v in payload[1:]]
+    parts = [t.parts[0] for t in targets]
+    by_dev = {}
+    for s, x in enumerate(parts[0]):
+        lo = targets[0].lo[s]
+        keep = (rows >= lo) & (rows < lo + x.shape[0])
+        by_dev.setdefault(x.device, []).append(
+            (s, [(rows[keep] - lo).astype(np.int64),
+                 *(v[keep] for v in vals)]))
+    out = [None] * len(parts[0])
+    for dev, items in by_dev.items():
+        flat = device_resident([a for _s, arrs in items for a in arrs], dev)
+        for k, (s, _a) in enumerate(items):
+            idx, *vs = flat[5 * k:5 * k + 5]
+            out[s] = [torch.index_put(parts[j][s], (idx,), vs[j])
+                      for j in range(4)]
+    return out
+
+
 def bench_mesh(torch, np, rec):
     """Holds and times of K10a-K10d on the mesh phase's own inputs: the
     round-2 base delta, both group capacities, the 512 + 512 eval's
@@ -2332,12 +2440,15 @@ def bench_mesh(torch, np, rec):
     # ---- K10a
     mesh, parent, payload = rec["delta"]
     targets = [parent[i] for i in (2, 4, 5, 6)]
+    per_call = card_launches(t.device for t in targets[0].parts[0])
     got, delta_launches = launches_of("sharded_base_delta", lambda: (
         shard.sharded_base_delta(mesh)(*targets, *payload)))
+    check(delta_launches == per_call, f"K10a: {delta_launches} launches a "
+          f"call, expected {per_call} (one a card)")
     pay = place(mesh, payload, ((), (None, None), (), (), ()))
     w = len(targets[0].parts[0])
 
-    def plain_delta():
+    def plain_delta(pay=pay):
         return [apply_base_delta_plain(
             *(t.parts[0][s] for t in targets),
             *(p.parts[0][s] for p in pay), targets[0].lo[s])
@@ -2359,27 +2470,52 @@ def bench_mesh(torch, np, rec):
               "one-device scatter")
     n = sum(p.shape[0] for p in targets[0].parts[0])
     r = len(payload[0])
-    ms = time_cuda(torch, lambda: shard.sharded_base_delta(mesh)(
-        *targets, *payload), RUNS)
+    call = lambda: shard.sharded_base_delta(mesh)(  # noqa: E731
+        *targets, *payload)
+    ms = time_cuda(torch, call, RUNS)
+    dev_ms = device_ms(torch, call, RUNS)
+    kern_ms = device_ms(torch, call, RUNS, match="delta")
+    host = host_ms(torch, call, RUNS)
     plain_ms = time_cuda(torch, plain_delta, RUNS)
     flat = [gather(t).cuda() for t in targets]
     idx = (rows.cuda(),)
     vals = [torch.from_numpy(np.asarray(v)).cuda() for v in payload[1:]]
-    lib_ms = time_cuda(torch, lambda: [
-        torch.index_put(x, idx, v) for x, v in zip(flat, vals)], RUNS)
+    library = lambda: [  # noqa: E731
+        torch.index_put(x, idx, v) for x, v in zip(flat, vals)]
+    lib_ms = time_cuda(torch, library, RUNS)
+    lib_dev = device_ms(torch, library, RUNS)
+    # The library on the call's footing: the same host payload split by
+    # shard on the host and uploaded, then torch.index_put a shard.
+    lib = library_delta(torch, np, targets, payload)
+    check(all(torch.equal(g.parts[0][s], lib[s][j]) for j, g in
+              enumerate(got) for s in range(w)),
+          "K10a: differs from the library calls")
+    lib_place_ms = time_cuda(torch, lambda: library_delta(
+        torch, np, targets, payload), RUNS)
     out["sharded_base_delta"] = {r: dict(
         max_abs_err=delta_err, ms=ms, plain_ms=plain_ms,
         **bound(2 * n * 25 + r * 29, 0.0), library_ms=lib_ms,
-        launches_per_call=delta_launches, shards=w)}
+        library_place_ms=lib_place_ms, device_ms=dev_ms,
+        kernel_device_ms=kern_ms, library_device_ms=lib_dev,
+        launches_per_call=delta_launches, shards=w, host_ms=host)}
     print(f"K10a: {r} payload rows over {w} shards of {n // w} equal the "
-          "plain version and the one-device scatter")
+          f"plain version and the one-device scatter; {delta_launches} "
+          f"launch(es) a call, {ms:.4f} ms a call, device {dev_ms} ms "
+          f"(kernels {kern_ms}); index_put {lib_ms:.4f} ms (device "
+          f"{lib_dev}), upload + "
+          f"index_put a shard {lib_place_ms:.4f} ms; host span "
+          f"{host:.4f} ms")
     # ---- K10b
     mesh, units, groups = rec["groups"]
     for g_pad, ids in groups.items():
         run = shard.sharded_group_capacity(mesh, g_pad)
-        got, n_launch = launches_of("group_capacity",
-                                    lambda: run(units, ids))
         u_sh, i_sh = place(mesh, (units, ids), (("nodes",), ("nodes",)))
+        got, n_launch = launches_of("group_capacity",
+                                    lambda: run(u_sh, i_sh))
+        per_call = card_launches([p.device for p in u_sh.parts[0]],
+                                 combine=True)
+        check(n_launch == per_call, f"K10b (g_pad {g_pad}): {n_launch} "
+              f"launches a call, expected {per_call}")
 
         def plain_groups():
             from nomad_tpu_torch.ops.gang import group_capacity_plain
@@ -2391,20 +2527,32 @@ def bench_mesh(torch, np, rec):
         want = plain_groups()
         check(torch.equal(got, want), f"K10b (g_pad {g_pad}): differs "
               "from the plain version")
-        ms = time_cuda(torch, lambda: run(u_sh, i_sh), RUNS)
+        call = lambda: run(u_sh, i_sh)  # noqa: E731
+        ms = time_cuda(torch, call, RUNS)
+        dev_ms = device_ms(torch, call, RUNS)
+        kern_ms = device_ms(torch, call, RUNS, match="group")
+        host = host_ms(torch, call, RUNS)
         plain_ms = time_cuda(torch, plain_groups, RUNS)
         tu = torch.from_numpy(units).cuda()
         ti = torch.from_numpy(ids).cuda()
         keep = ti >= 0
         tu, ti = tu[keep].contiguous(), ti[keep].long().contiguous()
-        lib_ms = time_cuda(torch, lambda: torch.zeros(
-            g_pad, device=tu.device).index_add_(0, ti, tu), RUNS)
+        library = lambda: torch.zeros(  # noqa: E731
+            g_pad, device=tu.device).index_add_(0, ti, tu)
+        lib_ms = time_cuda(torch, library, RUNS)
+        lib_dev = device_ms(torch, library, RUNS)
         nn = units.shape[0]
         out.setdefault("group_capacity", {})[g_pad] = dict(
             max_abs_err=(got - want).abs().max().item(), ms=ms,
             plain_ms=plain_ms,
             **bound(nn * 8 + g_pad * 4, nn / INT32_OPS), library_ms=lib_ms,
-            launches_per_call=n_launch, shards=len(u_sh.parts[0]))
+            device_ms=dev_ms, kernel_device_ms=kern_ms,
+            library_device_ms=lib_dev, launches_per_call=n_launch,
+            shards=len(u_sh.parts[0]), host_ms=host)
+        print(f"K10b (g_pad {g_pad}): equal to the plain version; "
+              f"{n_launch} launch(es) a call, {ms:.4f} ms a call, device "
+              f"{dev_ms} ms (kernels {kern_ms}); index_add_ {lib_ms:.4f} "
+              f"ms (device {lib_dev}); host span {host:.4f} ms")
     # ---- K10c on the 512 + 512 eval's call
     call = rec["greedy"][0]
     err, launches = hold_shards(torch, "K10c (512 + 512 eval)", call)

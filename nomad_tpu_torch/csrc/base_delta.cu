@@ -6,25 +6,34 @@
 // and node_ok [N] take the child's values at rows [R], and nothing
 // else moves.
 //
-// The wrapper hands this kernel fresh copies of the parent's arrays
-// (Tensor.clone, a plain copy): the parent may still be cached, and a
-// dispatch on it may still be running. Padding rows (ROW_BUCKETS)
-// repeat the first changed row with the same values, so duplicate
-// writes store the same bytes and their order does not matter. A row
-// outside [0, N) is dropped, as the JAX scatter's mode="drop" does.
+// nt_base_delta (K4): the wrapper hands this kernel fresh copies of the
+// parent's arrays (Tensor.clone, a plain copy): the parent may still
+// be cached, and a dispatch on it may still be running. Padding rows
+// (ROW_BUCKETS) repeat the first changed row with the same values, so
+// duplicate writes store the same bytes and their order does not
+// matter. A row outside [0, N) is dropped, as the JAX scatter's
+// mode="drop" does. Bound on the card: bytes — the copies (~25 B a
+// node) and R rows of 29 B; at N = 10,240 and R <= 4,096 well under a
+// megabyte, a fraction of a microsecond at the HBM rate, so launch
+// latency is what a call costs. One thread per (row, column) of the
+// seven columns (util's four, bw_used, ports_free, node_ok), so
+// neighbouring threads write neighbouring addresses of a row.
 //
-// Shard form (K10a, parallel/shard.py sharded_base_delta in the JAX
-// package): the arrays are one node shard's slice of N rows starting
-// at global row lo; each global row index is rebased by -lo, and rows
-// of other shards (and the pad) fall outside [0, N) and drop, so the
-// replicated payload is launched once per shard.
-//
-// Bound on the card: bytes — the copies (~25 B a node) and R rows of
-// 29 B; at N = 10,240 and R <= 4,096 well under a megabyte, a fraction
-// of a microsecond at the HBM rate, so launch latency is what a call
-// costs. Design: one thread per (row, column) of the seven columns
-// (util's four, bw_used, ports_free, node_ok), so neighbouring threads
-// write neighbouring addresses of a row.
+// nt_base_delta_shards (K10a, parallel/shard.py sharded_base_delta in
+// the JAX package): the same delta over the node shards of one card
+// in ONE launch, copy and scatter fused. A __grid_constant__ table
+// holds each shard's global row lo, its rows, its four parent arrays
+// and its four child arrays (views of one allocation the wrapper
+// makes for the card). The kernel writes every child in gather form:
+// a thread owns a node, finds the node's global row in the payload's
+// rows (sorted on the host, with each one's payload index; in shared
+// memory where they fit) by binary search, and stores the payload's
+// values there, else the parent's. Rows outside every shard match no
+// node and drop; a padding row repeats a real row with identical
+// values, so whichever duplicate the search finds writes the same
+// bytes. The parent is only read. Bound: bytes — 25 B a node read and
+// 25 written, plus the table; the call is one launch in place of W
+// launches and 4 W copies.
 #include "common.cuh"
 
 #define NT_DELTA_THREADS 256
@@ -71,5 +80,137 @@ NT_API int nt_base_delta(int N, int R, int lo, const void* rows,
       (const float*)bw_rows,
       (const float*)ports_rows, (const unsigned char*)ok_rows, (float*)util,
       (float*)bw_used, (float*)ports_free, (unsigned char*)node_ok);
+  return (int)cudaGetLastError();
+}
+
+#define NT_DSEG_MAX 32
+#define NT_DSEG_THREADS 256
+#define NT_DSEG_SMEM_MAX (227 * 1024)
+
+struct NtDeltaSeg {
+  long long lo, n;
+  const float4* util;
+  const float* bw_used;
+  const float* ports_free;
+  const unsigned char* node_ok;
+  float4* c_util;
+  float* c_bw_used;
+  float* c_ports_free;
+  unsigned char* c_node_ok;
+};
+#define NT_DSEG_PTRS 8
+
+struct NtDeltaArgs {
+  int R, table_smem;
+  const int* rows;   // [R] ascending
+  const int* order;  // [R]: the payload index of each sorted row
+  const float4* util_rows;
+  const float* bw_rows;
+  const float* ports_rows;
+  const unsigned char* ok_rows;
+  NtDeltaSeg seg[NT_DSEG_MAX];
+};
+
+__global__ void __launch_bounds__(NT_DSEG_THREADS)
+    nt_delta_gather_kernel(const __grid_constant__ NtDeltaArgs p) {
+  extern __shared__ int s_table[];
+  const NtDeltaSeg& sg = p.seg[blockIdx.y];
+  const long long first = (long long)blockIdx.x * NT_DSEG_THREADS;
+  if (first >= sg.n) return;  // the whole block: a shorter shard
+  const int R = p.R;
+  const int* rows = p.rows;
+  const int* order = p.order;
+  if (p.table_smem) {
+    for (int i = threadIdx.x; i < R; i += NT_DSEG_THREADS) {
+      s_table[i] = p.rows[i];
+      s_table[R + i] = p.order[i];
+    }
+    __syncthreads();
+    rows = s_table;
+    order = s_table + R;
+  }
+  const long long i = first + threadIdx.x;
+  if (i >= sg.n) return;
+  const long long row = sg.lo + i;
+  int lo = 0, hi = R;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (rows[mid] < row)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  if (lo < R && rows[lo] == row) {
+    const int r = order[lo];
+    sg.c_util[i] = p.util_rows[r];
+    sg.c_bw_used[i] = p.bw_rows[r];
+    sg.c_ports_free[i] = p.ports_rows[r];
+    sg.c_node_ok[i] = p.ok_rows[r];
+  } else {
+    sg.c_util[i] = sg.util[i];
+    sg.c_bw_used[i] = sg.bw_used[i];
+    sg.c_ports_free[i] = sg.ports_free[i];
+    sg.c_node_ok[i] = sg.node_ok[i];
+  }
+}
+
+// The shards of one card: seg_dims [S,2] i64 (lo, rows) and seg_ptrs
+// [S,8] (util [n,4] f32, bw_used, ports_free [n] f32, node_ok [n] u8:
+// the parent's, then the child's in the same order) are host arrays;
+// rows [R] i32 ascending, order [R] i32 (the payload index of each),
+// util_rows [R,4] f32, bw_rows/ports_rows [R] f32, ok_rows [R] u8 the
+// payload on this card. table_smem: keep (rows, order) in shared
+// memory (8 R bytes; refused past 227 KB), else search them in device
+// memory. util pointers 16-byte aligned.
+NT_API int nt_base_delta_shards(int S, int R, int table_smem,
+                                const long long* seg_dims,
+                                const void* const* seg_ptrs, const void* rows,
+                                const void* order, const void* util_rows,
+                                const void* bw_rows, const void* ports_rows,
+                                const void* ok_rows, void* stream) {
+  if (S <= 0) return 0;
+  if (S > NT_DSEG_MAX || R < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = table_smem ? (size_t)R * 8 : 0;
+  if (smem > NT_DSEG_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  NtDeltaArgs p = {};
+  p.R = R;
+  p.table_smem = table_smem;
+  p.rows = (const int*)rows;
+  p.order = (const int*)order;
+  p.util_rows = (const float4*)util_rows;
+  p.bw_rows = (const float*)bw_rows;
+  p.ports_rows = (const float*)ports_rows;
+  p.ok_rows = (const unsigned char*)ok_rows;
+  if (R > 0 && ((uintptr_t)util_rows & 15))
+    return (int)cudaErrorMisalignedAddress;
+  long long most = 0;
+  for (int s = 0; s < S; ++s) {
+    NtDeltaSeg& sg = p.seg[s];
+    const void* const* q = seg_ptrs + (size_t)s * NT_DSEG_PTRS;
+    sg.lo = seg_dims[2 * s];
+    sg.n = seg_dims[2 * s + 1];
+    sg.util = (const float4*)q[0];
+    sg.bw_used = (const float*)q[1];
+    sg.ports_free = (const float*)q[2];
+    sg.node_ok = (const unsigned char*)q[3];
+    sg.c_util = (float4*)q[4];
+    sg.c_bw_used = (float*)q[5];
+    sg.c_ports_free = (float*)q[6];
+    sg.c_node_ok = (unsigned char*)q[7];
+    if (((uintptr_t)q[0] | (uintptr_t)q[4]) & 15)
+      return (int)cudaErrorMisalignedAddress;
+    most = sg.n > most ? sg.n : most;
+  }
+  if (most == 0) return 0;
+  const long long per = NT_DSEG_THREADS;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)nt_delta_gather_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  nt_delta_gather_kernel<<<dim3((unsigned)((most + per - 1) / per),
+                                (unsigned)S),
+                           NT_DSEG_THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -58,13 +58,14 @@ SIGNATURES: Dict[str, List] = {
     "nt_uniform_topk_occupancy": [_I] * 6 + [_P],
     "nt_expand_overlay": [_I] * 7 + [_P] * 10,
     "nt_base_delta": [_I, _I, _I] + [_P] * 10,
+    "nt_base_delta_shards": [_I] * 3 + [_P] * 9,
     "nt_argmax_chain": [_I, _P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
     "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
     "nt_mirror_descent": [_I] * 3 + [_P] * 14,
     "nt_convex_relax": [_I] * 6 + [_F, _I, _I] + [_P] * 29,
     "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
-    "nt_group_partial": [_I, _I] + [_P] * 4,
+    "nt_group_capacity": [_I] * 5 + [_P] * 5,
     "nt_group_combine": [_I, _I] + [_P] * 3,
     "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 22,
     "nt_shard_winner": [_I] * 6 + [_P] * 7,
@@ -181,10 +182,16 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+_entries: Dict[str, object] = {}  # name -> the library's function
+
+
 def launch(name: str, *args) -> None:
     """Call one C entry point on the current stream's arguments and
     raise if the launch was refused."""
-    err = getattr(library(), name)(*args)
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
@@ -207,6 +214,10 @@ def reset_launch_counts() -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the stream
+    PyTorch's own kernels on that device run on)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.device(device).index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -166,39 +166,6 @@ def group_capacity_plain(units, topo_ids, g_pad: int):
     return out.index_add_(0, topo_ids[keep].long(), units[keep])
 
 
-def group_capacity(units, topo_ids, g_pad: int, out=None):
-    """[g_pad] f32 member capacity per topology group of ``units`` [N]
-    f32 over ``topo_ids`` [N] i32 (ids outside [0, g_pad) drop): the
-    JAX package's ``_group_capacity`` (ops/gang.py:139), which
-    parallel/shard.py's ``sharded_group_capacity`` runs on each node
-    shard for its partial. ``out`` (a [g_pad] f32 tensor on the same
-    device, e.g. a row of the shards' partial buffer) receives it.
-
-    On the card (csrc/group_capacity.cu ``nt_group_partial``): K7's
-    group pass, one block walking the nodes chunk by chunk of 1024, each
-    group summed by one thread in node order, so the float sums round as
-    ``index_add_`` rounds them on the CPU, past 2^24 too. The issue
-    rate of one SM bounds it."""
-    n = units.shape[0]
-    dev = units.device
-    if out is None:
-        out = torch.empty(g_pad, dtype=torch.float32, device=dev)
-    for name, t, dtype, shape in (
-            ("units", units, torch.float32, (n,)),
-            ("topo_ids", topo_ids, torch.int32, (n,)),
-            ("out", out, torch.float32, (g_pad,))):
-        _check(name, t, dtype, shape, dev)
-    if dev.type == "cpu":
-        out.copy_(group_capacity_plain(units, topo_ids, g_pad))
-        return out
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    cuda.launch("nt_group_partial", n, g_pad, units.data_ptr(),
-                topo_ids.data_ptr(), out.data_ptr(), cuda.stream_ptr(dev))
-    cuda.count_launch("group_capacity")
-    return out
-
-
 def gang_pick_plain(group_cap, group_noise, k_actual, k: int,
                     config: GangConfig):
     """The slice choice and the spread cap from the group capacities

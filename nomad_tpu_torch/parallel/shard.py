@@ -8,12 +8,14 @@ W small partial buffers on the combining device (the first shard's),
 outside the kernels (parallel/mesh.py's module docstring says how):
 
 - ``sharded_base_delta`` (K10a): the resident-base row scatter with a
-  replicated payload; each shard keeps the rows that land in its slice
-  (csrc/base_delta.cu with a row offset, once per shard). Zero
+  replicated payload; each shard keeps the rows that land in its slice.
+  One launch a card over that card's shards (csrc/base_delta.cu
+  nt_base_delta_shards: copy and scatter fused, in gather form). Zero
   collectives.
 - ``sharded_group_capacity`` (K10b): the gang program's topology-group
   scatter-add; each shard sums its members into a partial group vector
-  (csrc/group_capacity.cu), and the W partials add up in shard order.
+  in node order, and the W partials add up in shard order, in one
+  launch a card (csrc/group_capacity.cu).
 - ``sharded_greedy_scan`` (K10c): K1 over node shards, two launches a
   step (csrc/sharded_scan.cu).
 - ``sharded_uniform_topk`` (K10d): K2 over node shards: one launch of
@@ -29,8 +31,11 @@ shape, so the JAX package's ``shard_cache_size`` has no counterpart.
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple, Optional
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import cuda
@@ -41,7 +46,7 @@ from ..ops.binpack import (
     _check,
     _score_plain,
     _update_rows,
-    base_delta_rows,
+    apply_base_delta_plain,
     uniform_topk_cluster,
 )
 from .mesh import NODE_AXIS, Mesh, Sharded, delta_row_specs, is_sharded, \
@@ -71,7 +76,155 @@ def _kind(tensors) -> str:
     return kinds.pop()
 
 
+# --------------------------------------------- one launch a card
+
+# Segments in the kernels' tables (csrc/base_delta.cu NT_DSEG_MAX,
+# csrc/group_capacity.cu NT_GC_SEGS): shards of one card a launch.
+SHARD_SEGS = 32
+
+
+def card_segments(devices) -> List[Tuple[torch.device, List[int]]]:
+    """The shards on each card, in shard order: [(device, [shard
+    indices])], the cards in the order of their first shard. K10a and
+    K10b launch once a card over that card's list (their segment
+    tables hold at most SHARD_SEGS)."""
+    cards: dict = {}
+    for s, dev in enumerate(devices):
+        cards.setdefault(torch.device(dev), []).append(s)
+    for dev, idx in cards.items():
+        if len(idx) > SHARD_SEGS:
+            raise ValueError(f"{len(idx)} shards on {dev}: one launch "
+                             f"takes at most {SHARD_SEGS}")
+    return list(cards.items())
+
+
+def _seg_table(dims, ptrs):
+    """A launch's segment table as the C entry takes it: ``dims`` (i64)
+    and ``ptrs`` (device pointers, 0 for none), each flat in segment
+    order, as ctypes arrays."""
+    return ((ctypes.c_longlong * len(dims))(*dims),
+            (ctypes.c_void_p * len(ptrs))(*[p or None for p in ptrs]))
+
+
 # ------------------------------------------------------------ K10a
+
+# Bytes of K10a's (row, payload index) table a CTA keeps in shared
+# memory (csrc/base_delta.cu NT_DSEG_SMEM_MAX); a larger table is
+# searched in device memory.
+DELTA_TABLE_SMEM = 227 * 1024
+# Each shard's child arrays, in the kernel's pointer order: (dtype,
+# columns).
+_DELTA_COLS = ((torch.float32, 4), (torch.float32, 1), (torch.float32, 1),
+               (torch.bool, 1))
+
+
+def delta_row_table(rows):
+    """K10a's row table: the payload's global rows [R] sorted ascending
+    and, for each, its index in the payload (of equal rows the first
+    comes first), both int32 host arrays: one sort of 64-bit (row,
+    index) keys. The kernel finds a node's row in it by binary search;
+    rows outside every shard are kept and match no node."""
+    rows = np.asarray(rows, dtype=np.int32)
+    keys = np.sort((rows.astype(np.int64) << 32)
+                   | np.arange(rows.shape[0], dtype=np.int64))
+    return ((keys >> 32).astype(np.int32),
+            (keys & 0xFFFFFFFF).astype(np.int32))
+
+
+def _upload(arrays, devices):
+    """Host arrays packed once into one pinned buffer (16-byte aligned
+    each) and copied once to each of ``devices`` on its current stream:
+    {device: (buffer, [device pointer of each array])}. The kernels
+    read the arrays by pointer; the buffers live until the launches
+    that read them are queued (the caching allocator orders any reuse
+    after them on the stream)."""
+    arrays = [np.ascontiguousarray(x) for x in arrays]
+    offsets, total = [], 0
+    for x in arrays:
+        offsets.append(total)
+        total += -(-x.nbytes // 16) * 16
+    host = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=any(
+        torch.device(d).type == "cuda" for d in devices))
+    flat = host.numpy()
+    for x, at in zip(arrays, offsets):
+        flat[at:at + x.nbytes] = x.reshape(-1).view(np.uint8)
+    out = {}
+    for dev in devices:
+        buf = host.to(dev, non_blocking=True)
+        base = buf.data_ptr()
+        out[dev] = (buf, [base + at for at in offsets])
+    return out
+
+
+def _child_views(dev, ns):
+    """The four child arrays of each of a card's shards (``ns`` rows
+    each) as views of ONE float32 allocation on ``dev``: the card's util
+    rows [sum(ns), 4], then its bw_used, ports_free and node_ok (bytes),
+    split at the shards' rows (every util row 16-byte aligned). Returns
+    [array j][shard i]."""
+    total = sum(ns)
+    buf = torch.empty(6 * total + -(-total // 4), dtype=torch.float32,
+                      device=dev)
+    return [buf.narrow(0, 0, 4 * total).view(total, 4).split_with_sizes(ns),
+            buf.narrow(0, 4 * total, total).split_with_sizes(ns),
+            buf.narrow(0, 5 * total, total).split_with_sizes(ns),
+            buf.narrow(0, 6 * total, -(-total // 4)).view(torch.bool)
+            .narrow(0, 0, total).split_with_sizes(ns)]
+
+
+def _check_delta(targets, payload) -> int:
+    """K10a's arguments, checked once a call: every shard's four arrays
+    (util [n,4] f32, bw_used, ports_free [n] f32, node_ok [n] bool,
+    contiguous, on the shard's device) and the host payload (rows [R]
+    int, util_rows [R,4], bw_rows, ports_rows [R], ok_rows [R]).
+    Returns R."""
+    if len(payload) != 5:
+        raise ValueError(f"a base delta's payload has 5 arrays, got "
+                         f"{len(payload)}")
+    r = int(np.shape(payload[0])[0])
+    for name, x, shape in zip(
+            ("rows", "util_rows", "bw_rows", "ports_rows", "ok_rows"),
+            payload, ((r,), (r, 4), (r,), (r,), (r,))):
+        if tuple(np.shape(x)) != shape:
+            raise ValueError(f"{name}: shape {tuple(np.shape(x))}, "
+                             f"expected {shape}")
+    first = targets[0].parts[0]
+    w, lo = len(first), targets[0].lo
+    rows = [(x.shape[0], x.device) for x in first]
+    for j, t in enumerate(targets):
+        parts = t.parts[0]
+        if len(parts) != w or t.lo != lo:
+            raise ValueError("the four arrays are not split alike")
+        dtype, width = _DELTA_COLS[j]
+        for s, x in enumerate(parts):
+            n, dev = rows[s]
+            if (x.dtype != dtype or x.shape != ((n, width) if width > 1
+                                                else (n,))
+                    or x.device != dev or not x.is_contiguous()):
+                raise ValueError(
+                    f"base array {j} shard {s}: {x.dtype} {tuple(x.shape)} "
+                    f"on {x.device}, expected {dtype} with {n} rows, "
+                    "contiguous, on the shard's device")
+    return r
+
+
+def _base_delta_card(dev, idx, parents, lo, pay, r, table_smem):
+    """One launch of K10a's fused kernel over the shards ``idx`` of
+    card ``dev``: ``parents`` [array][shard] the four parent arrays,
+    ``pay`` the device pointers of the card's (rows, order, util_rows,
+    bw_rows, ports_rows, ok_rows). Returns the children [array][i] (one
+    allocation)."""
+    children = _child_views(dev, [parents[0][s].shape[0] for s in idx])
+    dims, ptrs = [], []
+    for i, s in enumerate(idx):
+        dims += [lo[s], parents[0][s].shape[0]]
+        ptrs += [parents[j][s].data_ptr() for j in range(4)]
+        ptrs += [children[j][i].data_ptr() for j in range(4)]
+    dims, ptrs = _seg_table(dims, ptrs)
+    with _on(dev):
+        cuda.launch("nt_base_delta_shards", len(idx), r, int(table_smem),
+                    dims, ptrs, *pay, cuda.stream_ptr(dev))
+    return children
 
 
 def sharded_base_delta(mesh: Mesh):
@@ -79,12 +232,19 @@ def sharded_base_delta(mesh: Mesh):
     node-sharded resident base: the four mutable arrays arrive as
     ``Sharded`` (parallel/mesh.py base_specs; dp row 0), the payload
     (rows [R] i32 global, util_rows [R,4], bw_rows, ports_rows [R] f32,
-    ok_rows [R] bool) as host arrays, replicated onto the mesh. Each
-    shard rebases the rows into its slice and drops the rest (K10a,
-    csrc/base_delta.cu launched once per shard); padding rows repeat a
-    real row (the batcher's ``_pad_rows``) and write identical values.
-    Returns the four child arrays as ``Sharded``; the parent stays as
-    it was."""
+    ok_rows [R] bool) as host arrays. Each shard's child takes the
+    payload's values at the rows of its slice and the parent's
+    elsewhere; rows outside every slice drop; padding rows repeat a real
+    row (the batcher's ``_pad_rows``) with identical values. Returns the
+    four child arrays as ``Sharded``; the parent stays as it was (it may
+    still be cached and in use by a dispatch).
+
+    On the card (K10a, csrc/base_delta.cu nt_base_delta_shards): the
+    arguments checked once, the rows sorted on the host
+    (``delta_row_table``), the payload packed once and copied once a
+    card (``_upload``), then ONE launch a card over that card's shards,
+    which writes every child in one pass (copy and scatter fused) into
+    one allocation a card (``_child_views``)."""
     row = Mesh([mesh.row(0)])
 
     def run(util, bw_used, ports_free, node_ok, *payload):
@@ -95,16 +255,31 @@ def sharded_base_delta(mesh: Mesh):
             specs = base_specs()
             targets = list(place(row, targets,
                                  [specs[2], specs[4], specs[5], specs[6]]))
-        pay = place(row, payload, delta_row_specs())
-        parts = [[] for _ in targets]
-        for s, dev in enumerate(row.row(0)):
-            with _on(dev):
-                out = base_delta_rows(
-                    *(t.parts[0][s] for t in targets),
-                    *(p.parts[0][s] for p in pay), targets[0].lo[s],
-                    "sharded_base_delta")
-            for j, t in enumerate(out):
-                parts[j].append(t)
+        r = _check_delta(targets, payload)
+        parents = [t.parts[0] for t in targets]
+        lo = targets[0].lo
+        w = len(parents[0])
+        if _kind(parents[0]) == "cpu":
+            pay = place(row, payload, delta_row_specs())
+            out = [apply_base_delta_plain(
+                *(p[s] for p in parents), *(x.parts[0][s] for x in pay),
+                lo[s]) for s in range(w)]
+            parts = list(zip(*out))
+        else:
+            rows, order = delta_row_table(payload[0])
+            cards = card_segments(p.device for p in parents[0])
+            pay = _upload((rows, order, *(np.asarray(
+                x.cpu() if isinstance(x, torch.Tensor) else x)
+                for x in payload[1:])), [dev for dev, _i in cards])
+            parts = [[None] * w for _ in targets]
+            for dev, idx in cards:
+                children = _base_delta_card(dev, idx, parents, lo,
+                                            pay[dev][1], r,
+                                            r * 8 <= DELTA_TABLE_SMEM)
+                for j in range(len(targets)):
+                    for i, s in enumerate(idx):
+                        parts[j][s] = children[j][i]
+            cuda.count_launch("sharded_base_delta", len(cards))
         return tuple(Sharded((tuple(p),), t.lo, t.spec)
                      for p, t in zip(parts, targets))
 
@@ -112,6 +287,56 @@ def sharded_base_delta(mesh: Mesh):
 
 
 # ------------------------------------------------------------ K10b
+
+# csrc/group_capacity.cu: NT_GC_CHUNK nodes a staged chunk,
+# NT_GC_SMEM_MAX bytes of dynamic shared memory a CTA (the kernel has no
+# static shared memory).
+GROUP_CHUNK = 4096
+GROUP_SMEM_MAX = 227 * 1024
+_GROUP_PATHS = {"combine": 0, "partials": 1}
+
+
+class GroupLaunch(NamedTuple):
+    """One launch of K10b's kernel: the card, its shards (indices in
+    shard order), the path ("combine": the shards of one card, their
+    partial rows added by the launch's last CTA; "partials": shards on
+    distinct cards, each card's launch writing its shards' partial rows
+    for the combining card's ``nt_group_combine``), the staged chunk's
+    nodes and whether each CTA builds its partial in shared memory
+    (else in its device-memory row)."""
+
+    device: torch.device
+    shards: List[int]
+    path: str
+    chunk: int
+    smem_partial: bool
+
+
+def group_capacity_plan(devices, rows, g_pad: int) -> List[GroupLaunch]:
+    """K10b's launches for shards on ``devices`` with ``rows`` nodes
+    each: one a card. The chunk is the smallest power of two that
+    covers the card's largest shard, at most GROUP_CHUNK; a CTA's
+    shared memory holds the chunk's ids and units (8 B a node) and,
+    where it fits in GROUP_SMEM_MAX, the partial (4 B a group). One card
+    takes the combine path, distinct cards the partials path."""
+    rows = list(rows)
+    cards = card_segments(devices)
+    path = "partials" if len(cards) > 1 else "combine"
+    out = []
+    for dev, idx in cards:
+        most = max(rows[s] for s in idx)
+        chunk = min(GROUP_CHUNK, max(2, 1 << max(most - 1, 0).bit_length()))
+        out.append(GroupLaunch(dev, idx, path, chunk,
+                               chunk * 8 + 4 * g_pad <= GROUP_SMEM_MAX))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(shape, g_pad: int) -> List[GroupLaunch]:
+    """``group_capacity_plan`` of shards given as ((device, rows), ...),
+    kept: the wrappers' calls repeat a few layouts."""
+    return group_capacity_plan([d for d, _n in shape],
+                               [n for _d, n in shape], g_pad)
 
 
 def group_capacity_combine_plain(partials: torch.Tensor) -> torch.Tensor:
@@ -123,49 +348,104 @@ def group_capacity_combine_plain(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The combine path's last-CTA counter a (device, stream): zeroed once,
+# left zeroed by every launch.
+_group_counters: dict = {}
+
+
+def _group_counter(dev, stream: int) -> torch.Tensor:
+    key = (dev, stream)
+    c = _group_counters.get(key)
+    if c is None:
+        c = _group_counters[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=dev)
+    return c
+
+
+def _group_capacity_cards(u_parts, id_parts, g_pad: int,
+                          plan: List[GroupLaunch]) -> torch.Tensor:
+    """K10b's launches (``plan``) on the shards' units and ids: [g_pad]
+    f32 on the first shard's device. The output and the W partial rows
+    are one allocation there (rows addressed by pointer, no views); a
+    card's launch writes its shards' rows there, or to rows of its own
+    that are then copied there. Counts one launch a card, and one more
+    for the distinct-card combine."""
+    home = u_parts[0].device
+    step = 4 * g_pad
+    buf = torch.empty((len(u_parts) + 1) * g_pad, dtype=torch.float32,
+                      device=home)
+    out_ptr = buf.data_ptr()
+    for ln in plan:
+        dev, idx = ln.device, ln.shards
+        local = None if dev == home else torch.empty(
+            len(idx) * g_pad, dtype=torch.float32, device=dev)
+        rows = [out_ptr + step * (1 + s) if local is None
+                else local.data_ptr() + step * i for i, s in enumerate(idx)]
+        dims, ptrs = _seg_table(
+            [u_parts[s].shape[0] for s in idx],
+            [x for s, r in zip(idx, rows) for x in (
+                u_parts[s].data_ptr(), id_parts[s].data_ptr(), r)])
+        with _on(dev):
+            stream = cuda.stream_ptr(dev)
+            combine = ln.path == "combine"
+            cuda.launch("nt_group_capacity", len(idx), g_pad,
+                        _GROUP_PATHS[ln.path], ln.chunk,
+                        int(ln.smem_partial), dims, ptrs,
+                        out_ptr if combine else None,
+                        _group_counter(dev, stream).data_ptr()
+                        if combine else None, stream)
+            if local is not None:
+                for i, s in enumerate(idx):
+                    buf.narrow(0, (1 + s) * g_pad, g_pad).copy_(
+                        local.narrow(0, i * g_pad, g_pad), non_blocking=True)
+    if len(plan) > 1:
+        with _on(home):
+            cuda.launch("nt_group_combine", len(u_parts), g_pad,
+                        out_ptr + step, out_ptr, cuda.stream_ptr(home))
+    cuda.count_launch("group_capacity", len(plan) + (len(plan) > 1))
+    return buf.narrow(0, 0, g_pad)
+
+
 def sharded_group_capacity(mesh: Mesh, g_pad: int):
     """The gang program's topology-group scatter-add over node shards
     (the JAX package's shard_map of ``_group_capacity`` plus a psum):
     ``units`` [N] f32 and ``topo_ids`` [N] i32 (host arrays, or
-    ``Sharded`` over the nodes) give each shard's partial [g_pad]
-    (ops/gang.py group_capacity, csrc/group_capacity.cu), and the W
-    partials, brought to the first shard's device, add up in shard
-    order (K10b's combine). Returns [g_pad] f32 there.
+    ``Sharded`` over the nodes) give each shard's partial [g_pad] (its
+    nodes summed in node order; ids outside [0, g_pad) drop), and the W
+    partials add up in shard order. Returns [g_pad] f32 on the first
+    shard's device.
 
-    Equal to the one-device node-order sum while every partial is exact
-    in float32 (whole numbers under 2^24), as JAX's psum is. Past that
-    (a zero ask gives a node 1e9 units) every addition rounds, and the
-    shard order and the node order each stay within m x 2^-24 of the
-    exact sum of a group's m addends, not equal to each other."""
-    from ..ops.gang import group_capacity
+    On the card (K10b, csrc/group_capacity.cu): one launch a card over
+    that card's shards (``group_capacity_plan`` picks the path), the
+    partials combined in the same launch when every shard is on one
+    card, else by ``nt_group_combine`` on the first shard's card. The
+    kernel keeps the plain version's order, so the result is bit-equal
+    to it, also past 2^24 (a zero ask gives a node 1e9 units), where
+    every addition rounds. Equal to the one-device node-order sum while
+    every partial is exact in float32 (whole numbers under 2^24), as
+    JAX's psum is; past that the shard order and the node order each
+    stay within m x 2^-24 of the exact sum of a group's m addends."""
+    from ..ops.gang import group_capacity_plain
 
     row = Mesh([mesh.row(0)])
-    w = node_shard_count(mesh)
 
     def run(units, topo_ids):
         pair = [units, topo_ids]
         if not all(is_sharded(t) for t in pair):
             pair = list(place(row, pair, [(NODE_AXIS,), (NODE_AXIS,)]))
         u_parts, id_parts = pair[0].parts[0], pair[1].parts[0]
-        home = u_parts[0].device
-        partials = torch.empty((w, g_pad), dtype=torch.float32, device=home)
-        for s in range(w):
-            dev = u_parts[s].device
-            with _on(dev):
-                if dev == home:
-                    group_capacity(u_parts[s], id_parts[s], g_pad,
-                                   out=partials[s])
-                else:
-                    partials[s].copy_(group_capacity(
-                        u_parts[s], id_parts[s], g_pad), non_blocking=True)
-        if home.type == "cpu":
-            return group_capacity_combine_plain(partials)
-        out = torch.empty(g_pad, dtype=torch.float32, device=home)
-        with _on(home):
-            cuda.launch("nt_group_combine", w, g_pad, partials.data_ptr(),
-                        out.data_ptr(), cuda.stream_ptr(home))
-        cuda.count_launch("group_capacity")
-        return out
+        shape = []
+        for u, i in zip(u_parts, id_parts):
+            n, dev = u.shape[0], u.device
+            _check("units", u, torch.float32, (n,), dev)
+            _check("topo_ids", i, torch.int32, (n,), dev)
+            shape.append((dev, n))
+        if _kind(u_parts) == "cpu":
+            return group_capacity_combine_plain(torch.stack([
+                group_capacity_plain(u, i, g_pad)
+                for u, i in zip(u_parts, id_parts)]))
+        return _group_capacity_cards(u_parts, id_parts, g_pad,
+                                     _cached_plan(tuple(shape), g_pad))
 
     return run
 
@@ -1101,8 +1381,8 @@ def sharded_gang_scan(shards: List[GangShard], active, group_noise, config):
     kernel a shard and a winner kernel that carries the winner's
     topology group id, read on its owning shard, so every shard adds
     the member to the same group; the all-K rewrite. K x (W + 1) + 2 W
-    + 2 launches of its own, plus K10b's W + 1 in slice and spread
-    mode."""
+    + 2 launches of its own, plus K10b's (one a card) in slice and
+    spread mode."""
     from ..ops.gang import _MODE_IDS, GANG_MODE_SLICE, GANG_MODE_SPREAD
 
     _check_gang_shards(shards, active, group_noise, config)

@@ -1035,66 +1035,225 @@ def test_sharded_uniform_topk_global_scratch_and_surplus(dev, w):
     assert torch.equal(runs[0][0], ch)
 
 
-@pytest.mark.parametrize("w", [1, 2, 4])
-def test_sharded_base_delta_matches_plain(dev, w):
-    """K10a: rows in every shard, padding rows repeating the first
-    row; each shard keeps its own rows. Bit-equal to the plain version
-    and to K4 on the whole base."""
-    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
-    from nomad_tpu_torch.parallel.shard import sharded_base_delta
-
-    n, r = 4096, 256
-    rng = np.random.default_rng(w)
+def delta_inputs(n, r, seed):
+    """A parent base of n rows and an R-row payload: R - 56 distinct
+    rows, the rest repeating the first (the batcher's padding), two rows
+    outside the base."""
+    rng = np.random.default_rng(seed)
     parent = (rng.random((n, 4)).astype(np.float32),
               rng.random(n).astype(np.float32),
               rng.random(n).astype(np.float32), rng.random(n) < 0.5)
+    real = r - 56
     rows = np.full(r, 0, np.int32)
-    rows[:200] = rng.choice(n, 200, replace=False)
-    rows[200:] = rows[0]
+    rows[:real] = rng.choice(n, real, replace=False)
+    rows[real:] = rows[0]
     vals = [rng.random((r, 4)).astype(np.float32),
             rng.random(r).astype(np.float32),
             rng.random(r).astype(np.float32), rng.random(r) < 0.5]
     for v in vals:
-        v[200:] = v[0]
+        v[real:] = v[0]
+    rows[1], rows[2] = -5, n + 3
+    return parent, rows, vals
+
+
+@pytest.mark.parametrize("r", [256, 4096])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 9])
+def test_sharded_base_delta_matches_plain(dev, w, r):
+    """K10a: one fused launch over the W shards of the card, rows in
+    every shard, padding rows repeating the first row, rows outside the
+    base dropped. Bit-equal to the plain version and to K4 on the whole
+    base; the parent stays as it was."""
+    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
+    from nomad_tpu_torch.parallel.shard import sharded_base_delta
+
+    n = 4608
+    parent, rows, vals = delta_inputs(n, r, w + r)
     specs = [("nodes", None), ("nodes",), ("nodes",), ("nodes",)]
     got = []
     for devices in (["cuda"] * w, ["cpu"] * w):
         mesh = make_mesh(devices=devices)
         targets = place(mesh, parent, specs)
+        cuda.reset_launch_counts()
         got.append([gather(x) for x in sharded_base_delta(mesh)(
             *targets, rows, *vals)])
+        assert cuda.launch_counts().get("sharded_base_delta", 0) == (
+            1 if devices[0] == "cuda" else 0)
         for x, p in zip(targets, parent):
             assert torch.equal(gather(x), torch.from_numpy(p))  # untouched
+    keep = (rows >= 0) & (rows < n)
     one = binpack.apply_base_delta(*(torch.from_numpy(x).to(dev) for x in (
-        *parent, rows, *vals)))
+        *parent, rows[keep], *(v[keep] for v in vals))))
     for x, y, z in zip(*got, one):
         assert torch.equal(x, y) and torch.equal(x, z.cpu())
 
 
-@pytest.mark.parametrize("w,g_pad,singletons", [
-    (1, 256, False), (2, 16, False), (4, 2048, False), (4, 10240, True)])
-def test_sharded_group_capacity_matches_plain(dev, w, g_pad, singletons):
-    """K10b: -1 ids drop, a group spans shards, more than 1,024 groups,
-    and one group a node (the meta-less case, g_pad 10,240). Whole
-    numbers under 2^24: bit-equal to the plain version and to the
-    one-device index_add_."""
+def test_sharded_base_delta_children_share_one_allocation(dev):
+    """The card's children are views of one allocation, the util rows
+    16-byte aligned; a second delta on a child leaves that child as it
+    was."""
+    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
+    from nomad_tpu_torch.parallel.shard import sharded_base_delta
+
+    n, w = 2048, 4
+    parent, rows, vals = delta_inputs(n, 256, 3)
+    mesh = make_mesh(devices=["cuda"] * w)
+    child = sharded_base_delta(mesh)(*place(mesh, parent, [
+        ("nodes", None), ("nodes",), ("nodes",), ("nodes",)]), rows, *vals)
+    storage = {x.untyped_storage().data_ptr() for c in child
+               for x in c.parts[0]}
+    assert len(storage) == 1
+    assert all(x.data_ptr() % 16 == 0 for x in child[0].parts[0])
+    before = [gather(c) for c in child]
+    _p2, rows2, vals2 = delta_inputs(n, 256, 4)
+    grand = sharded_base_delta(mesh)(*child, rows2, *vals2)
+    for c, b in zip(child, before):
+        assert torch.equal(gather(c), b)
+    keep = (rows2 >= 0) & (rows2 < n)
+    for j, (g, b) in enumerate(zip(grand, before)):
+        b = b.clone()
+        b[torch.from_numpy(rows2[keep]).long()] = torch.from_numpy(
+            vals2[j][keep])
+        assert torch.equal(gather(g), b)
+
+
+def test_sharded_base_delta_refused_launch_raises(dev):
+    """No fallback: a table forced into shared memory past its 227 KB
+    (R = 32,768) is refused by the C entry, and the wrapper raises. The
+    same table searched in device memory gives each child the plain
+    scatter of its shard (duplicate rows carry equal values, as the
+    batcher's padding does; rows outside the base drop)."""
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import make_mesh, place
+
+    n, r = 1024, 32768
+    parent, _rows, _vals = delta_inputs(n, 256, 5)
+    mesh = make_mesh(devices=["cuda"] * 2)
+    targets = place(mesh, parent, [("nodes", None), ("nodes",), ("nodes",),
+                                   ("nodes",)])
+    rng = np.random.default_rng(5)
+    raw = rng.integers(-32, n + 32, r).astype(np.int32)
+    by_row = (rng.random((n + 64, 4)).astype(np.float32),
+              rng.random(n + 64).astype(np.float32),
+              rng.random(n + 64).astype(np.float32), rng.random(n + 64) < 0.5)
+    vals = [v[raw + 32] for v in by_row]
+    rows, order = shard.delta_row_table(raw)
+    pay = [torch.from_numpy(x).to(dev) for x in (rows, order, *vals)]
+    parents = [t.parts[0] for t in targets]
+    ptrs = [x.data_ptr() for x in pay]
+    with pytest.raises(RuntimeError, match="nt_base_delta_shards"):
+        shard._base_delta_card(parents[0][0].device, [0, 1], parents,
+                               targets[0].lo, ptrs, r, True)
+    got = shard._base_delta_card(parents[0][0].device, [0, 1], parents,
+                                 targets[0].lo, ptrs, r, False)
+    for i in range(2):
+        want = binpack.apply_base_delta_plain(
+            *(p[i].cpu() for p in parents), torch.from_numpy(raw),
+            *(torch.from_numpy(v) for v in vals), targets[0].lo[i])
+        for g, x in zip(got, want):
+            assert torch.equal(g[i].cpu(), x)
+
+
+def group_inputs(n, g_pad, seed, huge=False):
+    """Units and ids for K10b: whole numbers under 2^24 (or, ``huge``,
+    1e9-scale addends whose sums round), ids in range with -1s (at
+    most n / 3 groups, so groups collect several nodes), and one group a
+    node at g_pad = n + 1,024."""
+    rng = np.random.default_rng(seed)
+    if huge:
+        units = rng.choice(np.array([1e9, 1e9 + 64, 7.5e8, 3.0, 0.0],
+                                    np.float32), n)
+    else:
+        units = rng.integers(0, 40, n).astype(np.float32)
+    ids = (np.arange(n) if g_pad == n + 1024 else rng.integers(
+        0, min(g_pad - 2, n // 3), n)).astype(np.int32)
+    ids[rng.choice(n, 50, replace=False)] = -1
+    return units, ids
+
+
+@pytest.mark.parametrize("g_pad", [16, 256, 2048, 10240, 65536])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 9])
+def test_sharded_group_capacity_matches_plain(dev, w, g_pad):
+    """K10b, one launch on the card: -1 ids drop, a group spans shards,
+    more than 1,024 groups, one group a node (g_pad 10,240), and a
+    partial past shared memory (g_pad 65,536: built in its device-memory
+    row). Whole numbers under 2^24: bit-equal to the plain version and
+    to the one-device index_add_; run twice (the last CTA's counter is
+    left zeroed)."""
     from nomad_tpu_torch.ops.gang import group_capacity_plain
     from nomad_tpu_torch.parallel.mesh import make_mesh
     from nomad_tpu_torch.parallel.shard import sharded_group_capacity
 
-    n = 10240 if singletons else 4096
-    rng = np.random.default_rng(g_pad)
-    units = rng.integers(0, 40, n).astype(np.float32)
-    ids = (np.arange(n) if singletons else rng.integers(0, g_pad - 2, n)) \
-        .astype(np.int32)
-    ids[rng.choice(n, 50, replace=False)] = -1
-    got = sharded_group_capacity(make_mesh(devices=["cuda"] * w), g_pad)(
-        units, ids)
+    n = 9216
+    units, ids = group_inputs(n, g_pad, g_pad + w)
+    run = sharded_group_capacity(make_mesh(devices=["cuda"] * w), g_pad)
+    cuda.reset_launch_counts()
+    got = [run(units, ids).cpu() for _ in range(2)]
+    assert cuda.launch_counts()["group_capacity"] == 2
     want = sharded_group_capacity(make_mesh(devices=["cpu"] * w), g_pad)(
         units, ids)
     one = group_capacity_plain(torch.from_numpy(units),
                                torch.from_numpy(ids), g_pad)
-    assert torch.equal(got.cpu(), want) and torch.equal(want, one)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    assert torch.equal(want, one)
+
+
+@pytest.mark.parametrize("g_pad", [16, 2048, 65536])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 9])
+def test_sharded_group_capacity_past_2_24_on_the_card(dev, w, g_pad):
+    """Past 2^24 every addition rounds: 1e9-scale addends mixed with
+    small ones, so the order decides the bits. The kernel keeps the
+    plain version's order (node order in a shard, shard order across),
+    so it is bit-equal to it."""
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+    from nomad_tpu_torch.parallel.shard import sharded_group_capacity
+
+    n = 9216
+    units, ids = group_inputs(n, g_pad, 7 * w + g_pad, huge=True)
+    got = sharded_group_capacity(make_mesh(devices=["cuda"] * w), g_pad)(
+        units, ids)
+    want = sharded_group_capacity(make_mesh(devices=["cpu"] * w), g_pad)(
+        units, ids)
+    assert float(want.max()) > 2.0 ** 24
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("g_pad,smem_partial", [(49920, True),
+                                                 (49921, False)])
+def test_sharded_group_capacity_at_the_shared_memory_edge(dev, g_pad,
+                                                          smem_partial):
+    """At a chunk of 4,096 (shards of 2,560 nodes) the last g_pad whose
+    partial fits beside the chunk in a CTA's 227 KB takes all of it, and
+    the launch is taken; one more group builds the partial in its
+    device-memory row. Both bit-equal to the plain version."""
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    n, w = 10240, 4
+    units, ids = group_inputs(n, g_pad, 11)
+    mesh = make_mesh(devices=["cuda"] * w)
+    (ln,) = shard.group_capacity_plan(["cuda"] * w, [n // w] * w, g_pad)
+    assert (ln.chunk, ln.smem_partial) == (4096, smem_partial)
+    got = shard.sharded_group_capacity(mesh, g_pad)(units, ids)
+    want = shard.sharded_group_capacity(make_mesh(devices=["cpu"] * w),
+                                        g_pad)(units, ids)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sharded_group_capacity_refused_launch_raises(dev):
+    """No fallback: a partial forced into shared memory past its 227 KB
+    is refused by the C entry, and the wrapper raises."""
+    from nomad_tpu_torch.parallel import shard
+
+    g_pad, w = 65536, 4
+    units, ids = group_inputs(1024, g_pad, 1)
+    u = torch.from_numpy(units).to(dev).chunk(w)
+    i = torch.from_numpy(ids).to(dev).chunk(w)
+    (ln,) = shard.group_capacity_plan([x.device for x in u],
+                                      [x.shape[0] for x in u], g_pad)
+    assert (ln.path, ln.smem_partial) == ("combine", False)
+    forced = ln._replace(smem_partial=True)
+    with pytest.raises(RuntimeError, match="nt_group_capacity"):
+        shard._group_capacity_cards(u, i, g_pad, [forced])
 
 
 @pytest.mark.parametrize("w", [2, 4])
@@ -1114,9 +1273,9 @@ def test_noise_window_at_an_offset(dev, w):
 
 
 def test_sharded_wrappers_count_their_launches(dev):
-    """K x (W + 1) + W launches for a greedy scan of one eval, one for
-    an independent top-k on the shards of one card, W + 1 for a group
-    capacity, W for a delta; plain versions count nothing."""
+    """K x (W + 1) + W launches for a greedy scan of one eval; one for
+    an independent top-k, a group capacity and a base delta on the
+    shards of one card; plain versions count nothing."""
     from nomad_tpu_torch.parallel import shard
     from nomad_tpu_torch.parallel.mesh import make_mesh
 
@@ -1134,10 +1293,15 @@ def test_sharded_wrappers_count_their_launches(dev):
     mesh = make_mesh(devices=["cuda"] * w)
     shard.sharded_group_capacity(mesh, 16)(
         np.ones(n, np.float32), np.zeros(n, np.int32))
+    parent, rows, vals = delta_inputs(n, 256, 1)
+    shard.sharded_base_delta(mesh)(*parent, rows, *vals)
+    shard.sharded_base_delta(make_mesh(devices=["cpu"] * w))(
+        *parent, rows, *vals)
     counts = cuda.launch_counts()
     assert counts["sharded_greedy_scan"] == k * (w + 1) + w
     assert counts["sharded_uniform_topk"] == 1
-    assert counts["group_capacity"] == w + 1
+    assert counts["group_capacity"] == 1
+    assert counts["sharded_base_delta"] == 1
 
 
 @pytest.mark.parametrize("w,seq,launches", [(4, False, 1), (4, True, 1),
@@ -1395,8 +1559,8 @@ def test_sharded_convex_round_matches_plain_and_k8b(dev, layout, b, n, k, g,
 def test_mesh_kernel_wrappers_count_their_launches(dev):
     """K10g-b: K x (W + 1) + W a call; K10g-a: 3 W + iters x (2 W + 1) +
     2 x (2 W + 1); K10f: 3 W + iters x (2 W + 1) + 2 W + 1; K10e in
-    slice mode: W + 1 + K x (W + 1) + W + 1, and K10b's W + 1; plain
-    versions count nothing."""
+    slice mode: W + 1 + K x (W + 1) + W + 1, and K10b's one (the shards
+    share one card); plain versions count nothing."""
     from nomad_tpu_torch.parallel import shard
 
     b, n, k, w, it = 1, 512, 5, 4, convex.SOLVE_ITERS
@@ -1435,7 +1599,7 @@ def test_mesh_kernel_wrappers_count_their_launches(dev):
     assert counts["sharded_defrag_solve"] == \
         3 * w + iters * (2 * w + 1) + 2 * w + 1
     assert counts["sharded_gang_scan"] == w + 1 + 8 * (w + 1) + w + 1
-    assert counts["group_capacity"] == w + 1
+    assert counts["group_capacity"] == 1
 
 
 def _to(x, device):
@@ -1451,8 +1615,9 @@ def _to(x, device):
 def test_sharded_paths_on_distinct_cards(dev):
     """The distinct-card path: four shards over the cards round-robin
     (per-card launches, partial buffers and winners crossing between
-    cards) give what four shards of one card give, for K10a-K10d.
-    Skips on a machine with one card."""
+    cards) give what four shards of one card give, for K10a-K10d; K10a
+    and K10b also at eight shards (two a card on four cards). Skips on
+    a machine with one card."""
     from nomad_tpu_torch.parallel import shard
     from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
 
@@ -1493,16 +1658,23 @@ def test_sharded_paths_on_distinct_cards(dev):
     units = rng.integers(0, 40, n).astype(np.float32)
     ids = rng.integers(-1, 1100, n).astype(np.int32)
     specs = [("nodes", None), ("nodes",), ("nodes",), ("nodes",)]
-    out = []
-    for devices in (["cuda:0"] * w, [str(d) for d in spread]):
-        mesh = make_mesh(devices=devices)
-        delta = shard.sharded_base_delta(mesh)(
-            *place(mesh, parent, specs), rows, *vals)
-        caps = shard.sharded_group_capacity(mesh, 1152)(units, ids)
-        out.append(([gather(x) for x in delta], caps.cpu()))
-    for x, y in zip(out[0][0], out[1][0]):
-        assert torch.equal(x, y)
-    assert torch.equal(out[0][1], out[1][1])
+    # K10a and K10b launch once a card: one shard a card (W = 4) and two
+    # (W = 8), the partial rows in shared memory (g_pad 1,152) and past
+    # it (65,536), combined on the first shard's card.
+    for shards in (w, 2 * w):
+        out = []
+        for devices in (["cuda:0"] * shards,
+                        [f"cuda:{s % cards}" for s in range(shards)]):
+            mesh = make_mesh(devices=devices)
+            delta = shard.sharded_base_delta(mesh)(
+                *place(mesh, parent, specs), rows, *vals)
+            caps = [shard.sharded_group_capacity(mesh, g_pad)(units, ids)
+                    .cpu() for g_pad in (1152, 65536)]
+            out.append(([gather(x) for x in delta], caps))
+        for x, y in zip(out[0][0], out[1][0]):
+            assert torch.equal(x, y), shards
+        for x, y in zip(out[0][1], out[1][1]):
+            assert torch.equal(x, y), shards
 
 
 def test_mesh_programs_on_distinct_cards(dev):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the uniform top-K kernel (csrc/uniform_topk.cu)
-goes on one NVIDIA card, at chip_smoke.py's widths (N = 10,240 nodes,
-G = 2, inputs from chip_smoke.kernel_inputs).
+"""Where the time of the uniform top-K kernel (csrc/uniform_topk.cu),
+and of the node-shard kernels K10a and K10b (parallel/shard.py
+sharded_base_delta, sharded_group_capacity), goes on one NVIDIA card,
+at chip_smoke.py's widths (N = 10,240 nodes, G = 2, inputs from
+chip_smoke.kernel_inputs; 4 shards of one card).
 
-    python3 topk_profile.py [--seed N]
+    python3 topk_profile.py [--seed N] [--sections host,waves,steps,shards]
 
 Prints, one JSON object a line:
 
@@ -30,6 +32,22 @@ Prints, one JSON object a line:
    the node axis over a cluster of 8 CTAs, A.3 the rows resident in
    shared memory (the wrappers' launch); call and device times, each
    step's choices and carry held equal to A.3's.
+6. ``shards``: K10a (R = 256 and 4,096 payload rows) and K10b (g_pad
+   10,240 singletons and 256 racks of 40) on 4 shards of one card:
+   each call held bit-equal to its plain version, its launches, its
+   CUDA-event time, its device time (torch.profiler: every device
+   activity of the call, copies included, and the kernels alone), the
+   library calls' times, and its host split (``HostSplit``): the mean
+   host span of a call (median) and, of its mean with the parts timed,
+   the argument checks, ``place``, the payload's upload, the child
+   arrays' allocation, allocations, clones, stream lookups, ctypes
+   tables, C entry points (``cuda.launch``: the ctypes call and the
+   launch), launch counts, device switches and the host sort of the
+   rows. Only the outermost of nested parts counts; "other" is the
+   Python glue. Parts that a tree does not have are skipped, so the
+   section runs on an earlier checkout's package too (copy this script
+   and chip_smoke.py, whose timers and ``library_delta`` it uses,
+   beside it).
 
 Exits non-zero with no result when no CUDA card is present.
 """
@@ -49,19 +67,194 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RUNS = 50
 
 
-def host_ms(torch, fn, runs=RUNS):
-    """Median host span of ``fn()`` in ms, the card synchronised before
-    each call (so no queue of earlier work delays the launch)."""
-    for _ in range(3):
+# The host parts of a wrapper call: (label, owner, attribute). A string
+# owner names a module of the port; the attribute is replaced there and
+# in every loaded module of the port that holds the same object.
+SPLIT_PARTS = (
+    ("checks", "nomad_tpu_torch.ops.binpack", "_check"),
+    ("checks", "nomad_tpu_torch.parallel.shard", "_check_delta"),
+    ("place", "nomad_tpu_torch.parallel.mesh", "place"),
+    ("upload", "nomad_tpu_torch.parallel.shard", "_upload"),
+    ("children", "nomad_tpu_torch.parallel.shard", "_child_views"),
+    ("sorts", "nomad_tpu_torch.parallel.shard", "delta_row_table"),
+    ("stream", "nomad_tpu_torch.ops.cuda", "stream_ptr"),
+    ("tables", "nomad_tpu_torch.parallel.shard", "_seg_table"),
+    ("entry", "nomad_tpu_torch.ops.cuda", "launch"),
+    ("count", "nomad_tpu_torch.ops.cuda", "count_launch"),
+    ("device_switch", "nomad_tpu_torch.parallel.shard", "_on"),
+)
+
+
+class HostSplit:
+    """Times the host parts of the calls made inside the block (see
+    SPLIT_PARTS, plus ``torch.empty``/``torch.zeros`` as allocations and
+    ``Tensor.clone`` as clones): each part's total seconds in ``spent``.
+    A part called inside another part counts as the outer one's."""
+
+    def __init__(self, torch, np):
+        self.spent = {}
+        self.depth = 0
+        self.undo = []
+        self.parts = [(label, sys.modules.get(owner), name)
+                      for label, owner, name in SPLIT_PARTS]
+        self.parts += [("allocs", torch, "empty"), ("allocs", torch, "zeros"),
+                       ("clones", torch.Tensor, "clone")]
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            self.depth = 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.spent[label] = self.spent.get(label, 0.0) + (
+                    time.perf_counter() - t0)
+                self.depth = 0
+        return timed
+
+    def __enter__(self):
+        port = [m for name, m in list(sys.modules.items())
+                if name.startswith("nomad_tpu_torch") and m is not None]
+        for label, owner, name in self.parts:
+            orig = getattr(owner, name, None) if owner is not None else None
+            if orig is None:
+                continue
+            timed = self._wrap(label, orig)
+            holders = [owner] + [m for m in port if m is not owner
+                                 and getattr(m, name, None) is orig]
+            for h in holders:
+                self.undo.append((h, name, orig, name in vars(h)))
+                setattr(h, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for h, name, orig, own in reversed(self.undo):
+            if own:
+                setattr(h, name, orig)
+            else:
+                delattr(h, name)
+        self.undo = []
+
+
+def host_split(torch, np, fn, runs=RUNS):
+    """Host span of ``fn()`` in ms: the median without the parts timed
+    (``host_ms``), the mean with them (HostSplit, ``timed_host_ms``) and
+    each part's mean a call (``parts_ms``, adding up to the timed mean);
+    the card synchronised before each call. ``other`` is the rest of
+    the timed span."""
+    plain = []
+    for _ in range(10):
         fn()
-    spans = []
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        spans.append((time.perf_counter() - t0) * 1000.0)
+        plain.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return statistics.median(spans)
+    split = HostSplit(torch, np)
+    spans = []
+    with split:
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            spans.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    parts = {k: v * 1000.0 / runs for k, v in sorted(split.spent.items())}
+    timed = sum(spans) * 1000.0 / runs
+    parts["other"] = timed - sum(parts.values())
+    return dict(host_ms=statistics.median(plain) * 1000.0,
+                timed_host_ms=timed, parts_ms=parts)
+
+
+def shard_section(torch, np, cs, seed):
+    """K10a and K10b on 4 shards of one card (section 6)."""
+    from nomad_tpu_torch.ops import cuda
+    from nomad_tpu_torch.ops.gang import group_capacity_plain
+    from nomad_tpu_torch.parallel import shard
+    from nomad_tpu_torch.parallel.mesh import gather, make_mesh, place
+
+    n, w = cs.BENCH_N, 4
+    mesh = make_mesh(devices=["cuda:0"] * w)
+    rng = np.random.default_rng(seed + 80)
+
+    def launches(name, fn):
+        cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, cuda.launch_counts().get(name, 0)
+
+    def record(kernel, shape, name, call, match, library):
+        n_launch = launches(name, call)[1]
+        out = dict(kernel=kernel, **shape, shards=w, launches=n_launch,
+                   call_ms=cs.time_cuda(torch, call, RUNS),
+                   device_ms=cs.device_ms(torch, call, RUNS),
+                   kernel_device_ms=cs.device_ms(torch, call, RUNS,
+                                                 match=match),
+                   **host_split(torch, np, call))
+        for key, fn in library.items():
+            out[key] = cs.time_cuda(torch, fn, RUNS)
+        print(json.dumps({"shards": out}))
+
+    # ---- K10a: R payload rows (R - 56 distinct, the rest repeating the
+    # first, as the batcher pads) over the 4 shards of a placed parent
+    parent = (rng.random((n, 4)).astype(np.float32),
+              rng.random(n).astype(np.float32),
+              rng.random(n).astype(np.float32), rng.random(n) < 0.5)
+    specs = [("nodes", None), ("nodes",), ("nodes",), ("nodes",)]
+    targets = place(mesh, parent, specs)
+    flat = [torch.from_numpy(x).cuda() for x in parent]
+    for r in (256, 4096):
+        real = r - 56
+        rows = np.full(r, 0, np.int32)
+        rows[:real] = rng.choice(n, real, replace=False)
+        rows[real:] = rows[0]
+        vals = [rng.random((r, 4)).astype(np.float32),
+                rng.random(r).astype(np.float32),
+                rng.random(r).astype(np.float32), rng.random(r) < 0.5]
+        for v in vals:
+            v[real:] = v[0]
+        payload = (rows, *vals)
+        run = lambda: shard.sharded_base_delta(mesh)(  # noqa: E731
+            *targets, *payload)
+        got = run()
+        for j, (g, p) in enumerate(zip(got, parent)):
+            want = torch.from_numpy(p.copy())
+            want[torch.from_numpy(rows).long()] = torch.from_numpy(vals[j])
+            cs.check(torch.equal(gather(g), want),
+                     f"K10a R={r}: differs from the one-device scatter")
+        idx = (torch.from_numpy(rows).long().cuda(),)
+        on_card = [torch.from_numpy(v).cuda() for v in vals]
+        lib = cs.library_delta(torch, np, targets, payload)
+        cs.check(all(torch.equal(g.parts[0][s], lib[s][j])
+                     for j, g in enumerate(got) for s in range(w)),
+                 f"K10a R={r}: differs from the library calls")
+        record("K10a", dict(r=r), "sharded_base_delta", run, "delta", {
+            "library_ms": lambda: [torch.index_put(x, idx, v)
+                                   for x, v in zip(flat, on_card)],
+            "library_place_ms": lambda: cs.library_delta(
+                torch, np, targets, payload)})
+    # ---- K10b: singletons (g_pad 10,240) and racks of 40 (g_pad 256)
+    units = rng.integers(0, 40, n).astype(np.float32)
+    for g_pad, ids in ((n, np.arange(n)), (256, np.arange(n) // 40)):
+        ids = ids.astype(np.int32)
+        ids[rng.choice(n, 64, replace=False)] = -1
+        u_sh, i_sh = place(mesh, (units, ids), (("nodes",), ("nodes",)))
+        fn = shard.sharded_group_capacity(mesh, g_pad)
+        run = lambda: fn(u_sh, i_sh)  # noqa: E731
+        want = shard.group_capacity_combine_plain(torch.stack([
+            group_capacity_plain(u.cpu(), i.cpu(), g_pad)
+            for u, i in zip(u_sh.parts[0], i_sh.parts[0])]))
+        cs.check(torch.equal(run().cpu(), want),
+                 f"K10b g_pad={g_pad}: differs from the plain version")
+        keep = ids >= 0
+        tu = torch.from_numpy(units[keep]).cuda()
+        ti = torch.from_numpy(ids[keep]).long().cuda()
+        record("K10b", dict(g_pad=g_pad), "group_capacity", run, "group", {
+            "library_ms": lambda: torch.zeros(
+                g_pad, device=tu.device).index_add_(0, ti, tu)})
 
 
 def build_entries(path):
@@ -98,7 +291,11 @@ def build_entries(path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sections", default="host,waves,steps,shards",
+                    help="comma-separated sections to run (build and card "
+                    "always print)")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -130,115 +327,123 @@ def main(argv=None) -> int:
                     out)
         return out[0]
 
-    # ---- host: B = 1, K = 1,024
-    b, k = 1, 1024
-    base, jc, tgc, feas, uasks, static, noise = inputs(b, k, args.seed + 1)
-    carry = cs.new_carry(torch, base, jc, tgc)
-    box = {"c": carry}
-    fresh = lambda: box.__setitem__(  # noqa: E731
-        "c", cs.new_carry(torch, base, jc, tgc))
-    # The host spans reuse one carry; the card's times take a fresh one
-    # a call (a carry filled by earlier calls ties every key).
-    call = lambda: binpack.uniform_topk(  # noqa: E731
-        *static, box["c"], feas, uasks, noise, 10.0)
-    checks = lambda: binpack._check_scan_args(  # noqa: E731
-        *static, carry, feas, uasks, noise, (n,), False)
-    ts = (*static, *carry, feas, noise)
+    if "host" in sections:
+        # ---- host: B = 1, K = 1,024
+        b, k = 1, 1024
+        base, jc, tgc, feas, uasks, static, noise = inputs(b, k, args.seed + 1)
+        carry = cs.new_carry(torch, base, jc, tgc)
+        box = {"c": carry}
+        fresh = lambda: box.__setitem__(  # noqa: E731
+            "c", cs.new_carry(torch, base, jc, tgc))
+        # The host spans reuse one carry; the card's times take a fresh one
+        # a call (a carry filled by earlier calls ties every key).
+        call = lambda: binpack.uniform_topk(  # noqa: E731
+            *static, box["c"], feas, uasks, noise, 10.0)
+        checks = lambda: binpack._check_scan_args(  # noqa: E731
+            *static, carry, feas, uasks, noise, (n,), False)
+        ts = (*static, *carry, feas, noise)
 
-    def arrays():
-        dims = (ctypes.c_longlong * 2)(0, n)
-        ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in ts])
-        return dims, ptrs
+        def arrays():
+            dims = (ctypes.c_longlong * 2)(0, n)
+            ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in ts])
+            return dims, ptrs
 
-    dims, ptrs = arrays()
-    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
-    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
-    stream = cuda.stream_ptr(dev)
-    launch = lambda: cuda.launch(  # noqa: E731
-        "nt_uniform_topk", b, g, k, 1, n, 10.0, 0, 0, binpack.TOPK_CLUSTER,
-        1, dims, ptrs, uasks.resources.data_ptr(), uasks.bw.data_ptr(),
-        uasks.ports.data_ptr(), uasks.tg_index.data_ptr(),
-        uasks.active.data_ptr(), uasks.job_distinct_hosts.data_ptr(),
-        uasks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
-        scores.data_ptr(), stream)
-    one = torch.empty(1, dtype=torch.int32, device=dev)
-    small = lambda: cuda.launch(  # noqa: E731
-        "nt_argmax_chain", 1, one.data_ptr(), stream)
-    score = torch.randn((b, n), device=dev)
-    topk = lambda: torch.topk(score, k, dim=1)  # noqa: E731
-    alloc = lambda: (  # noqa: E731
-        torch.empty((b, k), dtype=torch.int32, device=dev),
-        torch.empty((b, k), dtype=torch.float32, device=dev))
-    print(json.dumps({"host": dict(
-        b=b, k=k, call_ms=host_ms(torch, call),
-        checks_ms=host_ms(torch, checks),
-        arrays_ms=host_ms(torch, arrays),
-        alloc_ms=host_ms(torch, alloc),
-        stream_ms=host_ms(torch, lambda: cuda.stream_ptr(dev)),
-        count_ms=host_ms(torch, lambda: cuda.count_launch("uniform_topk")),
-        launch_ms=host_ms(torch, launch),
-        smallest_launch_ms=host_ms(torch, small),
-        library_call_ms=host_ms(torch, topk),
-        call_event_ms=cs.time_cuda(torch, call, RUNS, setup=fresh),
-        call_device_ms=cs.device_ms(torch, call, RUNS, setup=fresh,
-                                    match="topk"),
-        library_event_ms=cs.time_cuda(torch, topk, RUNS),
-        library_device_ms=cs.device_ms(torch, topk, RUNS))}))
+        dims, ptrs = arrays()
+        choices = torch.empty((b, k), dtype=torch.int32, device=dev)
+        scores = torch.empty((b, k), dtype=torch.float32, device=dev)
+        stream = cuda.stream_ptr(dev)
+        launch = lambda: cuda.launch(  # noqa: E731
+            "nt_uniform_topk", b, g, k, 1, n, 10.0, 0, 0, binpack.TOPK_CLUSTER,
+            1, dims, ptrs, uasks.resources.data_ptr(), uasks.bw.data_ptr(),
+            uasks.ports.data_ptr(), uasks.tg_index.data_ptr(),
+            uasks.active.data_ptr(), uasks.job_distinct_hosts.data_ptr(),
+            uasks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
+            scores.data_ptr(), stream)
+        one = torch.empty(1, dtype=torch.int32, device=dev)
+        small = lambda: cuda.launch(  # noqa: E731
+            "nt_argmax_chain", 1, one.data_ptr(), stream)
+        score = torch.randn((b, n), device=dev)
+        topk = lambda: torch.topk(score, k, dim=1)  # noqa: E731
+        alloc = lambda: (  # noqa: E731
+            torch.empty((b, k), dtype=torch.int32, device=dev),
+            torch.empty((b, k), dtype=torch.float32, device=dev))
+        print(json.dumps({"host": dict(
+            b=b, k=k, call_ms=cs.host_ms(torch, call, RUNS),
+            checks_ms=cs.host_ms(torch, checks, RUNS),
+            arrays_ms=cs.host_ms(torch, arrays, RUNS),
+            alloc_ms=cs.host_ms(torch, alloc, RUNS),
+            stream_ms=cs.host_ms(torch, lambda: cuda.stream_ptr(dev),
+                                 RUNS),
+            count_ms=cs.host_ms(torch, lambda: cuda.count_launch(
+                "uniform_topk"), RUNS),
+            launch_ms=cs.host_ms(torch, launch, RUNS),
+            smallest_launch_ms=cs.host_ms(torch, small, RUNS),
+            library_call_ms=cs.host_ms(torch, topk, RUNS),
+            call_event_ms=cs.time_cuda(torch, call, RUNS, setup=fresh),
+            call_device_ms=cs.device_ms(torch, call, RUNS, setup=fresh,
+                                        match="topk"),
+            library_event_ms=cs.time_cuda(torch, topk, RUNS),
+            library_device_ms=cs.device_ms(torch, topk, RUNS))}))
 
-    # ---- waves: K = 1,024, B = 1 and 64, 1-8 CTAs a cluster
-    for b in (1, 64):
+    if "waves" in sections:
+        # ---- waves: K = 1,024, B = 1 and 64, 1-8 CTAs a cluster
+        for b in (1, 64):
+            base, jc, tgc, feas, uasks, static, noise = inputs(
+                b, k, args.seed + b)
+            want = None
+            for cps in (1, 2, 4, 8):
+                box = {}
+                fresh = lambda: box.__setitem__(  # noqa: E731
+                    "c", cs.new_carry(torch, base, jc, tgc))
+
+                def run(cps=cps):
+                    segs = [(0, n, (*static, *box["c"], feas, noise))]
+                    return binpack.uniform_topk_cluster(
+                        "uniform_topk", segs, uasks, g, n, 10.0, False, False,
+                        cps)
+
+                fresh()
+                got = run()
+                want = want or got
+                cs.check(torch.equal(got[0], want[0]) and torch.equal(
+                    got[1], want[1]), f"K2 B={b} with {cps} CTAs differs")
+                print(json.dumps({"waves": dict(
+                    b=b, k=k, ctas=cps, clusters=b,
+                    clusters_at_once=occupancy(b, k, False, cps),
+                    call_ms=cs.time_cuda(torch, run, RUNS, setup=fresh),
+                    device_ms=cs.device_ms(torch, run, RUNS, setup=fresh,
+                                           match="topk"))}))
+
+    if "steps" in sections:
+        # ---- steps: config 4's storm kernel, B = 64, K = 8, seq
+        b, k = 64, 8
         base, jc, tgc, feas, uasks, static, noise = inputs(
-            b, k, args.seed + b)
-        want = None
-        for cps in (1, 2, 4, 8):
-            box = {}
-            fresh = lambda: box.__setitem__(  # noqa: E731
-                "c", cs.new_carry(torch, base, jc, tgc))
-
-            def run(cps=cps):
+            b, k, args.seed + 11)
+        box = {}
+        fresh = lambda: box.__setitem__(  # noqa: E731
+            "c", cs.seq_carry(base, jc, tgc))
+        held = None
+        for step, cps, resident in (("A.3", 8, True), ("A.1", 1, False),
+                                    ("A.2", 8, False)):
+            def run(cps=cps, resident=resident):
                 segs = [(0, n, (*static, *box["c"], feas, noise))]
                 return binpack.uniform_topk_cluster(
-                    "uniform_topk", segs, uasks, g, n, 10.0, False, False,
-                    cps)
+                    "uniform_topk_seq", segs, uasks, g, n, 10.0, True, False,
+                    cps, resident=resident)
 
             fresh()
-            got = run()
-            want = want or got
-            cs.check(torch.equal(got[0], want[0]) and torch.equal(
-                got[1], want[1]), f"K2 B={b} with {cps} CTAs differs")
-            print(json.dumps({"waves": dict(
-                b=b, k=k, ctas=cps, clusters=b,
-                clusters_at_once=occupancy(b, k, False, cps),
-                call_ms=cs.time_cuda(torch, run, RUNS, setup=fresh),
-                device_ms=cs.device_ms(torch, run, RUNS, setup=fresh,
+            got = (*run(), box["c"])
+            held = held or got
+            cs.check(all(torch.equal(x, y) for x, y in zip(
+                (got[0], got[1], *got[2]), (held[0], held[1], *held[2]))),
+                f"K2-seq step {step} differs from A.3")
+            print(json.dumps({"steps": dict(
+                step=step, b=b, k=k, ctas=cps, resident=resident,
+                call_ms=cs.time_cuda(torch, run, cs.RUNS, setup=fresh),
+                device_ms=cs.device_ms(torch, run, cs.RUNS, setup=fresh,
                                        match="topk"))}))
-
-    # ---- steps: config 4's storm kernel, B = 64, K = 8, seq
-    b, k = 64, 8
-    base, jc, tgc, feas, uasks, static, noise = inputs(b, k, args.seed + 11)
-    box = {}
-    fresh = lambda: box.__setitem__(  # noqa: E731
-        "c", cs.seq_carry(base, jc, tgc))
-    held = None
-    for step, cps, resident in (("A.3", 8, True), ("A.1", 1, False),
-                                ("A.2", 8, False)):
-        def run(cps=cps, resident=resident):
-            segs = [(0, n, (*static, *box["c"], feas, noise))]
-            return binpack.uniform_topk_cluster(
-                "uniform_topk_seq", segs, uasks, g, n, 10.0, True, False,
-                cps, resident=resident)
-
-        fresh()
-        got = (*run(), box["c"])
-        held = held or got
-        cs.check(all(torch.equal(x, y) for x, y in zip(
-            (got[0], got[1], *got[2]), (held[0], held[1], *held[2]))),
-            f"K2-seq step {step} differs from A.3")
-        print(json.dumps({"steps": dict(
-            step=step, b=b, k=k, ctas=cps, resident=resident,
-            call_ms=cs.time_cuda(torch, run, cs.RUNS, setup=fresh),
-            device_ms=cs.device_ms(torch, run, cs.RUNS, setup=fresh,
-                                   match="topk"))}))
+    if "shards" in sections:
+        shard_section(torch, np, cs, args.seed)
     print(json.dumps({"ok": True}))
     return 0
 
