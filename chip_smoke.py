@@ -98,7 +98,11 @@ Phases (any failure exits non-zero and prints no result):
    solves) and K10g-a (the 512 + 512 eval and all 64 storm evals) to
    RELAX_TOLS as K8a and K9, and K10g-b (choices and carry equal its
    plain version's, and K8b's on the whole node axis fed the same
-   pref).
+   pref). K8a, K9, K10f and K10g-a (one persistent launch a card,
+   csrc/relax.cuh) also give their launches a call, counted around one
+   call and held to one, the host span of a call beside its device
+   time, and their calls by shape over phases 3 to 9 (ShapeCalls); the
+   K8a record also the cost of one grid barrier.
 
 8. The convex kernel and the defrag solve (they run before phase 7's
    holds, which use their recorded calls): (a) config 4's job and the
@@ -2030,6 +2034,75 @@ def mesh_devices(torch):
     return [f"cuda:{s % n if n >= 2 else 0}" for s in range(MESH_SHARDS)]
 
 
+class ShapeCalls:
+    """Counts the calls of the relaxation's wrappers by shape while the
+    block runs (the main paths, not the holds): K8a (``relaxed_pref``,
+    ``relaxed_assignment``: B, K, N), K9 (``defrag_solve``: K, N,
+    iterations) and K10f / K10g-a (``sharded_relax``: K, N, W,
+    iterations / B, K, N, W). ``by_kernel[name]`` maps a shape to its
+    calls, so a ranking can weigh each shape's gap by its calls."""
+
+    def __init__(self):
+        from nomad_tpu_torch.kernels import convex
+        from nomad_tpu_torch.parallel import shard
+
+        self.by_kernel = {}
+        self.sites = [(convex, "relaxed_pref", self._relax),
+                      (convex, "relaxed_assignment", self._relax),
+                      (convex, "defrag_solve", self._defrag),
+                      (shard, "sharded_relax", self._sharded)]
+
+    def _count(self, name, shape):
+        calls = self.by_kernel.setdefault(name, {})
+        calls[shape] = calls.get(shape, 0) + 1
+
+    def _relax(self, args):
+        feasible, asks = args[5], args[6]
+        self._count("convex_relax", (feasible.shape[0],
+                                     asks.resources.shape[1],
+                                     feasible.shape[1]))
+
+    def _defrag(self, args):
+        k, w = args[0].shape
+        self._count("defrag_solve", (k, w, int(args[-1])))
+
+    def _sharded(self, args):
+        shards, iters = args[0], int(args[1])
+        if hasattr(shards[0], "logits0"):
+            k = shards[0].logits0.shape[0]
+            n = sum(sh.logits0.shape[1] for sh in shards)
+            self._count("sharded_defrag_solve", (k, n, len(shards), iters))
+        else:
+            b, n = shards[0].feasible.shape[0], sum(
+                sh.feasible.shape[1] for sh in shards)
+            self._count("sharded_convex_relax", (
+                b, shards[0].asks.resources.shape[1], n, len(shards)))
+
+    def __enter__(self):
+        self.orig = []
+        for module, name, count in self.sites:
+            fn = getattr(module, name)
+            self.orig.append((module, name, fn))
+
+            def wrapped(*args, _fn=fn, _count=count, **kwargs):
+                _count(args)
+                return _fn(*args, **kwargs)
+
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.orig:
+            setattr(module, name, fn)
+
+    def of(self, name):
+        """{str(shape): calls} of kernel ``name``, the most called
+        first."""
+        calls = self.by_kernel.get(name, {})
+        return {str(k): v for k, v in sorted(calls.items(),
+                                              key=lambda kv: -kv[1])}
+
+
 class ShardRecorder:
     """Wraps ``parallel.shard.<name>`` (a wrapper over node shards) while
     the block runs and keeps each call's shards and other arguments,
@@ -2962,13 +3035,15 @@ def bench_mesh_programs(torch, np, rec):
         plain_ms = time_cuda(torch, lambda: shard.sharded_relax_plain(
             box["s"], iters), 3, warmup=1, setup=setup)
         bytes_ = k * n * 4 + n * (16 * 3 + 4 * 3 + 1) + k * 29 + 2 * k * n * 4
+        figures = relax_call_figures(
+            torch, f"K10f {label}", "sharded_defrag_solve",
+            lambda a: shard.sharded_relax(a, iters), shards)
         out.setdefault("sharded_defrag_solve", {})[(label, k, n)] = dict(
             max_abs_err=err, errs=kind_errs, float64=far, ms=ms,
             plain_ms=plain_ms,
             **bound(bytes_, k * n * (40 + 55 * iters) / FP32_FLOPS),
-            library_ms=None,
-            pass_bound_ms=iters * 3 * k * n * 4 / HBM_BYTES_S * 1000.0,
-            launches_per_call=launches, shards=w)
+            library_ms=None, pass_bound_ms=design_bytes_ms(1, k, n, iters),
+            shards=w, **figures)
         torch.cuda.empty_cache()
     # ---- K10g-a and K10g-b on the 512 + 512 eval and the storm
     for key, calls in (("eval", [rec[("eval", 1024)]]),
@@ -3016,14 +3091,16 @@ def bench_mesh_programs(torch, np, rec):
             box["s"], iters, penalty), RUNS, setup=setup)
         plain_ms = time_cuda(torch, lambda: shard.sharded_relax_plain(
             box["s"], iters, penalty), 3, warmup=1, setup=setup)
+        figures = relax_call_figures(
+            torch, f"K10g-a {key}", "sharded_convex_relax",
+            lambda a: shard.sharded_relax(a, iters, penalty), shards)
         out.setdefault("sharded_convex_relax", {})[(key, k)] = dict(
             max_abs_err=max(errs), errs=kinds, float64=far, ms=ms,
             plain_ms=plain_ms,
             **bound(relax_bytes(b, n, g, k, 1),
                     relax_flops(b, n, k, iters) / FP32_FLOPS),
-            library_ms=None,
-            pass_bound_ms=iters * 3 * b * k * n * 4 / HBM_BYTES_S * 1000.0,
-            launches_per_call=rel_launches, shards=w, calls_held=len(calls))
+            library_ms=None, pass_bound_ms=design_bytes_ms(b, k, n, iters),
+            shards=w, calls_held=len(calls), **figures)
         shards, (penalty, *_s), res = rnd_call
         setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
         ms = time_cuda(torch, lambda: shard.sharded_convex_round(
@@ -3470,9 +3547,11 @@ def bench_convex(torch, np, rec):
             max_abs_err=max(errs), errs=kinds, float64=far, ms=ms,
             plain_ms=plain_ms,
             **bound(bytes_, relax_flops(b, n, k, it) / FP32_FLOPS),
-            library_ms=None,
-            pass_bound_ms=it * 3 * b * k * n * 4 / HBM_BYTES_S * 1000.0,
-            calls_held=len(calls))
+            library_ms=None, pass_bound_ms=design_bytes_ms(b, k, n, it),
+            calls_held=len(calls),
+            **relax_call_figures(torch, "K8a " + key, "convex_relax",
+                                 lambda a: convex.relaxed_pref(*a),
+                                 cloned(rel_call.inputs)))
         args = held[0]
         ms = time_cuda(torch, lambda: convex.convex_round(*box["a"]), RUNS,
                        setup=lambda: box.update(a=cloned(args)))
@@ -3519,10 +3598,81 @@ def bench_convex(torch, np, rec):
             max_abs_err=err, errs=kind_errs, float64=far, ms=ms,
             plain_ms=plain_ms,
             **bound(bytes_, k * w * (40 + 55 * iters) / FP32_FLOPS),
-            library_ms=None,
-            pass_bound_ms=iters * 3 * k * w * 4 / HBM_BYTES_S * 1000.0)
+            library_ms=None, pass_bound_ms=design_bytes_ms(1, k, w, iters),
+            **relax_call_figures(torch, f"K9 {label}", "defrag_solve",
+                                 lambda a: convex.defrag_solve(*a),
+                                 cloned(call.inputs)))
         torch.cuda.empty_cache()
+    barrier = barrier_us(torch)
+    print(f"grid barrier: {barrier['barrier_us']:.3f} us a barrier and a "
+          f"light phase over {barrier['barrier_grid']} blocks (loop-only "
+          "solve, K = 1, 200 iterations against 0)")
+    out["convex_relax"][("eval", 1024)].update(barrier)
     return out
+
+
+def design_bytes_ms(b, k, n, iters):
+    """The relaxation's per-iteration bytes at the HBM rate: ~18 B a
+    pair an iteration (csrc/relax.cuh: phase A reads the logits and the
+    mask, phase B the logits, lin and the mask and writes the logits),
+    for ``iters`` iterations."""
+    return iters * 18 * b * k * n / HBM_BYTES_S * 1000.0
+
+
+def queued_ms(torch, fn, runs, host):
+    """Device time a call of ``fn``: ``runs`` calls queued behind a sleep
+    kernel that outlasts their host issue (``host`` ms a call), timed by
+    CUDA events from the sleep's end to the last call's end. A
+    cooperative launch's time under torch.profiler came out well below
+    its CUDA-event time on this card, so the relaxation's records use
+    this."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0e9 * 2.0 * runs * (host + 0.05) / 1000.0))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def relax_call_figures(torch, label, name, call, args):
+    """One relaxation call's launches (counted around it, one a card),
+    host span and device time (``queued_ms``), on ``args`` (read, not
+    changed, by ``call``)."""
+    _out, per_call = launches_of(name, lambda: call(args))
+    check(per_call == 1, f"{label}: {per_call} launches a call, not 1")
+    host = host_ms(torch, lambda: call(args), RUNS)
+    dev = queued_ms(torch, lambda: call(args), RUNS, host)
+    print(f"{label}: {per_call} launch a call; host span {host:.4f} ms, "
+          f"device {dev:.4f} ms")
+    return dict(launches_per_call=per_call, host_ms=host, device_ms=dev)
+
+
+def barrier_us(torch):
+    """One grid barrier (with a light phase beside it) on a grid as large
+    as the card holds at once: the loop-only solve (kernels/convex.py
+    mirror_descent) at K = 1 over 128 nodes a block, 200 iterations
+    (two barriers each) against 0, in us a barrier."""
+    from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.ops import relax
+
+    blocks, sms = relax.occupancy(torch.device("cuda"), True)
+    n = relax.COL_TILE * blocks * sms
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    f = lambda *shape: torch.rand(*shape, device="cuda",  # noqa: E731
+                                  generator=gen)
+    args = [f(1, n), f(1, n), torch.zeros(1, n, device="cuda"), f(1, 4),
+            f(1), f(1), f(n, 4), f(n), f(n, 4) + 1.0, f(n) + 1.0,
+            f(n) + 1.0, torch.ones(1, device="cuda")]
+    zero = time_cuda(torch, lambda: convex.mirror_descent(*args, 0), RUNS)
+    many = time_cuda(torch, lambda: convex.mirror_descent(*args, 200), RUNS)
+    grid = relax.grid_size(relax.relax_plan((n,), 1, 1), blocks, sms)
+    return dict(barrier_us=(many - zero) / 400.0 * 1000.0,
+                barrier_grid=grid)
 
 
 REPLACES = {
@@ -3548,13 +3698,13 @@ REPLACES = {
                      "nomad_tpu/ops/preempt.py:85"),
     "gang_scan": ("nomad_tpu_torch/csrc/gang_scan.cu",
                   "nomad_tpu/ops/gang.py:150"),
-    "convex_relax": ("nomad_tpu_torch/csrc/convex_relax.cu",
+    "convex_relax": ("nomad_tpu_torch/csrc/relax.cuh",
                      "nomad_tpu/kernels/convex.py:136"),
     "convex_round": ("nomad_tpu_torch/csrc/convex_round.cu",
                      "nomad_tpu/kernels/convex.py:224"),
     "convex_round_seq": ("nomad_tpu_torch/csrc/convex_round.cu",
                          "nomad_tpu/ops/binpack.py:461"),
-    "defrag_solve": ("nomad_tpu_torch/csrc/convex_relax.cu",
+    "defrag_solve": ("nomad_tpu_torch/csrc/relax.cuh",
                      "nomad_tpu/defrag/solver.py:213"),
     "sharded_base_delta": ("nomad_tpu_torch/csrc/base_delta.cu",
                            "nomad_tpu/parallel/shard.py:72"),
@@ -3568,9 +3718,9 @@ REPLACES = {
                                     "nomad_tpu/ops/binpack.py:302"),
     "sharded_gang_scan": ("nomad_tpu_torch/csrc/sharded_gang.cu",
                           "nomad_tpu/parallel/mesh.py:175"),
-    "sharded_defrag_solve": ("nomad_tpu_torch/csrc/sharded_relax.cu",
+    "sharded_defrag_solve": ("nomad_tpu_torch/csrc/relax.cuh",
                              "nomad_tpu/parallel/mesh.py:201"),
-    "sharded_convex_relax": ("nomad_tpu_torch/csrc/sharded_relax.cu",
+    "sharded_convex_relax": ("nomad_tpu_torch/csrc/relax.cuh",
                              "nomad_tpu/kernels/convex.py:136"),
     "sharded_convex_round": ("nomad_tpu_torch/csrc/sharded_scan.cu",
                              "nomad_tpu/kernels/convex.py:224"),
@@ -3639,18 +3789,23 @@ def main(argv=None) -> int:
                     print("  " + line.rstrip())
 
         total = Counter()
-        counts, _lat_ms, main_h = run_main_path(args.seed, torch)
-        total.update(counts)
-        storm, storm_h = run_storm(args.seed, torch, total)
-        print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
-        k6 = run_preemption(args.seed, torch, total)
-        gangs, gang_programs = run_gangs(args.seed, torch, total)
-        convex_calls = run_convex(args.seed, torch, total, main_h, storm_h)
-        mesh_figures, mesh_calls = run_mesh(args.seed, torch, total, storm_h)
-        more, more_calls = run_mesh_programs(
-            args.seed, torch, total, main_h, storm_h,
-            convex_calls.pop("frag_h"), gang_programs)
+        with ShapeCalls() as relax_calls:
+            counts, _lat_ms, main_h = run_main_path(args.seed, torch)
+            total.update(counts)
+            storm, storm_h = run_storm(args.seed, torch, total)
+            print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
+            k6 = run_preemption(args.seed, torch, total)
+            gangs, gang_programs = run_gangs(args.seed, torch, total)
+            convex_calls = run_convex(args.seed, torch, total, main_h,
+                                      storm_h)
+            mesh_figures, mesh_calls = run_mesh(args.seed, torch, total,
+                                                storm_h)
+            more, more_calls = run_mesh_programs(
+                args.seed, torch, total, main_h, storm_h,
+                convex_calls.pop("frag_h"), gang_programs)
         mesh_figures.update(more)
+        print("relaxation calls by shape: " + json.dumps(
+            {k: relax_calls.of(k) for k in sorted(relax_calls.by_kernel)}))
         print(f"mesh figures: {json.dumps(mesh_figures, sort_keys=True)}")
         del main_h, storm_h
         results = bench_kernels(torch, np, args.seed)
@@ -3659,6 +3814,9 @@ def main(argv=None) -> int:
         results.update(bench_convex(torch, np, convex_calls))
         results.update(bench_mesh(torch, np, mesh_calls))
         results.update(bench_mesh_programs(torch, np, more_calls))
+        for name in relax_calls.by_kernel:
+            results[name][PRIMARY[name]]["calls_by_shape"] = \
+                relax_calls.of(name)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,7 +1,9 @@
-// K8a / K9: the convex kernel's relaxation (kernels/convex.py
-// mirror_descent and _relaxed_assignment in the JAX package) and the
-// defrag loop's global solve over the same program (defrag/solver.py
-// _solve_jit.solve), one source, two prologues:
+// K8a, K9, K10f and K10g-a: the convex kernel's relaxation (kernels/
+// convex.py mirror_descent and _relaxed_assignment in the JAX package,
+// with the preference of convex_placement_program), the defrag loop's
+// global solve over the same program (defrag/solver.py _solve_jit.solve)
+// and both over node shards (parallel/mesh.py:186,201, ops/binpack.py:
+// 373): one persistent kernel (csrc/relax.cuh), three modes.
 //
 // - placement (mode 0): B evals x K asks x N nodes. feas[b,k,n] is the
 //   ask's constraint column, node readiness, resource / bandwidth /
@@ -15,6 +17,9 @@
 //   group terms, capacity[:, 0] > 0, fitness without the penalty;
 //   warm start (rows with fresh[k] = 0 resume from the carried logits,
 //   the others start at lin). After the loop: x = softmax * active.
+// - loop only (mode 2, the JAX signature of mirror_descent): the
+//   caller's logits, lin, float mask, node terms and scaled asks; the
+//   loop alone.
 //
 // The loop, SOLVE_ITERS (12) or the defrag's 24 cold / 5 warm
 // iterations, is entropic mirror descent with the closed-form
@@ -24,104 +29,133 @@
 // term; the gradient back on [K,N] is lin plus those node terms
 // against each ask; logits += SOLVE_STEP * g.
 //
-// Bound on the card: bytes. Each iteration a row pass reads logits and
-// the mask (5 B a pair: max, then the sum of exp), and a column pass
-// reads them again, then lin and logits, and writes logits (17 B a
-// pair): ~22 B a pair, ~230 MB an iteration at K = 1,024 x N = 10,240.
-// A whole solve must read its O(N + K) inputs and write pref (and x
-// and the logits) once; the per-iteration passes are what this simple
-// design adds. Design: one launch per pass per iteration; the row pass
-// is one block per (eval, ask), a block max then a block sum in a
-// fixed tree; the column pass is one thread per (eval, node) walking
-// k = 0..K-1 in order (coalesced over n), so every sum has one order
-// and a run gives the same bits twice (no atomics). The contractions
-// (R = 4) stay in registers. A persistent kernel that keeps the logits
-// on chip between iterations is the next step.
+// One launch a solve: a cooperative launch of a grid that fits on the
+// card at once (the host takes blocks a SM from nt_relax_occupancy),
+// its phases separated by grid barriers (relax.cuh's header). Shards on
+// distinct cards run the same phases one launch a phase a shard, and
+// nt_relax_combine folds their statistics on the combining card.
+#include <stddef.h>
+#include <string.h>
+
 #include "relax.cuh"
 
 // ---------------------------------------------------------------- C API
 
-// The JAX signature, one problem: logits [K,N] f32 (updated in place),
-// lin and mask [K,N] f32, res_active [K,4], bw_active / ports_active /
-// active [K], base_frac / denom [N,4], base_bw_frac / bw_denom /
-// ports_denom [N], all f32; row_stats [2,K] f32 scratch.
-NT_API int nt_mirror_descent(int N, int K, int iters, void* logits,
-                             const void* lin, const void* mask,
-                             const void* res_active, const void* bw_active,
-                             const void* ports_active, const void* base_frac,
-                             const void* base_bw_frac, const void* denom,
-                             const void* bw_denom, const void* ports_denom,
-                             const void* active, void* row_stats,
-                             void* stream) {
-  if (N <= 0 || K <= 0 || iters <= 0) return 0;
-  NtRelaxLoop L{1, N, K, (float*)logits, (const float*)lin,
-                (const float4*)denom, (const float4*)base_frac,
-                (const float*)bw_denom, (const float*)base_bw_frac,
-                (const float*)ports_denom, (const float4*)res_active,
-                (const float*)bw_active, (const float*)ports_active,
-                (const float*)active, (float*)row_stats,
-                (float*)row_stats + K};
-  return nt_relax_iterate(L, NtFloatMask{(const float*)mask}, iters,
-                          (cudaStream_t)stream);
+// The launch's table as the host packs it (ops/relax.py): dims (i64)
+// [mode, B, K, G, iters, stacked, shared, nseg, row_groups, pieces,
+// cols, splits], then per segment [n, piece, pieces, piece0, col0]; ptrs the
+// NT_RX_GPTRS pointers of NtRxArgs from ask_res to cnt in order, then
+// per segment the NT_RX_SPTRS pointers of NtRxSeg from capacity to y.
+#define NT_RX_GDIMS 12
+#define NT_RX_SDIMS 5
+#define NT_RX_GPTRS 24
+#define NT_RX_SPTRS 22
+static_assert(offsetof(NtRxArgs, cnt) - offsetof(NtRxArgs, ask_res) ==
+                  (NT_RX_GPTRS - 1) * sizeof(void*),
+              "NtRxArgs' pointers from ask_res to cnt");
+static_assert(offsetof(NtRxSeg, y) - offsetof(NtRxSeg, capacity) ==
+                  (NT_RX_SPTRS - 1) * sizeof(void*),
+              "NtRxSeg's pointers from capacity to y");
+
+static int nt_rx_args(int phase, float penalty, const long long* dims,
+                      const void* const* ptrs, NtRxArgs* out) {
+  NtRxArgs p = {};
+  p.mode = (int)dims[0];
+  p.phase = phase;
+  p.B = (int)dims[1];
+  p.K = (int)dims[2];
+  p.G = (int)dims[3];
+  p.iters = (int)dims[4];
+  p.stacked = (int)dims[5];
+  p.shared = (int)dims[6];
+  p.nseg = (int)dims[7];
+  p.row_groups = (int)dims[8];
+  p.pieces = (int)dims[9];
+  p.cols = (int)dims[10];
+  p.splits = (int)dims[11];
+  p.penalty = penalty;
+  if (p.mode < NT_RX_PLACE || p.mode > NT_RX_LOOP || p.nseg < 1 ||
+      p.nseg > NT_RX_SEGS || p.B < 1 || p.K < 1 || p.iters < 0 ||
+      p.row_groups != (p.K + NT_RX_WARPS - 1) / NT_RX_WARPS ||
+      p.splits < 1 || p.splits > NT_RX_SPLITS ||
+      phase < NT_RX_ALL || phase > NT_RX_P)
+    return (int)cudaErrorInvalidValue;
+  memcpy((void*)&p.ask_res, ptrs, NT_RX_GPTRS * sizeof(void*));
+  int pieces = 0, cols = 0;
+  for (int s = 0; s < p.nseg; ++s) {
+    const long long* d = dims + NT_RX_GDIMS + (size_t)s * NT_RX_SDIMS;
+    NtRxSeg& sg = p.seg[s];
+    sg.n = (int)d[0];
+    sg.piece = (int)d[1];
+    sg.pieces = (int)d[2];
+    sg.piece0 = (int)d[3];
+    sg.col0 = (int)d[4];
+    if (sg.n < 1 || sg.piece < 1 || sg.pieces < 1 ||
+        sg.pieces > NT_RX_PIECES_MAX ||
+        (long long)sg.piece * (sg.pieces - 1) >= sg.n ||
+        (long long)sg.piece * sg.pieces < sg.n || sg.piece0 != pieces ||
+        sg.col0 != cols)
+      return (int)cudaErrorInvalidValue;
+    pieces += sg.pieces;
+    cols += (sg.n + NT_RX_COL - 1) / NT_RX_COL;
+    memcpy((void*)&sg.capacity, ptrs + NT_RX_GPTRS + (size_t)s * NT_RX_SPTRS,
+           NT_RX_SPTRS * sizeof(void*));
+  }
+  if (pieces != p.pieces || cols != p.cols || !p.cnt ||
+      (p.splits > 1 && !p.npart) || (phase == NT_RX_ALL && !p.bar))
+    return (int)cudaErrorInvalidValue;
+  *out = p;
+  return 0;
 }
 
-// The whole relaxation. mode 0 (placement): capacity / sched [N,4]
-// (stacked: [B,N,4]), bw_avail [N] f32, node_ok [N] u8; util [B,N,4]
-// (shared: [N,4]), bw_used / ports_free [B,N] (shared: [N]) f32;
-// job_count [B,N] i32, tg_count [B,N,G] i32, feasible [B,N,G] u8;
-// ask_res [B,K,4], ask_bw / ask_ports [B,K] f32, tg_index [B,K] i32,
-// active [B,K] u8, job_dh [B] u8, tg_dh [B,G] u8. mode 1 (defrag): B =
-// 1, the job / task group arrays null, fresh [K] u8, and logits holds
-// the carried logits on entry. Outputs: logits, x, pref (mode 0) [B,K,N]
-// f32, feas [B,K,N] u8; in mode 0 x may be null, and x is then staged
-// in pref's buffer (the pref pass reads and writes each entry in
-// place). Scratch: lin [B,K,N] f32; node4 [2,B,N,4],
-// node1 [4,B,N], ask4 [B,K,4], ask1 [6,B,K], ymax [B], all f32.
-NT_API int nt_convex_relax(
-    int mode, int B, int N, int G, int K, int iters, float penalty,
-    int stacked, int shared, const void* capacity, const void* sched,
-    const void* bw_avail, const void* node_ok, const void* util,
-    const void* bw_used, const void* ports_free, const void* job_count,
-    const void* tg_count, const void* feasible, const void* ask_res,
-    const void* ask_bw, const void* ask_ports, const void* tg_index,
-    const void* active, const void* job_dh, const void* tg_dh,
-    const void* fresh, void* logits, void* x, void* pref, void* feas,
-    void* lin, void* node4, void* node1, void* ask4, void* ask1, void* ymax,
-    void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0) return 0;
-  if (x == nullptr) {
-    if (mode != 0) return cudaErrorInvalidValue;
-    x = pref;
-  }
+static const void* nt_rx_fn(int float_mask) {
+  return float_mask ? (const void*)nt_relax_kernel<true>
+                    : (const void*)nt_relax_kernel<false>;
+}
+
+// Blocks of NT_RX_THREADS threads that fit on one SM at once.
+NT_API int nt_relax_occupancy(int float_mask, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, nt_rx_fn(float_mask), NT_RX_THREADS, 0);
+}
+
+// phase -1: the whole solve, a cooperative launch of ``grid`` blocks (at
+// most blocks a SM x SMs: a larger grid is refused, never run). Else
+// one phase (0 prologue, 1 A, 2 B, 3 x, 4 y, 5 pref), an ordinary launch.
+// float_mask: the mask is the caller's float array (mode 2) rather than
+// the feasibility bytes the prologue writes.
+NT_API int nt_relax_solve(int float_mask, int phase, int grid,
+                          float penalty, const long long* dims,
+                          const void* const* ptrs, void* stream) {
+  NtRxArgs p;
+  const int err = nt_rx_args(phase, penalty, dims, ptrs, &p);
+  if (err) return err;
+  if (grid < 1 || (float_mask != 0) != (p.mode == NT_RX_LOOP))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nt_rx_fn(float_mask);
+  void* args[] = {(void*)&p};
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t bn = (size_t)B * N, bkn = (size_t)B * K * N;
-  const NtRelaxLoop L =
-      nt_relax_loop(B, N, K, logits, lin, node4, node1, ask4, ask1, nullptr);
-  float* rowmax = (float*)ask1 + 5 * (size_t)B * K;
-  float* y = nt_relax_y(B, N, node1);
-  const NtRelaxState S = nt_relax_state(
-      mode, B, N, G, K, penalty, stacked, shared, capacity, sched, bw_avail,
-      node_ok, util, bw_used, ports_free, job_count, tg_count, feasible,
-      ask_res, ask_bw, ask_ports, tg_index, active, job_dh, tg_dh, fresh,
-      feas);
-  int err = nt_relax_prologue(S, L, st);
-  if (err) return err;
-  const NtFeasMask mask{(const unsigned char*)feas};
-  err = nt_relax_iterate(L, mask, iters, st);
-  if (err) return err;
-  nt_relax_rows_kernel<NtFeasMask>
-      <<<B * K, NT_RELAX_ROW_THREADS, 0, st>>>(L, mask);
-  NT_LAUNCHED();
-  nt_relax_x_kernel<<<nt_blocks(bn, NT_RELAX_COL_THREADS),
-                      NT_RELAX_COL_THREADS, 0, st>>>(L, mask, mode, (float*)x,
-                                                     y);
-  NT_LAUNCHED();
-  if (mode != 0) return 0;
-  nt_relax_max_kernel<<<B * (K + 1), NT_RELAX_ROW_THREADS, 0, st>>>(
-      B, N, K, (const float*)x, y, rowmax, (float*)ymax);
-  NT_LAUNCHED();
-  nt_relax_pref_kernel<<<nt_blocks(bkn, 256), 256, 0, st>>>(
-      B, N, K, (const float*)x, y, rowmax, (const float*)ymax, (float*)pref);
-  NT_LAUNCHED();
-  return 0;
+  const cudaError_t e =
+      phase == NT_RX_ALL
+          ? cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT_RX_THREADS),
+                                        args, 0, st)
+          : cudaLaunchKernel(fn, dim3(grid), dim3(NT_RX_THREADS), args, 0,
+                             st);
+  // A refused launch is returned here; it must not stay behind as the
+  // runtime's last error for the next entry to report.
+  cudaGetLastError();
+  return (int)e;
+}
+
+// Shards on distinct cards, on the combining card: part [W, count]
+// float2 (m_s, s_s) folded in shard order into out [count] float2 (mode
+// 0), or part [W, count] f32 maxima into out [count] (mode 1).
+NT_API int nt_relax_combine(int W, int count, int mode, const void* part,
+                            void* out, void* stream) {
+  if (W <= 0 || count <= 0) return 0;
+  const int threads = 256;
+  nt_relax_combine_kernel<<<(count + threads - 1) / threads, threads, 0,
+                            (cudaStream_t)stream>>>(
+      W, count, mode, (const float*)part, (float*)out);
+  return (int)cudaGetLastError();
 }

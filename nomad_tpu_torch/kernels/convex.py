@@ -21,8 +21,9 @@ relaxation over the movable allocs in its own prologue
 (``defrag_solve``, K9, the same CUDA source in its defrag mode).
 
 Every kernel here is a wrapper that launches a hand-written CUDA kernel
-(csrc/convex_relax.cu, csrc/convex_round.cu) for CUDA tensors and runs
-its plain PyTorch version beside it for CPU tensors.
+(csrc/convex_relax.cu through ops/relax.py, csrc/convex_round.cu) for
+CUDA tensors and runs its plain PyTorch version beside it for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cuda
+from ..ops import cuda, relax
 from ..ops.binpack import (
     NEG_INF,
     NUM_RESOURCES,
@@ -130,9 +131,8 @@ def mirror_descent(logits, lin, mask, res_active, bw_active, ports_active,
     bw_denom / ports_denom [N], active [K,1] or [K], all f32). Returns
     the final logits; the argument is not changed.
 
-    On the card (csrc/convex_relax.cu nt_mirror_descent): a row pass
-    and a column pass an iteration (see ``relaxed_assignment``), the
-    mask added as given."""
+    On the card: csrc/relax.cuh's solve in its loop-only mode (the mask
+    added as given), one launch (see ``relaxed_assignment``)."""
     k, n = logits.shape
     dev = logits.device
     f32 = torch.float32
@@ -155,15 +155,15 @@ def mirror_descent(logits, lin, mask, res_active, bw_active, ports_active,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = logits.clone()
-    stats = torch.empty((2, k), dtype=f32, device=dev)
-    cuda.launch(
-        "nt_mirror_descent", n, k, int(iters), out.data_ptr(),
-        lin.data_ptr(), mask.data_ptr(), res_active.data_ptr(),
-        bw_active.data_ptr(), ports_active.data_ptr(), base_frac.data_ptr(),
-        base_bw_frac.data_ptr(), denom_nr.data_ptr(), bw_denom.data_ptr(),
-        ports_denom.data_ptr(), active.data_ptr(), stats.data_ptr(),
-        cuda.stream_ptr(dev))
-    cuda.count_launch("mirror_descent")
+    seg = relax.Segment(dev, n, dict(
+        logits=out.data_ptr(), mask=mask.data_ptr(), lin=lin.data_ptr(),
+        denom=denom_nr.data_ptr(), base_frac=base_frac.data_ptr(),
+        bw_denom=bw_denom.data_ptr(), base_bw_frac=base_bw_frac.data_ptr(),
+        ports_denom=ports_denom.data_ptr()), dict(
+        res_active=res_active.data_ptr(), bw_active=bw_active.data_ptr(),
+        ports_active=ports_active.data_ptr(), act=active.data_ptr()))
+    cuda.count_launch("mirror_descent", relax.solve(
+        "loop", 1, k, 0, int(iters), 0.0, False, False, [seg]))
     return out
 
 
@@ -255,16 +255,6 @@ def relaxed_assignment_plain(capacity, sched_capacity, bw_avail, node_ok,
     return logits, x, convex_pref(x)
 
 
-def _relax_scratch(b, n, k, dev):
-    f32 = torch.float32
-    return (torch.empty((b, k, n), dtype=f32, device=dev),      # lin
-            torch.empty((2, b, n, 4), dtype=f32, device=dev),   # node4
-            torch.empty((4, b, n), dtype=f32, device=dev),      # node1
-            torch.empty((b, k, 4), dtype=f32, device=dev),      # ask4
-            torch.empty((6, b, k), dtype=f32, device=dev),      # ask1
-            torch.empty((b,), dtype=f32, device=dev))           # ymax
-
-
 def relaxed_assignment(capacity, sched_capacity, bw_avail, node_ok, carry,
                        feasible, asks: Asks, penalty):
     """K8a: the convex kernel's relaxation of B evals, through the
@@ -279,12 +269,13 @@ def relaxed_assignment(capacity, sched_capacity, bw_avail, node_ok, carry,
     [N,...] copy. Returns (logits, x, pref), each [B,K,N] f32;
     ``relaxed_pref`` is the same launch returning pref alone.
 
-    On the card (csrc/convex_relax.cu nt_convex_relax, mode 0) the
-    bound is bytes: a prologue writes the mask and lin, then each of
-    the SOLVE_ITERS iterations is a row pass (block per ask: softmax
-    max and sum) and a column pass (thread per node: the contractions
-    over K in order, then the gradient and the logits step), and an
-    epilogue writes x and pref: 31 launches, no atomics.
+    On the card (csrc/relax.cuh, placement mode) the bound is bytes:
+    one cooperative launch a call (ops/relax.py solve), its prologue
+    writing the mask and lin, then per iteration a column phase (x and
+    the contractions over K in float64, then the node terms) and a row
+    phase (the gradient, the logits step and the softmax statistics),
+    then x and pref, the phases separated by grid barriers; every sum
+    in one fixed order, no atomics on values.
     """
     return _relax(capacity, sched_capacity, bw_avail, node_ok, carry,
                   feasible, asks, penalty, True)
@@ -319,22 +310,29 @@ def _relax(capacity, sched_capacity, bw_avail, node_ok, carry, feasible,
     logits = torch.empty((b, k, n), dtype=torch.float32, device=dev)
     pref = torch.empty_like(logits)
     x = torch.empty_like(logits) if iterate else None
-    feas = torch.empty((b, k, n), dtype=torch.bool, device=dev)
-    scratch = _relax_scratch(b, n, k, dev)
-    cuda.launch(
-        "nt_convex_relax", 0, b, n, g, k, SOLVE_ITERS, float(penalty),
-        int(stacked), int(shared), capacity.data_ptr(),
-        sched_capacity.data_ptr(), bw_avail.data_ptr(), node_ok.data_ptr(),
-        util.data_ptr(), bw_used.data_ptr(), ports_free.data_ptr(),
-        job_count.data_ptr(), tg_count.data_ptr(), feasible.data_ptr(),
-        asks.resources.data_ptr(), asks.bw.data_ptr(), asks.ports.data_ptr(),
-        asks.tg_index.data_ptr(), asks.active.data_ptr(),
-        asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), 0, logits.data_ptr(),
-        x.data_ptr() if iterate else 0, pref.data_ptr(), feas.data_ptr(),
-        *(t.data_ptr() for t in scratch), cuda.stream_ptr(dev))
-    cuda.count_launch("convex_relax")
+    seg = relax.Segment(dev, n, dict(
+        capacity=capacity.data_ptr(), sched=sched_capacity.data_ptr(),
+        bw_avail=bw_avail.data_ptr(), node_ok=node_ok.data_ptr(),
+        util=util.data_ptr(), bw_used=bw_used.data_ptr(),
+        ports_free=ports_free.data_ptr(), job_count=job_count.data_ptr(),
+        tg_count=tg_count.data_ptr(), feasible=feasible.data_ptr(),
+        logits=logits.data_ptr(), x=x.data_ptr() if iterate else 0,
+        pref=pref.data_ptr()), relax_asks(asks))
+    cuda.count_launch("convex_relax", relax.solve(
+        "place", b, k, g, SOLVE_ITERS, float(penalty), stacked, shared,
+        [seg]))
     return (logits, x, pref) if iterate else pref
+
+
+def relax_asks(asks: Asks) -> dict:
+    """The asks' pointers as the solve takes them (ops/relax.py
+    ASK_PTRS)."""
+    return dict(ask_res=asks.resources.data_ptr(), ask_bw=asks.bw.data_ptr(),
+                ask_ports=asks.ports.data_ptr(),
+                tg_index=asks.tg_index.data_ptr(),
+                active=asks.active.data_ptr(),
+                job_dh=asks.job_distinct_hosts.data_ptr(),
+                tg_dh=asks.tg_distinct_hosts.data_ptr())
 
 
 # ------------------------------------------------------------ K9
@@ -391,9 +389,9 @@ def defrag_solve(logits0, fresh, base_util, capacity, sched_capacity,
     movable allocs' asks (ask_res [K,4], ask_bw / ask_ports [K] f32).
     Returns (logits, x), [K, W] f32.
 
-    On the card: csrc/convex_relax.cu's nt_convex_relax in its defrag
-    mode (K8a's loop behind the residual prologue and the warm start):
-    3 + 2 x iters + 2 launches, bytes-bound as K8a.
+    On the card: csrc/relax.cuh's solve in its defrag mode (K8a's loop
+    behind the residual prologue and the warm start), one launch,
+    bytes-bound as K8a.
     """
     k, w = logits0.shape
     dev = logits0.device
@@ -419,17 +417,17 @@ def defrag_solve(logits0, fresh, base_util, capacity, sched_capacity,
         raise ValueError(f"unsupported device {dev}")
     logits = logits0.clone()
     x = torch.empty_like(logits)
-    feas = torch.empty((k, w), dtype=u8, device=dev)
-    scratch = _relax_scratch(1, w, k, dev)
-    cuda.launch(
-        "nt_convex_relax", 1, 1, w, 0, k, int(iters), 0.0, 0, 0,
-        capacity.data_ptr(), sched_capacity.data_ptr(), bw_avail.data_ptr(),
-        node_ok.data_ptr(), base_util.data_ptr(), bw_used.data_ptr(),
-        ports_free.data_ptr(), 0, 0, 0, ask_res.data_ptr(), ask_bw.data_ptr(),
-        ask_ports.data_ptr(), 0, active.data_ptr(), 0, 0, fresh.data_ptr(),
-        logits.data_ptr(), x.data_ptr(), 0, feas.data_ptr(),
-        *(t.data_ptr() for t in scratch), cuda.stream_ptr(dev))
-    cuda.count_launch("defrag_solve")
+    seg = relax.Segment(dev, w, dict(
+        capacity=capacity.data_ptr(), sched=sched_capacity.data_ptr(),
+        bw_avail=bw_avail.data_ptr(), node_ok=node_ok.data_ptr(),
+        util=base_util.data_ptr(), bw_used=bw_used.data_ptr(),
+        ports_free=ports_free.data_ptr(), logits=logits.data_ptr(),
+        x=x.data_ptr()), dict(
+        ask_res=ask_res.data_ptr(), ask_bw=ask_bw.data_ptr(),
+        ask_ports=ask_ports.data_ptr(), active=active.data_ptr(),
+        fresh=fresh.data_ptr()))
+    cuda.count_launch("defrag_solve", relax.solve(
+        "defrag", 1, k, 0, int(iters), 0.0, False, False, [seg]))
     return logits, x
 
 

@@ -36,7 +36,7 @@ SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "expand_overlay.cu", "base_delta.cu", "preempt_scan.cu",
            "gang_scan.cu", "convex_relax.cu", "convex_round.cu",
            "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu",
-           "sharded_gang.cu", "sharded_relax.cu")
+           "sharded_gang.cu")
 HEADERS = ("common.cuh", "gang.cuh", "relax.cuh", "topk.cuh")
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
@@ -62,8 +62,9 @@ SIGNATURES: Dict[str, List] = {
     "nt_argmax_chain": [_I, _P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
     "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
-    "nt_mirror_descent": [_I] * 3 + [_P] * 14,
-    "nt_convex_relax": [_I] * 6 + [_F, _I, _I] + [_P] * 29,
+    "nt_relax_solve": [_I, _I, _I, _F, _P, _P, _P],
+    "nt_relax_occupancy": [_I, _P],
+    "nt_relax_combine": [_I] * 3 + [_P] * 3,
     "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
     "nt_group_capacity": [_I] * 5 + [_P] * 5,
     "nt_group_combine": [_I, _I] + [_P] * 3,
@@ -76,13 +77,6 @@ SIGNATURES: Dict[str, List] = {
     "nt_gang_step": [_I] * 6 + [_F] + [_I] * 2 + [_P] * 22,
     "nt_gang_winner": [_I] * 2 + [_P] * 8,
     "nt_gang_finish": [_I] + [_P] * 6,
-    "nt_srelax_prologue": [_I] * 5 + [_F] + [_I] * 2 + [_P] * 26,
-    "nt_srelax_rows": [_I] * 3 + [_P] * 4,
-    "nt_srelax_combine": [_I] * 3 + [_P] * 3,
-    "nt_srelax_cols": [_I] * 3 + [_P] * 9,
-    "nt_srelax_x": [_I] * 4 + [_P] * 7,
-    "nt_srelax_max": [_I] * 3 + [_P] * 4,
-    "nt_srelax_pref": [_I] * 3 + [_P] * 5,
 }
 
 _lock = threading.Lock()
@@ -194,6 +188,29 @@ def launch(name: str, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def on_device(dev):
+    """The CUDA runtime's current device set to ``dev`` for a launch:
+    a kernel launches on the current device's context, and the shards of
+    a mesh of distinct cards each launch on their own."""
+    import contextlib
+
+    import torch
+
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is not None \
+            and torch.cuda.current_device() != dev.index:
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def table(dims, ptrs):
+    """A launch's table as a C entry takes it: ``dims`` (i64) and
+    ``ptrs`` (device pointers, 0 for none), each flat in the entry's
+    order, as ctypes arrays."""
+    return ((ctypes.c_longlong * len(dims))(*dims),
+            (ctypes.c_void_p * len(ptrs))(*[p or None for p in ptrs]))
 
 
 def count_launch(name: str, n: int = 1) -> None:

@@ -30,8 +30,6 @@ shape, so the JAX package's ``shard_cache_size`` has no counterpart.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import functools
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -39,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda
+from ..ops.cuda import on_device as _on
 from ..ops.binpack import (
     NEG_INF,
     TOPK_CLUSTER,
@@ -56,16 +55,6 @@ from .mesh import NODE_AXIS, Mesh, Sharded, delta_row_specs, is_sharded, \
 def node_shard_count(mesh: Mesh) -> int:
     """Shards along the node axis of a parallel/mesh.py mesh."""
     return int(mesh.shape[NODE_AXIS])
-
-
-def _on(dev: torch.device):
-    """The CUDA runtime's current device set to ``dev`` for a launch:
-    a kernel launches on the current device's context, and the shards of
-    a mesh of distinct cards each launch on their own."""
-    if dev.type == "cuda" and dev.index is not None \
-            and torch.cuda.current_device() != dev.index:
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
 
 
 def _kind(tensors) -> str:
@@ -96,14 +85,6 @@ def card_segments(devices) -> List[Tuple[torch.device, List[int]]]:
             raise ValueError(f"{len(idx)} shards on {dev}: one launch "
                              f"takes at most {SHARD_SEGS}")
     return list(cards.items())
-
-
-def _seg_table(dims, ptrs):
-    """A launch's segment table as the C entry takes it: ``dims`` (i64)
-    and ``ptrs`` (device pointers, 0 for none), each flat in segment
-    order, as ctypes arrays."""
-    return ((ctypes.c_longlong * len(dims))(*dims),
-            (ctypes.c_void_p * len(ptrs))(*[p or None for p in ptrs]))
 
 
 # ------------------------------------------------------------ K10a
@@ -220,7 +201,7 @@ def _base_delta_card(dev, idx, parents, lo, pay, r, table_smem):
         dims += [lo[s], parents[0][s].shape[0]]
         ptrs += [parents[j][s].data_ptr() for j in range(4)]
         ptrs += [children[j][i].data_ptr() for j in range(4)]
-    dims, ptrs = _seg_table(dims, ptrs)
+    dims, ptrs = cuda.table(dims, ptrs)
     with _on(dev):
         cuda.launch("nt_base_delta_shards", len(idx), r, int(table_smem),
                     dims, ptrs, *pay, cuda.stream_ptr(dev))
@@ -381,7 +362,7 @@ def _group_capacity_cards(u_parts, id_parts, g_pad: int,
             len(idx) * g_pad, dtype=torch.float32, device=dev)
         rows = [out_ptr + step * (1 + s) if local is None
                 else local.data_ptr() + step * i for i, s in enumerate(idx)]
-        dims, ptrs = _seg_table(
+        dims, ptrs = cuda.table(
             [u_parts[s].shape[0] for s in idx],
             [x for s, r in zip(idx, rows) for x in (
                 u_parts[s].data_ptr(), id_parts[s].data_ptr(), r)])
@@ -977,37 +958,6 @@ class DefragShard(NamedTuple):
     active: torch.Tensor  # [K] bool
 
 
-class _Exchange:
-    """Float partial rows of the W shards gathered on the combining
-    device, and the combined row sent back (the sharded relaxation's
-    softmax statistics and pref maxima). As with ``_Partials``, a shard
-    on the combining device writes its row of the combining buffer and
-    reads the combined row in place; a shard on another card has
-    buffers of its own, copied across outside the kernels."""
-
-    def __init__(self, devices, home, part_len: int, out_len: int):
-        f32 = torch.float32
-        self.home = home
-        self.part = torch.empty((len(devices), part_len), dtype=f32,
-                                device=home)
-        self.out = torch.empty(out_len, dtype=f32, device=home)
-        self.local = [
-            (self.part[s], self.out) if dev == home else
-            (torch.empty(part_len, dtype=f32, device=dev),
-             torch.empty(out_len, dtype=f32, device=dev))
-            for s, dev in enumerate(devices)]
-
-    def gather(self, s):
-        part, _out = self.local[s]
-        if part.device != self.home:
-            self.part[s].copy_(part, non_blocking=True)
-
-    def spread(self):
-        for _part, out in self.local:
-            if out.device != self.home:
-                out.copy_(self.out, non_blocking=True)
-
-
 def _check_defrag_shards(shards: List[DefragShard]):
     """Validate a defrag solve's shards against defrag_solve's checks;
     returns K."""
@@ -1124,7 +1074,8 @@ def sharded_relax_plain(shards, iters: int, penalty: float = 0.0):
     return out
 
 
-def sharded_relax(shards, iters: int, penalty: float = 0.0):
+def sharded_relax(shards, iters: int, penalty: float = 0.0,
+                  force_shards: bool = False):
     """K10f and K10g-a: the convex relaxation over node shards, in the
     mode its shards name. DefragShards (K10f) replace the defrag solve
     with x's node columns split (parallel/mesh.py:186,201 and
@@ -1134,15 +1085,17 @@ def sharded_relax(shards, iters: int, penalty: float = 0.0):
     preference of :253). Returns one tuple a shard, on its device, as
     ``sharded_relax_plain``.
 
-    On the card (csrc/sharded_relax.cu): the prologue a shard, then per
-    iteration the row pass a shard (each row's softmax max and sum over
-    the shard's columns), the combine on the first shard's device (m =
-    max m_s, s = sum s_s exp(m_s - m) in shard order) and the
-    node-local column pass a shard; then x, and in placement mode the
-    cross-shard maxima and pref. 3 W + iters x (2 W + 1) + 2 W + 1
-    launches (+ 2 W + 1 for pref); no kernel writes another shard's
-    memory."""
-    from ..kernels.convex import _relax_scratch
+    On the card (csrc/relax.cuh through ops/relax.py solve): the shards
+    of one card (up to ops/relax.py SEGS) are the segments of ONE
+    cooperative launch, K8a's and K9's kernel: the softmax statistics
+    of each row fold over a segment's pieces, then over the segments in
+    shard order, inside the launch (one shard gives K8a's and K9's bits).
+    Shards on distinct cards run the same phases a launch a phase a
+    shard, the statistics folded in the same order on the first shard's
+    card between phases (the same bits as one card).
+    ``force_shards`` takes that route on one card (the tests' hook)."""
+    from ..kernels.convex import relax_asks
+    from ..ops import relax
 
     defrag = isinstance(shards[0], DefragShard)
     if defrag:
@@ -1156,96 +1109,51 @@ def sharded_relax(shards, iters: int, penalty: float = 0.0):
         return sharded_relax_plain(shards, iters, penalty)
     if {d.type for d in devices} != {"cuda"}:
         raise ValueError(f"shards on unsupported devices {devices}")
-    home = devices[0]
-    w = len(shards)
-    bk = b * k
-    lib = cuda.library()
-    stats = _Exchange(devices, home, 2 * bk, 2 * bk)
-    streams = [cuda.stream_ptr(d) for d in devices]
-    launches = 0
-
-    def run(fn, s, *args):
-        nonlocal launches
-        with _on(devices[s]):
-            err = getattr(lib, fn)(*args, streams[s])
-        if err != 0:
-            raise RuntimeError(f"{fn}: CUDA error {err}")
-        launches += 3 if fn == "nt_srelax_prologue" else 1
-
-    outs = []
-    for s, sh in enumerate(shards):
-        dev = devices[s]
+    segs, outs = [], []
+    for sh, dev in zip(shards, devices):
         if defrag:
             n = sh.logits0.shape[1]
             logits = sh.logits0.clone()
-            state = (1, 1, n, 0, k, 0.0, 0, 0, sh.capacity.data_ptr(),
-                     sh.sched_capacity.data_ptr(), sh.bw_avail.data_ptr(),
-                     sh.node_ok.data_ptr(), sh.base_util.data_ptr(),
-                     sh.bw_used.data_ptr(), sh.ports_free.data_ptr(), 0, 0,
-                     0, sh.ask_res.data_ptr(), sh.ask_bw.data_ptr(),
-                     sh.ask_ports.data_ptr(), 0, sh.active.data_ptr(), 0, 0,
-                     sh.fresh.data_ptr())
+            x = torch.empty_like(logits)
+            ptrs = dict(
+                capacity=sh.capacity.data_ptr(),
+                sched=sh.sched_capacity.data_ptr(),
+                bw_avail=sh.bw_avail.data_ptr(),
+                node_ok=sh.node_ok.data_ptr(), util=sh.base_util.data_ptr(),
+                bw_used=sh.bw_used.data_ptr(),
+                ports_free=sh.ports_free.data_ptr())
+            asks = dict(ask_res=sh.ask_res.data_ptr(),
+                        ask_bw=sh.ask_bw.data_ptr(),
+                        ask_ports=sh.ask_ports.data_ptr(),
+                        active=sh.active.data_ptr(),
+                        fresh=sh.fresh.data_ptr())
+            outs.append((logits, x))
         else:
             n = sh.feasible.shape[1]
             util, bw_used, ports_free, job_count, tg_count = sh.carry
-            a = sh.asks
             logits = torch.empty((b, k, n), dtype=torch.float32, device=dev)
-            state = (0, b, n, g, k, float(penalty),
-                     int(sh.capacity.dim() == 3), int(util.dim() == 2),
-                     sh.capacity.data_ptr(), sh.sched_capacity.data_ptr(),
-                     sh.bw_avail.data_ptr(), sh.node_ok.data_ptr(),
-                     util.data_ptr(), bw_used.data_ptr(),
-                     ports_free.data_ptr(), job_count.data_ptr(),
-                     tg_count.data_ptr(), sh.feasible.data_ptr(),
-                     a.resources.data_ptr(), a.bw.data_ptr(),
-                     a.ports.data_ptr(), a.tg_index.data_ptr(),
-                     a.active.data_ptr(), a.job_distinct_hosts.data_ptr(),
-                     a.tg_distinct_hosts.data_ptr(), 0)
-        feas = torch.empty(logits.shape, dtype=torch.bool, device=dev)
-        scratch = _relax_scratch(b, n, k, dev)
-        x = torch.empty_like(logits)
-        outs.append((n, logits, feas, scratch, x))
-        run("nt_srelax_prologue", s, *state, logits.data_ptr(),
-            feas.data_ptr(), *(t.data_ptr() for t in scratch[:5]))
-
-    def combine(ex, count, mode):
-        for s, (n, logits, feas, _scr, _x) in enumerate(outs):
-            if mode == 0:
-                run("nt_srelax_rows", s, b, n, k, logits.data_ptr(),
-                    feas.data_ptr(), ex.local[s][0].data_ptr())
-            else:
-                run("nt_srelax_max", s, b, n, k, _x.data_ptr(),
-                    _scr[2].data_ptr(), ex.local[s][0].data_ptr())
-            ex.gather(s)
-        run("nt_srelax_combine", 0, w, count, mode, ex.part.data_ptr(),
-            ex.out.data_ptr())
-        ex.spread()
-
-    for _ in range(iters):
-        combine(stats, bk, 0)
-        for s, (n, logits, feas, scr, _x) in enumerate(outs):
-            run("nt_srelax_cols", s, b, n, k, logits.data_ptr(),
-                scr[0].data_ptr(), feas.data_ptr(), scr[1].data_ptr(),
-                scr[2].data_ptr(), scr[3].data_ptr(), scr[4].data_ptr(),
-                stats.local[s][1].data_ptr())
-    combine(stats, bk, 0)
-    for s, (n, logits, feas, scr, x) in enumerate(outs):
-        run("nt_srelax_x", s, int(defrag), b, n, k, logits.data_ptr(),
-            feas.data_ptr(), scr[2].data_ptr(), scr[4].data_ptr(),
-            stats.local[s][1].data_ptr(), x.data_ptr())
-    if defrag:
-        cuda.count_launch("sharded_defrag_solve", launches)
-        return [(logits, x) for _n, logits, _f, _s, x in outs]
-    maxima = _Exchange(devices, home, bk + b, bk + b)
-    combine(maxima, bk + b, 1)
-    result = []
-    for s, (n, logits, _f, scr, x) in enumerate(outs):
-        pref = torch.empty_like(x)
-        run("nt_srelax_pref", s, b, n, k, x.data_ptr(), scr[2].data_ptr(),
-            maxima.local[s][1].data_ptr(), pref.data_ptr())
-        result.append((logits, x, pref))
-    cuda.count_launch("sharded_convex_relax", launches)
-    return result
+            x = torch.empty_like(logits)
+            pref = torch.empty_like(logits)
+            ptrs = dict(
+                capacity=sh.capacity.data_ptr(),
+                sched=sh.sched_capacity.data_ptr(),
+                bw_avail=sh.bw_avail.data_ptr(),
+                node_ok=sh.node_ok.data_ptr(), util=util.data_ptr(),
+                bw_used=bw_used.data_ptr(), ports_free=ports_free.data_ptr(),
+                job_count=job_count.data_ptr(), tg_count=tg_count.data_ptr(),
+                feasible=sh.feasible.data_ptr(), pref=pref.data_ptr())
+            asks = relax_asks(sh.asks)
+            outs.append((logits, x, pref))
+        ptrs.update(logits=logits.data_ptr(), x=x.data_ptr())
+        segs.append(relax.Segment(dev, n, ptrs, asks))
+    stacked = not defrag and shards[0].capacity.dim() == 3
+    shared = not defrag and shards[0].carry[0].dim() == 2
+    launches = relax.solve("defrag" if defrag else "place", b, k, g,
+                           int(iters), float(penalty), stacked, shared, segs,
+                           force_shards=force_shards)
+    cuda.count_launch("sharded_defrag_solve" if defrag
+                      else "sharded_convex_relax", launches)
+    return outs
 
 
 # ------------------------------------------------------------ K10e

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the uniform top-K kernel (csrc/uniform_topk.cu),
-and of the node-shard kernels K10a and K10b (parallel/shard.py
-sharded_base_delta, sharded_group_capacity), goes on one NVIDIA card,
-at chip_smoke.py's widths (N = 10,240 nodes, G = 2, inputs from
-chip_smoke.kernel_inputs; 4 shards of one card).
+of the node-shard kernels K10a and K10b (parallel/shard.py
+sharded_base_delta, sharded_group_capacity), and of the relaxation's
+launch (csrc/relax.cuh) goes on one NVIDIA card, at chip_smoke.py's
+widths (N = 10,240 nodes, G = 2, inputs from chip_smoke.kernel_inputs;
+4 shards of one card).
 
-    python3 topk_profile.py [--seed N] [--sections host,waves,steps,shards]
+    python3 topk_profile.py [--seed N]
+        [--sections host,waves,steps,shards,relax]
 
 Prints, one JSON object a line:
 
@@ -48,6 +50,13 @@ Prints, one JSON object a line:
    section runs on an earlier checkout's package too (copy this script
    and chip_smoke.py, whose timers and ``library_delta`` it uses,
    beside it).
+7. ``relax``: the relaxation's launch (K8a's placement mode) at B x K =
+   1 x 1,024 and 1 x 8, over one segment and over 4 (K10g-a's shards of
+   one card): the whole solve's CUDA-event time at 12 iterations, at 0
+   and at 24 (their difference over 24 is an iteration's time, its two
+   grid barriers included), and each phase alone (an ordinary launch of
+   that phase over the same table, its tiles as the grid: prologue, A,
+   B, x, y, pref); the launch's grid and tiles.
 
 Exits non-zero with no result when no CUDA card is present.
 """
@@ -69,7 +78,9 @@ RUNS = 50
 
 # The host parts of a wrapper call: (label, owner, attribute). A string
 # owner names a module of the port; the attribute is replaced there and
-# in every loaded module of the port that holds the same object.
+# in every loaded module of the port that holds the same object. A part
+# that a tree lacks is skipped (the tables and the device switch have
+# an older tree's names beside this one's).
 SPLIT_PARTS = (
     ("checks", "nomad_tpu_torch.ops.binpack", "_check"),
     ("checks", "nomad_tpu_torch.parallel.shard", "_check_delta"),
@@ -78,9 +89,11 @@ SPLIT_PARTS = (
     ("children", "nomad_tpu_torch.parallel.shard", "_child_views"),
     ("sorts", "nomad_tpu_torch.parallel.shard", "delta_row_table"),
     ("stream", "nomad_tpu_torch.ops.cuda", "stream_ptr"),
+    ("tables", "nomad_tpu_torch.ops.cuda", "table"),
     ("tables", "nomad_tpu_torch.parallel.shard", "_seg_table"),
     ("entry", "nomad_tpu_torch.ops.cuda", "launch"),
     ("count", "nomad_tpu_torch.ops.cuda", "count_launch"),
+    ("device_switch", "nomad_tpu_torch.ops.cuda", "on_device"),
     ("device_switch", "nomad_tpu_torch.parallel.shard", "_on"),
 )
 
@@ -288,10 +301,71 @@ def build_entries(path):
     return out
 
 
+def relax_section(torch, np, cs, seed):
+    """The relaxation's launch, whole and a phase at a time (section 7)."""
+    from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.ops import cuda, relax
+    from nomad_tpu_torch.parallel.mesh import shard_bounds
+
+    dev = torch.device("cuda")
+    n, g, penalty = cs.BENCH_N, 2, 10.0
+    for k in (1024, 8):
+        base, jc, tgc, feas, asks, _u, _keys = cs.kernel_inputs(
+            torch, np, n, k, g, 1, seed + 90, dev)
+        carry = cs.new_carry(torch, base, jc, tgc)
+        static = (base["capacity"], base["sched_capacity"],
+                  base["bw_avail"], base["node_ok"])
+        for w in (1, 4):
+            segs, keep = [], []
+            for lo, hi in shard_bounds(n, w):
+                cut = [x.narrow(0, lo, hi - lo).contiguous() for x in static]
+                own = [c.narrow(1, lo, hi - lo).contiguous() for c in carry]
+                f = feas.narrow(1, lo, hi - lo).contiguous()
+                out = torch.empty((2, 1, k, hi - lo), device=dev)
+                keep += cut + own + [f, out]
+                segs.append(relax.Segment(dev, hi - lo, dict(
+                    capacity=cut[0].data_ptr(), sched=cut[1].data_ptr(),
+                    bw_avail=cut[2].data_ptr(), node_ok=cut[3].data_ptr(),
+                    util=own[0].data_ptr(), bw_used=own[1].data_ptr(),
+                    ports_free=own[2].data_ptr(),
+                    job_count=own[3].data_ptr(), tg_count=own[4].data_ptr(),
+                    feasible=f.data_ptr(), logits=out[0].data_ptr(),
+                    pref=out[1].data_ptr()),
+                    convex.relax_asks(asks)))
+            plan = relax.relax_plan(tuple(s.n for s in segs), 1, k)
+
+            def whole(iters):
+                card = relax.card_launch("place", plan, g, iters, False,
+                                         False, segs)
+                return card, lambda: cuda.launch(
+                    "nt_relax_solve", 0, relax.PHASES["all"], card.grid,
+                    penalty, card.dims, card.table, card.stream)
+
+            ms = {}
+            for iters in (0, convex.SOLVE_ITERS, 24):
+                card, fn = whole(iters)
+                ms[f"all_{iters}"] = cs.time_cuda(torch, fn, cs.RUNS)
+            card, _fn = whole(convex.SOLVE_ITERS)
+            for name, phase in relax.PHASES.items():
+                if phase < 0:
+                    continue
+                rows = name in ("prologue", "b", "x", "pref")
+                grid = plan.row_tiles if rows else plan.col_tiles
+                ms[name] = cs.time_cuda(torch, lambda: cuda.launch(
+                    "nt_relax_solve", 0, phase, grid, penalty, card.dims,
+                    card.table, card.stream), cs.RUNS)
+            print(json.dumps({"relax": dict(
+                b=1, k=k, n=n, shards=w, grid=card.grid,
+                row_tiles=plan.row_tiles, col_tiles=plan.col_tiles,
+                splits=plan.splits, pieces=plan.pieces_total,
+                iteration_ms=(ms["all_24"] - ms["all_0"]) / 24, ms=ms)}))
+            torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sections", default="host,waves,steps,shards",
+    ap.add_argument("--sections", default="host,waves,steps,shards,relax",
                     help="comma-separated sections to run (build and card "
                     "always print)")
     args = ap.parse_args(argv)
@@ -444,6 +518,8 @@ def main(argv=None) -> int:
                                        match="topk"))}))
     if "shards" in sections:
         shard_section(torch, np, cs, args.seed)
+    if "relax" in sections:
+        relax_section(torch, np, cs, args.seed)
     print(json.dumps({"ok": True}))
     return 0
 
