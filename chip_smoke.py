@@ -34,7 +34,8 @@ Phases (any failure exits non-zero and prints no result):
    one round against the same cohort through a CPU batcher (the plain
    versions), and counts conflicts of one round with pre_resolve off.
    Then a greedy storm (16 evals of a 512 + 512 two-group job, K1 in
-   sequential mode), a parked storm (64 threads calling ``place()``
+   sequential mode; with the share of its scan steps whose ask has the
+   last step's resources, bandwidth and ports), a parked storm (64 threads calling ``place()``
    after ``add_cohort(64)``), and token-less cohorts that take the
    stacked-state path (K1 and K2 with a base per eval), each checked.
 5. Preemption on a red cluster of the same size: four filler jobs at
@@ -93,7 +94,17 @@ Phases (any failure exits non-zero and prints no result):
    the least time the card could take: the larger of this run's bytes
    over the HBM rate and its operations over the peak rate, and for
    the scans also the measured time of their chain of block-wide
-   argmax rounds alone. On phase 9's calls: K10a-K10d, then K10e (the
+   argmax rounds alone. The greedy scan's records (K1 at B = 1 and 64,
+   K5a-greedy at 4 x 1,024 and 64 x 64, K5b-greedy) also give the
+   cluster the plan took (CTAs, threads, resident or streamed, waves),
+   the launches of one call (counted around it, held to one), both
+   chain terms (the one-block argmax, nt_argmax_chain, and the
+   cluster's exchange at the plan's shape, nt_argmax_chain_cluster),
+   the share of the record's steps whose ask has the last step's
+   resources, bandwidth and ports (the steps the kernel's score cache
+   serves: all of them in these records), and the same call on asks
+   that differ at every step (``varied_ms``: none served), held
+   against the plain version too. On phase 9's calls: K10a-K10d, then K10e (the
    gang programs: outputs and every shard's carry), K10f (the defrag
    solves) and K10g-a (the 512 + 512 eval and all 64 storm evals) to
    RELAX_TOLS as K8a and K9, and K10g-b (choices and carry equal its
@@ -812,9 +823,11 @@ def run_storm(seed, torch, total):
             return rows, results, plans, wall, stats_delta(
                 s0, batcher.stats())
 
-        rows, results, plans, wall, st = counted(
-            total, "greedy storm",
-            ("threefry_uniform", "greedy_scan_seq", "expand_overlay"), greedy)
+        with AlikeAsks(torch) as alike:
+            rows, results, plans, wall, st = counted(
+                total, "greedy storm",
+                ("threefry_uniform", "greedy_scan_seq", "expand_overlay"),
+                greedy)
         placed = sum(len(a) for p in plans for a in p.node_allocation.values())
         conflicted = conflicted_evals(rows, results)
         print(f"greedy storm: {GREEDY_STORM_BATCH} evals x 1,024 asks in "
@@ -825,7 +838,9 @@ def run_storm(seed, torch, total):
         check_placed("greedy storm", results, placed,
                      GREEDY_STORM_BATCH * 1024)
         check(conflicted == 0, f"greedy storm: {conflicted} conflicted evals")
-        figures.update(greedy_wall_s=wall, greedy_conflicted=conflicted)
+        figures.update(greedy_wall_s=wall, greedy_conflicted=conflicted,
+                       greedy_asks=alike.figures())
+        print(f"greedy storm asks (the batcher's): {alike.figures()}")
 
         def parked():
             import threading
@@ -1627,6 +1642,131 @@ def chain_ms(torch, k, dev):
         "nt_argmax_chain", k, out.data_ptr(), stream), RUNS)
 
 
+def cluster_chain_ms(torch, k, ctas, threads, dev):
+    """Median CUDA-event ms of k rounds of the cluster scan's exchange
+    alone (csrc/greedy_scan.cu nt_argmax_chain_cluster: a warp and a
+    block reduction, the CTA's key sent to every CTA and the wait for
+    the cluster's keys, a round) on ``ctas`` CTAs of ``threads``: the
+    chain under the cluster design's k steps."""
+    from nomad_tpu_torch.ops import cuda
+
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = cuda.stream_ptr(dev)
+    return time_cuda(torch, lambda: cuda.launch(
+        "nt_argmax_chain_cluster", k, ctas, threads, out.data_ptr(), stream),
+        RUNS)
+
+
+def alike_steps(torch, asks):
+    """(steps, alike, active, active and alike) of a call's asks: a
+    step is alike when its ask has the last step's resources, bandwidth
+    and ports in the same eval, the steps whose scores before the noise
+    the kernel's cache keeps (csrc/greedy_scan.cu)."""
+    r, bw, p = asks.resources, asks.bw, asks.ports
+    same = torch.zeros_like(asks.active)
+    same[:, 1:] = ((r[:, 1:] == r[:, :-1]).all(-1) & (bw[:, 1:] == bw[:, :-1])
+                   & (p[:, 1:] == p[:, :-1]))
+    act = asks.active
+    return (act.numel(), int(same.sum().item()), int(act.sum().item()),
+            int((same & act).sum().item()))
+
+
+class AlikeAsks:
+    """Within the block, every greedy scan's ``alike_steps`` summed
+    (``binpack.greedy_scan`` wrapped; the batcher calls it by name)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = [0, 0, 0, 0]
+
+    def __enter__(self):
+        from nomad_tpu_torch.ops import binpack
+
+        self.inner = binpack.greedy_scan
+
+        def counted(*args, **kw):
+            asks = args[6] if len(args) > 6 else kw["asks"]
+            for i, x in enumerate(alike_steps(self.torch, asks)):
+                self.counts[i] += x
+            return self.inner(*args, **kw)
+
+        binpack.greedy_scan = counted
+        return self
+
+    def __exit__(self, *exc):
+        from nomad_tpu_torch.ops import binpack
+
+        binpack.greedy_scan = self.inner
+
+    def figures(self):
+        steps, alike, active, both = self.counts
+        return dict(steps=steps, alike_share=alike / max(steps, 1),
+                    active_alike_share=both / max(active, 1))
+
+
+def varied_asks(torch, asks, seed):
+    """``asks`` with each step its own resources, bandwidth and ports
+    (CPU 100-1,000 by the step, so no two steps in a row are alike;
+    memory, bandwidth and ports drawn as the card tests' scan_inputs
+    draws them): a call the score cache never serves."""
+    b, k = asks.bw.shape
+    gen = torch.Generator().manual_seed(seed)
+    step = torch.arange(k)
+    res = torch.stack([(100.0 * (1 + step % 10)).expand(b, k),
+                       128.0 * torch.randint(1, 5, (b, k), generator=gen),
+                       torch.full((b, k), 300.0), torch.zeros(b, k)], 2)
+    dev = asks.bw.device
+    return asks._replace(
+        resources=res.to(dev).contiguous(),
+        bw=(50.0 * torch.randint(0, 3, (b, k), generator=gen)).to(dev),
+        ports=torch.randint(1, 3, (b, k), generator=gen).float().to(dev))
+
+
+def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
+                   ms):
+    """A greedy scan record's design figures: the plan's cluster,
+    threads, form, waves and whether it keeps the score cache, the
+    launches of one call (counted around it, held to one), the cluster
+    chain term at the plan's shape, the share of the asks' steps that
+    are alike (``alike_steps``), and ``varied_ms``: the call on
+    ``varied_asks``, held against the plain version."""
+    from nomad_tpu_torch.ops import binpack, scan
+
+    dev = feas.device
+    b, n, g = feas.shape
+    k = asks.resources.shape[1]
+    plan = scan.plan_for(dev, b, n, g, seq)
+    call = lambda a=asks: binpack.greedy_scan(  # noqa: E731
+        *static, box["c"], feas, a, noise, 10.0, seq)
+    _out, launches = launches_of(name, lambda: (fresh(), call()))
+    check(launches == 1, f"{name} (B={b}): {launches} launches a call")
+    steps = (b if seq else 1) * k
+    varied = varied_asks(torch, asks, 7 + b)
+    fresh()
+    got = (*call(varied), box["c"])
+    fresh()
+    want = (*binpack.greedy_scan_plain(*static, box["c"], feas, varied,
+                                       noise, 10.0, seq), box["c"])
+    check_scan(torch, f"{name} (B={b}, varied asks)", got, want)
+    total, alike, _active, _both = alike_steps(torch, asks)
+    fig = dict(ctas=plan.ctas, threads=plan.threads, form=plan.form,
+               waves=plan.waves, cache=plan.cache,
+               launches_per_call=launches,
+               cluster_chain_ms=cluster_chain_ms(torch, steps, plan.ctas,
+                                                 plan.threads, dev),
+               alike_share=alike / total,
+               varied_ms=time_cuda(torch, lambda: call(varied), RUNS,
+                                   setup=fresh),
+               varied_alike_share=alike_steps(torch, varied)[1] / total)
+    print(f"{name} B={b} K={k}: {plan.ctas} CTAs x {plan.threads} threads "
+          f"a cluster, {plan.form}, cache {plan.cache}, {plan.waves} "
+          f"wave(s), {launches} launch a call, {ms:.4f} ms ({alike} of "
+          f"{total} steps alike); varied asks {fig['varied_ms']:.4f} ms "
+          f"(0 alike), choices and carry equal the plain version's; chain "
+          f"terms: cluster {fig['cluster_chain_ms']:.4f} ms")
+    return fig
+
+
 def bench_kernels(torch, np, seed):
     from nomad_tpu_torch.ops import binpack, prng
 
@@ -1679,6 +1819,8 @@ def bench_kernels(torch, np, seed):
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
             *static, box["c"], feas, asks, noise, 10.0), 3, warmup=1,
             setup=fresh)
+        fig = greedy_figures(torch, "greedy_scan", False, static, feas, asks,
+                             noise, fresh, box, ms)
         # Node rows, the carry and feasible read once, every ask and its
         # two outputs, the distinct_hosts flags, the noise, and the
         # chosen rows written back once.
@@ -1689,7 +1831,7 @@ def bench_kernels(torch, np, seed):
         out.setdefault("greedy_scan", {})[b] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain)
+            library_ms=None, chain_ms=chain, **fig)
         del noise
         # ---- K2
         unoise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
@@ -1894,6 +2036,8 @@ def bench_new_kernels(torch, np, seed):
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
             *static, box["c"], feas, asks, noise, 10.0, True), 3, warmup=1,
             setup=fresh)
+        fig = greedy_figures(torch, "greedy_scan_seq", True, static, feas,
+                             asks, noise, fresh, box, ms)
         rows, cells = rows_written(torch, ch, asks.tg_index, n, g)
         nodes = torch.unique(ch[ch >= 0]).numel()
         chain = chain_ms(torch, b * k, dev)
@@ -1907,7 +2051,7 @@ def bench_new_kernels(torch, np, seed):
         out.setdefault("greedy_scan_seq", {})[(b, k)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain)
+            library_ms=None, chain_ms=chain, **fig)
         del noise
     # ---- K2 sequential at B x K = 64 x 8 (config 4's storm)
     b, k = 64, 8
@@ -1989,7 +2133,9 @@ def bench_new_kernels(torch, np, seed):
         rows, cells = rows_written(torch, ch, a.tg_index, n, g)
         lib_ms = None
         if greedy:
-            chain = chain_ms(torch, k, dev)
+            extra = dict(chain_ms=chain_ms(torch, k, dev), **greedy_figures(
+                torch, name, False, static, feas, a, noise, fresh, box, ms))
+            chain = extra["chain_ms"]
             bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 5 * g)
                       + b * k * (ASK_BYTES + 8) + b * (1 + g)
                       + b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
@@ -2014,7 +2160,7 @@ def bench_new_kernels(torch, np, seed):
             ops_s = b * n * 70 / FP32_FLOPS
         out[name] = {b: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(bytes_, ops_s), library_ms=lib_ms,
-                             **({} if greedy else extra))}
+                             **extra)}
         torch.cuda.empty_cache()
     return out
 
@@ -3784,8 +3930,15 @@ def main(argv=None) -> int:
               f"{info.get('cached')})")
         log = os.path.join(os.path.dirname(info["path"]), "build.log")
         if os.path.exists(log):
+            section = ""
             for line in open(log):
-                if "registers" in line or line.startswith("=="):
+                if line.startswith("=="):
+                    section = line
+                # Every kernel's registers; the greedy scan's entries by
+                # name, with their spills.
+                if "registers" in line or line.startswith("==") or (
+                        "greedy_scan.cu" in section
+                        and ("spill" in line or "Compiling entry" in line)):
                     print("  " + line.rstrip())
 
         total = Counter()

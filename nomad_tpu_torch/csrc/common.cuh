@@ -19,15 +19,50 @@
 
 #define NT_NEG_INF (-1e30f)
 
-// One ask's feasibility mask and BestFit-v3 score on a node whose rows
-// are already loaded: u, cap, sc the util, capacity and sched rows;
-// feas the ask's task-group column of feasible; jc and tgc the job's
-// and task group's counts (tgc read only under tdh).
-__device__ __forceinline__ float nt_score_of(
+// The shared-memory address of a generic pointer into this CTA's
+// shared memory, as PTX takes it.
+__device__ __forceinline__ uint32_t nt_saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier (one arrival a phase) for bulk copies to complete on.
+__device__ __forceinline__ void nt_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(nt_saddr(bar))
+               : "memory");
+}
+
+// Wait until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void nt_mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(nt_saddr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Where [src, src + len) lands in a staging region: the region's byte
+// (src mod 16) on, so that the 16-byte-aligned body of the source maps
+// to a 16-byte-aligned destination.
+template <class T>
+__device__ __forceinline__ T* nt_staged(unsigned char* region, const T* src) {
+  return (T*)(region + ((uintptr_t)src & 15));
+}
+
+// One ask's BestFit-v3 score before the tie-break noise on a node whose
+// rows are already loaded, with the part of its feasibility mask that
+// does not depend on the ask's task group: fit minus the anti-affinity
+// penalty, or -INFINITY where the ask's resources, bandwidth or ports
+// do not fit, the node is not ok, or the job's distinct_hosts binds. u,
+// cap, sc the util, capacity and sched rows; jc the job's count.
+__device__ __forceinline__ float nt_fit_of(
     float4 u, float4 cap, float4 sc, float bw_used, float bw_avail,
-    float ports_free, bool feas, bool ok, int jc, int tgc, bool jdh,
-    bool tdh, float penalty, float4 a, float abw, float aports,
-    float noise) {
+    float ports_free, bool ok, int jc, bool jdh, float penalty, float4 a,
+    float abw, float aports) {
   const float nu0 = __fadd_rn(u.x, a.x);
   const float nu1 = __fadd_rn(u.y, a.y);
   const float nu2 = __fadd_rn(u.z, a.z);
@@ -36,17 +71,36 @@ __device__ __forceinline__ float nt_score_of(
               (nu3 <= cap.w);
   fits = fits && (__fadd_rn(bw_used, abw) <= bw_avail);
   fits = fits && (ports_free >= aports);
-  fits = fits && feas && ok;
+  fits = fits && ok;
   if (jdh) fits = fits && (jc == 0);
-  if (tdh) fits = fits && (tgc == 0);
   const float f0 = __fsub_rn(1.0f, __fdiv_rn(nu0, fmaxf(sc.x, 1.0f)));
   const float f1 = __fsub_rn(1.0f, __fdiv_rn(nu1, fmaxf(sc.y, 1.0f)));
   float fit = __fsub_rn(20.0f, __fadd_rn(powf(10.0f, f0), powf(10.0f, f1)));
   fit = fminf(fmaxf(fit, 0.0f), 18.0f);
   if (sc.x <= 0.0f || sc.y <= 0.0f) fit = 0.0f;
-  const float s = __fadd_rn(__fsub_rn(fit, __fmul_rn(penalty, (float)jc)),
-                            noise);
-  return fits ? s : NT_NEG_INF;
+  return fits ? __fsub_rn(fit, __fmul_rn(penalty, (float)jc)) : -INFINITY;
+}
+
+// The task group's part of the mask: its column of feasible (feas), and
+// under its distinct_hosts (tdh) no alloc of the group on the node
+// (tgc, read only under tdh).
+__device__ __forceinline__ bool nt_group_fits(bool feas, bool tdh, int tgc) {
+  return feas && (!tdh || tgc == 0);
+}
+
+// One ask's masked score with the noise added, NT_NEG_INF where the
+// ask does not fit; feas the ask's task-group column of feasible, tgc
+// its count.
+__device__ __forceinline__ float nt_score_of(
+    float4 u, float4 cap, float4 sc, float bw_used, float bw_avail,
+    float ports_free, bool feas, bool ok, int jc, int tgc, bool jdh,
+    bool tdh, float penalty, float4 a, float abw, float aports,
+    float noise) {
+  const float base = nt_fit_of(u, cap, sc, bw_used, bw_avail, ports_free,
+                               ok, jc, jdh, penalty, a, abw, aports);
+  return base == -INFINITY || !nt_group_fits(feas, tdh, tgc)
+             ? NT_NEG_INF
+             : __fadd_rn(base, noise);
 }
 
 // One ask's feasibility mask and BestFit-v3 score on node n. The

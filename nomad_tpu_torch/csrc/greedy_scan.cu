@@ -2,14 +2,14 @@
 // eval (ops/binpack.py _score_and_mask + placement_step, scanned by
 // placement_program, in the JAX package), under three batch layouts:
 //
-// - independent evals (vmap): one block per eval, each with its own
-//   copy of the carried util, bw_used and ports_free;
+// - independent evals (vmap): a cluster per eval, each eval with its
+//   own copy of the carried util, bw_used and ports_free;
 // - sequential evals (seq = 1; the pre_resolve scan over the eval axis,
 //   _overlay_seq and the pre_resolve branch of _compact_batch): ONE
-//   block walks the B evals in order over one shared copy of util,
-//   bw_used and ports_free (batch stride 0), so eval b+1 scores against
-//   the capacity evals 0..b claimed; job_count, tg_count, feasible,
-//   asks and noise stay per eval;
+//   cluster walks the B evals in order over one shared copy of util,
+//   bw_used and ports_free, so eval b+1 scores against the capacity
+//   evals 0..b claimed; job_count, tg_count, feasible, asks and noise
+//   stay per eval;
 // - stacked states (stacked = 1; batched_placement_program): capacity,
 //   sched, bw_avail and node_ok carry the batch axis too.
 //
@@ -17,144 +17,692 @@
 // ties, as jnp.argmax), and, when the ask is active and some node
 // fits, adds the ask to that one row of the carried util, bw_used,
 // ports_free, job_count and tg_count. Step k+1 reads the row step k
-// wrote, so the K steps are a dependent chain; under seq the chain is
-// B x K steps long, and the barrier that closes each step also orders
-// one eval's last update before the next eval's first read.
+// wrote, so the K steps (B x K under seq) are a dependent chain.
 //
-// Bound on the card: the chain, not the bytes — K block-wide argmax
-// reductions in sequence, each a pass over N nodes (~40 bytes a node,
-// served from L2 after the first step) plus two __syncthreads. Design:
-// one block per eval (grid = B), or one block in all (seq), 1024
-// threads, each scoring its strided nodes; a warp-shuffle then a
-// shared-memory argmax; thread 0 updates the chosen row in global
-// memory, which the next step's __syncthreads makes visible to the
-// block. The carried arrays are private to the launch (the wrapper
-// clones the base), and the feasibility column of ask k is read in
-// place from feasible[N, G]: the [K, N] gather is never built.
-// Measured (H100, N = 10,240): ~14 us a step, bound by the one SM's
-// bandwidth and issue rate; so at B = 64 x K = 1,024 a sequential scan
-// takes ~1 s. Splitting one eval's node axis over a thread-block
-// cluster is the next step.
+// Bound on the card: the chain — K argmax reductions in sequence, each
+// over N nodes of ~40 bytes. One SM walking the node axis took ~12 us
+// a step at N = 10,240 against a 0.46 us block reduction. Design:
+//
+// - The node axis splits over a thread-block cluster of ``ctas`` CTAs
+//   (cudaLaunchKernelEx with a cluster dimension; up to 16, the
+//   non-portable maximum): CTA r owns nodes [r N / c, (r+1) N / c), and
+//   within it thread t owns nodes t, t + T, t + 2T, ... for the whole
+//   launch. Only a node's owner reads or writes its rows, so no step
+//   needs a block barrier.
+// - Resident form: each CTA keeps its slice's static rows (capacity,
+//   sched, bw_avail, node_ok), carried rows (util, bw_used, ports_free)
+//   and the eval's job_count, tg_count and feasible in shared memory,
+//   loaded by bulk copies (cp.async.bulk on an mbarrier, each the
+//   16-byte-aligned superset of its rows) and written back by the
+//   owners: job_count and tg_count at the end of each eval, the shared
+//   carried rows at the end of the launch. Under seq the next eval's
+//   rows load into a second buffer while the current eval runs.
+//   Streamed form, where a slice does not fit (small clusters at large
+//   B, large G): the same kernel reads and updates the rows in global
+//   memory. ops/scan.py scan_plan picks the cluster, the threads and
+//   the form from B, N, G and the card's occupancy.
+// - The score cache: between two steps only the winner's row changes,
+//   and a job's asks are alike. Each node's score before the noise and
+//   before its task group's part of the mask (fit - penalty x
+//   job_count, or "does not fit": nt_fit_of) is kept in shared memory;
+//   a step whose ask has the last one's resources, bandwidth and ports
+//   (same eval) recomputes it only for the node its owner updated, and
+//   every node applies the step's task-group part (nt_group_fits) and
+//   adds the new noise — the same operations on the same values, so
+//   the same bits.
+// - Step s + 4's noise row slice is staged by a bulk copy into one of
+//   four buffers while steps s..s+3 run (where they fit); the asks of
+//   the steps ahead are prefetched into L1 and the next step's loaded
+//   into registers a step ahead.
+// - One exchange a step: each warp reduces its threads' best (score,
+//   index) to one packed key (nt_pack's order) with two
+//   __reduce_max_sync, warp 0 reduces the warps' keys after one block
+//   barrier, and its lane r sends the CTA's key to CTA r's slot for
+//   this CTA with st.async, which completes on CTA r's key mbarrier
+//   (slots and mbarriers double-buffered by step parity); every thread
+//   waits on its own CTA's mbarrier, then reduces the cluster's keys in
+//   its own shared memory to the same winner. The owner of the winning
+//   node (its own best key is the winner) updates the node's rows and
+//   writes the choice and score; rank 0 writes a step with no winner. A
+//   peer cannot send step s + 2's key before every thread of the
+//   cluster has read step s's: it first needs their step s + 1 keys.
+//   (Measured on the H100: a cluster barrier a step cost 0.3-0.6 us
+//   more than st.async, and a key a warp instead of a CTA ~2 ns a key.)
+#include <cooperative_groups.h>
+
+#include <atomic>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
+// Most threads a CTA (the plan takes fewer where slices are short).
 #define NT_SCAN_THREADS 1024
+// Most CTAs a cluster (above 8: a non-portable cluster size).
+#define NT_SCAN_CLUSTER_MAX 16
+// Shared-memory bytes a CTA may take (227 KB on sm_90).
+#define NT_SCAN_SMEM_MAX (227 * 1024)
+// Noise rows staged ahead of the step that reads them.
+#define NT_SCAN_STAGES 4
+// Steps ahead whose asks are prefetched into L1.
+#define NT_SCAN_ASK_AHEAD 8
 
-// One eval's K steps; every pointer is already offset to the eval.
-__device__ __forceinline__ void nt_scan_eval(
-    int N, int G, int K, float penalty, bool jdh,
-    const float4* __restrict__ capacity, const float4* __restrict__ sched,
-    const float* __restrict__ bw_avail,
-    const unsigned char* __restrict__ node_ok,
-    float4* util, float* bw_used, float* ports_free, int* job_count,
-    int* tg_count, const unsigned char* __restrict__ feasible,
-    const float4* __restrict__ ask_res, const float* __restrict__ ask_bw,
-    const float* __restrict__ ask_ports, const int* __restrict__ tg_index,
-    const unsigned char* __restrict__ active,
-    const unsigned char* __restrict__ tg_dh,
-    const float* __restrict__ noise, int* __restrict__ choices,
-    float* __restrict__ scores, float* s_best, int* i_best) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
+// Parts of a step, timed by one thread of rank 0 when ``prof`` is set
+// (topk_profile.py --sections scan): the waits for staged rows, the
+// asks' loads, the scoring pass, the warp reduction and the keys' sends, the wait for
+// the cluster's keys, and the winner's reduction and update.
+enum { NT_P_WAIT, NT_P_ASK, NT_P_SCORE, NT_P_BLOCK, NT_P_EXCH, NT_P_WIN,
+       NT_P_PARTS };
 
-  for (int k = 0; k < K; ++k) {
-    const float4 a = ask_res[k];
-    const float abw = ask_bw[k];
-    const float aports = ask_ports[k];
-    const int tg = tg_index[k];
-    const bool tdh = tg_dh[tg] != 0;
-    const float* nz = noise + (size_t)k * N;
+struct NtScanArgs {
+  int B, N, G, K, seq, stacked, stage_noise, eval_bufs, cache, L;
+  float penalty;
+  const float4* capacity;
+  const float4* sched;
+  const float* bw_avail;
+  const unsigned char* node_ok;
+  float4* util;
+  float* bw_used;
+  float* ports_free;
+  int* job_count;
+  int* tg_count;
+  const unsigned char* feasible;
+  const float4* ask_res;
+  const float* ask_bw;
+  const float* ask_ports;
+  const int* tg_index;
+  const unsigned char* active;
+  const unsigned char* job_dh;
+  const unsigned char* tg_dh;
+  const float* noise;
+  int* choices;
+  float* scores;
+  long long* prof;
+};
 
-    float bs = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      const float s = nt_node_score(n, G, tg, jdh, tdh, penalty, capacity,
-                                    sched, bw_avail, node_ok, util, bw_used,
-                                    ports_free, job_count, tg_count, feasible,
-                                    a, abw, aports, nz[n]);
-      if (s > bs) {  // n rises per thread: strict > keeps the lowest index
-        bs = s;
-        bi = n;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, bs, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (nt_better(os, oi, bs, bi)) {
-        bs = os;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      s_best[warp] = bs;
-      i_best[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bs = lane < n_warps ? s_best[lane] : -INFINITY;
-      bi = lane < n_warps ? i_best[lane] : 0x7fffffff;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float os = __shfl_down_sync(0xffffffffu, bs, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (nt_better(os, oi, bs, bi)) {
-          bs = os;
-          bi = oi;
-        }
-      }
-      if (lane == 0) {
-        const bool valid = (bs > NT_NEG_INF / 2) && active[k] != 0;
-        if (valid) {
-          choices[k] = bi;
-          scores[k] = __fsub_rn(bs, nz[bi]);
-          const float4 u = util[bi];
-          util[bi] = make_float4(__fadd_rn(u.x, a.x), __fadd_rn(u.y, a.y),
-                                 __fadd_rn(u.z, a.z), __fadd_rn(u.w, a.w));
-          bw_used[bi] = __fadd_rn(bw_used[bi], abw);
-          ports_free[bi] = __fadd_rn(ports_free[bi], -aports);
-          job_count[bi] = job_count[bi] + 1;
-          tg_count[(size_t)bi * G + tg] = tg_count[(size_t)bi * G + tg] + 1;
-        } else {
-          choices[k] = -1;
-          scores[k] = 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-  }
+// The mbarriers at the start of shared memory.
+enum { NT_B_ROWS = 0, NT_B_NOISE = 2, NT_B_KEYS = 2 + NT_SCAN_STAGES,
+       NT_B_COUNT = NT_B_KEYS + 2 };
+
+// Resident rows: the static and carried rows, then each eval's own.
+enum { NT_S_CAP, NT_S_SCHED, NT_S_UTIL, NT_S_BWA, NT_S_BWU, NT_S_PORTS,
+       NT_S_OK, NT_S_ROWS };
+enum { NT_E_JC, NT_E_TGC, NT_E_FEAS, NT_E_ROWS };
+
+__host__ __device__ inline size_t nt_r16(size_t x) {
+  return (x + 15) & ~(size_t)15;
 }
 
-__global__ void __launch_bounds__(NT_SCAN_THREADS) nt_greedy_scan_kernel(
-    int B, int N, int G, int K, float penalty, int seq, int stacked,
-    const float4* __restrict__ capacity, const float4* __restrict__ sched,
-    const float* __restrict__ bw_avail,
-    const unsigned char* __restrict__ node_ok,
-    float4* util, float* bw_used, float* ports_free, int* job_count,
-    int* tg_count, const unsigned char* __restrict__ feasible,
-    const float4* __restrict__ ask_res, const float* __restrict__ ask_bw,
-    const float* __restrict__ ask_ports, const int* __restrict__ tg_index,
-    const unsigned char* __restrict__ active,
-    const unsigned char* __restrict__ job_dh,
-    const unsigned char* __restrict__ tg_dh,
-    const float* __restrict__ noise, int* __restrict__ choices,
-    float* __restrict__ scores) {
-  __shared__ float s_best[NT_SCAN_THREADS / 32];
-  __shared__ int i_best[NT_SCAN_THREADS / 32];
-  const int first = seq ? 0 : blockIdx.x;
-  const int last = seq ? B : first + 1;
-  for (int b = first; b < last; ++b) {
-    const size_t sb = stacked ? b : 0;  // static rows: per eval or shared
-    const size_t cb = seq ? 0 : b;      // claimed capacity: shared under seq
-    nt_scan_eval(N, G, K, penalty, job_dh[b] != 0, capacity + sb * N,
-                 sched + sb * N, bw_avail + sb * N, node_ok + sb * N,
-                 util + cb * N, bw_used + cb * N, ports_free + cb * N,
-                 job_count + (size_t)b * N, tg_count + (size_t)b * N * G,
-                 feasible + (size_t)b * N * G, ask_res + (size_t)b * K,
-                 ask_bw + (size_t)b * K, ask_ports + (size_t)b * K,
-                 tg_index + (size_t)b * K, active + (size_t)b * K,
-                 tg_dh + (size_t)b * G, noise + (size_t)b * K * N,
-                 choices + (size_t)b * K, scores + (size_t)b * K, s_best,
-                 i_best);
+// A staging region for ``bytes`` of rows: room for the 16-byte-aligned
+// superset the bulk copy moves (ops/scan.py stage_len).
+__host__ __device__ inline size_t nt_stage_len(size_t bytes) {
+  return nt_r16(bytes) + 32;
+}
+
+// Byte offsets in a CTA's dynamic shared memory (ops/scan.py layout):
+// the mbarriers (eval rows by eval parity, noise by stage, keys by step
+// parity) and the profile's counters, the keys' slots by step parity, the score cache, the noise
+// stages, then in the resident form the rows and ``eval_bufs`` sets of
+// an eval's rows.
+struct NtScanLayout {
+  size_t slots, cache, noise[NT_SCAN_STAGES], rows[NT_S_ROWS],
+      erows[2][NT_E_ROWS], total;
+};
+
+__host__ __device__ inline NtScanLayout nt_scan_layout(
+    int nc, int warps, int L, int G, int resident, int stage_noise,
+    int eval_bufs, int cache) {
+  NtScanLayout o = {};
+  size_t at = 8 * NT_B_COUNT + 8 * NT_P_PARTS;  // and the profile's counters
+  at = nt_r16(at);
+  o.slots = at;  // CTA keys [2][nc], then warp keys [2][warps]
+  at += nt_r16((size_t)16 * (nc + warps));
+  o.cache = at;
+  if (cache) at += nt_r16((size_t)4 * L);
+  if (stage_noise)
+    for (int x = 0; x < NT_SCAN_STAGES; ++x) {
+      o.noise[x] = at;
+      at += nt_stage_len((size_t)4 * L);
+    }
+  if (resident) {
+    const size_t per[NT_S_ROWS] = {16, 16, 16, 4, 4, 4, 1};
+    for (int r = 0; r < NT_S_ROWS; ++r) {
+      o.rows[r] = at;
+      at += nt_stage_len(per[r] * L);
+    }
+    const size_t eper[NT_E_ROWS] = {4, (size_t)4 * G, (size_t)G};
+    for (int x = 0; x < eval_bufs; ++x)
+      for (int r = 0; r < NT_E_ROWS; ++r) {
+        o.erows[x][r] = at;
+        at += nt_stage_len(eper[r] * L);
+      }
   }
+  o.total = at;
+  return o;
+}
+
+// The bytes of the 16-byte-aligned superset of [src, src + len).
+__device__ __forceinline__ unsigned nt_superset(const void* src, size_t len) {
+  if (len == 0) return 0;
+  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
+  const uintptr_t e = ((uintptr_t)src + len + 15) & ~(uintptr_t)15;
+  return (unsigned)(e - a);
+}
+
+// One bulk copy of that superset into ``region`` on ``bar``: the rows
+// land at nt_staged(region, src). The superset lies in the pages of
+// [src, src + len) (no 16-byte block straddles a page), and the bytes
+// around the rows are never read.
+__device__ __forceinline__ void nt_bulk(unsigned char* region,
+                                        const void* src, size_t len,
+                                        uint64_t* bar) {
+  if (len == 0) return;
+  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(nt_saddr(region)),
+      "l"(a), "r"(nt_superset(src, len)), "r"(nt_saddr(bar))
+      : "memory");
+}
+
+// Post ``tx`` bytes of transfers on ``bar``'s phase (its one arrival).
+__device__ __forceinline__ void nt_expect(uint64_t* bar, unsigned tx) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          nt_saddr(bar)),
+      "r"(tx)
+      : "memory");
+}
+
+// nt_expect for bulk copies into a region last read through the
+// generic proxy.
+__device__ __forceinline__ void nt_expect_bulk(uint64_t* bar, unsigned tx) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  nt_expect(bar, tx);
+}
+
+// The cluster barrier (.aligned: the warp's lanes arrive together).
+__device__ __forceinline__ void nt_cluster_arrive_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// nt_pack's high word: the score's bits mapped so that unsigned order
+// is float order (-0 ranks as +0); never 0 for a score.
+__device__ __forceinline__ unsigned nt_score_word(float s) {
+  const uint32_t u = __float_as_uint(s == 0.0f ? 0.0f : s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Clock cycles of a step's parts, kept by the timed thread of a
+// TIMED kernel in shared memory (acc) and written out at the end; in
+// an untimed kernel it holds nothing.
+template <bool TIMED>
+struct NtClock {
+  bool on;
+  long long clk;
+  long long* acc;
+
+  __device__ __forceinline__ void tick(int part) {
+    if constexpr (TIMED) {
+      if (on) {
+        const long long now = clock64();
+        acc[part] += now - clk;
+        clk = now;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t nt_mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// A thread's view of the keys' exchange: its CTA's warp keys [2][W],
+// the cluster's CTA keys [2][nc] and key mbarriers [2] (by step
+// parity), and for lane r < nc the shared::cluster addresses of CTA
+// r's CTA keys and key mbarriers.
+struct NtExchange {
+  unsigned long long* wkeys;
+  unsigned long long* keys;
+  uint64_t* kbar;
+  uint32_t peer_keys, peer_kbar;
+  int nc, rank, warps;
+};
+
+__device__ __forceinline__ NtExchange nt_exchange(unsigned char* smem,
+                                                  size_t slots, int nc,
+                                                  int rank, int warps) {
+  const int lane = threadIdx.x & 31;
+  NtExchange x;
+  x.keys = (unsigned long long*)(smem + slots);
+  x.wkeys = x.keys + 2 * nc;
+  x.kbar = (uint64_t*)smem + NT_B_KEYS;
+  x.peer_keys = nt_mapa(nt_saddr(x.keys), lane < nc ? lane : 0);
+  x.peer_kbar = nt_mapa(nt_saddr(x.kbar), lane < nc ? lane : 0);
+  x.nc = nc;
+  x.rank = rank;
+  x.warps = warps;
+  return x;
+}
+
+// Post step s's keys (nc x 8 bytes) on this CTA's key mbarrier of its
+// parity. Posted two steps ahead (after step s - 2's keys are in), so
+// that no key of step s arrives before its phase is posted.
+__device__ __forceinline__ void nt_expect_keys(const NtExchange& x, int s) {
+  nt_expect(&x.kbar[s & 1], (unsigned)(8 * x.nc));
+}
+
+// The largest of the keys ``m`` across a warp (hi: score word, lo:
+// 0xffffffff - node index), in every lane.
+__device__ __forceinline__ unsigned long long nt_warp_max(
+    unsigned long long m) {
+  const unsigned h = __reduce_max_sync(0xffffffffu, (unsigned)(m >> 32));
+  const unsigned l = __reduce_max_sync(
+      0xffffffffu, (unsigned)(m >> 32) == h ? (unsigned)m : 0u);
+  return ((unsigned long long)h << 32) | l;
+}
+
+// The cluster's winner of step s from each thread's best key (0: no
+// node): each warp's largest into the CTA's warp keys, one block
+// barrier, warp 0's largest of those sent to every CTA's slot for this
+// CTA (st.async, completing on that CTA's key mbarrier), the wait for
+// the cluster's keys, then the largest of them in every thread.
+template <bool TIMED>
+__device__ __forceinline__ unsigned long long nt_cluster_argmax(
+    unsigned long long key, const NtExchange& x, int s,
+    NtClock<TIMED>& clock) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int par = s & 1;
+  const unsigned long long wk = nt_warp_max(key);
+  if (lane == 0) x.wkeys[par * x.warps + warp] = wk;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned long long ck =
+        nt_warp_max(lane < x.warps ? x.wkeys[par * x.warps + lane] : 0ull);
+    if (lane < x.nc)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 "
+          "[%0], %1, [%2];\n" ::"r"(
+              x.peer_keys + (uint32_t)(8 * (par * x.nc + x.rank))),
+          "l"(ck), "r"(x.peer_kbar + (uint32_t)(8 * par))
+          : "memory");
+  }
+  clock.tick(NT_P_BLOCK);
+  nt_mbar_wait(&x.kbar[par], (unsigned)((s >> 1) & 1));
+  clock.tick(NT_P_EXCH);
+  return nt_warp_max(lane < x.nc ? x.keys[par * x.nc + lane] : 0ull);
+}
+
+// One step's ask.
+struct NtAsk {
+  float4 a;
+  float bw, ports;
+  int tg;
+  bool act;
+};
+
+__device__ __forceinline__ NtAsk nt_ask(const NtScanArgs& p, size_t i) {
+  return NtAsk{p.ask_res[i], p.ask_bw[i], p.ask_ports[i], p.tg_index[i],
+               p.active[i] != 0};
+}
+
+// Whether two asks give every unchanged node the same nt_fit_of.
+__device__ __forceinline__ bool nt_same_ask(const NtAsk& x, const NtAsk& y) {
+  return x.a.x == y.a.x && x.a.y == y.a.y && x.a.z == y.a.z &&
+         x.a.w == y.a.w && x.bw == y.bw && x.ports == y.ports;
+}
+
+__device__ __forceinline__ void nt_prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// RES: the resident form (the rows in shared memory), else streamed;
+// TIMED: the step parts are timed into p.prof.
+template <bool RES, bool TIMED>
+__global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
+    nt_greedy_cluster_kernel(const __grid_constant__ NtScanArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = (uint64_t*)smem;
+  cg::cluster_group cl = cg::this_cluster();
+  const int nc = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int T = blockDim.x, W = T >> 5;
+  const int t = threadIdx.x;
+  const int N = p.N, G = p.G, K = p.K;
+  const NtScanLayout lay = nt_scan_layout(nc, W, p.L, G, RES,
+                                          p.stage_noise, p.eval_bufs,
+                                          p.cache);
+  const NtExchange x = nt_exchange(smem, lay.slots, nc, rank, W);
+  const int lo = (int)((long long)rank * N / nc);
+  const int cnt = (int)((long long)(rank + 1) * N / nc) - lo;
+  const int first = p.seq ? 0 : (int)(blockIdx.x / nc);
+  const int evals = p.seq ? p.B : 1;
+  const int steps = evals * K;
+  const size_t nn = (size_t)N;
+  const size_t sb = p.stacked ? first : 0;  // static rows of the eval
+  const size_t cb = p.seq ? 0 : first;      // claimed capacity
+  const size_t ask_end = (size_t)p.B * K - 1;
+  float* cache = (float*)(smem + lay.cache);
+  // The profile's counters follow the mbarriers; the timed thread
+  // issues no bulk copies.
+  long long* prof_acc = (long long*)(smem + 8 * NT_B_COUNT);
+  NtClock<TIMED> clock = {rank == 0 && t == (T > 32 ? 32 : 0), 0, prof_acc};
+  if (TIMED && clock.on) {
+    for (int i = 0; i < NT_P_PARTS; ++i) prof_acc[i] = 0;
+    clock.clk = clock64();
+  }
+
+  // The slice's rows in global memory; ``e`` the cluster's eval index.
+  const float4* gcap = p.capacity + sb * nn + lo;
+  const float4* gsched = p.sched + sb * nn + lo;
+  const float* gbwa = p.bw_avail + sb * nn + lo;
+  const unsigned char* gok = p.node_ok + sb * nn + lo;
+  float4* gutil = p.util + cb * nn + lo;
+  float* gbwu = p.bw_used + cb * nn + lo;
+  float* gports = p.ports_free + cb * nn + lo;
+  auto gjc = [&](int e) { return p.job_count + (size_t)(first + e) * nn + lo; };
+  auto gtgc = [&](int e) {
+    return p.tg_count + ((size_t)(first + e) * nn + lo) * G;
+  };
+  auto gfeas = [&](int e) {
+    return p.feasible + ((size_t)(first + e) * nn + lo) * G;
+  };
+  auto gnoise = [&](int s) {  // step s's noise row slice
+    return p.noise + ((size_t)first * K + s) * nn + lo;
+  };
+  auto erow = [&](int e, int r) {
+    return smem + lay.erows[e % p.eval_bufs][r];
+  };
+
+  // Eval e's rows (and with ``all`` the static and carried rows) onto
+  // bar[e & 1]; step s's noise onto its stage's. By thread 0.
+  auto issue_eval = [&](int e, bool all) {
+    const void* src[NT_S_ROWS + NT_E_ROWS] = {
+        gcap, gsched, gutil, gbwa, gbwu, gports, gok, gjc(e), gtgc(e),
+        gfeas(e)};
+    const size_t len[NT_S_ROWS + NT_E_ROWS] = {
+        (size_t)16 * cnt, (size_t)16 * cnt, (size_t)16 * cnt,
+        (size_t)4 * cnt, (size_t)4 * cnt, (size_t)4 * cnt, (size_t)cnt,
+        (size_t)4 * cnt, (size_t)4 * G * cnt, (size_t)G * cnt};
+    unsigned char* dst[NT_S_ROWS + NT_E_ROWS];
+    for (int r = 0; r < NT_S_ROWS; ++r) dst[r] = smem + lay.rows[r];
+    for (int r = 0; r < NT_E_ROWS; ++r) dst[NT_S_ROWS + r] = erow(e, r);
+    const int r0 = all ? 0 : NT_S_ROWS;
+    uint64_t* b = &bar[NT_B_ROWS + (e & 1)];
+    unsigned tx = 0;
+    for (int r = r0; r < NT_S_ROWS + NT_E_ROWS; ++r)
+      tx += nt_superset(src[r], len[r]);
+    nt_expect_bulk(b, tx);
+    for (int r = r0; r < NT_S_ROWS + NT_E_ROWS; ++r)
+      nt_bulk(dst[r], src[r], len[r], b);
+  };
+  auto issue_noise = [&](int s) {
+    const float* src = gnoise(s);
+    uint64_t* b = &bar[NT_B_NOISE + s % NT_SCAN_STAGES];
+    nt_expect_bulk(b, nt_superset(src, (size_t)4 * cnt));
+    nt_bulk(smem + lay.noise[s % NT_SCAN_STAGES], src, (size_t)4 * cnt, b);
+  };
+
+  if (t == 0) {
+    for (int i = 0; i < NT_B_COUNT; ++i) nt_mbar_init(&bar[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < 2 && i < steps; ++i) nt_expect_keys(x, i);
+  }
+  // Every CTA of the cluster has started (its slots exist) and sees its
+  // mbarriers initialised and the first keys posted.
+  nt_cluster_arrive_wait();
+  if (t == 0 && steps > 0) {
+    if (RES) issue_eval(0, true);
+    if (p.stage_noise)
+      for (int i = 0; i < NT_SCAN_STAGES && i < steps; ++i) issue_noise(i);
+  }
+
+  // The rows this thread scores: shared memory (resident) or global.
+  const float4* cap = RES ? nt_staged(smem + lay.rows[NT_S_CAP], gcap) : gcap;
+  const float4* sched =
+      RES ? nt_staged(smem + lay.rows[NT_S_SCHED], gsched) : gsched;
+  float4* util = RES ? nt_staged(smem + lay.rows[NT_S_UTIL], gutil) : gutil;
+  const float* bwa = RES ? nt_staged(smem + lay.rows[NT_S_BWA], gbwa) : gbwa;
+  float* bwu = RES ? nt_staged(smem + lay.rows[NT_S_BWU], gbwu) : gbwu;
+  float* ports =
+      RES ? nt_staged(smem + lay.rows[NT_S_PORTS], gports) : gports;
+  const unsigned char* ok =
+      RES ? nt_staged(smem + lay.rows[NT_S_OK], gok) : gok;
+  int* jc = nullptr;
+  int* tgc = nullptr;
+  const unsigned char* feas = nullptr;
+  bool jdh = false;
+
+  NtAsk cur = steps > 0 ? nt_ask(p, (size_t)first * K) : NtAsk{};
+  bool reuse = false;  // the scores before the noise still hold
+  int updated = -1;    // the node of this thread's last row update
+  for (int s = 0; s < steps; ++s) {
+    const int e = s / K, k = s - e * K, b = first + e;
+    const size_t ai = (size_t)b * K + k;
+    if (k == 0) {
+      if (RES) {
+        nt_mbar_wait(&bar[NT_B_ROWS + (e & 1)], (unsigned)((e >> 1) & 1));
+        jc = nt_staged(erow(e, NT_E_JC), gjc(e));
+        tgc = nt_staged(erow(e, NT_E_TGC), gtgc(e));
+        feas = nt_staged(erow(e, NT_E_FEAS), gfeas(e));
+      } else {
+        jc = gjc(e);
+        tgc = gtgc(e);
+        feas = gfeas(e);
+      }
+      jdh = p.job_dh[b] != 0;
+    }
+    const float* nz = gnoise(s);
+    if (p.stage_noise) {
+      nt_mbar_wait(&bar[NT_B_NOISE + s % NT_SCAN_STAGES],
+                   (unsigned)((s / NT_SCAN_STAGES) & 1));
+      nz = nt_staged(smem + lay.noise[s % NT_SCAN_STAGES], nz);
+    }
+    clock.tick(NT_P_WAIT);
+    if (t == T - 1) {
+      const size_t ah =
+          ai + NT_SCAN_ASK_AHEAD < ask_end ? ai + NT_SCAN_ASK_AHEAD : ask_end;
+      nt_prefetch_l1(p.ask_res + ah);
+      nt_prefetch_l1(p.ask_bw + ah);
+      nt_prefetch_l1(p.ask_ports + ah);
+      nt_prefetch_l1(p.tg_index + ah);
+      nt_prefetch_l1(p.active + ah);
+    }
+    const NtAsk nxt = s + 1 < steps ? nt_ask(p, ai + 1) : cur;
+    const bool tdh = p.tg_dh[(size_t)b * G + cur.tg] != 0;
+    clock.tick(NT_P_ASK);
+    unsigned bh = 0;
+    int bi = -1;
+    float bn = 0.0f;
+    for (int i = t; i < cnt; i += T) {
+      float base;
+      if (reuse && i != updated) {
+        base = cache[i];
+      } else {
+        base = nt_fit_of(util[i], cap[i], sched[i], bwu[i], bwa[i], ports[i],
+                         ok[i] != 0, jc[i], jdh, p.penalty, cur.a, cur.bw,
+                         cur.ports);
+        if (p.cache) cache[i] = base;
+      }
+      const size_t cell = (size_t)i * G + cur.tg;
+      const float n_i = nz[i];
+      const bool fits = base != -INFINITY &&
+                        nt_group_fits(feas[cell] != 0, tdh,
+                                      tdh ? tgc[cell] : 0);
+      const unsigned h =
+          nt_score_word(fits ? __fadd_rn(base, n_i) : NT_NEG_INF);
+      if (h > bh) {  // i rises per thread: strict > keeps the lowest index
+        bh = h;
+        bi = i;
+        bn = n_i;
+      }
+    }
+    const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(lo + bi) : 0u;
+    clock.tick(NT_P_SCORE);
+    const unsigned long long win = nt_cluster_argmax(
+        ((unsigned long long)bh << 32) | bl, x, s, clock);
+    // The cluster's keys of step s are in, so every warp of this CTA
+    // has scored it: its noise stage takes step s + 4's row, the key
+    // phase of step s + 2 is posted, and under seq eval e + 1's rows
+    // load while e runs.
+    if (t == 0) {
+      if (s + 2 < steps) nt_expect_keys(x, s + 2);
+      if (p.stage_noise && s + NT_SCAN_STAGES < steps)
+        issue_noise(s + NT_SCAN_STAGES);
+      if (RES && k == 0 && e + 1 < evals) issue_eval(e + 1, false);
+    }
+    const unsigned gh = (unsigned)(win >> 32), gl = (unsigned)win;
+    const uint32_t bits = (gh & 0x80000000u) ? (gh & 0x7fffffffu) : ~gh;
+    const float best = __uint_as_float(bits);
+    const bool valid = gh != 0 && best > NT_NEG_INF / 2 && cur.act;
+    updated = -1;
+    if (valid && bh == gh && bl == gl) {  // this thread owns the winner
+      const size_t cell = (size_t)bi * G + cur.tg;
+      p.choices[ai] = lo + bi;
+      p.scores[ai] = __fsub_rn(best, bn);
+      const float4 u = util[bi];
+      util[bi] = make_float4(__fadd_rn(u.x, cur.a.x), __fadd_rn(u.y, cur.a.y),
+                             __fadd_rn(u.z, cur.a.z), __fadd_rn(u.w, cur.a.w));
+      bwu[bi] = __fadd_rn(bwu[bi], cur.bw);
+      ports[bi] = __fadd_rn(ports[bi], -cur.ports);
+      jc[bi] = jc[bi] + 1;
+      tgc[cell] = tgc[cell] + 1;
+      updated = bi;
+    } else if (!valid && rank == 0 && t == 0) {
+      p.choices[ai] = -1;
+      p.scores[ai] = 0.0f;
+    }
+    if (RES && k == K - 1) {  // the eval's counts back to the caller
+      int* gj = gjc(e);
+      int* gt = gtgc(e);
+      for (int i = t; i < cnt; i += T) {
+        gj[i] = jc[i];
+        for (int g = 0; g < G; ++g)
+          gt[(size_t)i * G + g] = tgc[(size_t)i * G + g];
+      }
+    }
+    // Uniform over the cluster: every CTA reuses or none does.
+    reuse = p.cache && k + 1 < K && nt_same_ask(nxt, cur);
+    cur = nxt;
+    clock.tick(NT_P_WIN);
+  }
+  if (RES)
+    for (int i = t; i < cnt; i += T) {
+      gutil[i] = util[i];
+      gbwu[i] = bwu[i];
+      gports[i] = ports[i];
+    }
+  if (TIMED && clock.on)
+    for (int i = 0; i < NT_P_PARTS; ++i) p.prof[i] = prof_acc[i];
+  // Keeps every CTA's shared memory alive until the cluster is done.
+  nt_cluster_arrive_wait();
+}
+
+// The greedy scan's chain alone in its cluster form, for measuring it:
+// K rounds of the scan's warp reduction and key exchange with no
+// scoring; each thread's key depends on the last winner, as step k+1 of
+// the scan depends on step k's row. Not on the placement path:
+// chip_smoke.py times it beside nt_argmax_chain.
+__global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
+    nt_argmax_chain_cluster_kernel(int K, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = (uint64_t*)smem;
+  cg::cluster_group cl = cg::this_cluster();
+  const int nc = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int W = blockDim.x >> 5;
+  const NtExchange x = nt_exchange(
+      smem, nt_scan_layout(nc, W, 0, 0, 0, 0, 0, 0).slots, nc, rank, W);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NT_B_COUNT; ++i) nt_mbar_init(&bar[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < 2 && i < K; ++i) nt_expect_keys(x, i);
+  }
+  nt_cluster_arrive_wait();
+  const int node = rank * blockDim.x + threadIdx.x;
+  unsigned win = 0;
+  NtClock<false> clock = {false, 0, nullptr};
+  for (int k = 0; k < K; ++k) {
+    const unsigned hi =
+        1u + (((unsigned)node * 2654435761u + win) & 1023u);
+    const unsigned long long key = nt_cluster_argmax(
+        ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)node), x, k,
+        clock);
+    if (threadIdx.x == 0 && k + 2 < K) nt_expect_keys(x, k + 2);
+    win = 0xffffffffu - (unsigned)key;
+  }
+  if (rank == 0 && threadIdx.x == 0) out[0] = (int)win;
+  nt_cluster_arrive_wait();
+}
+
+// Sets a kernel's attributes: the largest dynamic shared memory, and
+// clusters above the portable 8 CTAs.
+static int nt_scan_attrs(const void* fn) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, NT_SCAN_SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+static cudaLaunchConfig_t nt_scan_cfg(int clusters, int ctas, int threads,
+                                      size_t smem, cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * ctas), 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Kernel attributes belong to each device's context: set once a device
+// (every call on a device past the table's end).
+#define NT_SCAN_DEVICES 64
+static std::atomic<int> nt_scan_ready[NT_SCAN_DEVICES];
+
+// The scan kernel for a form, timed or not.
+static void (*nt_scan_kernel(int resident, bool timed))(const NtScanArgs) {
+  if (resident)
+    return timed ? nt_greedy_cluster_kernel<true, true>
+                 : nt_greedy_cluster_kernel<true, false>;
+  return timed ? nt_greedy_cluster_kernel<false, true>
+               : nt_greedy_cluster_kernel<false, false>;
+}
+
+// The kernels' attributes on the current device.
+static int nt_scan_setup() {
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return (int)got;
+  const bool kept = dev >= 0 && dev < NT_SCAN_DEVICES;
+  if (kept && nt_scan_ready[dev].load()) return 0;
+  for (int r = 0; r < 2; ++r)
+    for (int timed = 0; timed < 2; ++timed) {
+      const int err = nt_scan_attrs((const void*)nt_scan_kernel(r, timed));
+      if (err) return err;
+    }
+  const int err = nt_scan_attrs((const void*)nt_argmax_chain_cluster_kernel);
+  if (err) return err;
+  if (kept) nt_scan_ready[dev].store(1);
+  return 0;
+}
+
+static bool nt_scan_shape_ok(int ctas, int threads) {
+  return ctas >= 1 && ctas <= NT_SCAN_CLUSTER_MAX && threads >= 32 &&
+         threads <= NT_SCAN_THREADS && threads % 32 == 0;
 }
 
 // Shapes: capacity/sched [N,4] f32, bw_avail [N] f32, node_ok [N] u8
@@ -163,9 +711,16 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS) nt_greedy_scan_kernel(
 // [B,N,G] i32 (carried, updated in place); feasible [B,N,G] u8;
 // ask_res [B,K,4] f32; ask_bw/ask_ports [B,K] f32; tg_index [B,K] i32;
 // active [B,K] u8; job_dh [B] u8; tg_dh [B,G] u8; noise [B,K,N] f32;
-// out choices [B,K] i32, scores [B,K] f32.
+// out choices [B,K] i32, scores [B,K] f32. The launch's plan
+// (ops/scan.py ScanPlan): ctas a cluster, threads a CTA, resident,
+// stage_noise, eval_bufs, cache and the shared memory it computes,
+// which must equal this file's layout. prof: null, or NT_P_PARTS i64
+// that one thread of rank 0 sets to the clock cycles of its steps'
+// parts.
 NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
-                          int stacked, const void* capacity,
+                          int stacked, int ctas, int threads, int resident,
+                          int stage_noise, int eval_bufs, int cache,
+                          long long smem, const void* capacity,
                           const void* sched, const void* bw_avail,
                           const void* node_ok, void* util, void* bw_used,
                           void* ports_free, void* job_count, void* tg_count,
@@ -174,28 +729,107 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
                           const void* tg_index, const void* active,
                           const void* job_dh, const void* tg_dh,
                           const void* noise, void* choices, void* scores,
-                          void* stream) {
+                          void* prof, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  nt_greedy_scan_kernel<<<seq ? 1 : B, NT_SCAN_THREADS, 0,
-                          (cudaStream_t)stream>>>(
-      B, N, G, K, penalty, seq, stacked, (const float4*)capacity,
-      (const float4*)sched, (const float*)bw_avail,
-      (const unsigned char*)node_ok, (float4*)util, (float*)bw_used,
-      (float*)ports_free, (int*)job_count, (int*)tg_count,
-      (const unsigned char*)feasible, (const float4*)ask_res,
-      (const float*)ask_bw, (const float*)ask_ports, (const int*)tg_index,
-      (const unsigned char*)active, (const unsigned char*)job_dh,
-      (const unsigned char*)tg_dh, (const float*)noise, (int*)choices,
-      (float*)scores);
-  return (int)cudaGetLastError();
+  // Resident under seq, eval e + 1's rows load while eval e reads its
+  // own: two buffers, or the copy would overwrite rows still in use.
+  if (!nt_scan_shape_ok(ctas, threads) || eval_bufs < 0 || eval_bufs > 2 ||
+      (resident && eval_bufs < 1) ||
+      (resident && seq && B > 1 && eval_bufs != 2))
+    return (int)cudaErrorInvalidValue;
+  const int L = (N + ctas - 1) / ctas;
+  const NtScanLayout lay = nt_scan_layout(ctas, threads / 32, L, G, resident,
+                                          stage_noise, eval_bufs, cache);
+  if ((long long)lay.total != smem || lay.total > NT_SCAN_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  int err = nt_scan_setup();
+  if (err) return err;
+  NtScanArgs p = {};
+  p.B = B;
+  p.N = N;
+  p.G = G;
+  p.K = K;
+  p.seq = seq;
+  p.stacked = stacked;
+  p.stage_noise = stage_noise;
+  p.eval_bufs = eval_bufs;
+  p.cache = cache;
+  p.L = L;
+  p.penalty = penalty;
+  p.capacity = (const float4*)capacity;
+  p.sched = (const float4*)sched;
+  p.bw_avail = (const float*)bw_avail;
+  p.node_ok = (const unsigned char*)node_ok;
+  p.util = (float4*)util;
+  p.bw_used = (float*)bw_used;
+  p.ports_free = (float*)ports_free;
+  p.job_count = (int*)job_count;
+  p.tg_count = (int*)tg_count;
+  p.feasible = (const unsigned char*)feasible;
+  p.ask_res = (const float4*)ask_res;
+  p.ask_bw = (const float*)ask_bw;
+  p.ask_ports = (const float*)ask_ports;
+  p.tg_index = (const int*)tg_index;
+  p.active = (const unsigned char*)active;
+  p.job_dh = (const unsigned char*)job_dh;
+  p.tg_dh = (const unsigned char*)tg_dh;
+  p.noise = (const float*)noise;
+  p.choices = (int*)choices;
+  p.scores = (float*)scores;
+  p.prof = (long long*)prof;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = nt_scan_cfg(
+      seq ? 1 : B, ctas, threads, lay.total, (cudaStream_t)stream, attr);
+  return (int)cudaLaunchKernelEx(&cfg, nt_scan_kernel(resident, prof), p);
 }
 
-// The greedy scan's dependent chain alone, for measuring it: K rounds
-// of the same block-wide argmax (warp shuffle, shared memory, warp 0,
-// two barriers) over 1024 threads with no node scoring. Each round's
-// values depend on the previous round's winner, as step k+1 of the
-// scan depends on the row step k chose, so no round can start early.
-// Not on the placement path: chip_smoke.py times it to bound K1.
+// The clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
+// bytes of shared memory in the given form that the card holds at
+// once, written to *clusters (0: the card refuses such a cluster); no
+// kernel runs.
+NT_API int nt_greedy_occupancy(int ctas, int threads, long long smem,
+                               int resident, int* clusters) {
+  *clusters = 0;
+  if (!nt_scan_shape_ok(ctas, threads) || smem < 0 ||
+      smem > NT_SCAN_SMEM_MAX)
+    return 0;
+  int err = nt_scan_setup();
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      nt_scan_cfg(1, ctas, threads, (size_t)smem, nullptr, attr);
+  if (cudaOccupancyMaxActiveClusters(
+          clusters, (const void*)nt_scan_kernel(resident, false), &cfg) !=
+      cudaSuccess) {
+    *clusters = 0;
+    cudaGetLastError();  // a refused shape is an answer, not a fault
+  }
+  return 0;
+}
+
+// ctas CTAs of ``threads``, K rounds; out [1] i32 (the last winner).
+NT_API int nt_argmax_chain_cluster(int K, int ctas, int threads, void* out,
+                                   void* stream) {
+  if (K <= 0) return 0;
+  if (!nt_scan_shape_ok(ctas, threads)) return (int)cudaErrorInvalidValue;
+  int err = nt_scan_setup();
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const size_t smem =
+      nt_scan_layout(ctas, threads / 32, 0, 0, 0, 0, 0, 0).total;
+  const cudaLaunchConfig_t cfg = nt_scan_cfg(1, ctas, threads, smem,
+                                             (cudaStream_t)stream, attr);
+  return (int)cudaLaunchKernelEx(&cfg, nt_argmax_chain_cluster_kernel, K,
+                                 (int*)out);
+}
+
+// The greedy scan's dependent chain alone on one CTA, for measuring
+// it: K rounds of a block-wide argmax (warp shuffle, shared memory,
+// warp 0, two barriers) over 1024 threads with no node scoring. Each
+// round's values depend on the previous round's winner, as step k+1 of
+// the scan depends on the row step k chose, so no round can start
+// early. Not on the placement path: chip_smoke.py times it beside the
+// cluster form (the chain term of the one-SM design).
 __global__ void __launch_bounds__(NT_SCAN_THREADS) nt_argmax_chain_kernel(
     int K, int* __restrict__ out) {
   __shared__ float s_best[NT_SCAN_THREADS / 32];

@@ -127,36 +127,6 @@ __host__ __device__ inline NtLayout nt_topk_layout(int km, int K, int nc,
   return o;
 }
 
-__device__ __forceinline__ uint32_t nt_saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void nt_mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(nt_saddr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void nt_mbar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(nt_saddr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Where [src, src + len) lands in a staging region: the region's byte
-// (src mod 16) on, so that the 16-byte-aligned body of the source maps
-// to a 16-byte-aligned destination.
-template <class T>
-__device__ __forceinline__ T* nt_staged(unsigned char* region, const T* src) {
-  return (T*)(region + ((uintptr_t)src & 15));
-}
-
 // The 16-byte-aligned body of [src, src + len): bytes before it and
 // its length (a multiple of 16, maybe 0).
 __device__ __forceinline__ void nt_body(const void* src, size_t len,

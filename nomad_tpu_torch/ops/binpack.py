@@ -484,18 +484,18 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
     [B,N,G] bool; ``asks`` with a leading B; ``noise`` [B,K,N].
     Returns (choices [B,K] i32, scores [B,K] f32 without the noise).
 
-    On the card (csrc/greedy_scan.cu) the bound is the chain of K
-    dependent block-wide argmaxes, not bytes: one block per eval walks
-    the K steps, its threads score strided nodes, a warp-shuffle and
-    shared-memory reduction picks the lowest-index best, and thread 0
-    updates the chosen row before the next step's barrier. With one SM
-    per eval, that SM's bandwidth and issue rate bound each step (about
-    14 us at N = 10,240 on an H100; PERF.md), while extra evals of a
-    batch ride other SMs nearly for free. With ``seq`` one block walks
-    all B x K steps in order (the next eval reads the rows the last
-    one wrote, after the same barrier), so the chain is B times longer.
+    On the card (csrc/greedy_scan.cu, one launch) the bound is the
+    chain of K dependent argmaxes (B x K under ``seq``), not bytes: a
+    thread-block cluster an eval (one for the batch under ``seq``)
+    splits the node axis over its CTAs, each keeping its slice's rows
+    in shared memory where they fit (ops/scan.py picks the cluster and
+    the form from the shapes and the card's occupancy); each step is
+    one scoring pass over a slice (each node's score before the noise
+    kept across alike asks), a block reduction, one exchange of the
+    CTAs' keys through distributed shared memory and the owner's row
+    update.
     """
-    b, n, g, k, stacked = _check_scan_args(
+    b, n, g, _k, stacked = _check_scan_args(
         capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
         noise, (asks.resources.shape[1], feasible.shape[1]), seq)
     dev = capacity.device
@@ -504,21 +504,13 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
                                  carry, feasible, asks, noise, penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
-    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
-    util, bw_used, ports_free, job_count, tg_count = carry
-    cuda.launch(
-        "nt_greedy_scan", b, n, g, k, float(penalty), int(seq), int(stacked),
-        capacity.data_ptr(), sched_capacity.data_ptr(), bw_avail.data_ptr(),
-        node_ok.data_ptr(), util.data_ptr(), bw_used.data_ptr(),
-        ports_free.data_ptr(), job_count.data_ptr(), tg_count.data_ptr(),
-        feasible.data_ptr(), asks.resources.data_ptr(), asks.bw.data_ptr(),
-        asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-        asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
-        choices.data_ptr(), scores.data_ptr(), cuda.stream_ptr(dev))
+    from . import scan
+
+    out = scan.launch(scan.plan_for(dev, b, n, g, seq),
+                      (capacity, sched_capacity, bw_avail, node_ok), carry,
+                      feasible, asks, noise, penalty, seq)
     cuda.count_launch(_launch_name("greedy_scan", seq, stacked))
-    return choices, scores
+    return out
 
 
 # ------------------------------------------------------------ K2

@@ -53,13 +53,15 @@ _L = ctypes.c_longlong
 # cudaError_t of its launch.
 SIGNATURES: Dict[str, List] = {
     "nt_threefry_uniform": [_P, _P, _L, _L, _L, _L, _I, _F, _F, _P],
-    "nt_greedy_scan": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 21,
+    "nt_greedy_scan": [_I] * 4 + [_F] + [_I] * 8 + [_L] + [_P] * 22,
+    "nt_greedy_occupancy": [_I, _I, _L, _I, _P],
     "nt_uniform_topk": [_I] * 5 + [_F] + [_I] * 4 + [_P] * 12,
     "nt_uniform_topk_occupancy": [_I] * 6 + [_P],
     "nt_expand_overlay": [_I] * 7 + [_P] * 10,
     "nt_base_delta": [_I, _I, _I] + [_P] * 10,
     "nt_base_delta_shards": [_I] * 3 + [_P] * 9,
     "nt_argmax_chain": [_I, _P, _P],
+    "nt_argmax_chain_cluster": [_I] * 3 + [_P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
     "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
     "nt_relax_solve": [_I, _I, _I, _F, _P, _P, _P],

@@ -1,0 +1,256 @@
+"""The host side of the greedy scan's cluster launch (K1, K5a-greedy and
+K5b-greedy: csrc/greedy_scan.cu).
+
+One launch a call: a thread-block cluster of ``ctas`` CTAs an eval (one
+cluster walking the B evals under ``seq``), the node axis split over
+the cluster's CTAs. ``scan_plan`` picks, from the shapes and the card's
+occupancy:
+
+- the cluster: the largest (up to ``CLUSTER_MAX``) whose clusters the
+  card holds at once for every eval of the call (one wave: B = 64 takes
+  2 CTAs, 128 on the card; one eval or ``seq`` the largest), or, when
+  none does, the smallest that fits at all;
+- the slices: CTA r owns nodes [r N / c, (r + 1) N / c), none empty
+  while N >= c; the threads: one node a thread up to 1,024 nodes a
+  slice, else the fewest threads that give every thread the same count
+  (a multiple of 32);
+- the form: "resident" (the slice's rows in shared memory for the
+  launch, two sets of an eval's rows under ``seq``) where the layout
+  fits in 227 KB, else "streamed" (the rows in global memory, the
+  score cache and the noise's four stages each kept where they fit).
+
+``layout`` is the kernel's shared-memory layout (nt_scan_layout); the
+C entry recomputes it and refuses a plan whose size differs.
+
+Nothing here runs at import or on the CPU: ``binpack.greedy_scan`` runs
+the plain version for CPU tensors and calls ``launch`` for CUDA ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import cuda
+
+# csrc/greedy_scan.cu: threads a CTA (NT_SCAN_THREADS), CTAs a cluster
+# (NT_SCAN_CLUSTER_MAX; above 8 a non-portable size, which beat 8 CTAs
+# on the H100: PERF.md), shared memory a CTA (NT_SCAN_SMEM_MAX).
+THREADS_MAX = 1024
+CLUSTER_MAX = 16
+SMEM_MAX = 227 * 1024
+# Bytes a node of the resident rows: static (capacity, sched, util,
+# bw_avail, bw_used, ports_free, node_ok) and an eval's (job_count,
+# tg_count, feasible: 4 + 5 G).
+STATIC_ROWS = (16, 16, 16, 4, 4, 4, 1)
+# Noise rows staged ahead (NT_SCAN_STAGES).
+STAGES = 4
+# Parts of a step in the kernel's profile (NT_P_*).
+PARTS = ("wait", "asks", "score", "block", "exchange", "winner")
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def slices(n: int, ctas: int) -> List[Tuple[int, int]]:
+    """(first node, nodes) of each CTA's slice, in rank order."""
+    return [(r * n // ctas, (r + 1) * n // ctas - r * n // ctas)
+            for r in range(ctas)]
+
+
+def slice_len(n: int, ctas: int) -> int:
+    """The longest slice."""
+    return -(-n // ctas)
+
+
+def threads_for(length: int) -> int:
+    """Threads a CTA for a slice of ``length`` nodes: every thread the
+    same number of nodes, the fewest threads that give it."""
+    per = max(1, -(-length // THREADS_MAX))
+    return max(32, _up(-(-length // per), 32))
+
+
+def stage_len(nbytes: int) -> int:
+    """A staging region for ``nbytes`` of rows: the 16-byte-aligned
+    superset the bulk copy moves (nt_stage_len)."""
+    return _up(nbytes, 16) + 32
+
+
+def layout(ctas: int, warps: int, length: int, g: int, resident: bool,
+           stage_noise: bool, eval_bufs: int,
+           cache: bool) -> Tuple[Dict[str, int], int]:
+    """The kernel's shared memory: ({region: byte offset}, total)."""
+    # The mbarriers (eval rows, noise, keys) and the profile's counters.
+    at = _up(8 * (2 + STAGES + 2) + 8 * len(PARTS), 16)
+    off = {"slots": at}
+    at += _up(16 * (ctas + warps), 16)  # a key a CTA, a key a warp; 2 steps
+    if cache:
+        off["cache"] = at
+        at += _up(4 * length, 16)
+    if stage_noise:
+        for x in range(STAGES):
+            off[f"noise{x}"] = at
+            at += stage_len(4 * length)
+    if resident:
+        for r, per in enumerate(STATIC_ROWS):
+            off[f"row{r}"] = at
+            at += stage_len(per * length)
+        for x in range(eval_bufs):
+            for r, per in enumerate((4, 4 * g, g)):
+                off[f"eval{x}.{r}"] = at
+                at += stage_len(per * length)
+    return off, at
+
+
+class ScanPlan(NamedTuple):
+    """One launch: ``clusters`` clusters of ``ctas`` CTAs of ``threads``
+    threads, slices up to ``slice`` nodes, the form, whether the noise
+    is staged and the scores before the noise are cached in shared
+    memory, and the shared memory a CTA. ``occupancy`` is the clusters
+    the card holds at once (so ``waves`` = clusters over it, rounded
+    up)."""
+
+    ctas: int
+    threads: int
+    slice: int
+    resident: bool
+    stage_noise: bool
+    eval_bufs: int
+    cache: bool
+    smem: int
+    clusters: int
+    occupancy: int
+
+    @property
+    def form(self) -> str:
+        return "resident" if self.resident else "streamed"
+
+    @property
+    def waves(self) -> int:
+        return -(-self.clusters // self.occupancy)
+
+
+def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
+           resident: Optional[bool]) -> Tuple:
+    """(threads, slice, resident, stage_noise, eval_bufs, cache, smem)
+    at ``ctas``; ``resident`` None: resident where it fits. Streamed,
+    the cache comes before the noise's stages, and each only where it
+    fits."""
+    length = slice_len(n, ctas)
+    threads = threads_for(length)
+    warps = threads // 32
+    bufs = 2 if seq and b > 1 else 1
+    smem = layout(ctas, warps, length, g, True, True, bufs, True)[1]
+    if resident is not False and smem <= SMEM_MAX:
+        return threads, length, True, True, bufs, True, smem
+    if resident:
+        raise RuntimeError(
+            f"greedy scan: the resident rows of {length} nodes a CTA "
+            f"(G = {g}) take {smem} bytes of shared memory, over {SMEM_MAX}")
+    for staged, cache in ((True, True), (False, True), (False, False)):
+        smem = layout(ctas, warps, length, g, False, staged, 0, cache)[1]
+        if smem <= SMEM_MAX or not cache:
+            return threads, length, False, staged, 0, cache, smem
+
+
+def scan_plan(b: int, n: int, g: int, seq: bool,
+              occupancy: Callable[[int, int, int, bool], int],
+              ctas: Optional[int] = None,
+              resident: Optional[bool] = None) -> ScanPlan:
+    """The launch for B evals over N nodes and G task groups.
+    ``occupancy(ctas, threads, smem, resident)`` is the clusters of that
+    shape the card holds at once (0: refused). ``ctas`` and ``resident`` force the
+    cluster and the form (the tests' and the measurements' hooks)."""
+    if b < 1 or n < 0 or g < 1:
+        raise ValueError(f"no greedy scan of B {b}, N {n}, G {g}")
+    clusters = 1 if seq else b
+    if ctas is not None:
+        if not 1 <= ctas <= CLUSTER_MAX:
+            raise RuntimeError(f"greedy scan: no cluster of {ctas} CTAs "
+                               f"(1 to {CLUSTER_MAX})")
+        choices = [ctas]
+    else:
+        choices = [c for c in (16, 8, 4, 2, 1)
+                   if c <= CLUSTER_MAX and (c == 1 or c <= n)]
+    fits = []
+    for c in choices:
+        shape = _shape(b, n, g, seq, c, resident)
+        occ = occupancy(c, shape[0], shape[-1], shape[2])
+        if occ >= clusters:
+            return ScanPlan(c, *shape, clusters, occ)
+        if occ >= 1:
+            fits.append(ScanPlan(c, *shape, clusters, occ))
+    if fits:
+        return fits[-1]
+    raise RuntimeError(
+        f"greedy scan: the card holds no cluster of {choices} CTAs for B "
+        f"{b}, N {n}, G {g}")
+
+
+_occupancy: Dict[Tuple, int] = {}
+_plans: Dict[Tuple, ScanPlan] = {}
+
+
+def occupancy_of(dev) -> Callable[[int, int, int, bool], int]:
+    """``scan_plan``'s occupancy on ``dev``, asked once a shape."""
+    dev = torch.device(dev)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+
+    def occ(ctas: int, threads: int, smem: int, resident: bool) -> int:
+        key = (index, ctas, threads, smem, resident)
+        got = _occupancy.get(key)
+        if got is None:
+            out = ctypes.c_int(0)
+            with cuda.on_device(dev):
+                cuda.launch("nt_greedy_occupancy", ctas, threads, smem,
+                            int(resident), ctypes.byref(out))
+            got = _occupancy[key] = int(out.value)
+        return got
+
+    return occ
+
+
+def plan_for(dev, b: int, n: int, g: int, seq: bool,
+             ctas: Optional[int] = None,
+             resident: Optional[bool] = None) -> ScanPlan:
+    """``scan_plan`` on ``dev``'s occupancy, kept a shape."""
+    dev = torch.device(dev)
+    key = (dev.index, b, n, g, bool(seq), ctas, resident)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = scan_plan(b, n, g, seq, occupancy_of(dev),
+                                       ctas, resident)
+    return plan
+
+
+def launch(plan: ScanPlan, static, carry, feasible, asks, noise,
+           penalty: float, seq: bool,
+           prof: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on ``plan``, arguments as
+    ``binpack.greedy_scan`` (``static`` its four node rows, ``carry``
+    updated in place). Returns (choices, scores). ``prof``: None, or an
+    int64 [len(PARTS)] that takes the step parts' clock cycles."""
+    b, n, g = feasible.shape
+    k = asks.resources.shape[1]
+    dev = feasible.device
+    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_greedy_scan", b, n, g, k, float(penalty), int(seq),
+            int(static[0].dim() == 3), plan.ctas, plan.threads,
+            int(plan.resident), int(plan.stage_noise), plan.eval_bufs,
+            int(plan.cache), plan.smem, *(x.data_ptr() for x in static),
+            *(x.data_ptr() for x in carry), feasible.data_ptr(),
+            asks.resources.data_ptr(), asks.bw.data_ptr(),
+            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
+            choices.data_ptr(), scores.data_ptr(),
+            None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores

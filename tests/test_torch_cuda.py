@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from nomad_tpu_torch.kernels import convex
-from nomad_tpu_torch.ops import binpack, cuda, gang, preempt, prng
+from nomad_tpu_torch.ops import binpack, cuda, gang, preempt, prng, scan
 
 pytestmark = pytest.mark.cuda
 
@@ -181,6 +181,247 @@ def test_greedy_scan_seq_matches_plain(dev, b, n, k, g):
     assert_scans_agree(*runs)
     # Later evals see earlier claims: the shared ports run out.
     assert ((base[2] >= 2) & (runs[0][2][2] < 2)).any()
+
+
+def forced_scan(**force):
+    """K1 launched on the cluster and form ``force`` gives
+    (``scan.plan_for``'s ``ctas`` and ``resident``), arguments as
+    ``binpack.greedy_scan``."""
+    def run(capacity, sched, bw_avail, node_ok, carry, feasible, asks,
+            noise, penalty, seq=False):
+        b, n, g = feasible.shape
+        plan = scan.plan_for(feasible.device, b, n, g, seq, **force)
+        return scan.launch(plan, (capacity, sched, bw_avail, node_ok),
+                           carry, feasible, asks, noise, penalty, seq)
+    return run
+
+
+def run_greedy(static, base, feasible, asks, noise, seq, **force):
+    """K1 (on the cluster and form ``force`` gives, or through the
+    wrapper on the plan's) and its plain version on copies of the
+    carry; returns K1's (choices, scores, carry) after holding them
+    equal."""
+    b, n, _g = feasible.shape
+    runs = []
+    for fn in (forced_scan(**force) if force else binpack.greedy_scan,
+               binpack.greedy_scan_plain):
+        c = shared_carry(base) if seq else fresh(base, b, n)
+        runs.append((*fn(*static, c, feasible, asks, noise, 10.0, seq), c))
+    assert_scans_agree(*runs)
+    return runs[0]
+
+
+def greedy_noise(b, k, n, dev, seed=0):
+    keys = torch.arange(seed, seed + 2 * b, device=dev).view(b, 2)
+    return prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+def test_greedy_scan_any_cluster_size(dev, ctas, seq):
+    """A cluster of 1 to 16 CTAs (16: a non-portable cluster) gives the
+    same choices and carry, at N = 3,001 (not a multiple of the CTAs or
+    of their threads)."""
+    b, n, k, g = 3, 3001, 96, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, ctas, dev)
+    ch, _sc, _c = run_greedy(static, base, feasible, asks,
+                             greedy_noise(b, k, n, dev), seq, ctas=ctas)
+    assert (ch >= 0).any() and (ch == -1).any()
+
+
+@pytest.mark.parametrize("n,ctas", [(5, 8), (9, 16), (1, 2), (1025, 1),
+                                    (2049, 2), (16 * 1024 + 7, 16)])
+def test_greedy_scan_short_and_ragged_slices(dev, n, ctas):
+    """N below the cluster's CTAs (empty slices meet every barrier), and
+    slices just past a multiple of the threads (the threads' node
+    counts differ by one)."""
+    b, k, g = 2, 12, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, n, dev)
+    for seq in (False, True):
+        run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
+                   seq, ctas=ctas)
+
+
+@pytest.mark.parametrize("ctas", [2, 8, 16])
+def test_greedy_scan_ties_across_cta_slices(dev, ctas):
+    """Equal nodes with the noise off: every score ties, so each step
+    takes the lowest fitting row, across the CTA slices' boundaries;
+    ask 1 fits nowhere (-1, score 0, no update)."""
+    n, k = 256, 6
+    edges = [r * n // ctas for r in range(1, ctas)]
+    rows = sorted({x for e in edges for x in (e - 1, e)})
+    static, base, feasible, asks = tie_inputs(n, k, dev, rows)
+    noise = torch.zeros((1, k, n), device=dev)
+    for seq in (False, True):
+        ch, sc, _c = run_greedy(static, base, feasible, asks, noise, seq,
+                                ctas=ctas)
+        assert ch[0, 1].item() == -1 and sc[0, 1].item() == 0.0
+        assert ch[0, 0].item() == rows[0]
+
+
+def test_greedy_scan_infeasible_evals_and_inactive_asks(dev):
+    """An eval no node fits and asks switched off in the middle of an
+    eval: -1 with score 0 and no row update; the evals around them
+    place as the plain version does (under seq: after them)."""
+    b, n, k, g = 4, 2000, 40, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 17, dev)
+    feasible[1] = False
+    active = asks.active.clone()
+    active[2, 5:9] = False
+    asks = asks._replace(active=active)
+    for seq in (False, True):
+        ch, sc, _c = run_greedy(static, base, feasible, asks,
+                                greedy_noise(b, k, n, dev), seq)
+        assert (ch[1] == -1).all() and (sc[1] == 0).all()
+        assert (ch[2, 5:9] == -1).all() and (ch[0] >= 0).any()
+
+
+@pytest.mark.parametrize("resident", [None, False], ids=["plan", "streamed"])
+@pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
+def test_greedy_scan_reuses_scores_across_alike_asks(dev, seq, resident):
+    """Runs of alike asks (the score cache: each step rescoring only the
+    node updated last), broken by asks that differ in one field at a
+    time and by a new eval; distinct_hosts and ports bind, so a stale
+    score would move a choice."""
+    b, n, k, g = 3, 3000, 120, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 41, dev)
+    run = torch.arange(k, device=dev) // 8
+    pick = lambda x: x[:, :1].expand_as(x).clone()  # noqa: E731
+    res, bw, ports, tg = (pick(asks.resources), pick(asks.bw),
+                          pick(asks.ports), pick(asks.tg_index))
+    res[:, run % 5 == 1, 0] += 100.0
+    res[:, run % 5 == 2, 3] += 1.0
+    bw[:, run % 5 == 3] += 50.0
+    ports[:, run % 5 == 4] += 1.0
+    tg[:, run % 7 == 6] = (tg[:, run % 7 == 6] + 1) % g
+    asks = asks._replace(resources=res.contiguous(), bw=bw.contiguous(),
+                         ports=ports.contiguous(), tg_index=tg.contiguous(),
+                         tg_distinct_hosts=torch.ones_like(
+                             asks.tg_distinct_hosts))
+    plan = scan.plan_for(dev, b, n, g, seq, None, resident)
+    assert plan.cache
+    ch, _sc, _c = run_greedy(static, base, feasible, asks,
+                             greedy_noise(b, k, n, dev), seq,
+                             resident=resident)
+    assert (ch >= 0).sum() > b * k // 2
+
+
+def test_greedy_scan_without_cache_or_stages(dev):
+    """One CTA over 60,000 nodes: no room for the score cache or the
+    noise's stages; every row read in place."""
+    b, n, k, g = 2, 60000, 16, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 43, dev)
+    plan = scan.plan_for(dev, b, n, g, False, 1)
+    assert not (plan.cache or plan.stage_noise or plan.resident)
+    run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
+               False, ctas=1)
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
+def test_greedy_scan_runs_out_of_ports(dev, seq):
+    """Asks of 2 ports over 64 nodes with 0-6 free: nodes fill to their
+    port limit, and later asks (later evals, under seq) go elsewhere or
+    nowhere."""
+    b, n, k, g = 4, 64, 64, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 23, dev)
+    asks = asks._replace(ports=torch.full_like(asks.ports, 2.0),
+                         active=torch.ones_like(asks.active))
+    ch, _sc, c = run_greedy(static, base, feasible, asks,
+                            greedy_noise(b, k, n, dev), seq, ctas=2)
+    assert ((base[2] >= 2) & (c[2] < 2)).any() and (ch == -1).any()
+
+
+@pytest.mark.parametrize("b,k", [(4, 1024), (64, 64)])
+@pytest.mark.parametrize("resident", [None, False], ids=["plan", "streamed"])
+def test_greedy_scan_seq_main_path_shapes(dev, b, k, resident):
+    """The pre_resolve shapes of the storm path at N = 10,240: B x K = 4
+    x 1,024 and 64 x 64, per-eval feasibility and counts, the rows
+    resident (the plan's form) and streamed; the shared ports run
+    out."""
+    n, g = 10240, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, b + k, dev)
+    plan = scan.plan_for(dev, b, n, g, True, None, resident)
+    assert plan.resident == (resident is None) and plan.ctas >= 4
+    _ch, _sc, c = run_greedy(static, base, feasible, asks,
+                             greedy_noise(b, k, n, dev), True,
+                             resident=resident)
+    assert ((base[2] >= 2) & (c[2] < 2)).any()
+
+
+@pytest.mark.parametrize("b,resident", [(1, None), (1, False), (64, None),
+                                        (4, None)])
+def test_greedy_scan_main_path_shapes(dev, b, resident):
+    """K1 at N = 10,240, K = 1,024 (B = 1: at least 4 CTAs, resident;
+    B = 64: a one-wave cluster, streamed) and the stacked layout at B =
+    4; through the wrapper (the plan's form), one launch a call."""
+    n, k, g = 10240, 1024 if b < 64 else 128, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 31 + b, dev)
+    if b == 4:
+        static = stacked_of(static, b, n, dev, 5)
+    plan = scan.plan_for(dev, b, n, g, False, None, resident)
+    assert plan.waves == 1
+    if b == 1:
+        assert plan.ctas >= 4 and plan.resident == (resident is None)
+    name = "greedy_scan_stacked" if b == 4 else "greedy_scan"
+    before = cuda.launch_counts().get(name, 0)
+    force = {} if resident is None else {"resident": resident}
+    run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
+               False, **force)
+    assert cuda.launch_counts().get(name, 0) == before + (not force)
+
+
+def test_greedy_scan_refused_launch_raises(dev):
+    """A cluster the card or the kernel refuses raises out of the
+    wrapper; nothing else runs."""
+    n, k, g, b = 500, 8, 2, 1
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 3, dev)
+    noise = greedy_noise(b, k, n, dev)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        forced_scan(ctas=17)(*static, fresh(base, b, n), feasible, asks,
+                             noise, 10.0)
+    assert scan.occupancy_of(dev)(16, 1024, 300 * 1024, True) == 0
+    with pytest.raises(RuntimeError, match="no cluster"):
+        scan.scan_plan(b, n, g, False, lambda c, t, m, r: 0)
+    plan = scan.plan_for(dev, b, n, g, False)
+    for bad in (plan._replace(smem=plan.smem + 16),
+                plan._replace(ctas=32)):
+        with pytest.raises(RuntimeError, match="nt_greedy_scan"):
+            scan.launch(bad, static, fresh(base, b, n), feasible, asks,
+                        noise, 10.0, False)
+
+
+def test_greedy_scan_refuses_one_eval_buffer_under_seq(dev):
+    """Resident under seq with B > 1, eval e + 1's rows load while eval
+    e runs: a plan with one buffer for them (its layout sized to match)
+    is refused, not run over rows still in use."""
+    b, n, k, g = 3, 2000, 8, 2
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 5, dev)
+    plan = scan.plan_for(dev, b, n, g, True)
+    assert plan.resident and plan.eval_bufs == 2
+    one = plan._replace(eval_bufs=1, smem=scan.layout(
+        plan.ctas, plan.threads // 32, plan.slice, g, True,
+        plan.stage_noise, 1, plan.cache)[1])
+    with pytest.raises(RuntimeError, match="nt_greedy_scan"):
+        scan.launch(one, static, shared_carry(base), feasible, asks,
+                    greedy_noise(b, k, n, dev), 10.0, True)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available()
+                    or torch.cuda.device_count() < 2,
+                    reason="needs a second card")
+def test_greedy_scan_on_a_second_card():
+    """The kernels' attributes (shared memory, 16-CTA clusters) are set
+    on each card: after cuda:0's, the plan on cuda:1 takes the same
+    cluster and K1 there equals its plain version (cuda:1 current, as
+    the mesh path makes each shard's card for its launches)."""
+    b, n, k, g = 1, 10240, 64, 2
+    on = [torch.device("cuda", i) for i in (0, 1)]
+    first = scan.plan_for(on[0], b, n, g, False)
+    with torch.cuda.device(on[1]):
+        assert scan.plan_for(on[1], b, n, g, False) == first
+        static, base, feasible, asks = scan_inputs(n, k, g, b, 9, on[1])
+        run_greedy(static, base, feasible, asks,
+                   greedy_noise(b, k, n, on[1]), False)
 
 
 @pytest.mark.parametrize("b,n,k", [(8, 1000, 16), (3, 40000, 64)])

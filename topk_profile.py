@@ -2,12 +2,13 @@
 """Where the time of the uniform top-K kernel (csrc/uniform_topk.cu),
 of the node-shard kernels K10a and K10b (parallel/shard.py
 sharded_base_delta, sharded_group_capacity), and of the relaxation's
-launch (csrc/relax.cuh) goes on one NVIDIA card, at chip_smoke.py's
+launch (csrc/relax.cuh) and of the greedy scan's cluster launch
+(csrc/greedy_scan.cu) goes on one NVIDIA card, at chip_smoke.py's
 widths (N = 10,240 nodes, G = 2, inputs from chip_smoke.kernel_inputs;
 4 shards of one card).
 
     python3 topk_profile.py [--seed N]
-        [--sections host,waves,steps,shards,relax]
+        [--sections host,waves,steps,shards,relax,scan]
 
 Prints, one JSON object a line:
 
@@ -57,6 +58,25 @@ Prints, one JSON object a line:
    grid barriers included), and each phase alone (an ordinary launch of
    that phase over the same table, its tiles as the grid: prologue, A,
    B, x, y, pref); the launch's grid and tiles.
+8. ``scan``: the greedy scan (K1) at K = 1,024: (a) ``clusters``, B =
+   1 and seq 4 x 1,024 on 1, 2, 4, 8 and 16 CTAs a cluster, resident
+   where the plan's layout fits and streamed, and B = 64 on 1, 2 and 4
+   CTAs: the clusters the card holds at once, the call's CUDA-event
+   time and the cluster chain term at that shape (nt_argmax_chain_
+   cluster), each call's choices and carry held equal to the plan's;
+   (b) ``cache``, at the plan's launch for each of those shapes: the
+   score cache on and off in turns (on, off, on, off; held equal), on
+   one ask throughout (chip_smoke's records), on the greedy storm's
+   two groups (two runs of alike asks an eval) and on varied asks
+   (chip_smoke.varied_asks: none alike), with the share of alike
+   steps; (c) ``parts``, at the plan's launch for B = 1, B = 64 and
+   seq 4 x 1,024: a step split into the waits for staged rows, the
+   asks' loads, scoring, the warp and block reduction with the CTA key's sends (block argmax),
+   the wait for the cluster's keys (exchange) and the winner's
+   reduction and row update, from the kernel's clock counters on one
+   thread of rank 0 (warp 1's lane 0, which issues no bulk copies;
+   ``prof``): each part's share of the cycles and its microseconds a
+   step at the call's measured time.
 
 Exits non-zero with no result when no CUDA card is present.
 """
@@ -362,10 +382,122 @@ def relax_section(torch, np, cs, seed):
             torch.cuda.synchronize()
 
 
+def two_group_asks(torch, asks):
+    """``asks`` as the greedy storm's 512 + 512 two-group job gives them
+    (chip_smoke.two_group_job): task group 0's ask for the first half
+    of each eval's steps, task group 1's (250 CPU, 384 MB) for the
+    rest."""
+    b, k = asks.bw.shape
+    res = asks.resources.clone()
+    res[:, k // 2:, 0] = 250.0
+    res[:, k // 2:, 1] = 384.0
+    tg = torch.zeros_like(asks.tg_index)
+    tg[:, k // 2:] = 1
+    return asks._replace(resources=res, tg_index=tg)
+
+
+def scan_section(torch, np, cs, seed):
+    """The greedy scan's cluster launch (section 8)."""
+    from nomad_tpu_torch.ops import prng, scan
+
+    dev = torch.device("cuda")
+    n, g, k = cs.BENCH_N, 2, 1024
+    shapes = (("B=1", 1, False, (1, 2, 4, 8, 16)),
+              ("seq 4x1024", 4, True, (1, 4, 8, 16)),
+              ("B=64", 64, False, (1, 2, 4)))
+    for label, b, seq, sizes in shapes:
+        base, jc, tgc, feas, asks, _u, keys = cs.kernel_inputs(
+            torch, np, n, k, g, b, seed + 70 + b, dev)
+        static = (base["capacity"], base["sched_capacity"],
+                  base["bw_avail"], base["node_ok"])
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        box = {}
+
+        def fresh():
+            box["c"] = (cs.seq_carry(base, jc, tgc) if seq
+                        else cs.new_carry(torch, base, jc, tgc))
+
+        def run(p, a=asks, prof=None):
+            return scan.launch(p, static, box["c"], feas, a, noise, 10.0,
+                               seq, prof)
+
+        plan = scan.plan_for(dev, b, n, g, seq)
+        fresh()
+        want = (*run(plan), box["c"])
+        steps = (b if seq else 1) * k
+        for ctas in sizes:
+            for resident in (None, False):
+                try:
+                    p = scan.plan_for(dev, b, n, g, seq, ctas, resident)
+                except RuntimeError as e:
+                    print(json.dumps({"clusters": dict(
+                        shape=label, ctas=ctas, resident=resident,
+                        refused=str(e))}))
+                    continue
+                if resident is False \
+                        and p == scan.plan_for(dev, b, n, g, seq, ctas):
+                    continue  # the plan's form is streamed already
+                fresh()
+                got = (*run(p), box["c"])
+                cs.check(all(torch.equal(x, y) for x, y in zip(
+                    (got[0], *got[2]), (want[0], *want[2]))),
+                    f"K1 {label} on {ctas} CTAs ({p.form}) differs")
+                print(json.dumps({"clusters": dict(
+                    shape=label, ctas=ctas, threads=p.threads, form=p.form,
+                    clusters=p.clusters, clusters_at_once=p.occupancy,
+                    waves=p.waves, plan=p == plan,
+                    ms=cs.time_cuda(torch, lambda: run(p), cs.RUNS,
+                                    setup=fresh),
+                    cluster_chain_ms=cs.cluster_chain_ms(
+                        torch, steps, ctas, p.threads, dev))}))
+        # The score cache on and off at the plan's launch, in turns, on
+        # the record's asks (one ask throughout), the greedy storm's
+        # (two runs of alike asks an eval) and varied asks (none alike).
+        off = plan._replace(cache=False, smem=scan.layout(
+            plan.ctas, plan.threads // 32, plan.slice, g, plan.resident,
+            plan.stage_noise, plan.eval_bufs, False)[1])
+        for kind, a in (("one ask", asks), ("two groups",
+                                             two_group_asks(torch, asks)),
+                        ("varied", cs.varied_asks(torch, asks, 7 + b))):
+            outs = []
+            for p in (plan, off):
+                fresh()
+                outs.append((*run(p, a), box["c"]))
+            cs.check_scan(torch, f"K1 {label} {kind}: cache off", *outs)
+            ms = {}
+            for p in (plan, off, plan, off):
+                ms.setdefault("on" if p is plan else "off", []).append(
+                    cs.time_cuda(torch, lambda: run(p, a), cs.RUNS,
+                                 setup=fresh))
+            total, alike, _act, _both = cs.alike_steps(torch, a)
+            print(json.dumps({"cache": dict(
+                shape=label, asks=kind, alike_share=alike / total,
+                cache=plan.cache, ctas=plan.ctas, form=plan.form,
+                on_ms=ms["on"], off_ms=ms["off"])}))
+        prof = torch.zeros(len(scan.PARTS), dtype=torch.int64, device=dev)
+        fresh()
+        run(plan, prof=prof)
+        cycles = prof.tolist()
+        ms = cs.time_cuda(torch, lambda: run(plan), cs.RUNS, setup=fresh)
+        step_us = ms * 1000.0 / steps
+        share = [c / max(sum(cycles), 1) for c in cycles]
+        print(json.dumps({"parts": dict(
+            shape=label, ctas=plan.ctas, threads=plan.threads,
+            form=plan.form, ms=ms, step_us=step_us,
+            cycles=dict(zip(scan.PARTS, cycles)),
+            share=dict(zip(scan.PARTS, share)),
+            us_a_step={x: step_us * f for x, f in zip(scan.PARTS, share)},
+            one_block_chain_ms=cs.chain_ms(torch, steps, dev),
+            cluster_chain_ms=cs.cluster_chain_ms(
+                torch, steps, plan.ctas, plan.threads, dev))}))
+        torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sections", default="host,waves,steps,shards,relax",
+    ap.add_argument("--sections",
+                    default="host,waves,steps,shards,relax,scan",
                     help="comma-separated sections to run (build and card "
                     "always print)")
     args = ap.parse_args(argv)
@@ -520,6 +652,8 @@ def main(argv=None) -> int:
         shard_section(torch, np, cs, args.seed)
     if "relax" in sections:
         relax_section(torch, np, cs, args.seed)
+    if "scan" in sections:
+        scan_section(torch, np, cs, args.seed)
     print(json.dumps({"ok": True}))
     return 0
 
