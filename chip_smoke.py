@@ -35,9 +35,12 @@ Phases (any failure exits non-zero and prints no result):
    versions), and counts conflicts of one round with pre_resolve off.
    Then a greedy storm (16 evals of a 512 + 512 two-group job, K1 in
    sequential mode; with the share of its scan steps whose ask has the
-   last step's resources, bandwidth and ports), a parked storm (64 threads calling ``place()``
-   after ``add_cohort(64)``), and token-less cohorts that take the
-   stacked-state path (K1 and K2 with a base per eval), each checked.
+   last step's resources, bandwidth and ports), a greedy round of 64
+   such evals with pre_resolve off (one stacked dispatch over one base,
+   the scan drawing its own noise), a parked storm (64 threads calling
+   ``place()`` after ``add_cohort(64)``), and token-less cohorts that
+   take the stacked-state path (K1 and K2 with a base per eval), each
+   checked.
 5. Preemption on a red cluster of the same size: four filler jobs at
    priorities 10-40 hold five allocs on each node (footprints from
    ``--seed``), leaving room for the high job's ask on 256 nodes only.
@@ -184,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -416,41 +420,44 @@ def run_main_path(seed, torch):
     lat_ms = []
     place_us = dispatch_us(stats0)
     cuda.reset_launch_counts()
-    for label, job, expect in steps:
-        h.state.upsert_job(h.next_index(), job)
-        ev = new_eval(h.state.job_by_id(job.id),
-                      consts.EVAL_TRIGGER_JOB_REGISTER)
-        existing = {a.id for a in h.state.allocs_by_job(job.id)}
-        host_n = host_oracle_count(h.state, ev, seed, existing)
-        n_plans = len(h.plans)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        h.process("service-gpu", ev)
-        torch.cuda.synchronize()
-        lat_ms.append((time.perf_counter() - t1) * 1000.0)
-        place_ms = (dispatch_us(batcher.stats()) - place_us) / 1000.0
-        place_us = dispatch_us(batcher.stats())
-        check(len(h.plans) == n_plans + 1, f"{label}: no plan submitted")
-        plan = h.plans[-1]
-        fresh = new_allocs(plan, existing)
-        dense_n = len(fresh)
-        print(f"eval {label}: placed {dense_n} (host oracle {host_n}), "
-              f"{lat_ms[-1]:.1f} ms, of which {place_ms:.1f} ms in the "
-              "batcher's dispatch (uploads, kernels, copy back)")
-        check(dense_n == host_n == expect,
-              f"{label}: dense placed {dense_n}, host {host_n}, "
-              f"expected {expect}")
-        check(h.evals[-1].status == consts.EVAL_STATUS_COMPLETE,
-              f"{label}: eval status {h.evals[-1].status}")
-        check_placements(h.state, h.state.job_by_id(job.id), plan)
-        if job is star:
-            check(len({a.node_id for a in fresh}) == dense_n,
-                  f"{label}: distinct_hosts violated")
+    with ScanModes("main path"):
+        for label, job, expect in steps:
+            h.state.upsert_job(h.next_index(), job)
+            ev = new_eval(h.state.job_by_id(job.id),
+                          consts.EVAL_TRIGGER_JOB_REGISTER)
+            existing = {a.id for a in h.state.allocs_by_job(job.id)}
+            host_n = host_oracle_count(h.state, ev, seed, existing)
+            n_plans = len(h.plans)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            h.process("service-gpu", ev)
+            torch.cuda.synchronize()
+            lat_ms.append((time.perf_counter() - t1) * 1000.0)
+            place_ms = (dispatch_us(batcher.stats()) - place_us) / 1000.0
+            place_us = dispatch_us(batcher.stats())
+            check(len(h.plans) == n_plans + 1, f"{label}: no plan submitted")
+            plan = h.plans[-1]
+            fresh = new_allocs(plan, existing)
+            dense_n = len(fresh)
+            print(f"eval {label}: placed {dense_n} (host oracle {host_n}), "
+                  f"{lat_ms[-1]:.1f} ms, of which {place_ms:.1f} ms in the "
+                  "batcher's dispatch (uploads, kernels, copy back)")
+            check(dense_n == host_n == expect,
+                  f"{label}: dense placed {dense_n}, host {host_n}, "
+                  f"expected {expect}")
+            check(h.evals[-1].status == consts.EVAL_STATUS_COMPLETE,
+                  f"{label}: eval status {h.evals[-1].status}")
+            check_placements(h.state, h.state.job_by_id(job.id), plan)
+            if job is star:
+                check(len({a.node_id for a in fresh}) == dense_n,
+                      f"{label}: distinct_hosts violated")
     counts = cuda.launch_counts()
     stats = batcher.stats()
     delta = stats_delta(stats0, stats)
     print(f"main path launches: {json.dumps(counts, sort_keys=True)}")
     print(f"batcher: {json.dumps(delta, sort_keys=True)}")
+    # K0 draws the noise the greedy scan reads at these shapes (a lone
+    # eval padded to 4: PERF.md §6); the uniform top-K draws its own.
     require_launches(counts, "main path", (
         "threefry_uniform", "greedy_scan", "uniform_topk", "expand_overlay",
         "base_delta"))
@@ -477,6 +484,18 @@ def require_launches(counts, label, names):
     for name in names:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never launched on {label}")
+
+
+# The uniform top-K (K2, K5 uniform, K10d on one card) draws its noise in
+# its kernel, as the greedy scan does where that beats K0 (scan.draws):
+# a path through the uniform top-K alone launches no K0.
+DRAWN_IN_SCANS = ("threefry_uniform",)
+
+
+def require_no_launches(counts, label, names):
+    for name in names:
+        check(counts.get(name, 0) == 0,
+              f"kernel {name} launched {counts.get(name)} times on {label}")
 
 
 # ---------------------------------------------------------------- storm
@@ -700,16 +719,57 @@ def hold_against_cpu(label, rows, results, config_of):
     return err
 
 
-def counted(total, label, names, fn):
+class ScanModes:
+    """The greedy scan's launches inside the block by noise mode:
+    ``scan.launch`` wrapped (``binpack.greedy_scan`` looks it up at
+    each call), each launch counted by (B, seq, drawn, CTAs). Every
+    path's tally is kept in ``SCAN_MODES`` under its label."""
+
+    def __init__(self, label):
+        self.label, self.seen = label, Counter()
+
+    def __enter__(self):
+        from nomad_tpu_torch.ops import scan
+
+        self.scan, self.orig = scan, scan.launch
+
+        def launch(plan, static, carry, feasible, *args, **kwargs):
+            self.seen[(feasible.shape[0], bool(args[3]), plan.drawn,
+                       plan.ctas)] += 1
+            return self.orig(plan, static, carry, feasible, *args, **kwargs)
+
+        scan.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.scan.launch = self.orig
+        if self.seen:
+            drawn = sum(v for key, v in self.seen.items() if key[2])
+            SCAN_MODES[self.label] = dict(
+                drawn=drawn, read=sum(self.seen.values()) - drawn,
+                launches=[dict(b=b, seq=seq, drawn=d, ctas=c, n=v)
+                          for (b, seq, d, c), v in sorted(self.seen.items())])
+            print(f"{self.label}: greedy scan launches by noise mode "
+                  f"{json.dumps(SCAN_MODES[self.label], sort_keys=True)}")
+
+
+SCAN_MODES = {}
+
+
+def counted(total, label, names, fn, absent=()):
     """Run one path with the launch counts set to 0 just before it and
-    read just after; fail if a kernel of the path never launched."""
+    read just after; fail if a kernel of the path never launched, or if
+    a kernel of ``absent`` did. The greedy scan's launches are tallied
+    by noise mode (``ScanModes``)."""
     from nomad_tpu_torch.ops import cuda
 
     cuda.reset_launch_counts()
-    out = fn()
+    with ScanModes(label):
+        out = fn()
     counts = cuda.launch_counts()
     print(f"{label} launches: {json.dumps(counts, sort_keys=True)}")
     require_launches(counts, label, names)
+    require_no_launches(counts, label, absent)
     total.update(counts)
     return out
 
@@ -748,8 +808,8 @@ def run_storm(seed, torch, total):
 
         with GcPauses() as gc_pauses:
             done = counted(total, "config 4 storm", (
-                "threefry_uniform", "uniform_topk_seq", "expand_overlay",
-                "base_delta"), config4)
+                "uniform_topk_seq", "expand_overlay", "base_delta"), config4,
+                DRAWN_IN_SCANS)
         stats = stats_delta(stats0, batcher.stats())
         lat = [t for r in done for t in r[3]]
         wall = sum(r[4] for r in done)
@@ -810,8 +870,8 @@ def run_storm(seed, torch, total):
             return conflicted_evals(rows, results)
 
         figures["conflicted_pre_resolve_off"] = counted(
-            total, "config 4 round, pre_resolve off",
-            ("threefry_uniform", "uniform_topk"), pre_resolve_off)
+            total, "config 4 round, pre_resolve off", ("uniform_topk",),
+            pre_resolve_off, DRAWN_IN_SCANS)
         print("config 4 round with pre_resolve off: conflicted evals "
               f"{figures['conflicted_pre_resolve_off']} of {STORM_BATCH}")
 
@@ -842,6 +902,32 @@ def run_storm(seed, torch, total):
                        greedy_asks=alike.figures())
         print(f"greedy storm asks (the batcher's): {alike.figures()}")
 
+        def greedy_off():
+            jobs = storm.jobs("greedy-off", STORM_BATCH,
+                              lambda i: two_group_job_id(i, 512))
+            s0 = batcher.stats()
+            rows, results, plans, _lat, wall = storm.round(jobs, 85_000, off)
+            return rows, results, plans, wall, stats_delta(
+                s0, batcher.stats())
+
+        # A greedy round with pre_resolve off: one stacked dispatch of 64
+        # evals over one base, the scan drawing its noise (no K0).
+        rows, results, plans, wall, st = counted(
+            total, "greedy round, pre_resolve off",
+            ("greedy_scan", "expand_overlay"), greedy_off, DRAWN_IN_SCANS)
+        check(SCAN_MODES["greedy round, pre_resolve off"]["drawn"] > 0,
+              "greedy round, pre_resolve off: the scan read K0's noise")
+        placed = sum(len(a) for p in plans for a in p.node_allocation.values())
+        conflicted = conflicted_evals(rows, results)
+        print(f"greedy round with pre_resolve off: {STORM_BATCH} evals x "
+              f"1,024 asks in {wall:.3f} s, {st['dispatches']} "
+              f"dispatch(es), sync {st['sync_us'] / 1000:.1f} ms; {placed} "
+              f"placed; conflicted evals {conflicted}")
+        check_placed("greedy round, pre_resolve off", results, placed,
+                     STORM_BATCH * 1024)
+        figures.update(greedy_off_wall_s=wall,
+                       greedy_off_conflicted=conflicted)
+
         def parked():
             import threading
 
@@ -871,8 +957,8 @@ def run_storm(seed, torch, total):
                 "parked storm: a request went unanswered")
             return stats_delta(s0, batcher.stats())
 
-        st = counted(total, "parked storm",
-                     ("threefry_uniform", "uniform_topk_seq"), parked)
+        st = counted(total, "parked storm", ("uniform_topk_seq",), parked,
+                     DRAWN_IN_SCANS)
         occupancy = st["batched_requests"] / max(st["dispatches"], 1)
         print(f"parked storm: {STORM_BATCH} place() calls answered in "
               f"{st['dispatches']} dispatch(es), occupancy {occupancy:.1f}")
@@ -1606,14 +1692,19 @@ def new_carry(torch, base, jc, tgc):
                  for x in (util, bw, ports, jc, tgc))
 
 
-def check_scan(torch, label, kernel, plain):
+def check_scan(torch, label, kernel, plain, bits=False):
     """A scan kernel's (choices, scores, carry) against its plain
     version's: choices and all five carried tensors equal, scores
-    within SCORE_TOL. Returns the score error."""
+    within SCORE_TOL, or with ``bits`` bit for bit (a scan that draws
+    its own noise, against the plain draw and the plain scan). Returns
+    the score error."""
     (ch, sc, c_k), (ch_p, sc_p, c_p) = kernel, plain
     check(torch.equal(ch, ch_p), f"{label}: choices differ")
     err = (sc - sc_p).abs().max().item()
     check(err <= SCORE_TOL, f"{label}: score error {err}")
+    check(not bits or torch.equal(sc.view(torch.int32),
+                                  sc_p.view(torch.int32)),
+          f"{label}: scores not bit-equal to the plain version's")
     for name, x, y in zip(CARRY_NAMES, c_k, c_p):
         check(torch.equal(x, y), f"{label}: final {name} differs")
     return err
@@ -1722,7 +1813,7 @@ def varied_asks(torch, asks, seed):
         ports=torch.randint(1, 3, (b, k), generator=gen).float().to(dev))
 
 
-def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
+def greedy_figures(torch, name, seq, static, feas, asks, draw, fresh, box,
                    ms):
     """A greedy scan record's design figures: the plan's cluster,
     threads, form, waves and whether it keeps the score cache, the
@@ -1737,7 +1828,7 @@ def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
     k = asks.resources.shape[1]
     plan = scan.plan_for(dev, b, n, g, seq)
     call = lambda a=asks: binpack.greedy_scan(  # noqa: E731
-        *static, box["c"], feas, a, noise, 10.0, seq)
+        *static, box["c"], feas, a, draw, 10.0, seq)
     _out, launches = launches_of(name, lambda: (fresh(), call()))
     check(launches == 1, f"{name} (B={b}): {launches} launches a call")
     steps = (b if seq else 1) * k
@@ -1746,11 +1837,13 @@ def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
     got = (*call(varied), box["c"])
     fresh()
     want = (*binpack.greedy_scan_plain(*static, box["c"], feas, varied,
-                                       noise, 10.0, seq), box["c"])
-    check_scan(torch, f"{name} (B={b}, varied asks)", got, want)
+                                       draw.noise((k, n)), 10.0, seq),
+            box["c"])
+    check_scan(torch, f"{name} (B={b}, varied asks)", got, want, bits=True)
     total, alike, _active, _both = alike_steps(torch, asks)
     fig = dict(ctas=plan.ctas, threads=plan.threads, form=plan.form,
-               waves=plan.waves, cache=plan.cache,
+               waves=plan.waves, cache=plan.cache, drawn=plan.drawn,
+               stage_noise=plan.stage_noise,
                launches_per_call=launches,
                cluster_chain_ms=cluster_chain_ms(torch, steps, plan.ctas,
                                                  plan.threads, dev),
@@ -1759,7 +1852,9 @@ def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
                                    setup=fresh),
                varied_alike_share=alike_steps(torch, varied)[1] / total)
     print(f"{name} B={b} K={k}: {plan.ctas} CTAs x {plan.threads} threads "
-          f"a cluster, {plan.form}, cache {plan.cache}, {plan.waves} "
+          f"a cluster, {plan.form}, noise "
+          f"{'drawn' if plan.drawn else 'read'}, cache {plan.cache}, "
+          f"{plan.waves} "
           f"wave(s), {launches} launch a call, {ms:.4f} ms ({alike} of "
           f"{total} steps alike); varied asks {fig['varied_ms']:.4f} ms "
           f"(0 alike), choices and carry equal the plain version's; chain "
@@ -1767,88 +1862,240 @@ def greedy_figures(torch, name, seq, static, feas, asks, noise, fresh, box,
     return fig
 
 
+# SASS opcodes by the pipe that executes them on sm_90 (one SM: four
+# schedulers, each issuing one warp instruction a clock, 128 thread
+# instructions; the integer ALU pipe 16 lanes a scheduler, 64; IMAD on
+# the FMA pipe's 16-lane half, 64; FFMA, FADD and FMUL on both halves,
+# 128). Anything else (memory, uniform datapath, control) takes an issue
+# slot only.
+SASS_FMA_INT = ("IMAD",)
+SASS_FMA_FP = ("FFMA", "FADD", "FMUL")
+SASS_ALU = ("IADD3", "LOP3", "SHF", "ISETP", "FSETP", "SEL", "FSEL", "LEA",
+            "PRMT", "MOV", "IMNMX", "FMNMX", "SHL", "SHR", "IABS", "VIADD",
+            "VIMNMX", "I2FP", "F2I", "POPC", "FLO", "BMSK", "PLOP3")
+SMS = 132
+
+
+def sass_clock_hz():
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), the
+    clock its peak rates assume."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30).stdout.split()
+    return float(out[0]) * 1e6
+
+
+@functools.lru_cache(maxsize=1)
+def k0_sass():
+    """K0's instructions an element from its compiled SASS
+    (``cuobjdump -sass`` of the built library): the basic block of
+    nt_threefry_uniform_kernel that ends in its 16-byte store holds four
+    elements' hashes; its instructions by pipe over 4. The bound is the
+    SM clocks an element at the issue rate (128 thread instructions a
+    clock): the least these instructions take whichever pipes they go
+    to. Beside it, the clocks that the busiest of issue, ALU pipe and
+    FMA pipe takes as compiled (``SASS_*``: the integer adds the
+    compiler left on the ALU pipe could issue as IMAD on the FMA pipe's
+    half)."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from nomad_tpu_torch.ops import cuda
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    dump = subprocess.run([tool, "-sass", cuda.build_info["path"]],
+                          capture_output=True, text=True, timeout=300).stdout
+    blocks, cur, inside = [], [], False
+    for line in dump.splitlines():
+        s = line.strip()
+        if s.startswith("Function :"):
+            if inside:
+                break
+            inside = "nt_threefry_uniform_kernel" in s
+            continue
+        if not inside:
+            continue
+        if s.startswith(".L_"):
+            if cur:
+                blocks.append(cur)
+            cur = []
+            continue
+        m = re.match(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", s)
+        if not m:
+            continue
+        ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(1))
+        cur.append(ins)
+        if ins.split()[0].split(".")[0] in ("BRA", "EXIT", "RET", "BRX"):
+            blocks.append(cur)
+            cur = []
+    if cur:
+        blocks.append(cur)
+    body = [b for b in blocks if any(i.startswith("STG.E.128") for i in b)]
+    check(len(body) == 1, f"K0's SASS: {len(body)} blocks hold its 16-byte "
+          "store")
+    ops = [i.split()[0].split(".")[0] for i in body[0]]
+    per = dict(
+        total=len(ops) / 4.0,
+        alu=sum(o in SASS_ALU for o in ops) / 4.0,
+        imad=sum(o in SASS_FMA_INT for o in ops) / 4.0,
+        ffma=sum(o in SASS_FMA_FP for o in ops) / 4.0)
+    clock = sass_clock_hz()
+    issue = per["total"] / 128.0
+    pipes = max(issue, per["alu"] / 64.0, per["imad"] / 64.0,
+                per["ffma"] / 128.0)
+    return dict(instructions_per_element=per, sm_clock_hz=clock,
+                sm_cycles_per_element=issue,
+                pipe_cycles_per_element=pipes,
+                seconds_per_element=issue / (SMS * clock),
+                pipe_seconds_per_element=pipes / (SMS * clock))
+
+
+def k0_record(torch, keys, shape, window, sass):
+    """K0 on one draw: bit-equal to the plain version, its time, the
+    plain version's, and the bound from its SASS (at the issue rate;
+    ``pipe_bound_ms`` at the busiest pipe as compiled)."""
+    from nomad_tpu_torch.ops import prng
+
+    got = prng.threefry_uniform(keys, shape, 0.0, 2.0, window=window)
+    plain = prng.threefry_uniform_plain(keys, shape, 0.0, 2.0,
+                                        window=window)
+    check(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
+          f"K0 bits differ from the plain version ({keys.shape[0]} x "
+          f"{shape}, window {window})")
+    elems = got.numel()
+    ms = time_cuda(torch, lambda: prng.threefry_uniform(
+        keys, shape, 0.0, 2.0, window=window), RUNS)
+    plain_ms = time_cuda(torch, lambda: prng.threefry_uniform_plain(
+        keys, shape, 0.0, 2.0, window=window), 3, warmup=1)
+    del got, plain
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                **bound(elems * 4 + keys.numel() * 8,
+                        elems * sass["seconds_per_element"]),
+                library_ms=None, elements=elems,
+                pipe_bound_ms=elems * sass["pipe_seconds_per_element"]
+                * 1000.0)
+
+
+def peak_dispatch_bytes(torch, fn):
+    """Device memory a dispatch ``fn`` allocates at its peak, over what
+    was allocated before it (torch.cuda.max_memory_allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
 def bench_kernels(torch, np, seed):
-    from nomad_tpu_torch.ops import binpack, prng
+    from nomad_tpu_torch.ops import binpack, prng, scan
 
     dev = torch.device("cuda")
     n, k, g = BENCH_N, BENCH_K, 2
     chain = chain_ms(torch, k, dev)
     print(f"argmax chain alone, {k} rounds: {chain:.4f} ms")
+    sass = k0_sass()
+    print(f"K0's SASS: {json.dumps(sass, sort_keys=True)}")
     out = {}
     for b in (1, 64):
         base, jc, tgc, feas, asks, uasks, keys = kernel_inputs(
             torch, np, n, k, g, b, seed + b, dev)
         static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
                   base["node_ok"])
-        # ---- K0
-        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
-        plain = prng.threefry_uniform_plain(keys, (k, n), 0.0, 2.0)
-        check(torch.equal(noise.view(torch.int32), plain.view(torch.int32)),
-              f"K0 bits differ from the plain version (B={b})")
-        err = (noise - plain).abs().max().item()
-        ms = time_cuda(torch, lambda: prng.threefry_uniform(
-            keys, (k, n), 0.0, 2.0), RUNS)
-        plain_ms = time_cuda(torch, lambda: prng.threefry_uniform_plain(
-            keys, (k, n), 0.0, 2.0), 3, warmup=1)
-        elems = b * k * n
-        bytes_ = elems * 4 + b * 16
-        # Instructions per element as the compiler fuses them: 20
-        # rounds x (add, funnel-shift rotate, xor) + 5 key injections x 2
-        # three-input adds + 2 initial adds + 6 to make the float.
-        ops = elems * 78
-        out.setdefault("threefry_uniform", {})[b] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, ops / INT32_OPS), library_ms=None)
-        del plain
-        # ---- K1
+        draw = prng.Draw(keys, 2.0)
+        # ---- K0: K1's [K, N] draw (a separate launch where K1 reads it)
+        rec = k0_record(torch, keys, (k, n), None, sass)
+        print(f"K0 B={b} {(k, n)}: {rec['ms']:.4f} ms against a bound of "
+              f"{rec['bound_ms']:.4f} ms at the issue rate "
+              f"({rec['ms'] / rec['bound_ms']:.2f}x), "
+              f"{rec['pipe_bound_ms']:.4f} ms at the busiest pipe as "
+              f"compiled ({rec['ms'] / rec['pipe_bound_ms']:.2f}x)")
+        k0_scan_ms = rec["ms"]
+        rec["sass"] = sass
+        out.setdefault("threefry_uniform", {})[b] = rec
+        # ---- K1: its noise drawn in the kernel or read from K0's (the
+        # plan's choice), a call either way
         c_k, c_p = (new_carry(torch, base, jc, tgc) for _ in range(2))
-        ch, sc = binpack.greedy_scan(*static, c_k, feas, asks, noise, 10.0)
+        ch, sc = binpack.greedy_scan(*static, c_k, feas, asks, draw, 10.0)
+        noise = draw.noise((k, n))
         err = check_scan(torch, f"K1 (B={b})", (ch, sc, c_k), (
             *binpack.greedy_scan_plain(*static, c_p, feas, asks, noise,
-                                       10.0), c_p))
+                                       10.0), c_p), bits=True)
         full = ((base["ports_free"] >= 2) & (c_k[2] < 2)).sum().item()
         check(full > 0, f"K1 (B={b}): no node filled to its port limit")
-        print(f"greedy_scan B={b}: {(ch >= 0).sum().item()} of {b * k} "
-              f"asks placed, {full} rows filled to their port limit; "
-              "choices, scores and all five carried tensors match")
+        drawn = scan.plan_for(dev, b, n, g, False).drawn
+        print(f"greedy_scan B={b} (noise {'drawn' if drawn else 'read'}): "
+              f"{(ch >= 0).sum().item()} of {b * k} asks placed, {full} "
+              "rows filled to their port limit; choices, all five carried "
+              "tensors and the scores' bits match the plain draw and scan")
         rows, cells = rows_written(torch, ch, asks.tg_index, n, g)
         box = {}
         fresh = lambda: box.__setitem__("c", new_carry(torch, base, jc, tgc))
         ms = time_cuda(torch, lambda: binpack.greedy_scan(
-            *static, box["c"], feas, asks, noise, 10.0), RUNS, setup=fresh)
+            *static, box["c"], feas, asks, draw, 10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
             *static, box["c"], feas, asks, noise, 10.0), 3, warmup=1,
             setup=fresh)
+        del noise
         fig = greedy_figures(torch, "greedy_scan", False, static, feas, asks,
-                             noise, fresh, box, ms)
+                             draw, fresh, box, ms)
         # Node rows, the carry and feasible read once, every ask and its
-        # two outputs, the distinct_hosts flags, the noise, and the
-        # chosen rows written back once.
+        # two outputs, the distinct_hosts flags, the keys, and the chosen
+        # rows written back once; the draw's instructions (K0's, an
+        # element) beside the scoring's: the same function either way.
         bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
-                  + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * k * n * 4
+                  + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * 16
                   + rows * CARRY_ROW_BYTES + cells * 4)
         flops = b * k * n * 60  # mask + BestFit-v3 (2 pow) + argmax
+        draw_s = b * k * n * sass["seconds_per_element"]
+        extra = {}
+        if b == 64:
+            # Peak device memory of the greedy dispatch (fresh carry +
+            # scan), and of the parent's form of it, which drew the
+            # [B, K, N] noise with K0 first and kept it for the scan.
+            def dispatch(parent):
+                carry = binpack.fresh_carry(
+                    base["util"], base["bw_used"], base["ports_free"], jc,
+                    tgc, b, False)
+                kept = (prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+                        if parent else None)
+                return (binpack.greedy_scan(*static, carry, feas, asks, draw,
+                                            10.0), kept)
+
+            extra = dict(peak_bytes=peak_dispatch_bytes(
+                torch, lambda: dispatch(False)),
+                parent_form_peak_bytes=peak_dispatch_bytes(
+                    torch, lambda: dispatch(True)))
+            print(f"greedy dispatch B={b}: peak device memory "
+                  f"{extra['peak_bytes']} bytes; with the parent's "
+                  f"[B, K, N] noise tensor {extra['parent_form_peak_bytes']}"
+                  f" bytes")
         out.setdefault("greedy_scan", {})[b] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain, **fig)
-        del noise
-        # ---- K2
-        unoise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
+            **bound(bytes_, max(flops / FP32_FLOPS, draw_s, chain / 1000.0)),
+            library_ms=None, chain_ms=chain, noise_k0_ms=k0_scan_ms, **fig,
+            **extra)
+        # ---- K2, its noise drawn in the kernel
         c_k, c_p = (new_carry(torch, base, jc, tgc) for _ in range(2))
-        ch, sc = binpack.uniform_topk(*static, c_k, feas, uasks, unoise,
-                                      10.0)
+        ch, sc = binpack.uniform_topk(*static, c_k, feas, uasks, draw, 10.0)
+        unoise = draw.noise((n,))
         err = check_scan(torch, f"K2 (B={b})", (ch, sc, c_k), (
             *binpack.uniform_topk_plain(*static, c_p, feas, uasks, unoise,
-                                        10.0), c_p))
+                                        10.0), c_p), bits=True)
         rows, cells = rows_written(torch, ch, uasks.tg_index, n, g)
         ms = time_cuda(torch, lambda: binpack.uniform_topk(
-            *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh)
+            *static, box["c"], feas, uasks, draw, 10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.uniform_topk_plain(
             *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh)
         dev_ms = device_ms(torch, lambda: binpack.uniform_topk(
-            *static, box["c"], feas, uasks, unoise, 10.0), RUNS, setup=fresh,
+            *static, box["c"], feas, uasks, draw, 10.0), RUNS, setup=fresh,
             match="topk")
+        k0_row_ms = time_cuda(torch, lambda: prng.threefry_uniform(
+            keys, (n,), 0.0, 2.0), RUNS)
         score = torch.randn((b, n), device=dev)
         k_eff = min(k, n)
         lib_ms = time_cuda(torch, lambda: torch.topk(score, k_eff, dim=1),
@@ -1856,21 +2103,25 @@ def bench_kernels(torch, np, seed):
         lib_dev = device_ms(torch, lambda: torch.topk(score, k_eff, dim=1),
                             RUNS)
         print(f"uniform_topk B={b} K={k}: {ms:.4f} ms a call, kernel "
-              f"{dev_ms} ms on the device; torch.topk {lib_ms:.4f} ms a "
-              f"call, {lib_dev} ms on the device")
-        # Node rows; the carry with one task group's column of tg_count,
-        # that column of feasible, and the noise, read once; ask 0 and
-        # its two distinct_hosts flags; active and the two outputs of
+              f"{dev_ms} ms on the device (its draw included; K0 of the "
+              f"same [{n}] rows alone {k0_row_ms:.4f} ms); torch.topk "
+              f"{lib_ms:.4f} ms a call, {lib_dev} ms on the device")
+        # Node rows; the carry with one task group's column of tg_count
+        # and that column of feasible read once; ask 0 and its two
+        # distinct_hosts flags; the keys; active and the two outputs of
         # every ask; the chosen rows written back once.
-        bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 4 + 1 + 4)
-                  + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+        bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 1 + 4)
+                  + b * (ASK_BYTES - 1 + 2) + b * 16 + b * k * (1 + 8)
                   + rows * CARRY_ROW_BYTES + cells * 4)
         ops = b * n * (60 + 10)  # one scoring pass + a k-selection
         out.setdefault("uniform_topk", {})[b] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, ops / FP32_FLOPS), library_ms=lib_ms,
-            device_ms=dev_ms, library_device_ms=lib_dev)
-        # ---- K3
+            **bound(bytes_, max(ops / FP32_FLOPS,
+                                b * n * sass["seconds_per_element"])),
+            library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev,
+            noise_k0_ms=k0_row_ms)
+        del unoise
+        # ---- K3 over node tiles
         ov, class_ids = overlay_inputs(torch, np, n, g, b, seed, dev)
         got = binpack.expand_overlay(class_ids, ov, n)
         want = binpack.expand_overlay_plain(class_ids, ov, n)
@@ -1878,18 +2129,41 @@ def bench_kernels(torch, np, seed):
               f"K3 outputs differ (B={b})")
         err = max((x.long() - y.long()).abs().max().item()
                   for x, y in zip(got, want))
-        ms = time_cuda(torch, lambda: binpack.expand_overlay(
-            class_ids, ov, n), RUNS)
+        call = lambda: binpack.expand_overlay(class_ids, ov, n)  # noqa: E731
+        ms = time_cuda(torch, call, RUNS)
+        dev_ms = device_ms(torch, call, RUNS, match="expand_overlay")
+        host = host_ms(torch, call, RUNS)
         plain_ms = time_cuda(torch, lambda: binpack.expand_overlay_plain(
             class_ids, ov, n), RUNS)
         c, p, j = ov.verdicts.shape[1], ov.patch_rows.shape[1], \
             ov.job_rows.shape[1]
         bytes_ = (n * 4 + b * (c * g + p * (4 + g) + j * 8)
                   + b * n * (g + 4 + 4 * g))
+        tile, groups = binpack.overlay_tile(g)
+        ctas = -(-n // tile) * b * -(-g // groups)
         out.setdefault("expand_overlay", {})[b] = dict(
             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, b * (n * g + j) / INT32_OPS), library_ms=None)
+            **bound(bytes_, b * (n * g + j) / INT32_OPS), library_ms=None,
+            device_ms=dev_ms, host_ms=host, tile=tile, groups=groups,
+            ctas=ctas)
+        print(f"expand_overlay B={b}: {ctas} CTAs of {tile} rows x {groups} "
+              f"task groups; {ms:.4f} ms a call, kernel {dev_ms} ms on the "
+              f"device, host span {host:.4f} ms; equal to the plain version")
         torch.cuda.empty_cache()
+    # K0 at the consumers' widths: the gang program's member and group
+    # draws, a K10c shard's window, and counters past 2^32.
+    for label, bb, shape, window in (
+            ("gang members", 1, (1024, n), None),
+            ("gang groups", 1, (1024,), None),
+            ("K10c window", 1, (k, n // 4), (n // 4, n)),
+            ("past 2^32", 1, (70_000, 16), (69_984, 70_000))):
+        keys = torch.arange(2 * bb, device=dev).view(bb, 2) + 11
+        rec = k0_record(torch, keys, shape, window, sass)
+        out["threefry_uniform"][label] = rec
+        print(f"K0 {label} {shape}: bit-equal to the plain version, "
+              f"{rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f} at the "
+              f"issue rate, {rec['pipe_bound_ms']:.4f} at the busiest "
+              "pipe as compiled)")
     # K2 at the node bucket of a 20k-node cluster (K = 64: the radix
     # select over 2,560-node slices).
     n2 = 20_480
@@ -1897,12 +2171,13 @@ def bench_kernels(torch, np, seed):
         torch, np, n2, 64, g, 2, seed, dev)
     static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
               base["node_ok"])
-    unoise = prng.threefry_uniform(keys, (n2,), 0.0, 2.0)
+    draw = prng.Draw(keys, 2.0)
     runs = []
-    for fn in (binpack.uniform_topk, binpack.uniform_topk_plain):
+    for fn, noise in ((binpack.uniform_topk, draw),
+                      (binpack.uniform_topk_plain, draw.noise((n2,)))):
         c = new_carry(torch, base, jc, tgc)
-        runs.append((*fn(*static, c, feas, uasks, unoise, 10.0), c))
-    check_scan(torch, f"K2 at N={n2} (radix select)", *runs)
+        runs.append((*fn(*static, c, feas, uasks, noise, 10.0), c))
+    check_scan(torch, f"K2 at N={n2} (radix select)", *runs, bits=True)
     print(f"uniform_topk at N={n2} (radix select, K = 64): matches")
     return out
 
@@ -1962,6 +2237,7 @@ def bench_new_kernels(torch, np, seed):
     layouts of K1 and K2, each against its plain version."""
     from nomad_tpu_torch.ops import binpack, prng
 
+    sass = k0_sass()
     dev = torch.device("cuda")
     n, g = BENCH_N, 2
     out = {}
@@ -2015,13 +2291,14 @@ def bench_new_kernels(torch, np, seed):
             torch, np, n, k, g, b, seed + 3 * b, dev)
         static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
                   base["node_ok"])
-        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        draw = prng.Draw(keys, 2.0)
+        noise = draw.noise((k, n))
         c_k, c_p = seq_carry(base, jc, tgc), seq_carry(base, jc, tgc)
-        ch, sc = binpack.greedy_scan(*static, c_k, feas, asks, noise, 10.0,
+        ch, sc = binpack.greedy_scan(*static, c_k, feas, asks, draw, 10.0,
                                      True)
         err = check_scan(torch, f"K1-seq (B={b}, K={k})", (ch, sc, c_k), (
             *binpack.greedy_scan_plain(*static, c_p, feas, asks, noise, 10.0,
-                                       True), c_p))
+                                       True), c_p), bits=True)
         full = ((base["ports_free"] >= 2) & (c_k[2] < 2)).sum().item()
         check(full > 0, f"K1-seq (B={b}): no node filled to its port limit")
         print(f"greedy_scan_seq B={b} K={k}: {(ch >= 0).sum().item()} of "
@@ -2031,41 +2308,46 @@ def bench_new_kernels(torch, np, seed):
         box = {}
         fresh = lambda: box.__setitem__("c", seq_carry(base, jc, tgc))
         ms = time_cuda(torch, lambda: binpack.greedy_scan(
-            *static, box["c"], feas, asks, noise, 10.0, True), RUNS,
+            *static, box["c"], feas, asks, draw, 10.0, True), RUNS,
             setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
             *static, box["c"], feas, asks, noise, 10.0, True), 3, warmup=1,
             setup=fresh)
+        del noise
+        k0_ms = time_cuda(torch, lambda: prng.threefry_uniform(
+            keys, (k, n), 0.0, 2.0), RUNS)
         fig = greedy_figures(torch, "greedy_scan_seq", True, static, feas,
-                             asks, noise, fresh, box, ms)
+                             asks, draw, fresh, box, ms)
         rows, cells = rows_written(torch, ch, asks.tg_index, n, g)
         nodes = torch.unique(ch[ch >= 0]).numel()
         chain = chain_ms(torch, b * k, dev)
         # Node rows and the shared carry read once; per eval its counts
         # and feasible; every ask and its two outputs; the flags; the
-        # noise; the chosen shared rows and per-eval counts written once.
+        # keys; the chosen shared rows and per-eval counts written once;
+        # the draw's instructions (K0's, an element).
         bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 5 * g)
-                  + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * k * n * 4
+                  + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * 16
                   + nodes * 24 + rows * 4 + cells * 4)
         flops = b * k * n * 60
+        draw_s = b * k * n * sass["seconds_per_element"]
         out.setdefault("greedy_scan_seq", {})[(b, k)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain, **fig)
-        del noise
+            **bound(bytes_, max(flops / FP32_FLOPS, draw_s, chain / 1000.0)),
+            library_ms=None, chain_ms=chain, noise_k0_ms=k0_ms, **fig)
     # ---- K2 sequential at B x K = 64 x 8 (config 4's storm)
     b, k = 64, 8
     base, jc, tgc, feas, _a, uasks, keys = kernel_inputs(
         torch, np, n, k, g, b, seed + 11, dev)
     static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
               base["node_ok"])
-    unoise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
+    draw = prng.Draw(keys, 2.0)
+    unoise = draw.noise((n,))
     c_k, c_p = seq_carry(base, jc, tgc), seq_carry(base, jc, tgc)
-    ch, sc = binpack.uniform_topk(*static, c_k, feas, uasks, unoise, 10.0,
+    ch, sc = binpack.uniform_topk(*static, c_k, feas, uasks, draw, 10.0,
                                   True)
     err = check_scan(torch, f"K2-seq (B={b}, K={k})", (ch, sc, c_k), (
         *binpack.uniform_topk_plain(*static, c_p, feas, uasks, unoise, 10.0,
-                                    True), c_p))
+                                    True), c_p), bits=True)
     full = ((base["ports_free"] >= 2) & (c_k[2] < 2)).sum().item()
     print(f"uniform_topk_seq B={b} K={k}: {(ch >= 0).sum().item()} of "
           f"{b * k} asks placed, {full} shared rows filled to their port "
@@ -2073,14 +2355,16 @@ def bench_new_kernels(torch, np, seed):
     box = {}
     fresh = lambda: box.__setitem__("c", seq_carry(base, jc, tgc))
     _out, launches = launches_of("uniform_topk_seq", lambda: (
-        fresh(), binpack.uniform_topk(*static, box["c"], feas, uasks, unoise,
+        fresh(), binpack.uniform_topk(*static, box["c"], feas, uasks, draw,
                                       10.0, True)))
     ms = time_cuda(torch, lambda: binpack.uniform_topk(
-        *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
+        *static, box["c"], feas, uasks, draw, 10.0, True), RUNS,
         setup=fresh)
     dev_ms = device_ms(torch, lambda: binpack.uniform_topk(
-        *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
+        *static, box["c"], feas, uasks, draw, 10.0, True), RUNS,
         setup=fresh, match="topk")
+    k0_ms = time_cuda(torch, lambda: prng.threefry_uniform(
+        keys, (n,), 0.0, 2.0), RUNS)
     plain_ms = time_cuda(torch, lambda: binpack.uniform_topk_plain(
         *static, box["c"], feas, uasks, unoise, 10.0, True), RUNS,
         setup=fresh)
@@ -2090,18 +2374,21 @@ def bench_new_kernels(torch, np, seed):
     rows, cells = rows_written(torch, ch, uasks.tg_index, n, g)
     nodes = torch.unique(ch[ch >= 0]).numel()
     chain = chain_ms(torch, b, dev)
-    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
-              + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 1 + 4)
+              + b * (ASK_BYTES - 1 + 2) + b * 16 + b * k * (1 + 8)
               + nodes * 24 + rows * 4 + cells * 4)
     print(f"uniform_topk_seq B={b} K={k}: {ms:.4f} ms a call, kernel "
-          f"{dev_ms} ms on the device, {launches} launch(es) a call; chain "
+          f"{dev_ms} ms on the device (its draw included; K0 of the same "
+          f"rows alone {k0_ms:.4f} ms), {launches} launch(es) a call; chain "
           f"of {b} block reductions {chain:.4f} ms; torch.topk "
           f"{lib_ms:.4f} ms a call, {lib_dev} ms on the device")
     out["uniform_topk_seq"] = {b: dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
+        **bound(bytes_, max(b * n * 70 / FP32_FLOPS,
+                            b * n * sass["seconds_per_element"],
+                            chain / 1000.0)),
         library_ms=lib_ms, chain_ms=chain, launches_per_call=launches,
-        device_ms=dev_ms, library_device_ms=lib_dev)}
+        device_ms=dev_ms, library_device_ms=lib_dev, noise_k0_ms=k0_ms)}
     # ---- K5b: the stacked layouts at B = 4 (K1 at K = 1,024, K2 at 8)
     b = 4
     for name, k in (("greedy_scan_stacked", BENCH_K),
@@ -2114,39 +2401,43 @@ def bench_new_kernels(torch, np, seed):
                      if greedy else
                      (binpack.uniform_topk, binpack.uniform_topk_plain))
         a = asks if greedy else uasks
-        noise = prng.threefry_uniform(keys, (k, n) if greedy else (n,),
-                                      0.0, 2.0)
+        draw = prng.Draw(keys, 2.0)
+        noise = draw.noise((k, n) if greedy else (n,))
         c_k, c_p = (new_carry(torch, base, jc, tgc) for _ in range(2))
-        ch, sc = fn(*static, c_k, feas, a, noise, 10.0)
+        ch, sc = fn(*static, c_k, feas, a, draw, 10.0)
         err = check_scan(torch, f"{name} (B={b})", (ch, sc, c_k), (
-            *plain(*static, c_p, feas, a, noise, 10.0), c_p))
+            *plain(*static, c_p, feas, a, noise, 10.0), c_p), bits=True)
         print(f"{name} B={b} K={k}: {(ch >= 0).sum().item()} of {b * k} "
               "asks placed over a base per eval; choices, scores and all "
               "five carried tensors match")
         box = {}
         fresh = lambda: box.__setitem__("c", new_carry(torch, base, jc, tgc))
-        ms = time_cuda(torch, lambda: fn(*static, box["c"], feas, a, noise,
+        ms = time_cuda(torch, lambda: fn(*static, box["c"], feas, a, draw,
                                          10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: plain(
             *static, box["c"], feas, a, noise, 10.0),
             3 if greedy else RUNS, warmup=1, setup=fresh)
         rows, cells = rows_written(torch, ch, a.tg_index, n, g)
         lib_ms = None
+        k0_ms = time_cuda(torch, lambda: prng.threefry_uniform(
+            keys, (k, n) if greedy else (n,), 0.0, 2.0), RUNS)
+        draw_s = noise.numel() * sass["seconds_per_element"]
+        del noise
         if greedy:
             extra = dict(chain_ms=chain_ms(torch, k, dev), **greedy_figures(
-                torch, name, False, static, feas, a, noise, fresh, box, ms))
+                torch, name, False, static, feas, a, draw, fresh, box, ms))
             chain = extra["chain_ms"]
             bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 5 * g)
-                      + b * k * (ASK_BYTES + 8) + b * (1 + g)
-                      + b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
-            ops_s = max(b * k * n * 60 / FP32_FLOPS, chain / 1000.0)
+                      + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * 16
+                      + rows * CARRY_ROW_BYTES + cells * 4)
+            ops_s = max(b * k * n * 60 / FP32_FLOPS, draw_s, chain / 1000.0)
         else:
             score = torch.randn((b, n), device=dev)
             lib_ms = time_cuda(torch, lambda: torch.topk(score, k, dim=1),
                                RUNS)
             extra = dict(
                 device_ms=device_ms(torch, lambda: fn(
-                    *static, box["c"], feas, a, noise, 10.0), RUNS,
+                    *static, box["c"], feas, a, draw, 10.0), RUNS,
                     setup=fresh, match="topk"),
                 library_device_ms=device_ms(
                     torch, lambda: torch.topk(score, k, dim=1), RUNS))
@@ -2154,13 +2445,13 @@ def bench_new_kernels(torch, np, seed):
                   f"{extra['device_ms']} ms on the device; torch.topk "
                   f"{lib_ms:.4f} ms a call, {extra['library_device_ms']} ms "
                   "on the device")
-            bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 4 + 1 + 4)
-                      + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+            bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 1 + 4)
+                      + b * (ASK_BYTES - 1 + 2) + b * 16 + b * k * (1 + 8)
                       + rows * CARRY_ROW_BYTES + cells * 4)
-            ops_s = b * n * 70 / FP32_FLOPS
+            ops_s = max(b * n * 70 / FP32_FLOPS, draw_s)
         out[name] = {b: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(bytes_, ops_s), library_ms=lib_ms,
-                             **extra)}
+                             noise_k0_ms=k0_ms, **extra)}
         torch.cuda.empty_cache()
     return out
 
@@ -2374,10 +2665,14 @@ def run_mesh(seed, torch, total, storm_h):
             rec["delta_calls"] = deltas.calls
             return out
 
+        # K10d on one card draws its noise in the kernel; over distinct
+        # cards each shard's window is drawn first (K0).
+        one_card = len({str(d) for d in devices}) == 1
         with GcPauses() as gc_pauses:
             done = counted(total, "mesh storm", (
-                "threefry_uniform", "expand_overlay", "sharded_uniform_topk",
-                "sharded_base_delta"), mesh_storm)
+                "expand_overlay", "sharded_uniform_topk", "sharded_base_delta",
+                *(() if one_card else ("threefry_uniform",))), mesh_storm,
+                DRAWN_IN_SCANS if one_card else ())
         require_per_call("mesh storm K10a", cuda.launch_counts().get(
             "sharded_base_delta", 0), rec.pop("delta_calls"),
             card_launches(devices))
@@ -2531,14 +2826,14 @@ def hold_shards(torch, label, call):
     Then the whole node axis through the unsharded K1 / K2 / K8b (fed
     the same pref): equal bit for bit. Returns the score error and the
     kernel re-run's launches."""
-    from nomad_tpu_torch.ops import binpack
-    from nomad_tpu_torch.parallel import shard
-
     from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.ops.prng import Draw
+    from nomad_tpu_torch.parallel import shard
 
     inputs, (penalty, *rest), out = call
     seq = bool(rest and rest[0])
-    uniform = inputs[0].noise.dim() == 2
+    uniform = inputs[0].noise is None or inputs[0].noise.dim() == 2
     biased = inputs[0].pref is not None
     kern, plain, one = ((shard.sharded_uniform_topk,
                          shard.sharded_uniform_topk_plain,
@@ -2552,6 +2847,8 @@ def hold_shards(torch, label, call):
     runs = []
     for fn in (kern, plain):
         shards = [cloned(sh) for sh in inputs]
+        if fn is plain:
+            shards = plain_windows(shards)
         (ch, sc), n = launches_of(kern.__name__, lambda: fn(
             shards, penalty, seq))
         if fn is kern:
@@ -2566,13 +2863,24 @@ def hold_shards(torch, label, call):
               for f in ("capacity", "sched_capacity", "bw_avail", "node_ok")]
     carry = list(joined_carry(torch, whole, seq))
     feas = cat((sh.feasible for sh in whole), 1)
-    noise = cat((sh.noise for sh in whole), -1)
     pref = (cat((sh.pref for sh in whole), -1),) if biased else ()
+    if biased:  # K8b reads a noise tensor: the shards' windows joined
+        noise = cat((sh.noise for sh in whole), -1)
+    else:  # K1 and K2 draw the whole row from the shards' keys
+        noise = Draw(whole[0].draw.keys, whole[0].draw.scale)
     ch, sc = one(*static, carry, feas, whole[0].asks, noise, penalty, *pref,
                  seq)
     check(torch.equal(ch, out[0]) and torch.equal(sc, out[1]),
           f"{label}: differs from the unsharded kernel")
     return err, launches
+
+
+def plain_windows(shards):
+    """Uniform shards whose noise K10d's one-card route draws in its
+    kernel, with the window drawn by the plain version instead: the
+    plain versions' inputs."""
+    return [sh if sh.noise is not None else sh._replace(
+        noise=sh.draw.noise((sh.feasible.shape[1],))) for sh in shards]
 
 
 def launches_of(name, fn):
@@ -2595,6 +2903,7 @@ def resharded(torch, shards, seq, w):
     """A recorded scan call's node shards joined on the first shard's
     device and split again into ``w`` equal shards there: the same
     rows, carry, noise and asks over another layout."""
+    from nomad_tpu_torch.ops.prng import Draw
     from nomad_tpu_torch.parallel.mesh import shard_bounds
     from nomad_tpu_torch.parallel.shard import NodeShard
 
@@ -2603,16 +2912,22 @@ def resharded(torch, shards, seq, w):
     static = [torch.cat([getattr(sh, f).to(dev) for sh in shards], dim=d)
               for f in ("capacity", "sched_capacity", "bw_avail", "node_ok")]
     carry = [c.to(dev) for c in joined_carry(torch, shards, seq)]
-    feas, noise = (torch.cat([getattr(sh, f).to(dev) for sh in shards],
-                             dim=1) for f in ("feasible", "noise"))
+    feas = torch.cat([sh.feasible.to(dev) for sh in shards], dim=1)
+    n = feas.shape[1]
+    noise = None
+    if shards[0].noise is not None:
+        noise = torch.cat([sh.noise.to(dev) for sh in shards], dim=1)
+    keys, scale = shards[0].draw.keys.to(dev), shards[0].draw.scale
     own = 0 if seq else 1
     out = []
-    for lo, hi in shard_bounds(feas.shape[1], w):
+    for lo, hi in shard_bounds(n, w):
         part = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa: E731
         out.append(NodeShard(
             lo, *(part(x, d) for x in static),
             tuple(part(c, own if i < 3 else 1) for i, c in enumerate(carry)),
-            part(feas, 1), shards[0].asks, part(noise, 1)))
+            part(feas, 1), shards[0].asks,
+            None if noise is None else part(noise, 1),
+            draw=Draw(keys, scale, lo, n)))
     return out
 
 
@@ -2811,7 +3126,8 @@ def bench_mesh(torch, np, rec):
         setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]))
     plain_ms = time_cuda(torch, lambda: shard.sharded_uniform_topk_plain(
         box["s"], penalty, seq), 3, warmup=1,
-        setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]))
+        setup=lambda: box.__setitem__("s", plain_windows(
+            [cloned(sh) for sh in inputs])))
     dev_ms = device_ms(torch, lambda: shard.sharded_uniform_topk(
         box["s"], penalty, seq), RUNS,
         setup=lambda: box.__setitem__("s", [cloned(sh) for sh in inputs]),
@@ -2823,12 +3139,17 @@ def bench_mesh(torch, np, rec):
     rows, cells = rows_written(torch, res[0], tg, n, g)
     nodes = torch.unique(res[0][res[0] >= 0]).numel()
     chain = chain_ms(torch, b if seq else 1, torch.device("cuda"))
-    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 4 + 1 + 4)
-              + b * (ASK_BYTES - 1 + 2) + b * k * (1 + 8)
+    # As K2-seq's: the noise drawn in the kernel on one card (the keys
+    # read, the draw's instructions); the per-shard path below reads K0's
+    # windows instead.
+    bytes_ = (n * (NODE_BYTES + 24) + b * n * (4 + 1 + 4)
+              + b * (ASK_BYTES - 1 + 2) + b * 16 + b * k * (1 + 8)
               + nodes * 24 + rows * 4 + cells * 4)
+    draw_s = b * n * k0_sass()["seconds_per_element"]
     out["sharded_uniform_topk"] = {b: dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
+        **bound(bytes_, max(b * n * 70 / FP32_FLOPS, draw_s,
+                            chain / 1000.0)),
         library_ms=lib_ms, chain_ms=chain, launches_per_call=held[0][1],
         device_ms=dev_ms, library_device_ms=lib_dev, shards=w,
         calls_held=len(errs))}
@@ -2850,7 +3171,8 @@ def bench_mesh(torch, np, rec):
     ms = time_cuda(torch, lambda: shard.sharded_uniform_topk(
         box["s"], penalty, seq), RUNS, setup=fresh)
     plain_ms = time_cuda(torch, lambda: shard.sharded_uniform_topk_plain(
-        box["s"], penalty, seq), 3, warmup=1, setup=fresh)
+        box["s"], penalty, seq), 3, warmup=1, setup=lambda: box.__setitem__(
+            "s", plain_windows([cloned(sh) for sh in call[0]])))
     out["sharded_uniform_topk_shards"] = {b: dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(bytes_, max(b * n * 70 / FP32_FLOPS, chain / 1000.0)),
@@ -3467,7 +3789,7 @@ def run_convex(seed, torch, total, main_h, storm_h):
             ("convex", lambda: run_differential("convex"),
              ("convex_relax", "convex_round")),
             ("greedy", lambda: run_differential(
-                "greedy", list(DEFAULT_SEEDS)[:3]), ("threefry_uniform",)),
+                "greedy", list(DEFAULT_SEEDS)[:3]), ("greedy_scan",)),
             ("gangs", run_gang_differential, ("gang_scan",)),
             ("defrag waves", run_defrag_differential, ("defrag_solve",))):
         t0 = time.perf_counter()
@@ -3976,6 +4298,8 @@ def main(argv=None) -> int:
         return 1
 
     print(f"launches on the main paths: {json.dumps(total, sort_keys=True)}")
+    print("greedy scan launches by noise mode, by path: "
+          f"{json.dumps(SCAN_MODES, sort_keys=True)}")
     kernels = []
     for name, shapes in results.items():
         src, replaces = REPLACES[name]

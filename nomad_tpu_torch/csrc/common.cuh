@@ -53,6 +53,65 @@ __device__ __forceinline__ T* nt_staged(unsigned char* region, const T* src) {
   return (T*)(region + ((uintptr_t)src & 15));
 }
 
+// threefry2x32 (20 rounds, 5 key injections) of the counter pair
+// (x0, x1) under the key (k0, k1), in place: jax.random's hash.
+__device__ __forceinline__ uint32_t nt_rotl(uint32_t x, int d) {
+  return (x << d) | (x >> (32 - d));
+}
+
+#define NT_TF_ROUND(r) \
+  x0 += x1;            \
+  x1 = nt_rotl(x1, r); \
+  x1 ^= x0;
+
+__device__ __forceinline__ void nt_threefry2x32(uint32_t k0, uint32_t k1,
+                                                uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  NT_TF_ROUND(13) NT_TF_ROUND(15) NT_TF_ROUND(26) NT_TF_ROUND(6)
+  x0 += k1;
+  x1 += k2 + 1u;
+  NT_TF_ROUND(17) NT_TF_ROUND(29) NT_TF_ROUND(16) NT_TF_ROUND(24)
+  x0 += k2;
+  x1 += k0 + 2u;
+  NT_TF_ROUND(13) NT_TF_ROUND(15) NT_TF_ROUND(26) NT_TF_ROUND(6)
+  x0 += k0;
+  x1 += k1 + 3u;
+  NT_TF_ROUND(17) NT_TF_ROUND(29) NT_TF_ROUND(16) NT_TF_ROUND(24)
+  x0 += k1;
+  x1 += k2 + 4u;
+  NT_TF_ROUND(13) NT_TF_ROUND(15) NT_TF_ROUND(26) NT_TF_ROUND(6)
+  x0 += k2;
+  x1 += k0 + 5u;
+}
+
+#undef NT_TF_ROUND
+
+// The tie-break noise of one element, bit-identical to
+// jax.random.uniform(key, shape, minval, minval + scale) in float32
+// under jax_threefry_partitionable (the JAX package's ops/binpack.py
+// draws at :320 and :384): the element's 64-bit counter hashed as the
+// pair (counter >> 32, counter & 0xffffffff) under the raw key (k0,
+// k1); its 32 bits the XOR of the two output words; the float
+// (bits >> 9 | 0x3f800000) - 1 in [0, 1), scaled by one fused
+// multiply-add (XLA contracts f * (maxval - minval) + minval so) and
+// clamped below at minval, as jax/_src/random.py _uniform does. Every
+// kernel that draws noise draws it through this function: K0
+// (csrc/threefry.cu) for the consumers that keep a noise tensor, and
+// the scans that draw their own (csrc/greedy_scan.cu,
+// csrc/uniform_topk.cu).
+__device__ __forceinline__ float nt_noise_at(uint32_t k0, uint32_t k1,
+                                             unsigned long long counter,
+                                             float minval, float scale) {
+  uint32_t x0 = (uint32_t)(counter >> 32);
+  uint32_t x1 = (uint32_t)counter;
+  nt_threefry2x32(k0, k1, x0, x1);
+  const uint32_t bits = x0 ^ x1;
+  const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
+  return fmaxf(minval, fmaf(f, scale, minval));
+}
+
 // One ask's BestFit-v3 score before the tie-break noise on a node whose
 // rows are already loaded, with the part of its feasibility mask that
 // does not depend on the ask's task group: fit minus the anti-affinity

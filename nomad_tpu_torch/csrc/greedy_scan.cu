@@ -8,8 +8,8 @@
 //   _overlay_seq and the pre_resolve branch of _compact_batch): ONE
 //   cluster walks the B evals in order over one shared copy of util,
 //   bw_used and ports_free, so eval b+1 scores against the capacity
-//   evals 0..b claimed; job_count, tg_count, feasible, asks and noise
-//   stay per eval;
+//   evals 0..b claimed; job_count, tg_count, feasible, asks and the
+//   noise's key stay per eval;
 // - stacked states (stacked = 1; batched_placement_program): capacity,
 //   sched, bw_avail and node_ok carry the batch axis too.
 //
@@ -50,10 +50,26 @@
 //   every node applies the step's task-group part (nt_group_fits) and
 //   adds the new noise — the same operations on the same values, so
 //   the same bits.
-// - Step s + 4's noise row slice is staged by a bulk copy into one of
-//   four buffers while steps s..s+3 run (where they fit); the asks of
-//   the steps ahead are prefetched into L1 and the next step's loaded
-//   into registers a step ahead.
+// - The tie-break noise, in one of two modes the plan picks (DRAW):
+//   drawn in the kernel, or read from K0's [B, K, N] tensor. Drawn, the
+//   noise of step k of eval b at node i is K0's value (csrc/common.cuh
+//   nt_noise_at) of the counter k x draw_total + draw_lo + i under
+//   keys[b], the element the JAX package's [K, N] draw holds there, so
+//   no [B, K, N] tensor is written or read. It does not depend on the
+//   winner: each thread hashes step s + 1's values for its first
+//   NT_DRAW_AHEAD nodes into registers after it has handed in its key
+//   for step s and before the cluster's winner arrives, so the hash
+//   fills the exchange's wait; nodes past those hash in the scoring
+//   pass. The hash is ~80 integer instructions a node a step on the
+//   launch's own SMs: it pays where a CTA's slice is short against the
+//   nodes K0 hashes a step on each SM (B = 64 on 2 CTAs an eval), while
+//   a launch on a few SMs (one cluster of 16: B = 1, the sequential
+//   layout) is faster reading K0's tensor, which K0 draws on every SM
+//   (ops/scan.py draws; PERF.md §6). Read, step s + 4's noise row
+//   slice is staged by a bulk copy into one of four buffers while steps
+//   s..s+3 run (where they fit). The asks of the steps ahead are
+//   prefetched into L1 and the next step's loaded into registers a step
+//   ahead.
 // - One exchange a step: each warp reduces its threads' best (score,
 //   index) to one packed key (nt_pack's order) with two
 //   __reduce_max_sync, warp 0 reduces the warps' keys after one block
@@ -82,21 +98,26 @@ namespace cg = cooperative_groups;
 #define NT_SCAN_CLUSTER_MAX 16
 // Shared-memory bytes a CTA may take (227 KB on sm_90).
 #define NT_SCAN_SMEM_MAX (227 * 1024)
-// Noise rows staged ahead of the step that reads them.
+// A thread's nodes whose noise is drawn a step ahead, in registers
+// (5: the most a thread owns at B = 64 on 2 CTAs; more spill).
+#define NT_DRAW_AHEAD 5
+// Noise rows staged ahead of the step that reads them (read mode).
 #define NT_SCAN_STAGES 4
 // Steps ahead whose asks are prefetched into L1.
 #define NT_SCAN_ASK_AHEAD 8
 
 // Parts of a step, timed by one thread of rank 0 when ``prof`` is set
-// (topk_profile.py --sections scan): the waits for staged rows, the
-// asks' loads, the scoring pass, the warp reduction and the keys' sends, the wait for
-// the cluster's keys, and the winner's reduction and update.
-enum { NT_P_WAIT, NT_P_ASK, NT_P_SCORE, NT_P_BLOCK, NT_P_EXCH, NT_P_WIN,
-       NT_P_PARTS };
+// (topk_profile.py --sections scan): the wait for an eval's staged
+// rows, the asks' loads, the scoring pass, the warp reduction and the
+// keys' sends, the next step's draw, the wait for the cluster's keys,
+// and the winner's reduction and update.
+enum { NT_P_WAIT, NT_P_ASK, NT_P_SCORE, NT_P_BLOCK, NT_P_DRAW, NT_P_EXCH,
+       NT_P_WIN, NT_P_PARTS };
 
 struct NtScanArgs {
   int B, N, G, K, seq, stacked, stage_noise, eval_bufs, cache, L;
-  float penalty;
+  float penalty, scale;
+  long long draw_total, draw_lo;
   const float4* capacity;
   const float4* sched;
   const float* bw_avail;
@@ -114,6 +135,7 @@ struct NtScanArgs {
   const unsigned char* active;
   const unsigned char* job_dh;
   const unsigned char* tg_dh;
+  const long long* keys;
   const float* noise;
   int* choices;
   float* scores;
@@ -141,9 +163,9 @@ __host__ __device__ inline size_t nt_stage_len(size_t bytes) {
 
 // Byte offsets in a CTA's dynamic shared memory (ops/scan.py layout):
 // the mbarriers (eval rows by eval parity, noise by stage, keys by step
-// parity) and the profile's counters, the keys' slots by step parity, the score cache, the noise
-// stages, then in the resident form the rows and ``eval_bufs`` sets of
-// an eval's rows.
+// parity) and the profile's counters, the keys' slots by step parity,
+// the score cache, the noise stages (read mode), then in the resident
+// form the rows and ``eval_bufs`` sets of an eval's rows.
 struct NtScanLayout {
   size_t slots, cache, noise[NT_SCAN_STAGES], rows[NT_S_ROWS],
       erows[2][NT_E_ROWS], total;
@@ -311,12 +333,13 @@ __device__ __forceinline__ unsigned long long nt_warp_max(
 // The cluster's winner of step s from each thread's best key (0: no
 // node): each warp's largest into the CTA's warp keys, one block
 // barrier, warp 0's largest of those sent to every CTA's slot for this
-// CTA (st.async, completing on that CTA's key mbarrier), the wait for
-// the cluster's keys, then the largest of them in every thread.
-template <bool TIMED>
+// CTA (st.async, completing on that CTA's key mbarrier), ``gap()`` (work
+// that does not need the winner), the wait for the cluster's keys, then
+// the largest of them in every thread.
+template <bool TIMED, class Gap>
 __device__ __forceinline__ unsigned long long nt_cluster_argmax(
     unsigned long long key, const NtExchange& x, int s,
-    NtClock<TIMED>& clock) {
+    NtClock<TIMED>& clock, const Gap& gap) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int par = s & 1;
   const unsigned long long wk = nt_warp_max(key);
@@ -334,6 +357,8 @@ __device__ __forceinline__ unsigned long long nt_cluster_argmax(
           : "memory");
   }
   clock.tick(NT_P_BLOCK);
+  gap();
+  clock.tick(NT_P_DRAW);
   nt_mbar_wait(&x.kbar[par], (unsigned)((s >> 1) & 1));
   clock.tick(NT_P_EXCH);
   return nt_warp_max(lane < x.nc ? x.keys[par * x.nc + lane] : 0ull);
@@ -363,8 +388,9 @@ __device__ __forceinline__ void nt_prefetch_l1(const void* p) {
 }
 
 // RES: the resident form (the rows in shared memory), else streamed;
-// TIMED: the step parts are timed into p.prof.
-template <bool RES, bool TIMED>
+// TIMED: the step parts are timed into p.prof; DRAW: the noise drawn in
+// the kernel, else read from p.noise (staged where p.stage_noise).
+template <bool RES, bool TIMED, bool DRAW>
 __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_greedy_cluster_kernel(const __grid_constant__ NtScanArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -375,9 +401,8 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const int T = blockDim.x, W = T >> 5;
   const int t = threadIdx.x;
   const int N = p.N, G = p.G, K = p.K;
-  const NtScanLayout lay = nt_scan_layout(nc, W, p.L, G, RES,
-                                          p.stage_noise, p.eval_bufs,
-                                          p.cache);
+  const NtScanLayout lay = nt_scan_layout(nc, W, p.L, G, RES, p.stage_noise,
+                                          p.eval_bufs, p.cache);
   const NtExchange x = nt_exchange(smem, lay.slots, nc, rank, W);
   const int lo = (int)((long long)rank * N / nc);
   const int cnt = (int)((long long)(rank + 1) * N / nc) - lo;
@@ -413,7 +438,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   auto gfeas = [&](int e) {
     return p.feasible + ((size_t)(first + e) * nn + lo) * G;
   };
-  auto gnoise = [&](int s) {  // step s's noise row slice
+  auto gnoise = [&](int s) {  // step s's noise row slice (read mode)
     return p.noise + ((size_t)first * K + s) * nn + lo;
   };
   auto erow = [&](int e, int r) {
@@ -448,6 +473,25 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_expect_bulk(b, nt_superset(src, (size_t)4 * cnt));
     nt_bulk(smem + lay.noise[s % NT_SCAN_STAGES], src, (size_t)4 * cnt, b);
   };
+  // Step s's draw: its eval's key words and the counter of this CTA's
+  // first node (step k's row of the eval's [K, draw_total] draw), and
+  // the values of this thread's first NT_DRAW_AHEAD nodes into ``nz``.
+  uint32_t dk0 = 0, dk1 = 0;
+  unsigned long long dbase = 0;
+  float nz[NT_DRAW_AHEAD];
+  auto draw = [&](int s) {
+    const int e = s / K, k = s - e * K;
+    dk0 = (uint32_t)p.keys[2 * (size_t)(first + e)];
+    dk1 = (uint32_t)p.keys[2 * (size_t)(first + e) + 1];
+    dbase = (unsigned long long)k * (unsigned long long)p.draw_total +
+            (unsigned long long)(p.draw_lo + lo);
+#pragma unroll
+    for (int j = 0; j < NT_DRAW_AHEAD; ++j) {
+      const int i = t + j * T;
+      if (i < cnt)
+        nz[j] = nt_noise_at(dk0, dk1, dbase + (unsigned)i, 0.0f, p.scale);
+    }
+  };
 
   if (t == 0) {
     for (int i = 0; i < NT_B_COUNT; ++i) nt_mbar_init(&bar[i]);
@@ -459,9 +503,10 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   nt_cluster_arrive_wait();
   if (t == 0 && steps > 0) {
     if (RES) issue_eval(0, true);
-    if (p.stage_noise)
+    if (!DRAW && p.stage_noise)
       for (int i = 0; i < NT_SCAN_STAGES && i < steps; ++i) issue_noise(i);
   }
+  if (DRAW && steps > 0) draw(0);
 
   // The rows this thread scores: shared memory (resident) or global.
   const float4* cap = RES ? nt_staged(smem + lay.rows[NT_S_CAP], gcap) : gcap;
@@ -498,11 +543,14 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
       }
       jdh = p.job_dh[b] != 0;
     }
-    const float* nz = gnoise(s);
-    if (p.stage_noise) {
-      nt_mbar_wait(&bar[NT_B_NOISE + s % NT_SCAN_STAGES],
-                   (unsigned)((s / NT_SCAN_STAGES) & 1));
-      nz = nt_staged(smem + lay.noise[s % NT_SCAN_STAGES], nz);
+    const float* snz = nullptr;  // read mode: this step's noise row slice
+    if constexpr (!DRAW) {
+      snz = gnoise(s);
+      if (p.stage_noise) {
+        nt_mbar_wait(&bar[NT_B_NOISE + s % NT_SCAN_STAGES],
+                     (unsigned)((s / NT_SCAN_STAGES) & 1));
+        snz = nt_staged(smem + lay.noise[s % NT_SCAN_STAGES], snz);
+      }
     }
     clock.tick(NT_P_WAIT);
     if (t == T - 1) {
@@ -520,7 +568,20 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     unsigned bh = 0;
     int bi = -1;
     float bn = 0.0f;
-    for (int i = t; i < cnt; i += T) {
+    for (int i = t, j = 0; i < cnt; i += T, ++j) {
+      // The node's noise: drawn ahead (the front of ``nz``, shifted
+      // down a node, so every index stays a constant) or now, from this
+      // step's key words and base (``draw`` set them a step ahead).
+      float n_i;
+      if constexpr (!DRAW) {
+        n_i = snz[i];
+      } else if (j < NT_DRAW_AHEAD) {
+        n_i = nz[0];
+#pragma unroll
+        for (int y = 0; y + 1 < NT_DRAW_AHEAD; ++y) nz[y] = nz[y + 1];
+      } else {
+        n_i = nt_noise_at(dk0, dk1, dbase + (unsigned)i, 0.0f, p.scale);
+      }
       float base;
       if (reuse && i != updated) {
         base = cache[i];
@@ -531,7 +592,6 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         if (p.cache) cache[i] = base;
       }
       const size_t cell = (size_t)i * G + cur.tg;
-      const float n_i = nz[i];
       const bool fits = base != -INFINITY &&
                         nt_group_fits(feas[cell] != 0, tdh,
                                       tdh ? tgc[cell] : 0);
@@ -545,15 +605,21 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     }
     const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(lo + bi) : 0u;
     clock.tick(NT_P_SCORE);
+    // Step s + 1's noise is drawn while the cluster's keys of step s
+    // are on their way.
     const unsigned long long win = nt_cluster_argmax(
-        ((unsigned long long)bh << 32) | bl, x, s, clock);
+        ((unsigned long long)bh << 32) | bl, x, s, clock, [&] {
+          if constexpr (DRAW) {
+            if (s + 1 < steps) draw(s + 1);
+          }
+        });
     // The cluster's keys of step s are in, so every warp of this CTA
     // has scored it: its noise stage takes step s + 4's row, the key
     // phase of step s + 2 is posted, and under seq eval e + 1's rows
     // load while e runs.
     if (t == 0) {
       if (s + 2 < steps) nt_expect_keys(x, s + 2);
-      if (p.stage_noise && s + NT_SCAN_STAGES < steps)
+      if (!DRAW && p.stage_noise && s + NT_SCAN_STAGES < steps)
         issue_noise(s + NT_SCAN_STAGES);
       if (RES && k == 0 && e + 1 < evals) issue_eval(e + 1, false);
     }
@@ -633,7 +699,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         1u + (((unsigned)node * 2654435761u + win) & 1023u);
     const unsigned long long key = nt_cluster_argmax(
         ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)node), x, k,
-        clock);
+        clock, [] {});
     if (threadIdx.x == 0 && k + 2 < K) nt_expect_keys(x, k + 2);
     win = 0xffffffffu - (unsigned)key;
   }
@@ -673,13 +739,22 @@ static cudaLaunchConfig_t nt_scan_cfg(int clusters, int ctas, int threads,
 #define NT_SCAN_DEVICES 64
 static std::atomic<int> nt_scan_ready[NT_SCAN_DEVICES];
 
-// The scan kernel for a form, timed or not.
-static void (*nt_scan_kernel(int resident, bool timed))(const NtScanArgs) {
+// The scan kernel for a form, timed or not, drawing or reading the
+// noise.
+static void (*nt_scan_kernel(int resident, bool timed,
+                             bool draw))(const NtScanArgs) {
+  if (draw) {
+    if (resident)
+      return timed ? nt_greedy_cluster_kernel<true, true, true>
+                   : nt_greedy_cluster_kernel<true, false, true>;
+    return timed ? nt_greedy_cluster_kernel<false, true, true>
+                 : nt_greedy_cluster_kernel<false, false, true>;
+  }
   if (resident)
-    return timed ? nt_greedy_cluster_kernel<true, true>
-                 : nt_greedy_cluster_kernel<true, false>;
-  return timed ? nt_greedy_cluster_kernel<false, true>
-               : nt_greedy_cluster_kernel<false, false>;
+    return timed ? nt_greedy_cluster_kernel<true, true, false>
+                 : nt_greedy_cluster_kernel<true, false, false>;
+  return timed ? nt_greedy_cluster_kernel<false, true, false>
+               : nt_greedy_cluster_kernel<false, false, false>;
 }
 
 // The kernels' attributes on the current device.
@@ -690,10 +765,12 @@ static int nt_scan_setup() {
   const bool kept = dev >= 0 && dev < NT_SCAN_DEVICES;
   if (kept && nt_scan_ready[dev].load()) return 0;
   for (int r = 0; r < 2; ++r)
-    for (int timed = 0; timed < 2; ++timed) {
-      const int err = nt_scan_attrs((const void*)nt_scan_kernel(r, timed));
-      if (err) return err;
-    }
+    for (int timed = 0; timed < 2; ++timed)
+      for (int draw = 0; draw < 2; ++draw) {
+        const int err =
+            nt_scan_attrs((const void*)nt_scan_kernel(r, timed, draw));
+        if (err) return err;
+      }
   const int err = nt_scan_attrs((const void*)nt_argmax_chain_cluster_kernel);
   if (err) return err;
   if (kept) nt_scan_ready[dev].store(1);
@@ -710,16 +787,19 @@ static bool nt_scan_shape_ok(int ctas, int threads) {
 // (seq: [N,4] and [N], one shared copy); job_count [B,N] i32, tg_count
 // [B,N,G] i32 (carried, updated in place); feasible [B,N,G] u8;
 // ask_res [B,K,4] f32; ask_bw/ask_ports [B,K] f32; tg_index [B,K] i32;
-// active [B,K] u8; job_dh [B] u8; tg_dh [B,G] u8; noise [B,K,N] f32;
-// out choices [B,K] i32, scores [B,K] f32. The launch's plan
-// (ops/scan.py ScanPlan): ctas a cluster, threads a CTA, resident,
-// stage_noise, eval_bufs, cache and the shared memory it computes,
-// which must equal this file's layout. prof: null, or NT_P_PARTS i64
-// that one thread of rank 0 sets to the clock cycles of its steps'
-// parts.
+// active [B,K] u8; job_dh [B] u8; tg_dh [B,G] u8; the noise: with draw
+// set, keys [B,2] i64 (its uint32 key words), scale (its maxval),
+// draw_total and draw_lo (node i's noise at step k is counter k x
+// draw_total + draw_lo + i of the eval's draw), noise unused; else
+// noise [B,K,N] f32 (K0's), staged where stage_noise; out choices [B,K]
+// i32, scores [B,K] f32. The launch's plan (ops/scan.py ScanPlan): ctas
+// a cluster, threads a CTA, resident, draw, stage_noise, eval_bufs,
+// cache and the shared memory it computes, which must equal this
+// file's layout. prof: null, or NT_P_PARTS i64 that one thread of rank
+// 0 sets to the clock cycles of its steps' parts.
 NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
                           int stacked, int ctas, int threads, int resident,
-                          int stage_noise, int eval_bufs, int cache,
+                          int draw, int stage_noise, int eval_bufs, int cache,
                           long long smem, const void* capacity,
                           const void* sched, const void* bw_avail,
                           const void* node_ok, void* util, void* bw_used,
@@ -728,14 +808,16 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
                           const void* ask_bw, const void* ask_ports,
                           const void* tg_index, const void* active,
                           const void* job_dh, const void* tg_dh,
-                          const void* noise, void* choices, void* scores,
-                          void* prof, void* stream) {
+                          const void* keys, float scale, long long draw_total,
+                          long long draw_lo, const void* noise, void* choices,
+                          void* scores, void* prof, void* stream) {
   if (B <= 0 || K <= 0) return 0;
   // Resident under seq, eval e + 1's rows load while eval e reads its
   // own: two buffers, or the copy would overwrite rows still in use.
   if (!nt_scan_shape_ok(ctas, threads) || eval_bufs < 0 || eval_bufs > 2 ||
       (resident && eval_bufs < 1) ||
-      (resident && seq && B > 1 && eval_bufs != 2))
+      (resident && seq && B > 1 && eval_bufs != 2) ||
+      (draw ? (keys == nullptr || stage_noise) : noise == nullptr))
     return (int)cudaErrorInvalidValue;
   const int L = (N + ctas - 1) / ctas;
   const NtScanLayout lay = nt_scan_layout(ctas, threads / 32, L, G, resident,
@@ -756,6 +838,9 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
   p.cache = cache;
   p.L = L;
   p.penalty = penalty;
+  p.scale = scale;
+  p.draw_total = draw_total;
+  p.draw_lo = draw_lo;
   p.capacity = (const float4*)capacity;
   p.sched = (const float4*)sched;
   p.bw_avail = (const float*)bw_avail;
@@ -773,6 +858,7 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
   p.active = (const unsigned char*)active;
   p.job_dh = (const unsigned char*)job_dh;
   p.tg_dh = (const unsigned char*)tg_dh;
+  p.keys = (const long long*)keys;
   p.noise = (const float*)noise;
   p.choices = (int*)choices;
   p.scores = (float*)scores;
@@ -780,7 +866,8 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = nt_scan_cfg(
       seq ? 1 : B, ctas, threads, lay.total, (cudaStream_t)stream, attr);
-  return (int)cudaLaunchKernelEx(&cfg, nt_scan_kernel(resident, prof), p);
+  return (int)cudaLaunchKernelEx(&cfg, nt_scan_kernel(resident, prof, draw),
+                                 p);
 }
 
 // The clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
@@ -799,7 +886,7 @@ NT_API int nt_greedy_occupancy(int ctas, int threads, long long smem,
   const cudaLaunchConfig_t cfg =
       nt_scan_cfg(1, ctas, threads, (size_t)smem, nullptr, attr);
   if (cudaOccupancyMaxActiveClusters(
-          clusters, (const void*)nt_scan_kernel(resident, false), &cfg) !=
+          clusters, (const void*)nt_scan_kernel(resident, false, true), &cfg) !=
       cudaSuccess) {
     *clusters = 0;
     cudaGetLastError();  // a refused shape is an answer, not a fault

@@ -1,102 +1,99 @@
 // K0: threefry2x32 uniform noise, bit-identical to
 // jax.random.uniform(key, shape, minval, maxval) for float32 under
 // jax_threefry_partitionable=True (the JAX package draws it at
-// ops/binpack.py:320 and :384).
+// ops/binpack.py:320 and :384). Each element is csrc/common.cuh's
+// nt_noise_at of its counter.
 //
-// Element i of the flattened shape hashes the 64-bit counter i, split
-// (hi, lo) = (i >> 32, i & 0xffffffff), under the raw key (k0, k1);
-// the 32 random bits are the XOR of the two output words. The float
-// is (bits >> 9 | 0x3f800000) - 1 in [0, 1), scaled to
-// [minval, maxval) and clamped below at minval, as jax/_src/random.py
-// _uniform does. XLA contracts its f * (maxval - minval) + minval into
-// one fused multiply-add, so the scaling here is fmaf (for the noise's
-// minval of 0 the two roundings agree anyway).
+// Element (b, r, j) of a [B, rows, cols] draw hashes, under keys[b],
+// the 64-bit counter r * total_cols + lo + j: a column window (lo, cols
+// of total_cols) draws one node shard's columns of the full [rows,
+// total_cols] draw (parallel/shard.py), and lo = 0, cols = total_cols
+// is the whole draw.
 //
-// A column window (lo, cols of total_cols) draws one node shard's
-// columns of the full draw: element (r, j) hashes counter
-// r * total_cols + lo + j, so W shards' windows are exactly the full
-// [rows, total_cols] draw's columns (parallel/shard.py).
+// The uniform top-K draws its own noise (csrc/uniform_topk.cu), as the
+// greedy scan does on launches whose CTAs each hash few enough nodes a
+// step (csrc/greedy_scan.cu, ops/scan.py draws); this kernel serves the
+// greedy scan's other launches (one cluster on 16 SMs hashes slower
+// than this kernel on all of them) and the consumers that keep a noise
+// tensor: the gang scan (K7), the convex rounding scan (K8b), the
+// preemption scan (K6) and the node-sharded scans' windows (K10c,
+// K10e, K10g-b, K10d's per-shard path).
 //
-// Bound on the card: 20 rounds of 32-bit add/rotate/xor per element
-// against one 4-byte store; integer-ALU bound. Design: one thread per
-// element over a grid-stride loop, no shared memory, coalesced stores.
+// Bound on the card: integer instructions, ~80 an element (20 rounds
+// of add, funnel-shift rotate and xor, the key injections, the float)
+// against one 4-byte store; chip_smoke.py restates it from this
+// kernel's SASS. Design:
+//
+// - A block owns one (eval, row) pair (gridDim.x, which holds more than
+//   the 65,535 pairs of B = 64 x K = 1,024) and a run of 4 x blockDim.x
+//   columns (gridDim.y). The pair's key words load once a block and its
+//   64-bit counter base r * total_cols + lo is formed once a block: no
+//   division of a 64-bit index an element, column offsets 32-bit.
+// - Each thread hashes four consecutive counters (independent chains,
+//   so their instructions interleave) and writes them with one 16-byte
+//   store: the row's columns from its first 16-byte boundary on, in
+//   groups of four; the up to three columns before that boundary and
+//   the up to three after the last whole group are written one by one
+//   by the first block of the row.
 #include "common.cuh"
 
-__device__ __forceinline__ uint32_t nt_rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
+// Most threads a block; columns a thread.
+#define NT_TF_THREADS 256
+#define NT_TF_PER 4
 
-#define NT_ROUND(r)   \
-  x0 += x1;           \
-  x1 = nt_rotl(x1, r); \
-  x1 ^= x0;
-
-__device__ __forceinline__ void nt_threefry2x32(uint32_t k0, uint32_t k1,
-                                                uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  NT_ROUND(13) NT_ROUND(15) NT_ROUND(26) NT_ROUND(6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  NT_ROUND(17) NT_ROUND(29) NT_ROUND(16) NT_ROUND(24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  NT_ROUND(13) NT_ROUND(15) NT_ROUND(26) NT_ROUND(6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  NT_ROUND(17) NT_ROUND(29) NT_ROUND(16) NT_ROUND(24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  NT_ROUND(13) NT_ROUND(15) NT_ROUND(26) NT_ROUND(6)
-  x0 += k2;
-  x1 += k0 + 5u;
-}
-
-__global__ void nt_threefry_uniform_kernel(const long long* __restrict__ keys,
-                                           float* __restrict__ out,
-                                           long long rows, long long cols,
-                                           long long total_cols, long long lo,
-                                           int batch, float minval,
-                                           float scale) {
-  const long long per_eval = rows * cols;
-  const long long total = per_eval * (long long)batch;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += step) {
-    const long long b = t / per_eval;
-    const long long e = t - b * per_eval;
-    const long long r = e / cols;
-    // The element's counter in the full [rows, total_cols] draw.
-    const unsigned long long i =
-        (unsigned long long)(r * total_cols + lo + (e - r * cols));
-    const uint32_t k0 = (uint32_t)keys[2 * b];
-    const uint32_t k1 = (uint32_t)keys[2 * b + 1];
-    uint32_t x0 = (uint32_t)(i >> 32);
-    uint32_t x1 = (uint32_t)i;
-    nt_threefry2x32(k0, k1, x0, x1);
-    const uint32_t bits = x0 ^ x1;
-    const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
-    const float v = fmaf(f, scale, minval);
-    out[t] = fmaxf(minval, v);
+__global__ void __launch_bounds__(NT_TF_THREADS) nt_threefry_uniform_kernel(
+    const long long* __restrict__ keys, float* __restrict__ out, int rows,
+    int cols, long long total_cols, long long lo, float minval,
+    float scale) {
+  __shared__ uint32_t key[2];
+  const unsigned pair = blockIdx.x;
+  const unsigned b = pair / (unsigned)rows;
+  const unsigned r = pair - b * (unsigned)rows;
+  if (threadIdx.x < 2) key[threadIdx.x] = (uint32_t)keys[2 * b + threadIdx.x];
+  __syncthreads();
+  const uint32_t k0 = key[0], k1 = key[1];
+  const unsigned long long base = (unsigned long long)r * total_cols + lo;
+  float* row = out + (size_t)pair * cols;
+  // Columns before the row's first 16-byte boundary, the whole groups
+  // of four after it, and the columns left over.
+  const unsigned mis = (unsigned)((uintptr_t)row & 15u);
+  const int head = min(cols, (int)(((16u - mis) & 15u) >> 2));
+  const int body = (cols - head) & ~(NT_TF_PER - 1);
+  const int tail = cols - head - body;
+  const int q = (int)(blockIdx.y * blockDim.x + threadIdx.x);
+  if (NT_TF_PER * q < body) {
+    const unsigned j = (unsigned)(head + NT_TF_PER * q);
+    float v[NT_TF_PER];
+#pragma unroll
+    for (int u = 0; u < NT_TF_PER; ++u)
+      v[u] = nt_noise_at(k0, k1, base + (j + u), minval, scale);
+    *(float4*)(row + j) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  if (blockIdx.y == 0 && (int)threadIdx.x < head + tail) {
+    const int t = (int)threadIdx.x;
+    const unsigned e = (unsigned)(t < head ? t : body + t);
+    row[e] = nt_noise_at(k0, k1, base + e, minval, scale);
   }
 }
 
 // keys: int64[B, 2] holding the uint32 key words; out: float32[B, rows,
-// cols], the column window [lo, lo + cols) of a [rows, total_cols]
-// draw per key (lo = 0 and cols = total_cols: the whole draw).
-NT_API int nt_threefry_uniform(const void* keys, void* out, long long rows,
-                               long long cols, long long total_cols,
-                               long long lo, int batch, float minval,
+// cols], the column window [lo, lo + cols) of a [rows, total_cols] draw
+// per key. The launch (ops/prng.py noise_launch): B x rows blocks along
+// x, ``runs`` along y, ``threads`` a block, with runs x threads x 4 >=
+// cols.
+NT_API int nt_threefry_uniform(const void* keys, void* out, int rows,
+                               int cols, long long total_cols, long long lo,
+                               int batch, int runs, int threads, float minval,
                                float scale, void* stream) {
-  const long long total = rows * cols * (long long)batch;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  nt_threefry_uniform_kernel<<<(int)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      (const long long*)keys, (float*)out, rows, cols, total_cols, lo, batch,
-      minval, scale);
+  if ((long long)rows * cols * batch <= 0) return 0;
+  if (threads < 32 || threads > NT_TF_THREADS || threads % 32 != 0 ||
+      runs < 1 || runs > 65535 ||
+      (long long)runs * threads * NT_TF_PER < cols ||
+      (long long)rows * batch > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  nt_threefry_uniform_kernel<<<dim3((unsigned)(rows * batch), (unsigned)runs),
+                               threads, 0, (cudaStream_t)stream>>>(
+      (const long long*)keys, (float*)out, rows, cols, total_cols, lo, minval,
+      scale);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,14 @@
 // shared copy of util, bw_used and ports_free; stacked states
 // (stacked = 1), a per-eval base. The same kernel is K10d's one-launch
 // path (parallel/shard.py): W <= 8 node shards of one card, each a
-// segment with its own row pointers, noise window and global row
-// offset.
+// segment with its own row pointers and global row offset.
+//
+// The tie-break noise is drawn where each node's score is formed: node
+// i's (global row i) of eval b is K0's value (csrc/common.cuh
+// nt_noise_at) of counter i under keys[b], the element the JAX
+// package's [N] draw holds there, so no [B, N] noise tensor is written
+// or read; the reported score (top - noise at the winner) recomputes
+// the winner's value from the same counter.
 //
 // Each node's (score, index) packs into one 64-bit key (nt_pack,
 // csrc/common.cuh): a larger key is a higher score and, on ties, a
@@ -38,12 +44,11 @@
 //   bw_avail, node_ok: 37 B a node) and the shared carried rows (util,
 //   bw_used, ports_free: 24 B) in shared memory, loaded once by TMA
 //   bulk copies (cp.async.bulk on an mbarrier) and written back once
-//   after the last eval; warp 1 loads each eval's own rows (noise,
-//   feasible, job_count, tg_count: 8 + 5 G B a node) into one of two
-//   buffers while the eval before runs. Where a slice's rows do not fit
-//   in shared memory (97 B a node at G = 2: past 2,272 nodes a CTA at K
-//   <= 8, N = 18,176 on 8 CTAs), the same kernel reads them from global
-//   memory instead (the layout nt_topk_layout computes).
+//   after the last eval; warp 1 loads each eval's own rows (feasible,
+//   job_count, tg_count: 4 + 5 G B a node) into one of two buffers
+//   while the eval before runs. Where a slice's rows do not fit in
+//   shared memory (89 B a node at G = 2), the same kernel reads them
+//   from global memory instead (the layout nt_topk_layout computes).
 // - No key buffer of N entries exists: the register lists hold K keys
 //   a thread, the radix select at most 8 keys a thread in registers.
 #include <atomic>
@@ -65,13 +70,13 @@ struct NtSeg {
   int* job_count;
   int* tg_count;
   const unsigned char* feasible;
-  const float* noise;
 };
-#define NT_SEG_PTRS 11
+#define NT_SEG_PTRS 10
 
 struct NtTopkArgs {
   int B, G, K, W, cps, n_total, seq, stacked, resident, L;
-  float penalty;
+  float penalty, scale;
+  const long long* keys;
   const float4* ask_res;
   const float* ask_bw;
   const float* ask_ports;
@@ -87,7 +92,7 @@ struct NtTopkArgs {
 // Resident rows: the static and shared carried rows, then each eval's
 // own rows in two buffers.
 enum { NT_CAP, NT_SCHED, NT_BWA, NT_OK, NT_UTIL, NT_BWU, NT_PORTS, NT_ROWS };
-enum { NT_NOISE, NT_FEAS, NT_JC, NT_TGC, NT_EROWS };
+enum { NT_FEAS, NT_JC, NT_TGC, NT_EROWS };
 
 // Byte offsets in a CTA's dynamic shared memory: the two mbarriers,
 // NtTopkShared, then by eval parity the inboxes of the cluster's warps'
@@ -116,7 +121,7 @@ __host__ __device__ inline NtLayout nt_topk_layout(int km, int K, int nc,
       o.rows[r] = at;
       at += nt_r16(per[r] * L) + 16;
     }
-    const size_t eper[NT_EROWS] = {4, (size_t)G, 4, (size_t)4 * G};
+    const size_t eper[NT_EROWS] = {(size_t)G, 4, (size_t)4 * G};
     for (int x = 0; x < 2; ++x)
       for (int r = 0; r < NT_EROWS; ++r) {
         o.erows[x][r] = at;
@@ -193,8 +198,9 @@ __device__ __forceinline__ void nt_stage_warp(const NtCopy (&c)[M],
   }
 }
 
-// One eval's key of node i of this CTA's slice; the pointers are the
-// eval's views of the slice (shared or global memory).
+// One eval's key of node i of this CTA's slice, its noise drawn from
+// the eval's key words (k0, k1) at counter gbase + i; the pointers are
+// the eval's views of the slice (shared or global memory).
 struct NtScore {
   const float4* cap;
   const float4* sched;
@@ -206,16 +212,18 @@ struct NtScore {
   const int* jc;
   const int* tgc;
   const unsigned char* feas;
-  const float* noise;
   float4 a;
-  float abw, aports, penalty;
+  float abw, aports, penalty, scale;
+  uint32_t k0, k1;
   int G, tg, gbase;
   bool jdh, tdh;
 
   __device__ __forceinline__ unsigned long long operator()(int i) const {
+    const float noise = nt_noise_at(
+        k0, k1, (unsigned long long)(gbase + i), 0.0f, scale);
     return nt_pack(nt_node_score(i, G, tg, jdh, tdh, penalty, cap, sched,
                                  bw_avail, ok, util, bw_used, ports, jc, tgc,
-                                 feas, a, abw, aports, noise[i]),
+                                 feas, a, abw, aports, noise),
                    gbase + i);
   }
 };
@@ -223,8 +231,9 @@ struct NtScore {
 // Position t of one eval's top K: the choice, score and row update, by
 // the CTA owning the key's row (no other CTA writes the row); padding
 // (key 0) by rank 0. Pointers are the eval's, offset to this CTA's
-// slice; util, bwu, ports, jc, tgc, noise its views (shared or global
-// memory), jc_out and tgc_out the counts in global memory.
+// slice; util, bwu, ports, jc, tgc its views (shared or global
+// memory), jc_out and tgc_out the counts in global memory; the winner's
+// noise drawn again from the eval's key words.
 struct NtFinish {
   int* choices;
   float* scores;
@@ -236,9 +245,9 @@ struct NtFinish {
   const int* tgc;
   int* jc_out;
   int* tgc_out;
-  const float* noise;
   float4 a;
-  float abw, aports;
+  float abw, aports, scale;
+  uint32_t k0, k1;
   int G, tg, gbase, cnt;
   bool rank0;
 
@@ -260,7 +269,9 @@ struct NtFinish {
       return;
     }
     choices[t] = gbase + i;
-    scores[t] = __fsub_rn(sv, noise[i]);
+    const float noise =
+        nt_noise_at(k0, k1, (unsigned long long)(gbase + i), 0.0f, scale);
+    scores[t] = __fsub_rn(sv, noise);
     const float4 u = util[i];
     util[i] = make_float4(__fadd_rn(u.x, a.x), __fadd_rn(u.y, a.y),
                           __fadd_rn(u.z, a.z), __fadd_rn(u.w, a.w));
@@ -271,13 +282,11 @@ struct NtFinish {
   }
 };
 
-// The slice's rows of eval b in global memory (noise, feasible,
-// job_count, tg_count), and their copies into the eval's staging
-// buffers.
+// The slice's rows of eval b in global memory (feasible, job_count,
+// tg_count), and their copies into the eval's staging buffers.
 __device__ __forceinline__ void nt_eval_rows(const NtSeg& sg, int lo_l, int G,
                                              int b, const void* (&g)[NT_EROWS]) {
   const size_t ns = (size_t)sg.n;
-  g[NT_NOISE] = sg.noise + (size_t)b * ns + lo_l;
   g[NT_FEAS] = sg.feasible + ((size_t)b * ns + lo_l) * G;
   g[NT_JC] = sg.job_count + (size_t)b * ns + lo_l;
   g[NT_TGC] = sg.tg_count + ((size_t)b * ns + lo_l) * G;
@@ -290,7 +299,7 @@ __device__ __forceinline__ void nt_eval_copies(const NtSeg& sg, int lo_l,
                                                NtCopy* c) {
   const void* g[NT_EROWS];
   nt_eval_rows(sg, lo_l, G, b, g);
-  const size_t per[NT_EROWS] = {4, (size_t)G, 4, (size_t)4 * G};
+  const size_t per[NT_EROWS] = {(size_t)G, 4, (size_t)4 * G};
   for (int r = 0; r < NT_EROWS; ++r)
     c[r] = NtCopy{smem + lay.erows[b & 1][r], g[r], per[r] * cnt};
 }
@@ -372,7 +381,6 @@ __global__ void __launch_bounds__(NT_TOPK_THREADS, 1)
     nt_eval_rows(sg, lo_l, G, b, g);
     int* jc_out = (int*)g[NT_JC];
     int* tgc_out = (int*)g[NT_TGC];
-    const float* noise = (const float*)g[NT_NOISE];
     const unsigned char* feas = (const unsigned char*)g[NT_FEAS];
     const int* jc = jc_out;
     const int* tgc = tgc_out;
@@ -386,21 +394,22 @@ __global__ void __launch_bounds__(NT_TOPK_THREADS, 1)
       util = nt_staged(smem + lay.rows[NT_UTIL], util);
       bwu = nt_staged(smem + lay.rows[NT_BWU], bwu);
       ports = nt_staged(smem + lay.rows[NT_PORTS], ports);
-      noise = nt_staged(smem + lay.erows[par][NT_NOISE], noise);
       feas = nt_staged(smem + lay.erows[par][NT_FEAS], feas);
       jc = nt_staged(smem + lay.erows[par][NT_JC], jc);
       tgc = nt_staged(smem + lay.erows[par][NT_TGC], tgc);
     }
     const size_t a0 = (size_t)b * K;
     const int tg = p.tg_index[a0];
+    const uint32_t k0 = (uint32_t)p.keys[2 * (size_t)b];
+    const uint32_t k1 = (uint32_t)p.keys[2 * (size_t)b + 1];
     const NtScore sc{cap, sched, bwa, ok, util, bwu, ports, jc, tgc, feas,
-                     noise, p.ask_res[a0], p.ask_bw[a0], p.ask_ports[a0],
-                     p.penalty, G, tg, gbase, p.job_dh[b] != 0,
-                     p.tg_dh[(size_t)b * G + tg] != 0};
+                     p.ask_res[a0], p.ask_bw[a0], p.ask_ports[a0],
+                     p.penalty, p.scale, k0, k1, G, tg, gbase,
+                     p.job_dh[b] != 0, p.tg_dh[(size_t)b * G + tg] != 0};
     const NtFinish finish{p.choices + a0, p.scores + a0, p.active + a0,
-                          util, bwu, ports, jc, tgc, jc_out, tgc_out, noise,
-                          sc.a, sc.abw, sc.aports, G, tg, gbase, cnt,
-                          rank == 0};
+                          util, bwu, ports, jc, tgc, jc_out, tgc_out,
+                          sc.a, sc.abw, sc.aports, p.scale, k0, k1, G, tg,
+                          gbase, cnt, rank == 0};
     if constexpr (KM > 0) {
       // Each warp's list goes to every CTA's inbox before the cluster
       // barrier; after it, warp 0 merges the cluster's nc x 8 lists.
@@ -529,13 +538,14 @@ static int nt_topk_plan(NtTopkArgs& p, int resident, cudaStream_t st,
 
 // K2 over W segments of the node axis (W = 1 for K2 itself; K10d's
 // one-launch path: W <= 8 shards of one card). seg_dims [W,2] i64 (lo,
-// rows) and seg_ptrs [W,11] (capacity, sched, bw_avail, node_ok, util,
-// bw_used, ports_free, job_count, tg_count, feasible, noise: shapes as
-// nt_greedy_scan's over the segment's rows, noise [B,rows]) are host
-// arrays; the asks [B,K] (ask 0 read), job_dh [B], tg_dh [B,G];
-// choices [B,K] i32 and scores [B,K] f32 written. cps: CTAs a segment
-// (a cluster of cps x W <= 8 CTAs); resident: keep seq's rows in shared
-// memory where they fit.
+// rows) and seg_ptrs [W,10] (capacity, sched, bw_avail, node_ok, util,
+// bw_used, ports_free, job_count, tg_count, feasible: shapes as
+// nt_greedy_scan's over the segment's rows) are host arrays; the asks
+// [B,K] (ask 0 read), job_dh [B], tg_dh [B,G]; keys [B,2] i64 (the
+// noise's uint32 key words) and scale (its maxval: node i's noise is
+// counter i of the eval's draw); choices [B,K] i32 and scores [B,K] f32
+// written. cps: CTAs a segment (a cluster of cps x W <= 8 CTAs);
+// resident: keep seq's rows in shared memory where they fit.
 NT_API int nt_uniform_topk(int B, int G, int K, int W, int n_total,
                            float penalty, int seq, int stacked, int cps,
                            int resident, const long long* seg_dims,
@@ -543,7 +553,8 @@ NT_API int nt_uniform_topk(int B, int G, int K, int W, int n_total,
                            const void* ask_bw, const void* ask_ports,
                            const void* tg_index, const void* active,
                            const void* job_dh, const void* tg_dh,
-                           void* choices, void* scores, void* stream) {
+                           const void* keys, float scale, void* choices,
+                           void* scores, void* stream) {
   if (B <= 0 || K <= 0) return 0;
   if (W < 1 || cps < 1 || cps * W > NT_TOPK_CLUSTER)
     return (int)cudaErrorInvalidValue;
@@ -557,6 +568,8 @@ NT_API int nt_uniform_topk(int B, int G, int K, int W, int n_total,
   p.seq = seq;
   p.stacked = stacked;
   p.penalty = penalty;
+  p.scale = scale;
+  p.keys = (const long long*)keys;
   p.ask_res = (const float4*)ask_res;
   p.ask_bw = (const float*)ask_bw;
   p.ask_ports = (const float*)ask_ports;
@@ -581,7 +594,6 @@ NT_API int nt_uniform_topk(int B, int G, int K, int W, int n_total,
     sg.job_count = (int*)q[7];
     sg.tg_count = (int*)q[8];
     sg.feasible = (const unsigned char*)q[9];
-    sg.noise = (const float*)q[10];
   }
   return nt_topk_plan(p, resident, (cudaStream_t)stream, nullptr);
 }

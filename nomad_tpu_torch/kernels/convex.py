@@ -523,16 +523,19 @@ def convex_round(capacity, sched_capacity, bw_avail, node_ok, carry,
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     util, bw_used, ports_free, job_count, tg_count = carry
-    cuda.launch(
-        "nt_convex_round", b, n, g, k, float(penalty), int(seq), int(stacked),
-        capacity.data_ptr(), sched_capacity.data_ptr(), bw_avail.data_ptr(),
-        node_ok.data_ptr(), util.data_ptr(), bw_used.data_ptr(),
-        ports_free.data_ptr(), job_count.data_ptr(), tg_count.data_ptr(),
-        feasible.data_ptr(), asks.resources.data_ptr(), asks.bw.data_ptr(),
-        asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-        asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(), pref.data_ptr(),
-        choices.data_ptr(), scores.data_ptr(), cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_convex_round", b, n, g, k, float(penalty), int(seq),
+            int(stacked), capacity.data_ptr(), sched_capacity.data_ptr(),
+            bw_avail.data_ptr(), node_ok.data_ptr(), util.data_ptr(),
+            bw_used.data_ptr(), ports_free.data_ptr(), job_count.data_ptr(),
+            tg_count.data_ptr(), feasible.data_ptr(),
+            asks.resources.data_ptr(), asks.bw.data_ptr(),
+            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
+            pref.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+            cuda.stream_ptr(dev))
     cuda.count_launch(_launch_name("convex_round", seq, stacked))
     return choices, scores
 

@@ -32,7 +32,11 @@ Five kernels carry the greedy path, each a wrapper that launches a CUDA
 kernel (csrc/) for CUDA tensors and runs its plain PyTorch version, in
 this module or ops/prng.py, for CPU tensors:
 
-- K0 ``prng.threefry_uniform``: the tie-break noise;
+- K0 ``prng.threefry_uniform``: the tie-break noise. K2 draws it
+  inside its own kernel (from a ``prng.Draw``: the batch's keys and the
+  draw's geometry, the same values), as K1 does where a step's hashes
+  on a CTA's SM do not outweigh K0's (``scan.draws``); otherwise K1
+  reads K0's tensor. The CPU route draws it with the plain version;
 - K1 ``greedy_scan``: the K-step scan (``placement_program``), in
   every layout above;
 - K2 ``uniform_topk``: one scoring pass + top-k for the uniform
@@ -52,7 +56,7 @@ import numpy as _np
 import torch
 
 from . import cuda
-from .prng import threefry_uniform
+from .prng import Draw
 
 # Resource dims in the dense matrices.
 R_CPU, R_MEM, R_DISK, R_IOPS = 0, 1, 2, 3
@@ -255,11 +259,12 @@ def base_delta_rows(util, bw_used, ports_free, node_ok, rows, util_rows,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = tuple(x.clone() for x in (util, bw_used, ports_free, node_ok))
-    cuda.launch(
-        "nt_base_delta", n, r, int(lo), rows.data_ptr(),
-        util_rows.data_ptr(), bw_rows.data_ptr(), ports_rows.data_ptr(),
-        ok_rows.data_ptr(), *(x.data_ptr() for x in out),
-        cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_base_delta", n, r, int(lo), rows.data_ptr(),
+            util_rows.data_ptr(), bw_rows.data_ptr(), ports_rows.data_ptr(),
+            ok_rows.data_ptr(), *(x.data_ptr() for x in out),
+            cuda.stream_ptr(dev))
     cuda.count_launch(name)
     return out
 
@@ -383,10 +388,17 @@ def _check_scan_args(capacity, sched_capacity, bw_avail, node_ok, carry,
             ("asks.active", asks.active, u8, (b, k)),
             ("asks.job_distinct_hosts", asks.job_distinct_hosts, u8, (b,)),
             ("asks.tg_distinct_hosts", asks.tg_distinct_hosts, u8, (b, g)),
-            ("noise", noise, f32, (b, *noise_shape))):
+            ("noise", noise, f32, (b, *(noise_shape or ())))):
         if t is not None:
             _check(name, t, dtype, shape, dev)
     return b, n, g, k, stacked
+
+
+def _check_draw(draw: Draw, b: int, n: int, device) -> int:
+    """Validate a scan's ``Draw`` (keys int64 [B, 2] on the scan's
+    device, its window inside its columns); returns its columns."""
+    _check("draw.keys", draw.keys, torch.int64, (b, 2), device)
+    return draw.columns(n)
 
 
 def _launch_name(base, seq, stacked):
@@ -468,7 +480,7 @@ def greedy_scan_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
 
 
 def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
-                feasible, asks, noise, penalty, seq=False):
+                feasible, asks, draw: Draw, penalty, seq=False):
     """K1: greedy scans of K asks over N nodes for B evals.
 
     Replaces ``_score_and_mask`` + ``placement_step`` scanned by
@@ -481,8 +493,10 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
     [B,N,G]), updated in place: util [B,N,4], bw_used/ports_free
     [B,N], the evals' private copies, or with ``seq`` one shared [N,4]
     / [N] copy that the evals claim from in order. ``feasible``
-    [B,N,G] bool; ``asks`` with a leading B; ``noise`` [B,K,N].
-    Returns (choices [B,K] i32, scores [B,K] f32 without the noise).
+    [B,N,G] bool; ``asks`` with a leading B; ``draw`` the noise
+    (``prng.Draw``: eval b's step k at node i is its [K, N] draw's
+    element, ``draw.noise((K, N))`` on the CPU). Returns (choices [B,K]
+    i32, scores [B,K] f32 without the noise).
 
     On the card (csrc/greedy_scan.cu, one launch) the bound is the
     chain of K dependent argmaxes (B x K under ``seq``), not bytes: a
@@ -491,24 +505,28 @@ def greedy_scan(capacity, sched_capacity, bw_avail, node_ok, carry,
     in shared memory where they fit (ops/scan.py picks the cluster and
     the form from the shapes and the card's occupancy); each step is
     one scoring pass over a slice (each node's score before the noise
-    kept across alike asks), a block reduction, one exchange of the
-    CTAs' keys through distributed shared memory and the owner's row
-    update.
+    kept across alike asks; the noise drawn a step ahead while the last
+    step's keys are exchanged where that beats K0 (``scan.draws``),
+    else K0's tensor staged in shared memory), a block reduction, one
+    exchange of the CTAs' keys through distributed shared memory and
+    the owner's row update.
     """
-    b, n, g, _k, stacked = _check_scan_args(
+    b, n, g, k, stacked = _check_scan_args(
         capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
-        noise, (asks.resources.shape[1], feasible.shape[1]), seq)
+        None, None, seq)
     dev = capacity.device
+    _check_draw(draw, b, n, dev)
     if dev.type == "cpu":
         return greedy_scan_plain(capacity, sched_capacity, bw_avail, node_ok,
-                                 carry, feasible, asks, noise, penalty, seq)
+                                 carry, feasible, asks, draw.noise((k, n)),
+                                 penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from . import scan
 
     out = scan.launch(scan.plan_for(dev, b, n, g, seq),
                       (capacity, sched_capacity, bw_avail, node_ok), carry,
-                      feasible, asks, noise, penalty, seq)
+                      feasible, asks, draw, penalty, seq)
     cuda.count_launch(_launch_name("greedy_scan", seq, stacked))
     return out
 
@@ -559,14 +577,15 @@ def uniform_topk_plain(capacity, sched_capacity, bw_avail, node_ok, carry,
 
 
 def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
-                 feasible, asks, noise, penalty, seq=False):
+                 feasible, asks, draw: Draw, penalty, seq=False):
     """K2: the uniform distinct-hosts placement of B evals.
 
     Replaces ``_uniform_topk_program`` (ops/binpack.py:302 of the JAX
     package), under the batch layouts ``greedy_scan`` takes (``seq``
     for config 4's pre-resolved storm). Arguments as ``greedy_scan``
-    except noise [B, N] (one draw per node). Every active ask must be
-    ask 0's task group (uniform_dh_flag).
+    except that ``draw`` is one row a node (``draw.noise((N,))``; the
+    whole draw: lo 0). Every active ask must be ask 0's task group
+    (uniform_dh_flag).
 
     On the card (csrc/uniform_topk.cu, one launch) the bound is one
     pass over the node rows and, under ``seq``, the chain of B
@@ -577,52 +596,63 @@ def uniform_topk(capacity, sched_capacity, bw_avail, node_ok, carry,
     the eval's top K from the cluster's candidates through distributed
     shared memory; the CTA owning a winner's row updates it. A cluster
     an eval, or with ``seq`` one cluster walking the B evals, each CTA
-    keeping its slice's rows in shared memory where they fit.
+    keeping its slice's rows in shared memory where they fit; each
+    node's noise drawn where its score is formed.
     """
     b, n, g, k, stacked = _check_scan_args(
         capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
-        noise, (feasible.shape[1],), seq)
+        None, None, seq)
     dev = capacity.device
+    if _check_draw(draw, b, n, dev) != n:
+        raise ValueError("the uniform top-K draws the whole row: a draw "
+                         f"of {n} columns from lo 0, got lo {draw.lo} of "
+                         f"{draw.total}")
     if dev.type == "cpu":
         return uniform_topk_plain(capacity, sched_capacity, bw_avail,
-                                  node_ok, carry, feasible, asks, noise,
-                                  penalty, seq)
+                                  node_ok, carry, feasible, asks,
+                                  draw.noise((n,)), penalty, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     segs = [(0, n, (capacity, sched_capacity, bw_avail, node_ok, *carry,
-                    feasible, noise))]
+                    feasible))]
     return uniform_topk_cluster(
-        _launch_name("uniform_topk", seq, stacked), segs, asks, g, n,
+        _launch_name("uniform_topk", seq, stacked), segs, asks, draw, g, n,
         penalty, seq, stacked, TOPK_CLUSTER)
 
 
-def uniform_topk_cluster(name, segs, asks, g, n_total, penalty, seq,
-                         stacked, cps, *, resident=True):
+def uniform_topk_cluster(name, segs, asks, draw: Draw, g, n_total, penalty,
+                         seq, stacked, cps, *, resident=True):
     """One launch of csrc/uniform_topk.cu's cluster kernel over the node
     segments ``segs``: (global row offset, rows, (capacity,
     sched_capacity, bw_avail, node_ok, util, bw_used, ports_free,
-    job_count, tg_count, feasible, noise)) each, all on one card and
-    in node order, ``cps`` CTAs a segment (a cluster of cps x W <= 8
-    CTAs), the rows kept in shared memory under ``seq`` where they fit.
+    job_count, tg_count, feasible)) each, all on one card and in node
+    order, ``cps`` CTAs a segment (a cluster of cps x W <= 8 CTAs), the
+    rows kept in shared memory under ``seq`` where they fit. Node i's
+    noise (global row i) is drawn in the kernel from ``draw.keys`` and
+    ``draw.scale``: element i of the eval's draw over the n_total rows.
     Counts one launch under ``name``; returns (choices, scores) [B, K].
     ``resident=False`` streams the rows even where they fit: the tests
     hold that layout through it; no wrapper passes it."""
     b, k = asks.active.shape
     dev = asks.active.device
+    keys = draw.keys.contiguous()
+    _check("draw.keys", keys, torch.int64, (b, 2), dev)
     dims = (ctypes.c_longlong * (2 * len(segs)))(
         *[x for lo, rows, _t in segs for x in (lo, rows)])
-    ptrs = (ctypes.c_void_p * (11 * len(segs)))(
+    ptrs = (ctypes.c_void_p * (10 * len(segs)))(
         *[t.data_ptr() for _lo, _rows, ts in segs for t in ts])
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
-    cuda.launch(
-        "nt_uniform_topk", b, g, k, len(segs), n_total, float(penalty),
-        int(seq), int(stacked), int(cps), int(resident), dims, ptrs,
-        asks.resources.data_ptr(), asks.bw.data_ptr(), asks.ports.data_ptr(),
-        asks.tg_index.data_ptr(), asks.active.data_ptr(),
-        asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
-        scores.data_ptr(), cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_uniform_topk", b, g, k, len(segs), n_total, float(penalty),
+            int(seq), int(stacked), int(cps), int(resident), dims, ptrs,
+            asks.resources.data_ptr(), asks.bw.data_ptr(),
+            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), keys.data_ptr(),
+            draw.scale32, choices.data_ptr(), scores.data_ptr(),
+            cuda.stream_ptr(dev))
     cuda.count_launch(name)
     return choices, scores
 
@@ -659,6 +689,30 @@ def expand_overlay_plain(class_ids, overlays: CompactOverlay, n: int,
     return feasible.contiguous(), job_count, tg_count
 
 
+# csrc/expand_overlay.cu: rows a CTA at most, the fewest rows a CTA
+# before its task groups are cut into windows, and the shared memory a
+# CTA may take (NT_EXPAND_SMEM_MAX).
+OVERLAY_TILE = 512
+OVERLAY_ROWS_MIN = 32
+OVERLAY_SMEM = 48 * 1024
+
+
+def overlay_tile(g: int) -> Tuple[int, int]:
+    """K3's (rows, task groups) a CTA for G task groups: OVERLAY_TILE
+    rows of all G, or fewer rows (a multiple of 32) where those rows (5
+    G + 4 bytes each: feasible, tg_count and job_count) would not fit
+    in the CTA's shared memory; past G = 306, where 32 rows of all G do
+    not fit, 32 rows of a window of the task groups (any G runs: a CTA
+    a window)."""
+    if g < 1:
+        raise ValueError(f"overlay expansion: no tile for G = {g}")
+    tile = min(OVERLAY_TILE, OVERLAY_SMEM // (5 * g + 4))
+    if tile >= OVERLAY_ROWS_MIN:
+        return tile - tile % 32, g
+    rows = OVERLAY_ROWS_MIN
+    return rows, (OVERLAY_SMEM // rows - 4) // 5
+
+
 def expand_overlay(class_ids, overlays: CompactOverlay, n: int,
                    lo: int = 0):
     """K3: rebuild B evals' dense overlays from their compact form.
@@ -674,8 +728,11 @@ def expand_overlay(class_ids, overlays: CompactOverlay, n: int,
     outside the shard drop (parallel/mesh.py's sharded dispatch).
 
     On the card (csrc/expand_overlay.cu) the bound is bytes (the N x G
-    writes): one block per eval gathers every node's verdict row, then
-    sets the patch rows and applies the job positions with atomicAdd.
+    writes): a grid over (node tile, eval, task-group window), each CTA
+    building its tile (``overlay_tile``: rows, and all task groups or a
+    window of them) in shared memory (the verdict rows, then the patch
+    rows and job positions that land in it) and writing it once, with
+    no global atomic.
     """
     b, c, g = overlays.verdicts.shape
     p = overlays.patch_rows.shape[1]
@@ -696,13 +753,14 @@ def expand_overlay(class_ids, overlays: CompactOverlay, n: int,
     feasible = torch.empty((b, n, g), dtype=torch.bool, device=dev)
     job_count = torch.empty((b, n), dtype=torch.int32, device=dev)
     tg_count = torch.empty((b, n, g), dtype=torch.int32, device=dev)
-    cuda.launch(
-        "nt_expand_overlay", b, n, g, c, p, j, int(lo),
-        class_ids.data_ptr(),
-        overlays.verdicts.data_ptr(), overlays.patch_rows.data_ptr(),
-        overlays.patch_vals.data_ptr(), overlays.job_rows.data_ptr(),
-        overlays.job_tgs.data_ptr(), feasible.data_ptr(),
-        job_count.data_ptr(), tg_count.data_ptr(), cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_expand_overlay", b, n, g, c, p, j, int(lo), *overlay_tile(g),
+            class_ids.data_ptr(), overlays.verdicts.data_ptr(),
+            overlays.patch_rows.data_ptr(), overlays.patch_vals.data_ptr(),
+            overlays.job_rows.data_ptr(), overlays.job_tgs.data_ptr(),
+            feasible.data_ptr(), job_count.data_ptr(), tg_count.data_ptr(),
+            cuda.stream_ptr(dev))
     cuda.count_launch("expand_overlay")
     return feasible, job_count, tg_count
 
@@ -732,23 +790,19 @@ def greedy_placement_program(capacity, sched_capacity, util, bw_avail,
                              tg_count, feasible, asks: Asks, keys,
                              config: PlacementConfig, seq: bool = False):
     """The native ``greedy`` kernel over B evals: the carry is copied
-    (``fresh_carry``), the noise is drawn (K0), and K1 or K2 runs.
-    Returns (choices [B,K], scores [B,K], carry), carry = (util,
-    bw_used, ports_free, job_count, tg_count) as the scan left it."""
-    b, n, _g = feasible.shape
-    k = asks.resources.shape[1]
+    (``fresh_carry``) and K1 or K2 runs on the noise of ``keys`` (drawn
+    in its kernel, or by K0 first where K1's plan reads it; the CPU
+    route draws it with K0's plain version). Returns (choices [B,K],
+    scores [B,K], carry), carry = (util, bw_used, ports_free, job_count,
+    tg_count) as the scan left it."""
+    b = feasible.shape[0]
     carry = fresh_carry(util, bw_used, ports_free, job_count, tg_count, b,
                         seq)
-    if config.uniform_dh:
-        noise = threefry_uniform(keys, (n,), 0.0, config.noise_scale)
-        scan = uniform_topk
-    else:
-        noise = threefry_uniform(keys, (k, n), 0.0, config.noise_scale)
-        scan = greedy_scan
+    scan = uniform_topk if config.uniform_dh else greedy_scan
     choices, scores = scan(
         capacity, sched_capacity, bw_avail, node_ok, carry,
-        feasible.contiguous(), asks, noise, config.anti_affinity_penalty,
-        seq)
+        feasible.contiguous(), asks, Draw(keys, config.noise_scale),
+        config.anti_affinity_penalty, seq)
     return choices, scores, carry
 
 

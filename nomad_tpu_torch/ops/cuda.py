@@ -52,12 +52,14 @@ _L = ctypes.c_longlong
 # C signatures (csrc/*.cu NT_API functions); every one returns the
 # cudaError_t of its launch.
 SIGNATURES: Dict[str, List] = {
-    "nt_threefry_uniform": [_P, _P, _L, _L, _L, _L, _I, _F, _F, _P],
-    "nt_greedy_scan": [_I] * 4 + [_F] + [_I] * 8 + [_L] + [_P] * 22,
+    "nt_threefry_uniform": [_P, _P, _I, _I, _L, _L, _I, _I, _I, _F, _F, _P],
+    "nt_greedy_scan": ([_I] * 4 + [_F] + [_I] * 9 + [_L] + [_P] * 18
+                       + [_F, _L, _L] + [_P] * 5),
     "nt_greedy_occupancy": [_I, _I, _L, _I, _P],
-    "nt_uniform_topk": [_I] * 5 + [_F] + [_I] * 4 + [_P] * 12,
+    "nt_uniform_topk": ([_I] * 5 + [_F] + [_I] * 4 + [_P] * 10 + [_F]
+                        + [_P] * 3),
     "nt_uniform_topk_occupancy": [_I] * 6 + [_P],
-    "nt_expand_overlay": [_I] * 7 + [_P] * 10,
+    "nt_expand_overlay": [_I] * 9 + [_P] * 10,
     "nt_base_delta": [_I, _I, _I] + [_P] * 10,
     "nt_base_delta_shards": [_I] * 3 + [_P] * 9,
     "nt_argmax_chain": [_I, _P, _P],

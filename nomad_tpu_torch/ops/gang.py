@@ -326,19 +326,20 @@ def gang_scan(state: GangState, ask_res, ask_bw, ask_ports, active, noise,
     scores = torch.empty((k,), dtype=torch.float32, device=dev)
     slice_group = torch.empty((), dtype=torch.int32, device=dev)
     group_cap = torch.empty((g_pad,), dtype=torch.float32, device=dev)
-    cuda.launch(
-        "nt_gang_scan", n, k, g_pad, _MODE_IDS[config.mode],
-        int(config.distinct_hosts), float(config.anti_affinity_penalty),
-        state.capacity.data_ptr(), state.sched_capacity.data_ptr(),
-        state.util.data_ptr(), state.bw_avail.data_ptr(),
-        state.bw_used.data_ptr(), state.ports_free.data_ptr(),
-        state.feas_row.data_ptr(), state.job_count.data_ptr(),
-        state.dh_presence.data_ptr(), state.topo_ids.data_ptr(),
-        ask_res.data_ptr(), ask_bw.data_ptr(), ask_ports.data_ptr(),
-        active.data_ptr(), noise.data_ptr(), group_noise.data_ptr(),
-        placed.data_ptr(), group_members.data_ptr(), choices.data_ptr(),
-        scores.data_ptr(), slice_group.data_ptr(), group_cap.data_ptr(),
-        cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_gang_scan", n, k, g_pad, _MODE_IDS[config.mode],
+            int(config.distinct_hosts), float(config.anti_affinity_penalty),
+            state.capacity.data_ptr(), state.sched_capacity.data_ptr(),
+            state.util.data_ptr(), state.bw_avail.data_ptr(),
+            state.bw_used.data_ptr(), state.ports_free.data_ptr(),
+            state.feas_row.data_ptr(), state.job_count.data_ptr(),
+            state.dh_presence.data_ptr(), state.topo_ids.data_ptr(),
+            ask_res.data_ptr(), ask_bw.data_ptr(), ask_ports.data_ptr(),
+            active.data_ptr(), noise.data_ptr(), group_noise.data_ptr(),
+            placed.data_ptr(), group_members.data_ptr(), choices.data_ptr(),
+            scores.data_ptr(), slice_group.data_ptr(), group_cap.data_ptr(),
+            cuda.stream_ptr(dev))
     cuda.count_launch("gang_scan")
     return choices, scores, slice_group
 

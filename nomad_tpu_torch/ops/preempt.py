@@ -239,22 +239,23 @@ def preempt_scan(state: NodeState, victims: VictimState, vok, asks: Asks,
     choices = torch.empty((k,), dtype=torch.int32, device=dev)
     scores = torch.empty((k,), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.int32, device=dev)
-    cuda.launch(
-        "nt_preempt_scan", n, g, k, float(penalty),
-        float(_np.float32(eval_priority)), state.capacity.data_ptr(),
-        state.sched_capacity.data_ptr(), state.bw_avail.data_ptr(),
-        state.node_ok.data_ptr(), state.util.data_ptr(),
-        state.bw_used.data_ptr(), state.ports_free.data_ptr(),
-        state.job_count.data_ptr(), state.tg_count.data_ptr(),
-        state.feasible.data_ptr(), victims.res.data_ptr(),
-        victims.bw.data_ptr(), victims.ports.data_ptr(),
-        victims.prio.data_ptr(), vok.data_ptr(),
-        asks.resources.data_ptr(), asks.bw.data_ptr(),
-        asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-        asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-        asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
-        choices.data_ptr(), scores.data_ptr(), counts.data_ptr(),
-        cuda.stream_ptr(dev))
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_preempt_scan", n, g, k, float(penalty),
+            float(_np.float32(eval_priority)), state.capacity.data_ptr(),
+            state.sched_capacity.data_ptr(), state.bw_avail.data_ptr(),
+            state.node_ok.data_ptr(), state.util.data_ptr(),
+            state.bw_used.data_ptr(), state.ports_free.data_ptr(),
+            state.job_count.data_ptr(), state.tg_count.data_ptr(),
+            state.feasible.data_ptr(), victims.res.data_ptr(),
+            victims.bw.data_ptr(), victims.ports.data_ptr(),
+            victims.prio.data_ptr(), vok.data_ptr(),
+            asks.resources.data_ptr(), asks.bw.data_ptr(),
+            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
+            choices.data_ptr(), scores.data_ptr(), counts.data_ptr(),
+            cuda.stream_ptr(dev))
     cuda.count_launch("preempt_scan")
     return choices, scores, counts
 

@@ -20,6 +20,10 @@ noise.
 
 ``threefry_uniform`` launches the CUDA kernel (csrc/threefry.cu) for a
 CUDA tensor of keys and runs ``threefry_uniform_plain`` for a CPU one.
+The main path's scans take a ``Draw`` (the keys and the draw's
+geometry) and draw the same values inside their own kernels (K2; K1
+where that beats K0, ``scan.draws``), or K0 draws them first for K1
+to read.
 
 ``fold_in`` derives a key on the host as ``jax.random.fold_in`` does
 (the gang program's group noise draws from ``fold_in(key, 1)``): one
@@ -29,7 +33,7 @@ threefry2x32 hash of the counter pair (0, data), the words of
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,6 +118,61 @@ def threefry_uniform_plain(keys: torch.Tensor, shape: Sequence[int],
     return out.reshape((batch, *shape))
 
 
+class Draw(NamedTuple):
+    """A batch's tie-break noise as the main path's scans take it
+    (csrc/greedy_scan.cu, csrc/uniform_topk.cu: drawn in the kernel
+    through csrc/common.cuh nt_noise_at, or read from K0's tensor of the
+    same values): eval b's value at (row r, column j)
+    is K0's, under ``keys[b]``, of the counter r x total + lo + j, where
+    the rows are a greedy scan's K steps (one row for the uniform
+    top-K) and the columns its nodes; the values lie in [0, scale).
+    ``keys`` is int64 [B, 2] on the scan's device; ``total`` None is the
+    scan's own node count (the whole draw), and (lo, total) a node
+    shard's window of it. ``noise`` draws the same values with the plain
+    version, as a tensor: the CPU route and the tests' yardstick."""
+
+    keys: torch.Tensor
+    scale: float
+    lo: int = 0
+    total: Optional[int] = None
+
+    @property
+    def scale32(self) -> float:
+        """The noise's maxval (minval 0) as float32, as K0 scales."""
+        return float(np.float32(self.scale))
+
+    def columns(self, n: int) -> int:
+        """The draw's total columns for a scan over ``n`` nodes."""
+        total = n if self.total is None else int(self.total)
+        if not 0 <= self.lo <= self.lo + n <= total:
+            raise ValueError(f"draw window [{self.lo}, {self.lo + n}) "
+                             f"outside {total} columns")
+        return total
+
+    def noise(self, shape: Sequence[int]) -> torch.Tensor:
+        """float32 [B, *shape]: the values the kernel draws, by
+        ``threefry_uniform_plain``."""
+        return threefry_uniform_plain(
+            self.keys, shape, 0.0, self.scale,
+            (self.lo, self.columns(int(shape[-1]))))
+
+
+# csrc/threefry.cu: most threads a block (NT_TF_THREADS), columns a
+# thread (NT_TF_PER).
+NOISE_THREADS = 256
+NOISE_PER = 4
+
+
+def noise_launch(cols: int) -> tuple:
+    """(runs, threads) of K0's launch for rows of ``cols`` columns: a
+    block a (eval, row) pair and run of ``4 x threads`` columns, the
+    fewest threads (a multiple of 32, up to 256) that give a row's
+    columns to one run where they fit, else runs of 256 threads."""
+    groups = max(1, -(-cols // NOISE_PER))
+    threads = min(NOISE_THREADS, -(-groups // 32) * 32)
+    return -(-groups // threads), threads
+
+
 def threefry_uniform(keys: torch.Tensor, shape: Sequence[int],
                      minval: float, maxval: float,
                      window=None) -> torch.Tensor:
@@ -127,8 +186,10 @@ def threefry_uniform(keys: torch.Tensor, shape: Sequence[int],
     ``(*shape[:-1], total)`` draw: element (r, j) hashes counter
     r * total + lo + j, so the node shards of a mesh
     (nomad_tpu_torch/parallel) draw exactly the unsharded noise's
-    columns. On the card: csrc/threefry.cu, integer-ALU bound (20
-    rounds per 4-byte store); one thread per element, no shared memory.
+    columns. On the card: csrc/threefry.cu, integer-ALU bound; a block
+    an (eval, row) pair and run of columns, four counters and one
+    16-byte store a thread. The main path's scans take a ``Draw`` and
+    draw their own noise where that is faster (ops/scan.py).
     """
     if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys must be int64[B, 2], got {keys.dtype} "
@@ -143,8 +204,11 @@ def threefry_uniform(keys: torch.Tensor, shape: Sequence[int],
     out = torch.empty((batch, *shape), dtype=torch.float32,
                       device=keys.device)
     scale = float(np.float32(maxval) - np.float32(minval))
-    cuda.launch("nt_threefry_uniform", keys.data_ptr(), out.data_ptr(),
-                rows, cols, total, lo, batch, float(np.float32(minval)),
-                scale, cuda.stream_ptr(keys.device))
+    runs, threads = noise_launch(cols)
+    with cuda.on_device(keys.device):  # the keys' card, whichever is current
+        cuda.launch("nt_threefry_uniform", keys.data_ptr(), out.data_ptr(),
+                    rows, cols, total, lo, batch, runs, threads,
+                    float(np.float32(minval)), scale,
+                    cuda.stream_ptr(keys.device))
     cuda.count_launch("threefry_uniform")
     return out

@@ -14,10 +14,16 @@ occupancy:
   while N >= c; the threads: one node a thread up to 1,024 nodes a
   slice, else the fewest threads that give every thread the same count
   (a multiple of 32);
+- the noise: drawn in the kernel (from the batch's keys, a
+  ``prng.Draw``: each thread its nodes' values a step ahead in
+  registers) or read from K0's [B, K, N] tensor, which K0 draws on
+  every SM before the scan (``draws``; drawn, the hash's ~80 integer
+  instructions a node a step run on the launch's own SMs);
 - the form: "resident" (the slice's rows in shared memory for the
   launch, two sets of an eval's rows under ``seq``) where the layout
   fits in 227 KB, else "streamed" (the rows in global memory, the
-  score cache and the noise's four stages each kept where they fit).
+  score cache and, read, the noise's four stages each kept where they
+  fit).
 
 ``layout`` is the kernel's shared-memory layout (nt_scan_layout); the
 C entry recomputes it and refuses a plan whose size differs.
@@ -34,6 +40,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda
+from .prng import threefry_uniform
 
 # csrc/greedy_scan.cu: threads a CTA (NT_SCAN_THREADS), CTAs a cluster
 # (NT_SCAN_CLUSTER_MAX; above 8 a non-portable size, which beat 8 CTAs
@@ -45,10 +52,22 @@ SMEM_MAX = 227 * 1024
 # bw_avail, bw_used, ports_free, node_ok) and an eval's (job_count,
 # tg_count, feasible: 4 + 5 G).
 STATIC_ROWS = (16, 16, 16, 4, 4, 4, 1)
-# Noise rows staged ahead (NT_SCAN_STAGES).
+# Noise rows staged ahead (NT_SCAN_STAGES), read mode.
 STAGES = 4
+# Mbarriers (NT_B_COUNT: an eval's rows, the noise stages, the keys).
+BARRIERS = 2 + STAGES + 2
 # Parts of a step in the kernel's profile (NT_P_*).
-PARTS = ("wait", "asks", "score", "block", "exchange", "winner")
+PARTS = ("wait", "asks", "score", "block", "draw", "exchange", "winner")
+# The noise is drawn in the kernel where the nodes one CTA hashes a
+# step (its slice, on its own SM) come to at most DRAW_FACTOR times the
+# nodes K0 hashes a step on each of the card's SMs (the launch's evals'
+# N over the SMs): reading also loads those values back from device
+# memory, and part of the draw hides in the exchange's wait. Both modes
+# timed in turns on the H100 (PERF.md §6) break even near 1.9: at 2
+# CTAs an eval between B = 33 (read 1% faster) and 64 (drawn 16%
+# faster), at 4 between B = 16 and 17 (equal), and at 16 reading wins
+# at B = 4 (by 4%), as at B = 1 and under seq.
+DRAW_FACTOR = 1.9
 
 
 def _up(x: int, m: int) -> int:
@@ -73,6 +92,13 @@ def threads_for(length: int) -> int:
     return max(32, _up(-(-length // per), 32))
 
 
+def draws(n: int, ctas: int, clusters: int, sms: int) -> bool:
+    """Whether a launch of ``clusters`` clusters of ``ctas`` CTAs over
+    N nodes draws its noise in the kernel on a card of ``sms`` SMs
+    (else K0 draws it first and the scan reads it); see DRAW_FACTOR."""
+    return slice_len(n, ctas) * sms <= DRAW_FACTOR * clusters * n
+
+
 def stage_len(nbytes: int) -> int:
     """A staging region for ``nbytes`` of rows: the 16-byte-aligned
     superset the bulk copy moves (nt_stage_len)."""
@@ -84,7 +110,7 @@ def layout(ctas: int, warps: int, length: int, g: int, resident: bool,
            cache: bool) -> Tuple[Dict[str, int], int]:
     """The kernel's shared memory: ({region: byte offset}, total)."""
     # The mbarriers (eval rows, noise, keys) and the profile's counters.
-    at = _up(8 * (2 + STAGES + 2) + 8 * len(PARTS), 16)
+    at = _up(8 * BARRIERS + 8 * len(PARTS), 16)
     off = {"slots": at}
     at += _up(16 * (ctas + warps), 16)  # a key a CTA, a key a warp; 2 steps
     if cache:
@@ -108,15 +134,17 @@ def layout(ctas: int, warps: int, length: int, g: int, resident: bool,
 class ScanPlan(NamedTuple):
     """One launch: ``clusters`` clusters of ``ctas`` CTAs of ``threads``
     threads, slices up to ``slice`` nodes, the form, whether the noise
-    is staged and the scores before the noise are cached in shared
-    memory, and the shared memory a CTA. ``occupancy`` is the clusters
-    the card holds at once (so ``waves`` = clusters over it, rounded
-    up)."""
+    is drawn in the kernel (else read from K0's tensor, staged in shared
+    memory where ``stage_noise``), whether the scores before the noise
+    are cached in shared memory, and the shared memory a CTA.
+    ``occupancy`` is the clusters the card holds at once (so ``waves`` =
+    clusters over it, rounded up)."""
 
     ctas: int
     threads: int
     slice: int
     resident: bool
+    drawn: bool
     stage_noise: bool
     eval_bufs: int
     cache: bool
@@ -134,36 +162,39 @@ class ScanPlan(NamedTuple):
 
 
 def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
-           resident: Optional[bool]) -> Tuple:
-    """(threads, slice, resident, stage_noise, eval_bufs, cache, smem)
-    at ``ctas``; ``resident`` None: resident where it fits. Streamed,
-    the cache comes before the noise's stages, and each only where it
-    fits."""
+           resident: Optional[bool], drawn: bool) -> Tuple:
+    """(threads, slice, resident, drawn, stage_noise, eval_bufs, cache,
+    smem) at ``ctas``; ``resident`` None: resident where it fits.
+    Streamed, the cache comes before the read noise's stages, and each
+    only where it fits."""
     length = slice_len(n, ctas)
     threads = threads_for(length)
     warps = threads // 32
     bufs = 2 if seq and b > 1 else 1
-    smem = layout(ctas, warps, length, g, True, True, bufs, True)[1]
+    staged = not drawn
+    smem = layout(ctas, warps, length, g, True, staged, bufs, True)[1]
     if resident is not False and smem <= SMEM_MAX:
-        return threads, length, True, True, bufs, True, smem
+        return threads, length, True, drawn, staged, bufs, True, smem
     if resident:
         raise RuntimeError(
             f"greedy scan: the resident rows of {length} nodes a CTA "
             f"(G = {g}) take {smem} bytes of shared memory, over {SMEM_MAX}")
-    for staged, cache in ((True, True), (False, True), (False, False)):
+    for staged, cache in ((not drawn, True), (False, True), (False, False)):
         smem = layout(ctas, warps, length, g, False, staged, 0, cache)[1]
         if smem <= SMEM_MAX or not cache:
-            return threads, length, False, staged, 0, cache, smem
+            return threads, length, False, drawn, staged, 0, cache, smem
 
 
 def scan_plan(b: int, n: int, g: int, seq: bool,
               occupancy: Callable[[int, int, int, bool], int],
               ctas: Optional[int] = None,
-              resident: Optional[bool] = None) -> ScanPlan:
-    """The launch for B evals over N nodes and G task groups.
-    ``occupancy(ctas, threads, smem, resident)`` is the clusters of that
-    shape the card holds at once (0: refused). ``ctas`` and ``resident`` force the
-    cluster and the form (the tests' and the measurements' hooks)."""
+              resident: Optional[bool] = None, sms: int = 132,
+              drawn: Optional[bool] = None) -> ScanPlan:
+    """The launch for B evals over N nodes and G task groups on a card
+    of ``sms`` SMs. ``occupancy(ctas, threads, smem, resident)`` is the
+    clusters of that shape the card holds at once (0: refused).
+    ``ctas``, ``resident`` and ``drawn`` force the cluster, the form and
+    the noise's mode (the tests' and the measurements' hooks)."""
     if b < 1 or n < 0 or g < 1:
         raise ValueError(f"no greedy scan of B {b}, N {n}, G {g}")
     clusters = 1 if seq else b
@@ -177,7 +208,8 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
                    if c <= CLUSTER_MAX and (c == 1 or c <= n)]
     fits = []
     for c in choices:
-        shape = _shape(b, n, g, seq, c, resident)
+        draw = drawn if drawn is not None else draws(n, c, clusters, sms)
+        shape = _shape(b, n, g, seq, c, resident, draw)
         occ = occupancy(c, shape[0], shape[-1], shape[2])
         if occ >= clusters:
             return ScanPlan(c, *shape, clusters, occ)
@@ -215,42 +247,51 @@ def occupancy_of(dev) -> Callable[[int, int, int, bool], int]:
 
 
 def plan_for(dev, b: int, n: int, g: int, seq: bool,
-             ctas: Optional[int] = None,
-             resident: Optional[bool] = None) -> ScanPlan:
-    """``scan_plan`` on ``dev``'s occupancy, kept a shape."""
+             ctas: Optional[int] = None, resident: Optional[bool] = None,
+             drawn: Optional[bool] = None) -> ScanPlan:
+    """``scan_plan`` on ``dev``'s occupancy and SMs, kept a shape."""
     dev = torch.device(dev)
-    key = (dev.index, b, n, g, bool(seq), ctas, resident)
+    key = (dev.index, b, n, g, bool(seq), ctas, resident, drawn)
     plan = _plans.get(key)
     if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = _plans[key] = scan_plan(b, n, g, seq, occupancy_of(dev),
-                                       ctas, resident)
+                                       ctas, resident, sms, drawn)
     return plan
 
 
-def launch(plan: ScanPlan, static, carry, feasible, asks, noise,
+def launch(plan: ScanPlan, static, carry, feasible, asks, draw,
            penalty: float, seq: bool,
            prof: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on ``plan``, arguments as
     ``binpack.greedy_scan`` (``static`` its four node rows, ``carry``
-    updated in place). Returns (choices, scores). ``prof``: None, or an
-    int64 [len(PARTS)] that takes the step parts' clock cycles."""
+    updated in place, ``draw`` the noise's ``prng.Draw``); where the
+    plan reads the noise, K0 draws it first. Returns (choices, scores).
+    ``prof``: None, or an int64 [len(PARTS)] that takes the step parts'
+    clock cycles."""
     b, n, g = feasible.shape
     k = asks.resources.shape[1]
     dev = feasible.device
+    keys = draw.keys.contiguous()
+    noise = None if plan.drawn else threefry_uniform(
+        keys, (k, n), 0.0, draw.scale, window=(draw.lo, draw.columns(n)))
     choices = torch.empty((b, k), dtype=torch.int32, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     with cuda.on_device(dev):  # the tensors' card, whichever is current
         cuda.launch(
             "nt_greedy_scan", b, n, g, k, float(penalty), int(seq),
             int(static[0].dim() == 3), plan.ctas, plan.threads,
-            int(plan.resident), int(plan.stage_noise), plan.eval_bufs,
-            int(plan.cache), plan.smem, *(x.data_ptr() for x in static),
+            int(plan.resident), int(plan.drawn), int(plan.stage_noise),
+            plan.eval_bufs, int(plan.cache), plan.smem,
+            *(x.data_ptr() for x in static),
             *(x.data_ptr() for x in carry), feasible.data_ptr(),
             asks.resources.data_ptr(), asks.bw.data_ptr(),
             asks.ports.data_ptr(), asks.tg_index.data_ptr(),
             asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), keys.data_ptr(),
+            draw.scale32, int(draw.columns(n)), int(draw.lo),
+            None if noise is None else noise.data_ptr(),
             choices.data_ptr(), scores.data_ptr(),
             None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
     return choices, scores

@@ -313,17 +313,19 @@ def shard_defrag_inputs(mesh: Mesh, args: Sequence) -> Tuple[Sharded, ...]:
 def _shard_batch(static, overlays, asks_of, keys_of, config, seq: bool,
                  n_total: int):
     """B evals over node shards (the sharded ``_placement_batch``): per
-    shard the noise window (K0) and a fresh carry, then the kernel that
-    ``config.kernel`` names in its sharded form: the native greedy
-    program (K10c, or K10d for a uniform distinct_hosts batch) or the
-    convex kernel (K10g: kernels/convex.py convex_shard_program).
+    shard the noise window (K0; for a uniform distinct_hosts batch the
+    window's ``Draw``, which K10d's one-card route draws in its kernel)
+    and a fresh carry, then the kernel that ``config.kernel`` names in
+    its sharded form: the native greedy program (K10c, or K10d for a
+    uniform distinct_hosts batch) or the convex kernel (K10g:
+    kernels/convex.py convex_shard_program).
     ``static`` is one (lo, capacity, sched_capacity, util, bw_avail,
     bw_used, ports_free, node_ok) per shard, ``overlays`` one
     (job_count, tg_count, feasible) per shard, ``asks_of``/``keys_of``
     the batch's asks and int64 keys by device. Returns (choices [B,K],
     scores [B,K] on the first shard's device, [carry per shard])."""
     from ..ops.binpack import fresh_carry
-    from ..ops.prng import threefry_uniform
+    from ..ops.prng import Draw, threefry_uniform
     from .shard import NodeShard, _on, sharded_greedy_scan, \
         sharded_uniform_topk
 
@@ -339,13 +341,15 @@ def _shard_batch(static, overlays, asks_of, keys_of, config, seq: bool,
         asks = asks_of[dev]
         b, n = feas.shape[0], feas.shape[1]
         k = asks.resources.shape[1]
-        shape = (n,) if uniform else (k, n)
-        with _on(dev):
-            noise = threefry_uniform(keys_of[dev], shape, 0.0,
-                                     config.noise_scale, window=(lo, n_total))
+        draw = Draw(keys_of[dev], config.noise_scale, lo, n_total)
+        noise = None
+        if not uniform:
+            with _on(dev):
+                noise = threefry_uniform(draw.keys, (k, n), 0.0, draw.scale,
+                                         window=(lo, n_total))
         carry = fresh_carry(util, bw_used, ports, jc, tgc, b, seq)
         shards.append(NodeShard(lo, cap, sched, bw_avail, ok, carry,
-                                feas.contiguous(), asks, noise))
+                                feas.contiguous(), asks, noise, draw=draw))
     if config.kernel == "convex":
         from ..kernels.convex import convex_shard_program
 
@@ -362,7 +366,8 @@ def sharded_placement(mesh: Mesh, state: NodeState, asks: Asks, keys,
     sharded_placement: placement_program_jit, or batched_placement_
     program over a [B] batch). Each dp row takes its own disjoint evals
     and runs them independently over its node shards (K0 windows, then
-    K10c or K10d, or K10g for the convex kernel). Host inputs as
+    K10c or K10g for the convex kernel; or K10d, which draws its noise
+    in the kernel on one card). Host inputs as
     shard_placement_inputs takes them.
     A batched state is stacked (a base per eval), as
     batched_placement_program takes it. ``config.kernel`` is the greedy

@@ -19,8 +19,10 @@ outside the kernels (parallel/mesh.py's module docstring says how):
 - ``sharded_greedy_scan`` (K10c): K1 over node shards, two launches a
   step (csrc/sharded_scan.cu).
 - ``sharded_uniform_topk`` (K10d): K2 over node shards: one launch of
-  K2's cluster kernel for the shards of one card (csrc/uniform_topk.cu),
-  else a local top-K per shard and a merge (csrc/sharded_topk.cu).
+  K2's cluster kernel for the shards of one card (csrc/uniform_topk.cu,
+  which draws the noise in the kernel from the shards' ``Draw``), else
+  a K0 window, a local top-K per shard and a merge
+  (csrc/sharded_topk.cu).
 
 Every wrapper runs its plain PyTorch version when its tensors lie on
 the CPU, and launches its kernel (or raises) when they lie on CUDA
@@ -48,6 +50,7 @@ from ..ops.binpack import (
     apply_base_delta_plain,
     uniform_topk_cluster,
 )
+from ..ops.prng import Draw, threefry_uniform
 from .mesh import NODE_AXIS, Mesh, Sharded, delta_row_specs, is_sharded, \
     place
 
@@ -467,7 +470,12 @@ class NodeShard(NamedTuple):
     Asks ([B,K] leading); ``noise`` the shard's window of the batch's
     noise, [B,K,N] (greedy) or [B,N] (uniform); ``pref`` the shard's
     columns of the convex relaxation's preference [B,K,N], which only
-    the convex rounding scan (K10g-b) reads."""
+    the convex rounding scan (K10g-b) reads. ``draw`` is the window's
+    ``Draw`` (its keys on the shard's device, lo = its ``lo``, total =
+    the node count), where the caller has it: a uniform shard may carry
+    it instead of a drawn window (``noise`` None), since K10d's one-card
+    route draws in its kernel; its other routes draw the window
+    first."""
 
     lo: int
     capacity: torch.Tensor
@@ -477,14 +485,15 @@ class NodeShard(NamedTuple):
     carry: tuple
     feasible: torch.Tensor
     asks: Asks
-    noise: torch.Tensor
+    noise: Optional[torch.Tensor]
     pref: Optional[torch.Tensor] = None
+    draw: Optional[Draw] = None
 
 
 def _check_shards(shards: List[NodeShard], seq: bool, uniform: bool):
     """Validate a scan's shards against binpack's scan checks; returns
     (B, N_total, G, K, stacked)."""
-    from ..ops.binpack import _check_scan_args
+    from ..ops.binpack import _check_draw, _check_scan_args
 
     b = g = k = None
     n_total = 0
@@ -492,6 +501,9 @@ def _check_shards(shards: List[NodeShard], seq: bool, uniform: bool):
     for sh in shards:
         n = sh.feasible.shape[1]
         noise_shape = (n,) if uniform else (sh.asks.resources.shape[1], n)
+        if sh.noise is None and not (uniform and sh.draw is not None):
+            raise ValueError("a shard needs its noise window (or, for the "
+                             "uniform top-K, its draw)")
         bb, _n, gg, kk, st = _check_scan_args(
             sh.capacity, sh.sched_capacity, sh.bw_avail, sh.node_ok,
             sh.carry, sh.feasible, sh.asks, sh.noise, noise_shape, seq)
@@ -502,7 +514,29 @@ def _check_shards(shards: List[NodeShard], seq: bool, uniform: bool):
             raise ValueError(f"shard rows start at {sh.lo}, expected "
                              f"{n_total}: shards cover the nodes in order")
         n_total += n
+    for sh in shards:
+        if sh.noise is None and (
+                sh.draw.lo != sh.lo
+                or _check_draw(sh.draw, b, sh.feasible.shape[1],
+                               sh.feasible.device) != n_total):
+            raise ValueError(f"the draw of the shard at {sh.lo} is the "
+                             f"window ({sh.draw.lo}, {sh.draw.total}), not "
+                             f"({sh.lo}, {n_total})")
     return b, n_total, g, k, stacked
+
+
+def _drawn(shards: List[NodeShard]) -> List[NodeShard]:
+    """Uniform shards with each ``draw`` drawn into its noise window (K0
+    on the shard's card; its plain version on the CPU)."""
+    out = []
+    for sh in shards:
+        if sh.noise is None:
+            d = sh.draw
+            sh = sh._replace(noise=threefry_uniform(
+                d.keys, (sh.feasible.shape[1],), 0.0, d.scale,
+                window=(d.lo, d.total)))
+        out.append(sh)
+    return out
 
 
 def _by_eval(shards: List[NodeShard], e: int) -> List[NodeShard]:
@@ -516,8 +550,10 @@ def _by_eval(shards: List[NodeShard], e: int) -> List[NodeShard]:
         out.append(sh._replace(
             carry=(util[None], bw[None], ports[None], jc[one], tgc[one]),
             feasible=sh.feasible[one], asks=Asks(*(x[one] for x in sh.asks)),
-            noise=sh.noise[one],
-            pref=None if sh.pref is None else sh.pref[one]))
+            noise=None if sh.noise is None else sh.noise[one],
+            pref=None if sh.pref is None else sh.pref[one],
+            draw=None if sh.draw is None else sh.draw._replace(
+                keys=sh.draw.keys[one])))
     return out
 
 
@@ -851,15 +887,17 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
     layouts). Replaces the GSPMD form of ``_uniform_topk_program``
     (ops/binpack.py:302 in the JAX package) over a node-sharded base.
     Arguments as ``sharded_greedy_scan`` except each shard's noise [B,
-    N] (one draw a node). Returns (choices, scores) [B,K] on the first
-    shard's device.
+    N] (one draw a node) or its ``draw``. Returns (choices, scores)
+    [B,K] on the first shard's device.
 
     On the card the path is ``uniform_topk_ctas``' choice. Shards of
     one card (W <= 8): one launch a call of K2's cluster kernel
     (csrc/uniform_topk.cu), its CTAs' slices at the shards' boundaries,
-    each shard's rows and noise window its own segment; under ``seq``
-    the B evals run inside that launch. Otherwise (csrc/sharded_topk.cu)
-    one nt_shard_topk launch per shard (the last eval's winners update
+    each shard's rows its own segment, every node's noise drawn in the
+    kernel (the shards carry their ``draw``); under ``seq`` the B evals
+    run inside that launch. Otherwise (csrc/sharded_topk.cu), after a
+    K0 window a shard that carries a draw, one nt_shard_topk launch per
+    shard (the last eval's winners update
     their rows in its prologue; the slice's top K selected) and one
     nt_shard_merge on the first shard's device (the top K of the W x K
     candidates, K2's choices); W + 1 launches an eval under ``seq``
@@ -867,17 +905,21 @@ def sharded_uniform_topk(shards: List[NodeShard], penalty: float,
     winners."""
     b, n_total, g, k, stacked = _check_shards(shards, seq, True)
     if _kind(sh.feasible for sh in shards) == "cpu":
-        return sharded_uniform_topk_plain(shards, penalty, seq)
+        return sharded_uniform_topk_plain(_drawn(shards), penalty, seq)
     w = len(shards)
     cps = uniform_topk_ctas(sh.feasible.device for sh in shards)
     if cps:
+        if any(sh.draw is None for sh in shards):
+            raise ValueError("K10d's one-card route draws the noise in its "
+                             "kernel: every shard needs its draw")
         segs = [(sh.lo, sh.feasible.shape[1],
                  (sh.capacity, sh.sched_capacity, sh.bw_avail, sh.node_ok,
-                  *sh.carry, sh.feasible, sh.noise)) for sh in shards]
-        with _on(shards[0].feasible.device):
-            return uniform_topk_cluster(
-                "sharded_uniform_topk", segs, shards[0].asks, g, n_total,
-                penalty, seq, stacked, cps)
+                  *sh.carry, sh.feasible)) for sh in shards]
+        d = shards[0].draw
+        return uniform_topk_cluster(
+            "sharded_uniform_topk", segs, shards[0].asks,
+            Draw(d.keys, d.scale), g, n_total, penalty, seq, stacked, cps)
+    shards = _drawn(shards)
     home = shards[0].feasible.device
     active = shards[0].asks.active.to(home)
     choices = torch.empty((b, k), dtype=torch.int32, device=home)

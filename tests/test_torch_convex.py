@@ -42,6 +42,7 @@ from nomad_tpu.ops import binpack as jb
 from nomad_tpu_torch import carry
 from nomad_tpu_torch.kernels import convex as tc
 from nomad_tpu_torch.ops import binpack as tb
+from nomad_tpu_torch.ops import prng as tp
 
 SCORE_TOL = 1e-4
 LOGIT_TOL = 1e-4
@@ -153,7 +154,7 @@ def test_rounding_scan_matches_exactly(case, monkeypatch):
 
     c_j, s_j, f_j = jax.jit(rounding)(state, asks, key, x)
     static, c, feas, ta = port_args(state, asks)
-    noise = tb.threefry_uniform(tb.keys_tensor(key, "cpu"), (48, 128),
+    noise = tp.threefry_uniform(tb.keys_tensor(key, "cpu"), (48, 128),
                                 0.0, 2.0)
     pref = tc.convex_pref(torch.from_numpy(np.array(x))[None])
     c_t, s_t = tc.convex_round(*static, c, feas, ta, noise, 10.0, pref)
@@ -177,7 +178,7 @@ def test_rounding_seq_and_stacked_layouts_match_one_by_one():
     ts = carry.node_state_from_numpy(state, "cpu")
     ta = carry.asks_from_numpy(asks, "cpu")
     static = (ts.capacity, ts.sched_capacity, ts.bw_avail, ts.node_ok)
-    noise = tb.threefry_uniform(tb.keys_tensor(keys, "cpu"), (k, n), 0.0,
+    noise = tp.threefry_uniform(tb.keys_tensor(keys, "cpu"), (k, n), 0.0,
                                 2.0)
     pref = torch.rand((b, k, n), generator=torch.Generator().manual_seed(6))
     seq = (ts.util.clone(), ts.bw_used.clone(), ts.ports_free.clone(),

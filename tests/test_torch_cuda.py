@@ -77,10 +77,16 @@ def fresh(base, b, n):
         util.expand(b, n, 4), bw.expand(b, n), ports.expand(b, n), jc, tgc))
 
 
-def assert_scans_agree(kernel, plain):
+def assert_scans_agree(kernel, plain, bits=False):
+    """Choices and every carried tensor equal; scores within 1e-4, or
+    with ``bits`` bit for bit (a scan that draws its own noise against
+    the plain draw and the plain scan)."""
     (ch, sc, c_k), (ch_p, sc_p, c_p) = kernel, plain
     assert torch.equal(ch, ch_p)
-    assert (sc - sc_p).abs().max().item() <= 1e-4
+    if bits:
+        assert torch.equal(sc.view(torch.int32), sc_p.view(torch.int32))
+    else:
+        assert (sc - sc_p).abs().max().item() <= 1e-4
     for name, x, y in zip(CARRY, c_k, c_p):
         assert torch.equal(x, y), name
 
@@ -97,13 +103,13 @@ def test_threefry_uniform_bits(dev, b, k, n):
 @pytest.mark.parametrize("b,n,k,g", [(1, 300, 64, 2), (5, 777, 200, 3)])
 def test_greedy_scan_matches_plain(dev, b, n, k, g):
     static, base, feasible, asks = scan_inputs(n, k, g, b, n, dev)
-    keys = torch.arange(2 * b, device=dev).view(b, 2)
-    noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    draw = prng.Draw(torch.arange(2 * b, device=dev).view(b, 2), 2.0)
     runs = []
-    for fn in (binpack.greedy_scan, binpack.greedy_scan_plain):
+    for fn, noise in ((binpack.greedy_scan, draw),
+                      (binpack.greedy_scan_plain, draw.noise((k, n)))):
         c = fresh(base, b, n)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     placed = runs[0][0] >= 0
     assert placed.any() and not placed.all()
     # The port limit binds: some node ends with fewer ports than an ask.
@@ -120,13 +126,13 @@ def test_uniform_topk_matches_plain(dev, b, n, k):
         ports=asks.ports[:, :1].expand(b, k).contiguous(),
         tg_index=torch.zeros_like(asks.tg_index),
         tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
-    noise = prng.threefry_uniform(
-        torch.arange(2 * b, device=dev).view(b, 2), (n,), 0.0, 2.0)
+    draw = prng.Draw(torch.arange(2 * b, device=dev).view(b, 2), 2.0)
     runs = []
-    for fn in (binpack.uniform_topk, binpack.uniform_topk_plain):
+    for fn, noise in ((binpack.uniform_topk, draw),
+                      (binpack.uniform_topk_plain, draw.noise((n,)))):
         c = fresh(base, b, n)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     if k > n:
         assert (runs[0][0][:, n:] == -1).all()
 
@@ -152,6 +158,61 @@ def test_expand_overlay_matches_plain(dev, b, n):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("b,n,g,c,p,j", [
+    (1, 1000, 2, 16, 32, 64), (3, 1500, 3, 8, 64, 256),
+    (2, 512, 1, 4, 16, 16), (2, 700, 64, 12, 32, 128),
+    (4, 37, 2, 3, 8, 40), (2, 90, 700, 5, 8, 300),
+    (64, 10240, 2, 128, 256, 1024)])
+def test_expand_overlay_tiles_match_plain(dev, b, n, g, c, p, j):
+    """K3 over node tiles on the CPU tests' cases (class ids of -1 and
+    past C, the pad row, four allocs of one job on one node; G = 64
+    takes 128-row tiles, G = 700 three task-group windows) and the main
+    path's B = 64 widths, and in the shard form at lo > 0 (other
+    shards' rows drop)."""
+    rng = np.random.default_rng(n + g)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    n_total = 2 * n
+    class_ids = rng.integers(-1, c + 3, n_total).astype(np.int32)
+    patch_rows = np.full((b, p), n_total, np.int32)
+    job_rows = np.full((b, j), n_total, np.int32)
+    for e in range(b):
+        real = rng.integers(1, p)
+        patch_rows[e, :real] = rng.choice(n_total, real, replace=False)
+        used = rng.integers(4, j)
+        job_rows[e, :used] = rng.integers(0, n_total, used)
+        job_rows[e, :4] = job_rows[e, 0]
+    ov = binpack.CompactOverlay(
+        verdicts=t(rng.random((b, c, g)) < 0.6), patch_rows=t(patch_rows),
+        patch_vals=t(rng.random((b, p, g)) < 0.5), job_rows=t(job_rows),
+        job_tgs=t(rng.integers(0, g + 1, (b, j)).astype(np.int32)))
+    for lo in (0, n):
+        ids = t(class_ids[lo:lo + n])
+        got = binpack.expand_overlay(ids, ov, n, lo)
+        want = binpack.expand_overlay_plain(ids, ov, n, lo)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), lo
+
+
+@pytest.mark.parametrize("batch,rows,cols,total,lo", [
+    (1, 1, 10240, 10240, 0), (2, 64, 10240, 10240, 0),
+    (3, 5, 2561, 10244, 2561), (2, 7, 13, 40, 27), (1, 9, 3, 3, 0),
+    (1, 4, 1, 1, 0), (2, 3, 1030, 1030, 0), (64, 1024, 10, 10, 0),
+    (1, 70000, 16, 70000, 69984)])
+def test_threefry_uniform_launch_shapes_bits(dev, batch, rows, cols, total,
+                                             lo):
+    """The rebuilt K0 on the launch plan test's shapes
+    (tests/test_torch_draw.py): column windows, rows off 16-byte
+    alignment, 65,536 (eval, row) pairs, counters past 2^32; bit-equal
+    to the plain version."""
+    keys = torch.from_numpy(np.random.default_rng(rows).integers(
+        0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64)).to(dev)
+    got = prng.threefry_uniform(keys, (rows, cols), 0.0, 2.0,
+                                window=(lo, total))
+    want = prng.threefry_uniform_plain(keys, (rows, cols), 0.0, 2.0,
+                                       window=(lo, total))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_wrappers_count_their_launches(dev):
     keys = torch.zeros((1, 2), dtype=torch.int64, device=dev)
     before = cuda.launch_counts().get("threefry_uniform", 0)
@@ -172,60 +233,67 @@ def test_greedy_scan_seq_matches_plain(dev, b, n, k, g):
     """The pre_resolve layout: one block walks the evals in order over
     one shared copy of util/bw_used/ports_free."""
     static, base, feasible, asks = scan_inputs(n, k, g, b, n + 1, dev)
-    keys = torch.arange(2 * b, device=dev).view(b, 2)
-    noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    draw = prng.Draw(torch.arange(2 * b, device=dev).view(b, 2), 2.0)
     runs = []
-    for fn in (binpack.greedy_scan, binpack.greedy_scan_plain):
+    for fn, noise in ((binpack.greedy_scan, draw),
+                      (binpack.greedy_scan_plain, draw.noise((k, n)))):
         c = shared_carry(base)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, True), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     # Later evals see earlier claims: the shared ports run out.
     assert ((base[2] >= 2) & (runs[0][2][2] < 2)).any()
 
 
 def forced_scan(**force):
-    """K1 launched on the cluster and form ``force`` gives
-    (``scan.plan_for``'s ``ctas`` and ``resident``), arguments as
-    ``binpack.greedy_scan``."""
+    """K1 launched on the cluster, form and noise mode ``force`` gives
+    (``scan.plan_for``'s ``ctas``, ``resident`` and ``drawn``),
+    arguments as ``binpack.greedy_scan``."""
     def run(capacity, sched, bw_avail, node_ok, carry, feasible, asks,
-            noise, penalty, seq=False):
+            draw, penalty, seq=False):
         b, n, g = feasible.shape
         plan = scan.plan_for(feasible.device, b, n, g, seq, **force)
         return scan.launch(plan, (capacity, sched, bw_avail, node_ok),
-                           carry, feasible, asks, noise, penalty, seq)
+                           carry, feasible, asks, draw, penalty, seq)
     return run
 
 
-def run_greedy(static, base, feasible, asks, noise, seq, **force):
-    """K1 (on the cluster and form ``force`` gives, or through the
-    wrapper on the plan's) and its plain version on copies of the
-    carry; returns K1's (choices, scores, carry) after holding them
-    equal."""
+def run_greedy(static, base, feasible, asks, draw, seq, **force):
+    """K1 (on the cluster, form and noise mode ``force`` gives, or
+    through the wrapper on the plan's), its noise from ``draw`` (drawn
+    in the kernel, or K0's read), and its plain version on the plain
+    draw, on copies of the carry; returns K1's (choices, scores, carry)
+    after holding the choices, the carry and the scores' bits equal."""
     b, n, _g = feasible.shape
+    k = asks.resources.shape[1]
     runs = []
-    for fn in (forced_scan(**force) if force else binpack.greedy_scan,
-               binpack.greedy_scan_plain):
+    kernel = forced_scan(**force) if force else binpack.greedy_scan
+    for fn, noise in ((kernel, draw),
+                      (binpack.greedy_scan_plain, draw.noise((k, n)))):
         c = shared_carry(base) if seq else fresh(base, b, n)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, seq), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     return runs[0]
 
 
-def greedy_noise(b, k, n, dev, seed=0):
+def greedy_draw(b, dev, seed=0, scale=2.0):
+    """The noise of b evals as the scans draw it: keys and scale."""
     keys = torch.arange(seed, seed + 2 * b, device=dev).view(b, 2)
-    return prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+    return prng.Draw(keys, scale)
 
 
+@pytest.mark.parametrize("drawn", [True, False], ids=["drawn", "read"])
 @pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
 @pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
-def test_greedy_scan_any_cluster_size(dev, ctas, seq):
+def test_greedy_scan_any_cluster_size(dev, ctas, seq, drawn):
     """A cluster of 1 to 16 CTAs (16: a non-portable cluster) gives the
     same choices and carry, at N = 3,001 (not a multiple of the CTAs or
-    of their threads)."""
+    of their threads), the noise drawn in the kernel or read from
+    K0's."""
     b, n, k, g = 3, 3001, 96, 2
     static, base, feasible, asks = scan_inputs(n, k, g, b, ctas, dev)
     ch, _sc, _c = run_greedy(static, base, feasible, asks,
-                             greedy_noise(b, k, n, dev), seq, ctas=ctas)
+                             greedy_draw(b, dev), seq, ctas=ctas,
+                             drawn=drawn)
     assert (ch >= 0).any() and (ch == -1).any()
 
 
@@ -238,7 +306,7 @@ def test_greedy_scan_short_and_ragged_slices(dev, n, ctas):
     b, k, g = 2, 12, 2
     static, base, feasible, asks = scan_inputs(n, k, g, b, n, dev)
     for seq in (False, True):
-        run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
+        run_greedy(static, base, feasible, asks, greedy_draw(b, dev),
                    seq, ctas=ctas)
 
 
@@ -251,9 +319,9 @@ def test_greedy_scan_ties_across_cta_slices(dev, ctas):
     edges = [r * n // ctas for r in range(1, ctas)]
     rows = sorted({x for e in edges for x in (e - 1, e)})
     static, base, feasible, asks = tie_inputs(n, k, dev, rows)
-    noise = torch.zeros((1, k, n), device=dev)
+    quiet = greedy_draw(1, dev, scale=0.0)
     for seq in (False, True):
-        ch, sc, _c = run_greedy(static, base, feasible, asks, noise, seq,
+        ch, sc, _c = run_greedy(static, base, feasible, asks, quiet, seq,
                                 ctas=ctas)
         assert ch[0, 1].item() == -1 and sc[0, 1].item() == 0.0
         assert ch[0, 0].item() == rows[0]
@@ -271,14 +339,16 @@ def test_greedy_scan_infeasible_evals_and_inactive_asks(dev):
     asks = asks._replace(active=active)
     for seq in (False, True):
         ch, sc, _c = run_greedy(static, base, feasible, asks,
-                                greedy_noise(b, k, n, dev), seq)
+                                greedy_draw(b, dev), seq)
         assert (ch[1] == -1).all() and (sc[1] == 0).all()
         assert (ch[2, 5:9] == -1).all() and (ch[0] >= 0).any()
 
 
+@pytest.mark.parametrize("drawn", [True, False], ids=["drawn", "read"])
 @pytest.mark.parametrize("resident", [None, False], ids=["plan", "streamed"])
 @pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
-def test_greedy_scan_reuses_scores_across_alike_asks(dev, seq, resident):
+def test_greedy_scan_reuses_scores_across_alike_asks(dev, seq, resident,
+                                                      drawn):
     """Runs of alike asks (the score cache: each step rescoring only the
     node updated last), broken by asks that differ in one field at a
     time and by a new eval; distinct_hosts and ports bind, so a stale
@@ -298,23 +368,25 @@ def test_greedy_scan_reuses_scores_across_alike_asks(dev, seq, resident):
                          ports=ports.contiguous(), tg_index=tg.contiguous(),
                          tg_distinct_hosts=torch.ones_like(
                              asks.tg_distinct_hosts))
-    plan = scan.plan_for(dev, b, n, g, seq, None, resident)
-    assert plan.cache
+    plan = scan.plan_for(dev, b, n, g, seq, None, resident, drawn)
+    assert plan.cache and plan.drawn == drawn
     ch, _sc, _c = run_greedy(static, base, feasible, asks,
-                             greedy_noise(b, k, n, dev), seq,
-                             resident=resident)
+                             greedy_draw(b, dev), seq,
+                             resident=resident, drawn=drawn)
     assert (ch >= 0).sum() > b * k // 2
 
 
-def test_greedy_scan_without_cache_or_stages(dev):
+@pytest.mark.parametrize("drawn", [True, False], ids=["drawn", "read"])
+def test_greedy_scan_without_cache_or_stages(dev, drawn):
     """One CTA over 60,000 nodes: no room for the score cache or the
-    noise's stages; every row read in place."""
+    read noise's stages; every row read in place, 59 nodes a thread
+    (drawn: the first 5 a step ahead, the rest in the scoring pass)."""
     b, n, k, g = 2, 60000, 16, 2
     static, base, feasible, asks = scan_inputs(n, k, g, b, 43, dev)
-    plan = scan.plan_for(dev, b, n, g, False, 1)
+    plan = scan.plan_for(dev, b, n, g, False, 1, None, drawn)
     assert not (plan.cache or plan.stage_noise or plan.resident)
-    run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
-               False, ctas=1)
+    run_greedy(static, base, feasible, asks, greedy_draw(b, dev),
+               False, ctas=1, drawn=drawn)
 
 
 @pytest.mark.parametrize("seq", [False, True], ids=["independent", "seq"])
@@ -327,7 +399,7 @@ def test_greedy_scan_runs_out_of_ports(dev, seq):
     asks = asks._replace(ports=torch.full_like(asks.ports, 2.0),
                          active=torch.ones_like(asks.active))
     ch, _sc, c = run_greedy(static, base, feasible, asks,
-                            greedy_noise(b, k, n, dev), seq, ctas=2)
+                            greedy_draw(b, dev), seq, ctas=2)
     assert ((base[2] >= 2) & (c[2] < 2)).any() and (ch == -1).any()
 
 
@@ -343,31 +415,51 @@ def test_greedy_scan_seq_main_path_shapes(dev, b, k, resident):
     plan = scan.plan_for(dev, b, n, g, True, None, resident)
     assert plan.resident == (resident is None) and plan.ctas >= 4
     _ch, _sc, c = run_greedy(static, base, feasible, asks,
-                             greedy_noise(b, k, n, dev), True,
+                             greedy_draw(b, dev), True,
                              resident=resident)
     assert ((base[2] >= 2) & (c[2] < 2)).any()
 
 
 @pytest.mark.parametrize("b,resident", [(1, None), (1, False), (64, None),
                                         (4, None)])
-def test_greedy_scan_main_path_shapes(dev, b, resident):
+@pytest.mark.parametrize("drawn", [None, True], ids=["plan", "drawn"])
+def test_greedy_scan_main_path_shapes(dev, b, resident, drawn):
     """K1 at N = 10,240, K = 1,024 (B = 1: at least 4 CTAs, resident;
     B = 64: a one-wave cluster, streamed) and the stacked layout at B =
-    4; through the wrapper (the plan's form), one launch a call."""
+    4; through the wrapper (the plan's form and noise), one launch a
+    call; and each with the noise drawn in the kernel."""
     n, k, g = 10240, 1024 if b < 64 else 128, 2
     static, base, feasible, asks = scan_inputs(n, k, g, b, 31 + b, dev)
     if b == 4:
         static = stacked_of(static, b, n, dev, 5)
-    plan = scan.plan_for(dev, b, n, g, False, None, resident)
+    plan = scan.plan_for(dev, b, n, g, False, None, resident, drawn)
     assert plan.waves == 1
     if b == 1:
         assert plan.ctas >= 4 and plan.resident == (resident is None)
     name = "greedy_scan_stacked" if b == 4 else "greedy_scan"
     before = cuda.launch_counts().get(name, 0)
-    force = {} if resident is None else {"resident": resident}
-    run_greedy(static, base, feasible, asks, greedy_noise(b, k, n, dev),
+    force = {x: v for x, v in (("resident", resident), ("drawn", drawn))
+             if v is not None}
+    run_greedy(static, base, feasible, asks, greedy_draw(b, dev),
                False, **force)
     assert cuda.launch_counts().get(name, 0) == before + (not force)
+
+
+def test_greedy_scan_draws_or_reads_the_noise_by_the_plan(dev):
+    """Through the wrapper: one eval (a cluster of 16 CTAs) reads K0's
+    noise, K0 launched once before the scan; 64 evals (128 CTAs) draw it
+    in the kernel, no K0; bit-equal to the plain draw and scan both
+    ways."""
+    n, k, g = 10240, 64, 2
+    for b, drawn in ((1, False), (64, True)):
+        static, base, feasible, asks = scan_inputs(n, k, g, b, 61 + b, dev)
+        assert scan.plan_for(dev, b, n, g, False).drawn == drawn
+        before = cuda.launch_counts()
+        run_greedy(static, base, feasible, asks, greedy_draw(b, dev), False)
+        after = cuda.launch_counts()
+        assert (after.get("threefry_uniform", 0)
+                - before.get("threefry_uniform", 0)) == (not drawn)
+        assert after["greedy_scan"] - before.get("greedy_scan", 0) == 1
 
 
 def test_greedy_scan_refused_launch_raises(dev):
@@ -375,10 +467,10 @@ def test_greedy_scan_refused_launch_raises(dev):
     wrapper; nothing else runs."""
     n, k, g, b = 500, 8, 2, 1
     static, base, feasible, asks = scan_inputs(n, k, g, b, 3, dev)
-    noise = greedy_noise(b, k, n, dev)
+    draw = greedy_draw(b, dev)
     with pytest.raises(RuntimeError, match="no cluster"):
         forced_scan(ctas=17)(*static, fresh(base, b, n), feasible, asks,
-                             noise, 10.0)
+                             draw, 10.0)
     assert scan.occupancy_of(dev)(16, 1024, 300 * 1024, True) == 0
     with pytest.raises(RuntimeError, match="no cluster"):
         scan.scan_plan(b, n, g, False, lambda c, t, m, r: 0)
@@ -387,7 +479,7 @@ def test_greedy_scan_refused_launch_raises(dev):
                 plan._replace(ctas=32)):
         with pytest.raises(RuntimeError, match="nt_greedy_scan"):
             scan.launch(bad, static, fresh(base, b, n), feasible, asks,
-                        noise, 10.0, False)
+                        draw, 10.0, False)
 
 
 def test_greedy_scan_refuses_one_eval_buffer_under_seq(dev):
@@ -403,7 +495,7 @@ def test_greedy_scan_refuses_one_eval_buffer_under_seq(dev):
         plan.stage_noise, 1, plan.cache)[1])
     with pytest.raises(RuntimeError, match="nt_greedy_scan"):
         scan.launch(one, static, shared_carry(base), feasible, asks,
-                    greedy_noise(b, k, n, dev), 10.0, True)
+                    greedy_draw(b, dev), 10.0, True)
 
 
 @pytest.mark.skipif(not torch.cuda.is_available()
@@ -421,7 +513,116 @@ def test_greedy_scan_on_a_second_card():
         assert scan.plan_for(on[1], b, n, g, False) == first
         static, base, feasible, asks = scan_inputs(n, k, g, b, 9, on[1])
         run_greedy(static, base, feasible, asks,
-                   greedy_noise(b, k, n, on[1]), False)
+                   greedy_draw(b, on[1]), False)
+
+
+def test_wrappers_launch_on_their_tensors_card(dev):
+    """With cuda:0 current, every wrapper that launches on its tensors'
+    card does so under that card's context: K0, K4, K2 (through the
+    cluster launch), K3, K6, K7 and K8b on cuda:1 tensors equal their
+    plain versions, so does K1 with its noise drawn in the kernel and
+    read from K0's, and one PlacementBatcher("cuda:1") dispatch (the
+    base upload, K3, K0 and K1 reading its noise, as the plan takes at
+    that batch) equals a CPU batcher's. Skips on a machine with one
+    card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card: the cross-card launches")
+    from nomad_tpu_torch import mock as port_mock
+    from nomad_tpu_torch.models.matrix import ClusterMatrix
+    from nomad_tpu_torch.scheduler.batcher import PlacementBatcher
+    from nomad_tpu_torch.state import StateStore
+
+    one = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        # K0
+        keys = torch.tensor([[5, 9], [7, 3]], dtype=torch.int64, device=one)
+        got = prng.threefry_uniform(keys, (6, 1000), 0.0, 2.0)
+        want = prng.threefry_uniform_plain(keys, (6, 1000), 0.0, 2.0)
+        assert got.device == one and torch.equal(got, want)
+        # K4
+        rng = np.random.default_rng(1)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(one)  # noqa: E731
+        n, r = 1000, 64
+        parent = (t(rng.random((n, 4)).astype(np.float32)),
+                  t(rng.random(n).astype(np.float32)),
+                  t(rng.random(n).astype(np.float32)), t(rng.random(n) < 0.5))
+        payload = (t(rng.choice(n, r, replace=False).astype(np.int32)),
+                   t(rng.random((r, 4)).astype(np.float32)),
+                   t(rng.random(r).astype(np.float32)),
+                   t(rng.random(r).astype(np.float32)), t(rng.random(r) < 0.5))
+        for x, y in zip(binpack.apply_base_delta(*parent, *payload),
+                        binpack.apply_base_delta_plain(*parent, *payload)):
+            assert torch.equal(x, y)
+        # K2 (uniform_topk_cluster)
+        static, base, feasible, asks, draw = uniform_inputs(3, 1000, 8, 4, one)
+        run_uniform(static, base, feasible, asks, draw, True)
+        # K3
+        ov = binpack.CompactOverlay(
+            verdicts=t(rng.random((2, 8, 2)) < 0.6),
+            patch_rows=t(np.array([[3, 9, n], [4, n, n]], np.int32)),
+            patch_vals=t(rng.random((2, 3, 2)) < 0.5),
+            job_rows=t(np.array([[1, 1, 7, n], [2, 5, n, n]], np.int32)),
+            job_tgs=t(np.array([[0, 1, 0, 0], [1, 0, 0, 0]], np.int32)))
+        ids = t(rng.integers(-1, 8, n).astype(np.int32))
+        for x, y in zip(binpack.expand_overlay(ids, ov, n),
+                        binpack.expand_overlay_plain(ids, ov, n)):
+            assert torch.equal(x, y)
+        # K1, the noise drawn in the kernel and read from K0's
+        static, base, feasible, asks = scan_inputs(n, 32, 2, 3, 4, one)
+        for drawn in (True, False):
+            run_greedy(static, base, feasible, asks, greedy_draw(3, one),
+                       False, drawn=drawn)
+        # K6
+        state, victims, pasks = preempt_inputs(300, 32, 2, 3, one)
+        noise = prng.threefry_uniform_plain(
+            torch.tensor([[3, 1]], device=one), (32, 300), 0.0, 2.0)[0]
+        outs = []
+        for fn in (preempt.preempt_scan, preempt.preempt_scan_plain):
+            st, vok = preempt_carry(state, victims)
+            outs.append((*fn(st, victims, vok, pasks, noise, 50.0, 10.0),
+                         st.util, vok))
+        (ch, sc, nv, u, vk), (ch_p, sc_p, nv_p, u_p, vk_p) = outs
+        assert torch.equal(ch, ch_p) and torch.equal(nv, nv_p)
+        assert (sc - sc_p).abs().max().item() <= 1e-4
+        assert torch.equal(u, u_p) and torch.equal(vk, vk_p)
+        # K7
+        gstate, ask, abw, aports = gang_inputs(400, 6, one)
+        _hold_gang_scan(gstate, ask, abw, aports, "slice", False, 400, 12,
+                        16, 64)
+        # K8b
+        b, k, g = 2, 24, 2
+        static, base, feasible, asks = scan_inputs(n, k, g, b, 8, one)
+        noise = prng.threefry_uniform_plain(
+            torch.arange(2 * b, device=one).view(b, 2), (k, n), 0.0, 2.0)
+        pref = torch.rand((b, k, n), device=one,
+                          generator=torch.Generator(one).manual_seed(n))
+        runs = []
+        for fn in (convex.convex_round, convex.convex_round_plain):
+            c = fresh(base, b, n)
+            runs.append((*fn(*static, c, feasible, asks, noise, 10.0, pref),
+                         c))
+        assert_scans_agree(*runs)
+        # One batcher dispatch on cuda:1.
+        store = StateStore()
+        for i in range(200):
+            node = port_mock.node()
+            node.compute_class()
+            store.upsert_node(i + 1, node)
+        job = port_mock.job()
+        job.task_groups[0].tasks[0].resources.networks = []
+        store.upsert_job(300, job)
+        matrix = ClusterMatrix(store.snapshot(), job)
+        masks = binpack.make_asks(*matrix.build_asks([0] * 8))
+        config = binpack.PlacementConfig(anti_affinity_penalty=10.0)
+        key = binpack.host_prng_key(7)
+        got = PlacementBatcher("cuda:1", window=0.0).place(
+            matrix, masks, key, config)
+        want = PlacementBatcher("cpu", window=0.0).place(
+            matrix, masks, key, config)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert (np.asarray(got[0]) >= 0).any()
+        assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.parametrize("b,n,k", [(8, 1000, 16), (3, 40000, 64)])
@@ -433,27 +634,26 @@ def test_uniform_topk_seq_matches_plain(dev, b, n, k):
         ports=asks.ports[:, :1].expand(b, k).contiguous(),
         tg_index=torch.zeros_like(asks.tg_index),
         tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
-    noise = prng.threefry_uniform(
-        torch.arange(2 * b, device=dev).view(b, 2), (n,), 0.0, 2.0)
+    draw = prng.Draw(torch.arange(2 * b, device=dev).view(b, 2), 2.0)
     runs = []
-    for fn in (binpack.uniform_topk, binpack.uniform_topk_plain):
+    for fn, noise in ((binpack.uniform_topk, draw),
+                      (binpack.uniform_topk_plain, draw.noise((n,)))):
         c = shared_carry(base)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, True), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
 
 
 def uniform_inputs(b, n, k, seed, dev, stacked=False):
     """scan_inputs with K2's asks (every ask is ask 0 of task group 0)
-    and one noise draw a node; every ask active when K < 4."""
+    and the draw of one noise value a node; every ask active when K <
+    4."""
     static, base, feasible, asks = scan_inputs(n, k, 2, b, seed, dev)
     if stacked:
         static = stacked_of(static, b, n, dev, seed)
     asks = uniform_asks(asks, b, k)
     if k < 4:
         asks = asks._replace(active=torch.ones_like(asks.active))
-    noise = prng.threefry_uniform(
-        torch.arange(2 * b, device=dev).view(b, 2), (n,), 0.0, 2.0)
-    return static, base, feasible, asks, noise
+    return static, base, feasible, asks, greedy_draw(b, dev)
 
 
 def cluster_topk(ctas, resident=True):
@@ -461,25 +661,28 @@ def cluster_topk(ctas, resident=True):
     seq rows streamed where ``resident`` is False (uniform_topk
     launches 8, resident where the rows fit)."""
     def run(capacity, sched, bw_avail, node_ok, carry, feasible, asks,
-            noise, penalty, seq=False):
+            draw, penalty, seq=False):
         _b, n, g = feasible.shape
-        segs = [(0, n, (capacity, sched, bw_avail, node_ok, *carry, feasible,
-                        noise))]
+        segs = [(0, n, (capacity, sched, bw_avail, node_ok, *carry,
+                        feasible))]
         return binpack.uniform_topk_cluster(
-            "uniform_topk", segs, asks, g, n, penalty, seq,
+            "uniform_topk", segs, asks, draw, g, n, penalty, seq,
             capacity.dim() == 3, ctas, resident=resident)
     return run
 
 
-def run_uniform(static, base, feasible, asks, noise, seq,
+def run_uniform(static, base, feasible, asks, draw, seq,
                 kernel=binpack.uniform_topk):
-    """K2 and its plain version on copies of the carry."""
+    """K2, drawing its noise from ``draw`` in the kernel, and its plain
+    version on the plain draw, on copies of the carry: choices, carry
+    and the scores' bits equal."""
     b, n, _g = feasible.shape
     runs = []
-    for fn in (kernel, binpack.uniform_topk_plain):
+    for fn, noise in ((kernel, draw),
+                      (binpack.uniform_topk_plain, draw.noise((n,)))):
         c = shared_carry(base) if seq else fresh(base, b, n)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, seq), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     return runs[0]
 
 
@@ -492,9 +695,9 @@ def test_uniform_topk_selection_matches_plain(dev, layout, n, k):
     1,024 (radix select); N not a multiple of the cluster's 8 CTAs,
     below it (empty slices), and below K (surplus asks -1)."""
     b = 4
-    static, base, feasible, asks, noise = uniform_inputs(
+    static, base, feasible, asks, draw = uniform_inputs(
         b, n, k, 3 * n + k, dev, stacked=layout == "stacked")
-    ch, _sc, _c = run_uniform(static, base, feasible, asks, noise,
+    ch, _sc, _c = run_uniform(static, base, feasible, asks, draw,
                               layout == "seq")
     assert (ch >= 0).any()
     if k > n:
@@ -506,10 +709,10 @@ def test_uniform_topk_all_infeasible_eval(dev, k):
     """An eval no node fits: every ask -1 with score 0, and the evals
     around it (seq: after it) place as the plain version does."""
     b, n = 3, 1000
-    static, base, feasible, asks, noise = uniform_inputs(b, n, k, 5, dev)
+    static, base, feasible, asks, draw = uniform_inputs(b, n, k, 5, dev)
     feasible[1] = False
     for seq in (False, True):
-        ch, sc, _c = run_uniform(static, base, feasible, asks, noise, seq)
+        ch, sc, _c = run_uniform(static, base, feasible, asks, draw, seq)
         assert (ch[1] == -1).all() and (sc[1] == 0).all()
         assert (ch[0] >= 0).any() and (ch[2] >= 0).any()
 
@@ -523,9 +726,9 @@ def test_uniform_topk_ties_across_cta_slices(dev, k, rows):
     n = 256
     static, base, feasible, asks = tie_inputs(n, k, dev, list(rows))
     asks = uniform_asks(asks, 1, k)
-    noise = torch.zeros((1, n), device=dev)
+    quiet = greedy_draw(1, dev, scale=0.0)
     for seq in (False, True):
-        ch, _sc, _c = run_uniform(static, base, feasible, asks, noise, seq)
+        ch, _sc, _c = run_uniform(static, base, feasible, asks, quiet, seq)
         want = (list(rows) + [-1] * k)[:k]
         assert ch[0].tolist() == want
 
@@ -534,8 +737,8 @@ def test_uniform_topk_seq_runs_out_of_ports(dev):
     """16 evals of 8 asks over 64 nodes in order: later evals see the
     shared ports earlier ones claimed, and nodes run out of them."""
     b, n, k = 16, 64, 8
-    static, base, feasible, asks, noise = uniform_inputs(b, n, k, 9, dev)
-    _ch, _sc, c = run_uniform(static, base, feasible, asks, noise, True)
+    static, base, feasible, asks, draw = uniform_inputs(b, n, k, 9, dev)
+    _ch, _sc, c = run_uniform(static, base, feasible, asks, draw, True)
     assert ((base[2] >= 2) & (c[2] < 2)).any()
 
 
@@ -546,8 +749,8 @@ def test_uniform_topk_seq_resident_and_streamed(dev, n, resident):
     (N = 10,000 on 8 CTAs) and are read from global memory where they
     do not (N = 40,000) or when asked: the same choices either way."""
     b, k = 6, 8
-    static, base, feasible, asks, noise = uniform_inputs(b, n, k, n, dev)
-    ch, _sc, _c = run_uniform(static, base, feasible, asks, noise, True,
+    static, base, feasible, asks, draw = uniform_inputs(b, n, k, n, dev)
+    ch, _sc, _c = run_uniform(static, base, feasible, asks, draw, True,
                               cluster_topk(8, resident))
     assert (ch >= 0).sum() > b * k // 2
 
@@ -557,19 +760,19 @@ def test_uniform_topk_any_cluster_size(dev, ctas):
     """A cluster of 1 to 8 CTAs, a power of two or not (K10d's W = 3,
     5-7 shards of one card), selects the same top K."""
     for k in (8, 64):
-        static, base, feasible, asks, noise = uniform_inputs(
+        static, base, feasible, asks, draw = uniform_inputs(
             4, 3000, k, ctas + k, dev)
-        run_uniform(static, base, feasible, asks, noise, True,
+        run_uniform(static, base, feasible, asks, draw, True,
                     cluster_topk(ctas))
 
 
 def test_uniform_topk_refused_launch_raises(dev):
     """A launch the kernel refuses (more CTAs than a portable cluster)
     raises out of the wrapper; no other path runs."""
-    static, base, feasible, asks, noise = uniform_inputs(1, 500, 8, 1, dev)
+    static, base, feasible, asks, draw = uniform_inputs(1, 500, 8, 1, dev)
     with pytest.raises(RuntimeError, match="nt_uniform_topk"):
         cluster_topk(9, True)(*static, fresh(base, 1, 500), feasible, asks,
-                              noise, 10.0)
+                              draw, 10.0)
 
 
 @pytest.mark.parametrize("uniform", [False, True])
@@ -585,7 +788,7 @@ def test_stacked_scans_match_plain(dev, uniform):
     stacked = (cap, (cap - (static[0] - static[1])).contiguous(),
                static[2].expand(b, n).contiguous(),
                torch.from_numpy(rng.random((b, n)) < 0.9).to(dev))
-    keys = torch.arange(2 * b, device=dev).view(b, 2)
+    draw = greedy_draw(b, dev)
     if uniform:
         asks = asks._replace(
             resources=asks.resources[:, :1].expand(b, k, 4).contiguous(),
@@ -593,16 +796,16 @@ def test_stacked_scans_match_plain(dev, uniform):
             ports=asks.ports[:, :1].expand(b, k).contiguous(),
             tg_index=torch.zeros_like(asks.tg_index),
             tg_distinct_hosts=torch.ones_like(asks.tg_distinct_hosts))
-        noise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
-        fns = (binpack.uniform_topk, binpack.uniform_topk_plain)
+        fns = ((binpack.uniform_topk, draw),
+               (binpack.uniform_topk_plain, draw.noise((n,))))
     else:
-        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
-        fns = (binpack.greedy_scan, binpack.greedy_scan_plain)
+        fns = ((binpack.greedy_scan, draw),
+               (binpack.greedy_scan_plain, draw.noise((k, n))))
     runs = []
-    for fn in fns:
+    for fn, noise in fns:
         c = fresh(base, b, n)
         runs.append((*fn(*stacked, c, feasible, asks, noise, 10.0), c))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
 
 
 @pytest.mark.parametrize("n,r", [(1000, 256), (10240, 4096)])
@@ -1166,9 +1369,12 @@ def test_convex_wrappers_count_their_launches(dev):
 
 
 def shard_split(static, base, feasible, asks, keys, w, uniform, seq,
-                noise_scale=2.0):
+                noise_scale=2.0, drawn=False):
     """The scan inputs split into w node shards (NodeShard), each with
-    its own carry copy and its window of the noise."""
+    its own carry copy and its window of the noise: K0's window
+    (greedy), the window's Draw (uniform: K10d's one-card route draws
+    it in its kernel), or with ``drawn`` the plain draw of the window
+    (the plain versions' yardstick)."""
     from nomad_tpu_torch.parallel.mesh import shard_bounds
     from nomad_tpu_torch.parallel.shard import NodeShard
 
@@ -1182,13 +1388,19 @@ def shard_split(static, base, feasible, asks, keys, w, uniform, seq,
         part = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa: E731
         own = 0 if seq else 1
         shape = (hi - lo,) if uniform else (k, hi - lo)
+        draw = prng.Draw(keys, noise_scale, lo, n)
+        if drawn:
+            noise, draw = draw.noise(shape), None
+        elif uniform:
+            noise = None
+        else:
+            noise, draw = prng.threefry_uniform(
+                keys, shape, 0.0, noise_scale, window=(lo, n)), None
         out.append(NodeShard(
             lo, *(part(x, d) for x in static),
             (part(carry[0], own), part(carry[1], own), part(carry[2], own),
              part(carry[3], 1), part(carry[4], 1)),
-            part(feasible, 1), asks,
-            prng.threefry_uniform(keys, shape, 0.0, noise_scale,
-                                  window=(lo, n))))
+            part(feasible, 1), asks, noise, draw=draw))
     return out
 
 
@@ -1244,15 +1456,14 @@ def test_sharded_scans_match_plain_and_unsharded(dev, uniform, w, layout):
                          shard.sharded_greedy_scan_plain,
                          binpack.greedy_scan))
     runs = []
-    for fn in (kern, plain):
+    for fn, drawn in ((kern, False), (plain, True)):
         shards = shard_split(static, base, feasible, asks, keys, w, uniform,
-                             seq)
+                             seq, drawn=drawn)
         runs.append((*fn(shards, 10.0, seq), join_carry(shards, seq)))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     c = shared_carry(base) if seq else fresh(base, b, n)
-    noise = prng.threefry_uniform(keys, (n,) if uniform else (k, n), 0.0,
-                                  2.0)
-    ch, sc = one(*static, c, feasible, asks, noise, 10.0, seq)
+    ch, sc = one(*static, c, feasible, asks, prng.Draw(keys, 2.0), 10.0,
+                 seq)
     assert torch.equal(runs[0][0], ch) and torch.equal(runs[0][1], sc)
     for name, x, y in zip(CARRY, runs[0][2], c):
         assert torch.equal(x, y), name
@@ -1292,9 +1503,10 @@ def test_sharded_greedy_tie_across_a_boundary_and_no_fit(dev, w):
     static, base, feasible, asks = tie_inputs(n, k, dev, [edge - 1, edge])
     keys = torch.zeros((1, 2), dtype=torch.int64, device=dev)
     runs = []
-    for fn in (shard.sharded_greedy_scan, shard.sharded_greedy_scan_plain):
+    for fn, drawn in ((shard.sharded_greedy_scan, False),
+                      (shard.sharded_greedy_scan_plain, True)):
         shards = shard_split(static, base, feasible, asks, keys, w, False,
-                             False, noise_scale=0.0)
+                             False, noise_scale=0.0, drawn=drawn)
         runs.append((*fn(shards, 10.0), join_carry(shards, False)))
     assert_scans_agree(*runs)
     assert runs[0][0].tolist() == [[edge - 1, -1, edge]]
@@ -1314,9 +1526,10 @@ def test_sharded_uniform_topk_tie_across_a_boundary(dev, w):
     asks = uniform_asks(asks, 1, k)
     keys = torch.zeros((1, 2), dtype=torch.int64, device=dev)
     runs = []
-    for fn in (shard.sharded_uniform_topk, shard.sharded_uniform_topk_plain):
+    for fn, drawn in ((shard.sharded_uniform_topk, False),
+                      (shard.sharded_uniform_topk_plain, True)):
         shards = shard_split(static, base, feasible, asks, keys, w, True,
-                             False, noise_scale=0.0)
+                             False, noise_scale=0.0, drawn=drawn)
         runs.append((*fn(shards, 10.0), join_carry(shards, False)))
     assert_scans_agree(*runs)
     assert runs[0][0].tolist() == [[edge - 1, edge, -1]]
@@ -1334,15 +1547,15 @@ def test_sharded_uniform_topk_global_scratch_and_surplus(dev, w):
     asks = uniform_asks(asks, b, k)
     keys = torch.arange(2 * b, device=dev).view(b, 2)
     runs = []
-    for fn in (shard.sharded_uniform_topk, shard.sharded_uniform_topk_plain):
+    for fn, drawn in ((shard.sharded_uniform_topk, False),
+                      (shard.sharded_uniform_topk_plain, True)):
         shards = shard_split(static, base, feasible, asks, keys, w, True,
-                             True)
+                             True, drawn=drawn)
         runs.append((*fn(shards, 10.0, True), join_carry(shards, True)))
-    assert_scans_agree(*runs)
+    assert_scans_agree(*runs, bits=True)
     c = shared_carry(base)
-    noise = prng.threefry_uniform(keys, (n,), 0.0, 2.0)
-    ch, _sc = binpack.uniform_topk(*static, c, feasible, asks, noise, 10.0,
-                                   True)
+    ch, _sc = binpack.uniform_topk(*static, c, feasible, asks,
+                                   prng.Draw(keys, 2.0), 10.0, True)
     assert torch.equal(runs[0][0], ch)
 
 
@@ -1597,7 +1810,8 @@ def test_sharded_wrappers_count_their_launches(dev):
     shard.sharded_greedy_scan(shard_split(static, base, feasible, asks, keys,
                                           w, False, False), 10.0)
     shard.sharded_greedy_scan_plain(shard_split(
-        static, base, feasible, asks, keys, w, False, False), 10.0)
+        static, base, feasible, asks, keys, w, False, False, drawn=True),
+        10.0)
     ua = uniform_asks(asks, b, k)
     shard.sharded_uniform_topk(shard_split(static, base, feasible, ua, keys,
                                            w, True, False), 10.0)

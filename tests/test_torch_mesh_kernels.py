@@ -80,6 +80,7 @@ from nomad_tpu_torch.defrag import WarmState, compute_defrag_plan
 from nomad_tpu_torch.kernels import convex as tc
 from nomad_tpu_torch.ops import binpack as tb
 from nomad_tpu_torch.ops import gang as tg
+from nomad_tpu_torch.ops import prng as tp
 from nomad_tpu_torch.parallel import mesh as tmesh
 from nomad_tpu_torch.parallel import shard as tshard
 
@@ -448,7 +449,7 @@ def test_sharded_convex_round_matches_plain_rounding(w, pre_resolve):
     feas, jc, tgc = tb.expand_overlay(cid, tb.CompactOverlay(*flat[8:13]),
                                       n)
     ta = tb.Asks(*flat[13:])
-    noise = tb.threefry_uniform(tb.keys_tensor(keys, "cpu"), (k, n), 0.0,
+    noise = tp.threefry_uniform(tb.keys_tensor(keys, "cpu"), (k, n), 0.0,
                                 2.0)
     pref = torch.rand((b, k, n), generator=torch.Generator().manual_seed(w))
     seq = pre_resolve

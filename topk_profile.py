@@ -8,7 +8,7 @@ widths (N = 10,240 nodes, G = 2, inputs from chip_smoke.kernel_inputs;
 4 shards of one card).
 
     python3 topk_profile.py [--seed N]
-        [--sections host,waves,steps,shards,relax,scan]
+        [--sections host,waves,steps,shards,relax,scan,modes]
 
 Prints, one JSON object a line:
 
@@ -70,13 +70,28 @@ Prints, one JSON object a line:
    two groups (two runs of alike asks an eval) and on varied asks
    (chip_smoke.varied_asks: none alike), with the share of alike
    steps; (c) ``parts``, at the plan's launch for B = 1, B = 64 and
-   seq 4 x 1,024: a step split into the waits for staged rows, the
-   asks' loads, scoring, the warp and block reduction with the CTA key's sends (block argmax),
-   the wait for the cluster's keys (exchange) and the winner's
-   reduction and row update, from the kernel's clock counters on one
-   thread of rank 0 (warp 1's lane 0, which issues no bulk copies;
-   ``prof``): each part's share of the cycles and its microseconds a
-   step at the call's measured time.
+   seq 4 x 1,024: a step split into the waits for staged rows (an
+   eval's; reading the noise, its stage),
+   the asks' loads, scoring (with the noise of the thread's nodes past
+   the first 5, drawn there), the warp and block reduction with the CTA
+   key's sends (block argmax), the next step's draw (the noise of the
+   thread's first 5 nodes, hashed while the keys travel), the wait for
+   the cluster's keys (exchange) and the winner's reduction and row
+   update, from the kernel's clock counters on one thread of rank 0
+   (warp 1's lane 0, which issues no bulk copies; ``prof``): each
+   part's share of the cycles and its microseconds a step at the call's
+   measured time; each shape with the noise drawn in the kernel and
+   read from K0's tensor (staged where it fits), in turns (drawn, read,
+   drawn, read), the call's time including K0's launch where it reads.
+   Every call here takes the batch's keys (a ``prng.Draw``).
+9. ``modes``: the greedy scan (K1, stacked, K = 1,024) at B = 4, 16,
+   17, 31, 33 and 64 with its noise drawn in the kernel and read from
+   K0's tensor, each mode on its own plan (``scan.plan_for(...,
+   drawn=)``: its cluster and form), in turns (drawn, read, drawn,
+   read), the call's time including K0's launch where it reads; the
+   two modes' outputs held equal; K0's time alone; the nodes a CTA
+   hashes a step drawing (its slice) against the nodes an SM hashes a
+   step in K0 (B N over the card's SMs); and the mode the plan takes.
 
 Exits non-zero with no result when no CUDA card is present.
 """
@@ -410,7 +425,7 @@ def scan_section(torch, np, cs, seed):
             torch, np, n, k, g, b, seed + 70 + b, dev)
         static = (base["capacity"], base["sched_capacity"],
                   base["bw_avail"], base["node_ok"])
-        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        draw = prng.Draw(keys, 2.0)
         box = {}
 
         def fresh():
@@ -418,7 +433,7 @@ def scan_section(torch, np, cs, seed):
                         else cs.new_carry(torch, base, jc, tgc))
 
         def run(p, a=asks, prof=None):
-            return scan.launch(p, static, box["c"], feas, a, noise, 10.0,
+            return scan.launch(p, static, box["c"], feas, a, draw, 10.0,
                                seq, prof)
 
         plan = scan.plan_for(dev, b, n, g, seq)
@@ -474,30 +489,101 @@ def scan_section(torch, np, cs, seed):
                 shape=label, asks=kind, alike_share=alike / total,
                 cache=plan.cache, ctas=plan.ctas, form=plan.form,
                 on_ms=ms["on"], off_ms=ms["off"])}))
-        prof = torch.zeros(len(scan.PARTS), dtype=torch.int64, device=dev)
-        fresh()
-        run(plan, prof=prof)
-        cycles = prof.tolist()
-        ms = cs.time_cuda(torch, lambda: run(plan), cs.RUNS, setup=fresh)
-        step_us = ms * 1000.0 / steps
-        share = [c / max(sum(cycles), 1) for c in cycles]
-        print(json.dumps({"parts": dict(
-            shape=label, ctas=plan.ctas, threads=plan.threads,
-            form=plan.form, ms=ms, step_us=step_us,
-            cycles=dict(zip(scan.PARTS, cycles)),
-            share=dict(zip(scan.PARTS, share)),
-            us_a_step={x: step_us * f for x, f in zip(scan.PARTS, share)},
-            one_block_chain_ms=cs.chain_ms(torch, steps, dev),
-            cluster_chain_ms=cs.cluster_chain_ms(
-                torch, steps, plan.ctas, plan.threads, dev))}))
+        # The step's parts at the plan's cluster and form, the noise
+        # drawn in the kernel and read from K0's (K0's draw is outside
+        # the kernel's clock and inside the call's time), in turns.
+        modes = {}
+        for drawn in (True, False, True, False):
+            p = scan.plan_for(dev, b, n, g, seq, plan.ctas, plan.resident,
+                              drawn)
+            prof = torch.zeros(len(scan.PARTS), dtype=torch.int64,
+                               device=dev)
+            fresh()
+            got = (*run(p, prof=prof), box["c"])
+            cs.check(all(torch.equal(x, y) for x, y in zip(
+                (got[0], got[1], *got[2]), (want[0], want[1], *want[2]))),
+                f"K1 {label} with the noise {drawn and 'drawn' or 'read'} "
+                "differs")
+            cycles = prof.tolist()
+            ms = cs.time_cuda(torch, lambda: run(p), cs.RUNS, setup=fresh)
+            modes.setdefault(drawn, []).append((ms, cycles, p))
+        for drawn, runs in modes.items():
+            ms, cycles, p = runs[0]
+            step_us = ms * 1000.0 / steps
+            share = [c / max(sum(cycles), 1) for c in cycles]
+            print(json.dumps({"parts": dict(
+                shape=label, ctas=p.ctas, threads=p.threads, form=p.form,
+                drawn=drawn, plan=drawn == plan.drawn,
+                stage_noise=p.stage_noise, ms=ms,
+                ms_turns=[r[0] for r in runs], step_us=step_us,
+                cycles=dict(zip(scan.PARTS, cycles)),
+                share=dict(zip(scan.PARTS, share)),
+                us_a_step={x: step_us * f
+                           for x, f in zip(scan.PARTS, share)},
+                one_block_chain_ms=cs.chain_ms(torch, steps, dev),
+                cluster_chain_ms=cs.cluster_chain_ms(
+                    torch, steps, p.ctas, p.threads, dev))}))
         torch.cuda.synchronize()
+
+
+MODE_BATCHES = (4, 16, 17, 31, 33, 64)
+
+
+def modes_section(torch, np, cs, seed):
+    """The greedy scan's two noise modes by B (section 9)."""
+    from nomad_tpu_torch.ops import prng, scan
+
+    dev = torch.device("cuda")
+    n, g, k = cs.BENCH_N, 2, 1024
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in MODE_BATCHES:
+        base, jc, tgc, feas, asks, _u, keys = cs.kernel_inputs(
+            torch, np, n, k, g, b, seed + 90 + b, dev)
+        static = (base["capacity"], base["sched_capacity"],
+                  base["bw_avail"], base["node_ok"])
+        draw = prng.Draw(keys, 2.0)
+        box = {}
+
+        def fresh():
+            box["c"] = cs.new_carry(torch, base, jc, tgc)
+
+        def run(p):
+            return scan.launch(p, static, box["c"], feas, asks, draw, 10.0,
+                               False)
+
+        plan = scan.plan_for(dev, b, n, g, False)
+        plans = {d: scan.plan_for(dev, b, n, g, False, drawn=d)
+                 for d in (True, False)}
+        outs = {}
+        for d, p in plans.items():
+            fresh()
+            outs[d] = (*run(p), *box["c"])
+        cs.check(all(torch.equal(x, y)
+                     for x, y in zip(outs[True], outs[False])),
+                 f"K1 B={b}: the drawn and the read noise differ")
+        del outs
+        ms = {True: [], False: []}
+        for d in (True, False, True, False):
+            ms[d].append(cs.time_cuda(torch, lambda: run(plans[d]), cs.RUNS,
+                                      setup=fresh))
+        k0_ms = cs.time_cuda(torch, lambda: prng.threefry_uniform(
+            keys, (k, n), 0.0, 2.0), cs.RUNS)
+        print(json.dumps({"modes": dict(
+            B=b, plan="drawn" if plan.drawn else "read", k0_ms=k0_ms,
+            k0_nodes_an_sm_step=b * n / sms, **{
+                ("drawn" if d else "read"): dict(
+                    ctas=p.ctas, threads=p.threads, form=p.form,
+                    stage_noise=p.stage_noise, cache=p.cache,
+                    nodes_a_cta_step=p.slice, ms=ms[d])
+                for d, p in plans.items()})}))
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sections",
-                    default="host,waves,steps,shards,relax,scan",
+                    default="host,waves,steps,shards,relax,scan,modes",
                     help="comma-separated sections to run (build and card "
                     "always print)")
     args = ap.parse_args(argv)
@@ -524,8 +610,7 @@ def main(argv=None) -> int:
             torch, np, n, k, g, b, seed, dev)
         static = (base["capacity"], base["sched_capacity"], base["bw_avail"],
                   base["node_ok"])
-        return base, jc, tgc, feas, uasks, static, prng.threefry_uniform(
-            keys, (n,), 0.0, 2.0)
+        return base, jc, tgc, feas, uasks, static, prng.Draw(keys, 2.0)
 
     def occupancy(b, k, seq, cps):
         out = (ctypes.c_int * 1)()
@@ -536,7 +621,7 @@ def main(argv=None) -> int:
     if "host" in sections:
         # ---- host: B = 1, K = 1,024
         b, k = 1, 1024
-        base, jc, tgc, feas, uasks, static, noise = inputs(b, k, args.seed + 1)
+        base, jc, tgc, feas, uasks, static, draw = inputs(b, k, args.seed + 1)
         carry = cs.new_carry(torch, base, jc, tgc)
         box = {"c": carry}
         fresh = lambda: box.__setitem__(  # noqa: E731
@@ -544,14 +629,16 @@ def main(argv=None) -> int:
         # The host spans reuse one carry; the card's times take a fresh one
         # a call (a carry filled by earlier calls ties every key).
         call = lambda: binpack.uniform_topk(  # noqa: E731
-            *static, box["c"], feas, uasks, noise, 10.0)
-        checks = lambda: binpack._check_scan_args(  # noqa: E731
-            *static, carry, feas, uasks, noise, (n,), False)
-        ts = (*static, *carry, feas, noise)
+            *static, box["c"], feas, uasks, draw, 10.0)
+        checks = lambda: (  # noqa: E731
+            binpack._check_scan_args(*static, carry, feas, uasks, None, None,
+                                     False),
+            binpack._check_draw(draw, b, n, static[0].device))
+        ts = (*static, *carry, feas)
 
         def arrays():
             dims = (ctypes.c_longlong * 2)(0, n)
-            ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in ts])
+            ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in ts])
             return dims, ptrs
 
         dims, ptrs = arrays()
@@ -563,8 +650,8 @@ def main(argv=None) -> int:
             1, dims, ptrs, uasks.resources.data_ptr(), uasks.bw.data_ptr(),
             uasks.ports.data_ptr(), uasks.tg_index.data_ptr(),
             uasks.active.data_ptr(), uasks.job_distinct_hosts.data_ptr(),
-            uasks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
-            scores.data_ptr(), stream)
+            uasks.tg_distinct_hosts.data_ptr(), draw.keys.data_ptr(),
+            draw.scale32, choices.data_ptr(), scores.data_ptr(), stream)
         one = torch.empty(1, dtype=torch.int32, device=dev)
         small = lambda: cuda.launch(  # noqa: E731
             "nt_argmax_chain", 1, one.data_ptr(), stream)
@@ -594,7 +681,7 @@ def main(argv=None) -> int:
     if "waves" in sections:
         # ---- waves: K = 1,024, B = 1 and 64, 1-8 CTAs a cluster
         for b in (1, 64):
-            base, jc, tgc, feas, uasks, static, noise = inputs(
+            base, jc, tgc, feas, uasks, static, draw = inputs(
                 b, k, args.seed + b)
             want = None
             for cps in (1, 2, 4, 8):
@@ -603,10 +690,10 @@ def main(argv=None) -> int:
                     "c", cs.new_carry(torch, base, jc, tgc))
 
                 def run(cps=cps):
-                    segs = [(0, n, (*static, *box["c"], feas, noise))]
+                    segs = [(0, n, (*static, *box["c"], feas))]
                     return binpack.uniform_topk_cluster(
-                        "uniform_topk", segs, uasks, g, n, 10.0, False, False,
-                        cps)
+                        "uniform_topk", segs, uasks, draw, g, n, 10.0, False,
+                        False, cps)
 
                 fresh()
                 got = run()
@@ -623,7 +710,7 @@ def main(argv=None) -> int:
     if "steps" in sections:
         # ---- steps: config 4's storm kernel, B = 64, K = 8, seq
         b, k = 64, 8
-        base, jc, tgc, feas, uasks, static, noise = inputs(
+        base, jc, tgc, feas, uasks, static, draw = inputs(
             b, k, args.seed + 11)
         box = {}
         fresh = lambda: box.__setitem__(  # noqa: E731
@@ -632,10 +719,10 @@ def main(argv=None) -> int:
         for step, cps, resident in (("A.3", 8, True), ("A.1", 1, False),
                                     ("A.2", 8, False)):
             def run(cps=cps, resident=resident):
-                segs = [(0, n, (*static, *box["c"], feas, noise))]
+                segs = [(0, n, (*static, *box["c"], feas))]
                 return binpack.uniform_topk_cluster(
-                    "uniform_topk_seq", segs, uasks, g, n, 10.0, True, False,
-                    cps, resident=resident)
+                    "uniform_topk_seq", segs, uasks, draw, g, n, 10.0, True,
+                    False, cps, resident=resident)
 
             fresh()
             got = (*run(), box["c"])
@@ -654,6 +741,8 @@ def main(argv=None) -> int:
         relax_section(torch, np, cs, args.seed)
     if "scan" in sections:
         scan_section(torch, np, cs, args.seed)
+    if "modes" in sections:
+        modes_section(torch, np, cs, args.seed)
     print(json.dumps({"ok": True}))
     return 0
 
