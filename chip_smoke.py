@@ -107,7 +107,16 @@ Phases (any failure exits non-zero and prints no result):
    resources, bandwidth and ports (the steps the kernel's score cache
    serves: all of them in these records), and the same call on asks
    that differ at every step (``varied_ms``: none served), held
-   against the plain version too. On phase 9's calls: K10a-K10d, then K10e (the
+   against the plain version too. K7's and K8b's records (both on the
+   greedy scan's cluster: csrc/gang_scan.cu and the greedy scan's
+   rounding-bias case) give the same: their plan (CTAs, threads,
+   resident or streamed; K7 also where its group counts live), the
+   launches of one call held to one, both chain terms (the bound takes
+   the smaller), the call's host span and profiler device time, and the
+   call on asks that differ at every step (K8b's ``varied_ms``; a gang's
+   members are one ask, so K7's record gives ``uncached_ms``, the call
+   with the score cache off), held against the plain version. On phase
+   9's calls: K10a-K10d, then K10e (the
    gang programs: outputs and every shard's carry), K10f (the defrag
    solves) and K10g-a (the 512 + 512 eval and all 64 storm evals) to
    RELAX_TOLS as K8a and K9, and K10g-b (choices and carry equal its
@@ -1549,6 +1558,7 @@ def bench_legs(torch, k6, gangs):
             torch, lambda: ops_gang.gang_scan_plain(*box["a"]), plain_runs,
             warmup=1, setup=lambda: box.update(a=cloned(call.inputs)))
         chain = chain_ms(torch, k, dev)
+        fig = gang_figures(torch, f"K7 {jid}", call, ms)
         ch = call.out[0]
         rows = torch.unique(ch[ch >= 0]).numel()
         # The gang state read once (73 B a node), the ask and member
@@ -1562,10 +1572,67 @@ def bench_legs(torch, k6, gangs):
         out.setdefault("gang_scan", {})[(k, cfg.g_pad)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             plain_runs=plain_runs,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain)
+            **bound(bytes_, max(flops / FP32_FLOPS, min(
+                chain, fig["cluster_chain_ms"]) / 1000.0)),
+            library_ms=None, chain_ms=chain, **fig)
         torch.cuda.empty_cache()
     return out
+
+
+def gang_figures(torch, label, call, ms):
+    """A K7 record's design figures: the plan's cluster (CTAs, threads,
+    resident or streamed, the group counts in shared or global memory,
+    the score cache, the noise staged), the launches of one call
+    (counted around it, held to one), the cluster chain term at the
+    plan's shape, the call's host span and profiler device time, and
+    ``uncached_ms``: the same call with the score cache off, every step
+    rescoring every node (what asks that differ at every step cost K1
+    and K8b; a gang's members are one ask, so the cache serves every
+    step but the first), held against the plain version."""
+    from nomad_tpu_torch.ops import gang as ops_gang
+    from nomad_tpu_torch.ops import scan
+
+    st, active, cfg = call.inputs[0], call.inputs[4], call.inputs[7]
+    dev = st.capacity.device
+    n, k = st.util.shape[0], active.shape[0]
+    mode = ops_gang._MODE_IDS[cfg.mode]
+    plan = scan.gang_plan_for(dev, n, cfg.g_pad, mode)
+    box = {}
+    setup = lambda: box.update(a=cloned(call.inputs))  # noqa: E731
+    setup()
+    _out, launches = launches_of(
+        "gang_scan", lambda: ops_gang.gang_scan(*box["a"]))
+    check(launches == 1, f"{label}: {launches} launches a call")
+    off = plan._replace(cache=False, smem=scan.gang_layout(
+        plan.ctas, plan.threads // 32, plan.slice, cfg.g_pad, plan.resident,
+        plan.stage_noise, False, plan.groups, scan.sums_groups(mode))[1])
+
+    def uncached():
+        a = box["a"]
+        return scan.launch_gang(off, *a[:7], mode, cfg.distinct_hosts,
+                                cfg.anti_affinity_penalty, a[8], a[9])
+
+    setup()
+    hold_gang(torch, f"{label}, cache off",
+              Call(call.inputs, box["a"], uncached()))
+    fig = dict(ctas=plan.ctas, threads=plan.threads, form=plan.form,
+               groups="shared" if plan.groups else "global",
+               cache=plan.cache, stage_noise=plan.stage_noise,
+               launches_per_call=launches,
+               cluster_chain_ms=cluster_chain_ms(torch, k, plan.ctas,
+                                                 plan.threads, dev),
+               uncached_ms=time_cuda(torch, uncached, RUNS, setup=setup),
+               host_ms=host_ms(torch, lambda: ops_gang.gang_scan(
+                   *box["a"]), RUNS),
+               device_ms=device_ms(torch, lambda: ops_gang.gang_scan(
+                   *box["a"]), RUNS, setup=setup, match="gang_cluster"))
+    print(f"{label} (K={k}, g_pad={cfg.g_pad}, {cfg.mode}): {plan.ctas} "
+          f"CTAs x {plan.threads} threads, {plan.form}, group counts "
+          f"{fig['groups']}, {launches} launch a call, {ms:.4f} ms, device "
+          f"{fig['device_ms']} ms, host span {fig['host_ms']:.4f} ms; cache "
+          f"off {fig['uncached_ms']:.4f} ms (equal to the plain version); "
+          f"cluster chain {fig['cluster_chain_ms']:.4f} ms")
+    return fig
 
 
 # ---------------------------------------------------------------- kernels
@@ -4034,10 +4101,12 @@ def bench_convex(torch, np, rec):
                   + b * k * (ASK_BYTES + 8) + b * (1 + g)
                   + 2 * b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
         flops = b * k * n * (60 + 25)  # K1's step + bias and strand term
+        fig = round_figures(torch, f"K8b {key}", name_round, args, ms)
         out.setdefault(name_round, {})[(key, k)] = dict(
             max_abs_err=max(rerrs), ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain, calls_held=len(calls))
+            **bound(bytes_, max(flops / FP32_FLOPS, min(
+                chain, fig["cluster_chain_ms"]) / 1000.0)),
+            library_ms=None, chain_ms=chain, calls_held=len(calls), **fig)
         torch.cuda.empty_cache()
     # ---- K9 on the defrag rounds' own calls
     for label, call in rec["defrag"].items():
@@ -4077,6 +4146,64 @@ def bench_convex(torch, np, rec):
           "solve, K = 1, 200 iterations against 0)")
     out["convex_relax"][("eval", 1024)].update(barrier)
     return out
+
+
+def round_figures(torch, label, name, args, ms):
+    """A K8b record's design figures on a call's arguments (``args``,
+    convex_round's, read and not changed): the plan's cluster (CTAs,
+    threads, resident or streamed, the noise and pref staged, the score
+    cache), the launches of one call (counted around it, held to one),
+    the cluster chain term at the plan's shape, the call's host span and
+    profiler device time, the share of steps whose ask has the last
+    one's resources, bandwidth and ports, and ``varied_ms``: the call on
+    ``varied_asks`` (none alike: the cache serves no step), held against
+    the plain version."""
+    from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.ops import scan
+
+    feas, asks = args[5], args[6]
+    seq = len(args) > 10 and bool(args[10])
+    dev = feas.device
+    b, n, g = feas.shape
+    k = asks.resources.shape[1]
+    plan = scan.plan_for(dev, b, n, g, seq, bias=True)
+    box = {}
+    setup = lambda: box.update(a=cloned(args))  # noqa: E731
+    setup()
+    _out, launches = launches_of(
+        name, lambda: convex.convex_round(*box["a"]))
+    check(launches == 1, f"{label}: {launches} launches a call")
+    varied = list(args)
+    varied[6] = varied_asks(torch, asks, 7 + b)
+    varied = tuple(varied)
+    k_args, p_args = cloned(varied), cloned(varied)
+    check_scan(torch, f"{label} (varied asks)",
+               (*convex.convex_round(*k_args), k_args[4]),
+               (*convex.convex_round_plain(*p_args), p_args[4]))
+    vbox = {}
+    total, alike, _active, _both = alike_steps(torch, asks)
+    steps = (b if seq else 1) * k
+    fig = dict(ctas=plan.ctas, threads=plan.threads, form=plan.form,
+               stage_noise=plan.stage_noise, cache=plan.cache,
+               waves=plan.waves, launches_per_call=launches,
+               cluster_chain_ms=cluster_chain_ms(torch, steps, plan.ctas,
+                                                 plan.threads, dev),
+               alike_share=alike / total,
+               varied_ms=time_cuda(
+                   torch, lambda: convex.convex_round(*vbox["a"]), RUNS,
+                   setup=lambda: vbox.update(a=cloned(varied))),
+               host_ms=host_ms(torch, lambda: convex.convex_round(
+                   *box["a"]), RUNS),
+               device_ms=device_ms(torch, lambda: convex.convex_round(
+                   *box["a"]), RUNS, setup=setup, match="greedy_cluster"))
+    print(f"{label} (B={b}, K={k}, N={n}{', seq' if seq else ''}): "
+          f"{plan.ctas} CTAs x {plan.threads} threads, {plan.form}, "
+          f"{launches} launch a call, {ms:.4f} ms, device "
+          f"{fig['device_ms']} ms, host span {fig['host_ms']:.4f} ms "
+          f"({alike} of {total} steps alike); varied asks "
+          f"{fig['varied_ms']:.4f} ms (equal to the plain version); cluster "
+          f"chain {fig['cluster_chain_ms']:.4f} ms")
+    return fig
 
 
 def design_bytes_ms(b, k, n, iters):
@@ -4168,9 +4295,9 @@ REPLACES = {
                   "nomad_tpu/ops/gang.py:150"),
     "convex_relax": ("nomad_tpu_torch/csrc/relax.cuh",
                      "nomad_tpu/kernels/convex.py:136"),
-    "convex_round": ("nomad_tpu_torch/csrc/convex_round.cu",
+    "convex_round": ("nomad_tpu_torch/csrc/greedy_scan.cu",
                      "nomad_tpu/kernels/convex.py:224"),
-    "convex_round_seq": ("nomad_tpu_torch/csrc/convex_round.cu",
+    "convex_round_seq": ("nomad_tpu_torch/csrc/greedy_scan.cu",
                          "nomad_tpu/ops/binpack.py:461"),
     "defrag_solve": ("nomad_tpu_torch/csrc/relax.cuh",
                      "nomad_tpu/defrag/solver.py:213"),
@@ -4259,7 +4386,8 @@ def main(argv=None) -> int:
                 # Every kernel's registers; the greedy scan's entries by
                 # name, with their spills.
                 if "registers" in line or line.startswith("==") or (
-                        "greedy_scan.cu" in section
+                        ("greedy_scan.cu" in section
+                         or "gang_scan.cu" in section)
                         and ("spill" in line or "Compiling entry" in line)):
                     print("  " + line.rstrip())
 

@@ -191,7 +191,8 @@ __device__ __forceinline__ float nt_node_score(
 // The strand penalty of placing ask a on node n at the carried state:
 // the post-placement headroom over the dimensions the ask uses,
 // normalized by schedulable capacity, 0 where another such ask still
-// fits (csrc/convex_round.cu K8b, csrc/sharded_scan.cu K10g-b).
+// fits (K8b: csrc/greedy_scan.cu's BIAS case; K10g-b:
+// csrc/sharded_scan.cu).
 __device__ __forceinline__ float nt_strand_pen(
     int n, const float4* __restrict__ capacity,
     const float4* __restrict__ sched, const float4* util, float4 a) {
@@ -280,43 +281,6 @@ __device__ __forceinline__ void nt_bitonic_desc(unsigned long long* keys,
         }
       }
     }
-  }
-  __syncthreads();
-}
-
-// One chunk of a node-order group sum (K7's group capacity, K10b's
-// partials): this thread holds node (base + threadIdx.x)'s units ``u``
-// and group ``id`` (< 0 or >= g_pad: none; past N pass 0 and -1). Each
-// group the chunk adds to is summed by one thread walking the chunk in
-// node order, into ``sums`` [g_pad], so a group's float sum rounds in
-// the order index_add_ rounds it, also past 2^24. Adding a zero leaves
-// a sum as it is: only groups with units here are walked. ``s_units``
-// and ``s_ids`` hold blockDim.x entries, ``s_lo``/``s_hi`` one int, all
-// in shared memory. Opens and closes with a barrier.
-__device__ __forceinline__ void nt_group_chunk(int base, int N, int g_pad,
-                                               float u, int id, float* sums,
-                                               float* s_units, int* s_ids,
-                                               int* s_lo, int* s_hi) {
-  const int t = threadIdx.x;
-  if (t == 0) {
-    *s_lo = 0x7fffffff;
-    *s_hi = -1;
-  }
-  __syncthreads();
-  s_units[t] = u;
-  s_ids[t] = id;
-  if (id >= 0 && id < g_pad && u != 0.0f) {
-    atomicMin(s_lo, id);
-    atomicMax(s_hi, id);
-  }
-  __syncthreads();
-  const int m = min((int)blockDim.x, N - base);
-  const int lo = *s_lo, hi = *s_hi;  // lo > hi: no group to add to
-  for (int g = lo <= hi ? lo + t : hi + 1; g <= hi; g += blockDim.x) {
-    float acc = sums[g];
-    for (int i = 0; i < m; ++i)
-      if (s_ids[i] == g) acc = __fadd_rn(acc, s_units[i]);
-    sums[g] = acc;
   }
   __syncthreads();
 }

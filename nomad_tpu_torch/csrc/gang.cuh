@@ -49,11 +49,12 @@ __device__ __forceinline__ float nt_member_units(
   return units;
 }
 
-// One member on node n at the carried state (K10e's step; K7 keeps the
-// same arithmetic inline in its loop, csrc/gang_scan.cu: through this
-// call K7 ran 4-6% slower on an H100): true when it fits (the
-// resource, bandwidth and port headroom, the feasibility row, the slice
-// ``match`` in slice mode, distinct_hosts, the spread cap), with *score
+// One member on node n at the carried state (K10e's step; K7 keeps
+// the part that changes only at a placement in its score cache and adds
+// the rest a step, csrc/gang_scan.cu, in the same order of rounded
+// operations): true when it fits (the resource, bandwidth and port
+// headroom, the feasibility row, the slice ``match`` in slice mode,
+// distinct_hosts, the spread cap), with *score
 // the gang score plus the member's noise: BestFit-v3 with the
 // zero-sched-capacity guard, minus penalty x (job_count + placed), plus
 // 5 per member already in the node's group in affinity mode.

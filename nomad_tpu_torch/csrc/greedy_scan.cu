@@ -70,49 +70,30 @@
 //   s..s+3 run (where they fit). The asks of the steps ahead are
 //   prefetched into L1 and the next step's loaded into registers a step
 //   ahead.
-// - One exchange a step: each warp reduces its threads' best (score,
-//   index) to one packed key (nt_pack's order) with two
-//   __reduce_max_sync, warp 0 reduces the warps' keys after one block
-//   barrier, and its lane r sends the CTA's key to CTA r's slot for
-//   this CTA with st.async, which completes on CTA r's key mbarrier
-//   (slots and mbarriers double-buffered by step parity); every thread
-//   waits on its own CTA's mbarrier, then reduces the cluster's keys in
-//   its own shared memory to the same winner. The owner of the winning
-//   node (its own best key is the winner) updates the node's rows and
-//   writes the choice and score; rank 0 writes a step with no winner. A
-//   peer cannot send step s + 2's key before every thread of the
-//   cluster has read step s's: it first needs their step s + 1 keys.
-//   (Measured on the H100: a cluster barrier a step cost 0.3-0.6 us
-//   more than st.async, and a key a warp instead of a CTA ~2 ns a key.)
-#include <cooperative_groups.h>
+// - One exchange a step (csrc/cluster.cuh nt_cluster_argmax): a key a
+//   CTA sent to every CTA with st.async, the winner reduced in every
+//   thread. The owner of the winning node (its own best key is the
+//   winner) updates the node's rows and writes the choice and score;
+//   rank 0 writes a step with no winner.
+// - K8b (BIAS, the convex kernel's rounding scan: csrc/convex_round.cu)
+//   is this kernel with the rounding bias added to each node's score,
+//   biased = score + ROUND_BIAS x pref[k, n] - STRAND_BIAS x strand(n)
+//   (csrc/common.cuh nt_round_bias, in the plain version's order of
+//   rounded operations). Its noise is read (K0's tensor), and its pref
+//   row, 4 bytes a node a step, is staged beside the noise row on the
+//   same stage's mbarrier. The strand term depends only on the node's
+//   carried util and the ask's resources, so it joins the score cache
+//   (a second row of it). The owner of the winner reports score -
+//   noise, without the bias; the bias cannot lift a node that does not
+//   fit (NEG_INF plus a bounded bias rounds to NEG_INF), so validity is
+//   K1's.
+#include "cluster.cuh"
 
-#include <atomic>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
-
-// Most threads a CTA (the plan takes fewer where slices are short).
-#define NT_SCAN_THREADS 1024
-// Most CTAs a cluster (above 8: a non-portable cluster size).
-#define NT_SCAN_CLUSTER_MAX 16
-// Shared-memory bytes a CTA may take (227 KB on sm_90).
-#define NT_SCAN_SMEM_MAX (227 * 1024)
 // A thread's nodes whose noise is drawn a step ahead, in registers
 // (5: the most a thread owns at B = 64 on 2 CTAs; more spill).
 #define NT_DRAW_AHEAD 5
-// Noise rows staged ahead of the step that reads them (read mode).
-#define NT_SCAN_STAGES 4
 // Steps ahead whose asks are prefetched into L1.
 #define NT_SCAN_ASK_AHEAD 8
-
-// Parts of a step, timed by one thread of rank 0 when ``prof`` is set
-// (topk_profile.py --sections scan): the wait for an eval's staged
-// rows, the asks' loads, the scoring pass, the warp reduction and the
-// keys' sends, the next step's draw, the wait for the cluster's keys,
-// and the winner's reduction and update.
-enum { NT_P_WAIT, NT_P_ASK, NT_P_SCORE, NT_P_BLOCK, NT_P_DRAW, NT_P_EXCH,
-       NT_P_WIN, NT_P_PARTS };
 
 struct NtScanArgs {
   int B, N, G, K, seq, stacked, stage_noise, eval_bufs, cache, L;
@@ -137,6 +118,7 @@ struct NtScanArgs {
   const unsigned char* tg_dh;
   const long long* keys;
   const float* noise;
+  const float* pref;
   int* choices;
   float* scores;
   long long* prof;
@@ -151,41 +133,39 @@ enum { NT_S_CAP, NT_S_SCHED, NT_S_UTIL, NT_S_BWA, NT_S_BWU, NT_S_PORTS,
        NT_S_OK, NT_S_ROWS };
 enum { NT_E_JC, NT_E_TGC, NT_E_FEAS, NT_E_ROWS };
 
-__host__ __device__ inline size_t nt_r16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
-// A staging region for ``bytes`` of rows: room for the 16-byte-aligned
-// superset the bulk copy moves (ops/scan.py stage_len).
-__host__ __device__ inline size_t nt_stage_len(size_t bytes) {
-  return nt_r16(bytes) + 32;
-}
-
 // Byte offsets in a CTA's dynamic shared memory (ops/scan.py layout):
 // the mbarriers (eval rows by eval parity, noise by stage, keys by step
 // parity) and the profile's counters, the keys' slots by step parity,
-// the score cache, the noise stages (read mode), then in the resident
-// form the rows and ``eval_bufs`` sets of an eval's rows.
+// the score cache (with ``bias`` a second row: the strand terms), the
+// noise stages (read mode; with ``bias`` the pref stages after them),
+// then in the resident form the rows and ``eval_bufs`` sets of an eval's
+// rows.
 struct NtScanLayout {
-  size_t slots, cache, noise[NT_SCAN_STAGES], rows[NT_S_ROWS],
-      erows[2][NT_E_ROWS], total;
+  size_t slots, cache, noise[NT_SCAN_STAGES], pref[NT_SCAN_STAGES],
+      rows[NT_S_ROWS], erows[2][NT_E_ROWS], total;
 };
 
 __host__ __device__ inline NtScanLayout nt_scan_layout(
     int nc, int warps, int L, int G, int resident, int stage_noise,
-    int eval_bufs, int cache) {
+    int eval_bufs, int cache, int bias) {
   NtScanLayout o = {};
   size_t at = 8 * NT_B_COUNT + 8 * NT_P_PARTS;  // and the profile's counters
   at = nt_r16(at);
   o.slots = at;  // CTA keys [2][nc], then warp keys [2][warps]
   at += nt_r16((size_t)16 * (nc + warps));
   o.cache = at;
-  if (cache) at += nt_r16((size_t)4 * L);
-  if (stage_noise)
+  if (cache) at += nt_r16((size_t)(bias ? 8 : 4) * L);
+  if (stage_noise) {
     for (int x = 0; x < NT_SCAN_STAGES; ++x) {
       o.noise[x] = at;
       at += nt_stage_len((size_t)4 * L);
     }
+    if (bias)
+      for (int x = 0; x < NT_SCAN_STAGES; ++x) {
+        o.pref[x] = at;
+        at += nt_stage_len((size_t)4 * L);
+      }
+  }
   if (resident) {
     const size_t per[NT_S_ROWS] = {16, 16, 16, 4, 4, 4, 1};
     for (int r = 0; r < NT_S_ROWS; ++r) {
@@ -201,167 +181,6 @@ __host__ __device__ inline NtScanLayout nt_scan_layout(
   }
   o.total = at;
   return o;
-}
-
-// The bytes of the 16-byte-aligned superset of [src, src + len).
-__device__ __forceinline__ unsigned nt_superset(const void* src, size_t len) {
-  if (len == 0) return 0;
-  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
-  const uintptr_t e = ((uintptr_t)src + len + 15) & ~(uintptr_t)15;
-  return (unsigned)(e - a);
-}
-
-// One bulk copy of that superset into ``region`` on ``bar``: the rows
-// land at nt_staged(region, src). The superset lies in the pages of
-// [src, src + len) (no 16-byte block straddles a page), and the bytes
-// around the rows are never read.
-__device__ __forceinline__ void nt_bulk(unsigned char* region,
-                                        const void* src, size_t len,
-                                        uint64_t* bar) {
-  if (len == 0) return;
-  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(nt_saddr(region)),
-      "l"(a), "r"(nt_superset(src, len)), "r"(nt_saddr(bar))
-      : "memory");
-}
-
-// Post ``tx`` bytes of transfers on ``bar``'s phase (its one arrival).
-__device__ __forceinline__ void nt_expect(uint64_t* bar, unsigned tx) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          nt_saddr(bar)),
-      "r"(tx)
-      : "memory");
-}
-
-// nt_expect for bulk copies into a region last read through the
-// generic proxy.
-__device__ __forceinline__ void nt_expect_bulk(uint64_t* bar, unsigned tx) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  nt_expect(bar, tx);
-}
-
-// The cluster barrier (.aligned: the warp's lanes arrive together).
-__device__ __forceinline__ void nt_cluster_arrive_wait() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// nt_pack's high word: the score's bits mapped so that unsigned order
-// is float order (-0 ranks as +0); never 0 for a score.
-__device__ __forceinline__ unsigned nt_score_word(float s) {
-  const uint32_t u = __float_as_uint(s == 0.0f ? 0.0f : s);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// Clock cycles of a step's parts, kept by the timed thread of a
-// TIMED kernel in shared memory (acc) and written out at the end; in
-// an untimed kernel it holds nothing.
-template <bool TIMED>
-struct NtClock {
-  bool on;
-  long long clk;
-  long long* acc;
-
-  __device__ __forceinline__ void tick(int part) {
-    if constexpr (TIMED) {
-      if (on) {
-        const long long now = clock64();
-        acc[part] += now - clk;
-        clk = now;
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t nt_mapa(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-// A thread's view of the keys' exchange: its CTA's warp keys [2][W],
-// the cluster's CTA keys [2][nc] and key mbarriers [2] (by step
-// parity), and for lane r < nc the shared::cluster addresses of CTA
-// r's CTA keys and key mbarriers.
-struct NtExchange {
-  unsigned long long* wkeys;
-  unsigned long long* keys;
-  uint64_t* kbar;
-  uint32_t peer_keys, peer_kbar;
-  int nc, rank, warps;
-};
-
-__device__ __forceinline__ NtExchange nt_exchange(unsigned char* smem,
-                                                  size_t slots, int nc,
-                                                  int rank, int warps) {
-  const int lane = threadIdx.x & 31;
-  NtExchange x;
-  x.keys = (unsigned long long*)(smem + slots);
-  x.wkeys = x.keys + 2 * nc;
-  x.kbar = (uint64_t*)smem + NT_B_KEYS;
-  x.peer_keys = nt_mapa(nt_saddr(x.keys), lane < nc ? lane : 0);
-  x.peer_kbar = nt_mapa(nt_saddr(x.kbar), lane < nc ? lane : 0);
-  x.nc = nc;
-  x.rank = rank;
-  x.warps = warps;
-  return x;
-}
-
-// Post step s's keys (nc x 8 bytes) on this CTA's key mbarrier of its
-// parity. Posted two steps ahead (after step s - 2's keys are in), so
-// that no key of step s arrives before its phase is posted.
-__device__ __forceinline__ void nt_expect_keys(const NtExchange& x, int s) {
-  nt_expect(&x.kbar[s & 1], (unsigned)(8 * x.nc));
-}
-
-// The largest of the keys ``m`` across a warp (hi: score word, lo:
-// 0xffffffff - node index), in every lane.
-__device__ __forceinline__ unsigned long long nt_warp_max(
-    unsigned long long m) {
-  const unsigned h = __reduce_max_sync(0xffffffffu, (unsigned)(m >> 32));
-  const unsigned l = __reduce_max_sync(
-      0xffffffffu, (unsigned)(m >> 32) == h ? (unsigned)m : 0u);
-  return ((unsigned long long)h << 32) | l;
-}
-
-// The cluster's winner of step s from each thread's best key (0: no
-// node): each warp's largest into the CTA's warp keys, one block
-// barrier, warp 0's largest of those sent to every CTA's slot for this
-// CTA (st.async, completing on that CTA's key mbarrier), ``gap()`` (work
-// that does not need the winner), the wait for the cluster's keys, then
-// the largest of them in every thread.
-template <bool TIMED, class Gap>
-__device__ __forceinline__ unsigned long long nt_cluster_argmax(
-    unsigned long long key, const NtExchange& x, int s,
-    NtClock<TIMED>& clock, const Gap& gap) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int par = s & 1;
-  const unsigned long long wk = nt_warp_max(key);
-  if (lane == 0) x.wkeys[par * x.warps + warp] = wk;
-  __syncthreads();
-  if (warp == 0) {
-    const unsigned long long ck =
-        nt_warp_max(lane < x.warps ? x.wkeys[par * x.warps + lane] : 0ull);
-    if (lane < x.nc)
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 "
-          "[%0], %1, [%2];\n" ::"r"(
-              x.peer_keys + (uint32_t)(8 * (par * x.nc + x.rank))),
-          "l"(ck), "r"(x.peer_kbar + (uint32_t)(8 * par))
-          : "memory");
-  }
-  clock.tick(NT_P_BLOCK);
-  gap();
-  clock.tick(NT_P_DRAW);
-  nt_mbar_wait(&x.kbar[par], (unsigned)((s >> 1) & 1));
-  clock.tick(NT_P_EXCH);
-  return nt_warp_max(lane < x.nc ? x.keys[par * x.nc + lane] : 0ull);
 }
 
 // One step's ask.
@@ -389,8 +208,9 @@ __device__ __forceinline__ void nt_prefetch_l1(const void* p) {
 
 // RES: the resident form (the rows in shared memory), else streamed;
 // TIMED: the step parts are timed into p.prof; DRAW: the noise drawn in
-// the kernel, else read from p.noise (staged where p.stage_noise).
-template <bool RES, bool TIMED, bool DRAW>
+// the kernel, else read from p.noise (staged where p.stage_noise);
+// BIAS: K8b, the rounding bias from p.pref added (the noise read).
+template <bool RES, bool TIMED, bool DRAW, bool BIAS>
 __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_greedy_cluster_kernel(const __grid_constant__ NtScanArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -401,9 +221,11 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const int T = blockDim.x, W = T >> 5;
   const int t = threadIdx.x;
   const int N = p.N, G = p.G, K = p.K;
+  static_assert(!(DRAW && BIAS), "K8b reads its noise");
   const NtScanLayout lay = nt_scan_layout(nc, W, p.L, G, RES, p.stage_noise,
-                                          p.eval_bufs, p.cache);
-  const NtExchange x = nt_exchange(smem, lay.slots, nc, rank, W);
+                                          p.eval_bufs, p.cache, BIAS);
+  const NtExchange x =
+      nt_exchange(smem, lay.slots, bar + NT_B_KEYS, nc, rank, W);
   const int lo = (int)((long long)rank * N / nc);
   const int cnt = (int)((long long)(rank + 1) * N / nc) - lo;
   const int first = p.seq ? 0 : (int)(blockIdx.x / nc);
@@ -414,6 +236,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const size_t cb = p.seq ? 0 : first;      // claimed capacity
   const size_t ask_end = (size_t)p.B * K - 1;
   float* cache = (float*)(smem + lay.cache);
+  float* scache = cache + p.L;  // BIAS: the strand terms
   // The profile's counters follow the mbarriers; the timed thread
   // issues no bulk copies.
   long long* prof_acc = (long long*)(smem + 8 * NT_B_COUNT);
@@ -441,6 +264,9 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   auto gnoise = [&](int s) {  // step s's noise row slice (read mode)
     return p.noise + ((size_t)first * K + s) * nn + lo;
   };
+  auto gpref = [&](int s) {  // step s's pref row slice (BIAS)
+    return p.pref + ((size_t)first * K + s) * nn + lo;
+  };
   auto erow = [&](int e, int r) {
     return smem + lay.erows[e % p.eval_bufs][r];
   };
@@ -467,11 +293,15 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     for (int r = r0; r < NT_S_ROWS + NT_E_ROWS; ++r)
       nt_bulk(dst[r], src[r], len[r], b);
   };
-  auto issue_noise = [&](int s) {
+  auto issue_noise = [&](int s) {  // with BIAS, the pref row beside it
     const float* src = gnoise(s);
-    uint64_t* b = &bar[NT_B_NOISE + s % NT_SCAN_STAGES];
-    nt_expect_bulk(b, nt_superset(src, (size_t)4 * cnt));
-    nt_bulk(smem + lay.noise[s % NT_SCAN_STAGES], src, (size_t)4 * cnt, b);
+    const float* psrc = BIAS ? gpref(s) : nullptr;
+    const int x = s % NT_SCAN_STAGES;
+    uint64_t* b = &bar[NT_B_NOISE + x];
+    nt_expect_bulk(b, nt_superset(src, (size_t)4 * cnt) +
+                          (BIAS ? nt_superset(psrc, (size_t)4 * cnt) : 0u));
+    nt_bulk(smem + lay.noise[x], src, (size_t)4 * cnt, b);
+    if (BIAS) nt_bulk(smem + lay.pref[x], psrc, (size_t)4 * cnt, b);
   };
   // Step s's draw: its eval's key words and the counter of this CTA's
   // first node (step k's row of the eval's [K, draw_total] draw), and
@@ -544,12 +374,16 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
       jdh = p.job_dh[b] != 0;
     }
     const float* snz = nullptr;  // read mode: this step's noise row slice
+    const float* spr = nullptr;  // BIAS: its pref row slice
     if constexpr (!DRAW) {
       snz = gnoise(s);
+      if (BIAS) spr = gpref(s);
       if (p.stage_noise) {
-        nt_mbar_wait(&bar[NT_B_NOISE + s % NT_SCAN_STAGES],
+        const int x = s % NT_SCAN_STAGES;
+        nt_mbar_wait(&bar[NT_B_NOISE + x],
                      (unsigned)((s / NT_SCAN_STAGES) & 1));
-        snz = nt_staged(smem + lay.noise[s % NT_SCAN_STAGES], snz);
+        snz = nt_staged(smem + lay.noise[x], snz);
+        if (BIAS) spr = nt_staged(smem + lay.pref[x], spr);
       }
     }
     clock.tick(NT_P_WAIT);
@@ -568,6 +402,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     unsigned bh = 0;
     int bi = -1;
     float bn = 0.0f;
+    float bs = 0.0f;  // BIAS: the best node's score before the bias
     for (int i = t, j = 0; i < cnt; i += T, ++j) {
       // The node's noise: drawn ahead (the front of ``nz``, shifted
       // down a node, so every index stays a constant) or now, from this
@@ -582,25 +417,37 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
       } else {
         n_i = nt_noise_at(dk0, dk1, dbase + (unsigned)i, 0.0f, p.scale);
       }
-      float base;
+      float base, strand = 0.0f;
       if (reuse && i != updated) {
         base = cache[i];
+        if (BIAS) strand = scache[i];
       } else {
         base = nt_fit_of(util[i], cap[i], sched[i], bwu[i], bwa[i], ports[i],
                          ok[i] != 0, jc[i], jdh, p.penalty, cur.a, cur.bw,
                          cur.ports);
-        if (p.cache) cache[i] = base;
+        if (BIAS)
+          strand = __fmul_rn(NT_STRAND_BIAS,
+                             nt_strand_pen(i, cap, sched, util, cur.a));
+        if (p.cache) {
+          cache[i] = base;
+          if (BIAS) scache[i] = strand;
+        }
       }
       const size_t cell = (size_t)i * G + cur.tg;
       const bool fits = base != -INFINITY &&
                         nt_group_fits(feas[cell] != 0, tdh,
                                       tdh ? tgc[cell] : 0);
-      const unsigned h =
-          nt_score_word(fits ? __fadd_rn(base, n_i) : NT_NEG_INF);
+      const float v = fits ? __fadd_rn(base, n_i) : NT_NEG_INF;
+      // K8b ranks score + bias (nt_round_bias's order of operations).
+      const unsigned h = nt_score_word(
+          BIAS ? __fadd_rn(v, __fsub_rn(__fmul_rn(NT_ROUND_BIAS, spr[i]),
+                                        strand))
+               : v);
       if (h > bh) {  // i rises per thread: strict > keeps the lowest index
         bh = h;
         bi = i;
         bn = n_i;
+        if (BIAS) bs = v;
       }
     }
     const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(lo + bi) : 0u;
@@ -631,7 +478,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     if (valid && bh == gh && bl == gl) {  // this thread owns the winner
       const size_t cell = (size_t)bi * G + cur.tg;
       p.choices[ai] = lo + bi;
-      p.scores[ai] = __fsub_rn(best, bn);
+      p.scores[ai] = __fsub_rn(BIAS ? bs : best, bn);
       const float4 u = util[bi];
       util[bi] = make_float4(__fadd_rn(u.x, cur.a.x), __fadd_rn(u.y, cur.a.y),
                              __fadd_rn(u.z, cur.a.z), __fadd_rn(u.w, cur.a.w));
@@ -683,8 +530,9 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const int nc = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
   const int W = blockDim.x >> 5;
-  const NtExchange x = nt_exchange(
-      smem, nt_scan_layout(nc, W, 0, 0, 0, 0, 0, 0).slots, nc, rank, W);
+  const NtExchange x =
+      nt_exchange(smem, nt_scan_layout(nc, W, 0, 0, 0, 0, 0, 0, 0).slots,
+                  bar + NT_B_KEYS, nc, rank, W);
   if (threadIdx.x == 0) {
     for (int i = 0; i < NT_B_COUNT; ++i) nt_mbar_init(&bar[i]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -707,79 +555,40 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   nt_cluster_arrive_wait();
 }
 
-// Sets a kernel's attributes: the largest dynamic shared memory, and
-// clusters above the portable 8 CTAs.
-static int nt_scan_attrs(const void* fn) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, NT_SCAN_SMEM_MAX);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
-static cudaLaunchConfig_t nt_scan_cfg(int clusters, int ctas, int threads,
-                                      size_t smem, cudaStream_t stream,
-                                      cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(clusters * ctas), 1, 1);
-  cfg.blockDim = dim3((unsigned)threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Kernel attributes belong to each device's context: set once a device
-// (every call on a device past the table's end).
-#define NT_SCAN_DEVICES 64
 static std::atomic<int> nt_scan_ready[NT_SCAN_DEVICES];
 
 // The scan kernel for a form, timed or not, drawing or reading the
-// noise.
-static void (*nt_scan_kernel(int resident, bool timed,
-                             bool draw))(const NtScanArgs) {
-  if (draw) {
-    if (resident)
-      return timed ? nt_greedy_cluster_kernel<true, true, true>
-                   : nt_greedy_cluster_kernel<true, false, true>;
-    return timed ? nt_greedy_cluster_kernel<false, true, true>
-                 : nt_greedy_cluster_kernel<false, false, true>;
+// noise, with K8b's bias (which reads it) or without.
+static void (*nt_scan_kernel(int resident, bool timed, bool draw,
+                             bool bias))(const NtScanArgs) {
+#define NT_SCAN_FORMS(R, D, B)                               \
+  return timed ? nt_greedy_cluster_kernel<R, true, D, B>     \
+               : nt_greedy_cluster_kernel<R, false, D, B>
+  if (bias) {
+    if (resident) NT_SCAN_FORMS(true, false, true);
+    NT_SCAN_FORMS(false, false, true);
   }
-  if (resident)
-    return timed ? nt_greedy_cluster_kernel<true, true, false>
-                 : nt_greedy_cluster_kernel<true, false, false>;
-  return timed ? nt_greedy_cluster_kernel<false, true, false>
-               : nt_greedy_cluster_kernel<false, false, false>;
+  if (draw) {
+    if (resident) NT_SCAN_FORMS(true, true, false);
+    NT_SCAN_FORMS(false, true, false);
+  }
+  if (resident) NT_SCAN_FORMS(true, false, false);
+  NT_SCAN_FORMS(false, false, false);
+#undef NT_SCAN_FORMS
 }
 
-// The kernels' attributes on the current device.
+// The kernels' attributes on the current device, once a device.
 static int nt_scan_setup() {
-  int dev = 0;
-  const cudaError_t got = cudaGetDevice(&dev);
-  if (got != cudaSuccess) return (int)got;
-  const bool kept = dev >= 0 && dev < NT_SCAN_DEVICES;
-  if (kept && nt_scan_ready[dev].load()) return 0;
-  for (int r = 0; r < 2; ++r)
-    for (int timed = 0; timed < 2; ++timed)
-      for (int draw = 0; draw < 2; ++draw) {
-        const int err =
-            nt_scan_attrs((const void*)nt_scan_kernel(r, timed, draw));
-        if (err) return err;
-      }
-  const int err = nt_scan_attrs((const void*)nt_argmax_chain_cluster_kernel);
-  if (err) return err;
-  if (kept) nt_scan_ready[dev].store(1);
-  return 0;
-}
-
-static bool nt_scan_shape_ok(int ctas, int threads) {
-  return ctas >= 1 && ctas <= NT_SCAN_CLUSTER_MAX && threads >= 32 &&
-         threads <= NT_SCAN_THREADS && threads % 32 == 0;
+  return nt_once_a_device(nt_scan_ready, [] {
+    for (int r = 0; r < 2; ++r)
+      for (int timed = 0; timed < 2; ++timed)
+        for (int mode = 0; mode < 3; ++mode) {  // read, drawn, K8b
+          const int err = nt_scan_attrs((const void*)nt_scan_kernel(
+              r, timed, mode == 1, mode == 2));
+          if (err) return err;
+        }
+    return nt_scan_attrs((const void*)nt_argmax_chain_cluster_kernel);
+  });
 }
 
 // Shapes: capacity/sched [N,4] f32, bw_avail [N] f32, node_ok [N] u8
@@ -797,31 +606,32 @@ static bool nt_scan_shape_ok(int ctas, int threads) {
 // cache and the shared memory it computes, which must equal this
 // file's layout. prof: null, or NT_P_PARTS i64 that one thread of rank
 // 0 sets to the clock cycles of its steps' parts.
-NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
-                          int stacked, int ctas, int threads, int resident,
-                          int draw, int stage_noise, int eval_bufs, int cache,
-                          long long smem, const void* capacity,
-                          const void* sched, const void* bw_avail,
-                          const void* node_ok, void* util, void* bw_used,
-                          void* ports_free, void* job_count, void* tg_count,
-                          const void* feasible, const void* ask_res,
-                          const void* ask_bw, const void* ask_ports,
-                          const void* tg_index, const void* active,
-                          const void* job_dh, const void* tg_dh,
-                          const void* keys, float scale, long long draw_total,
-                          long long draw_lo, const void* noise, void* choices,
-                          void* scores, void* prof, void* stream) {
+int nt_scan_launch(int B, int N, int G, int K, float penalty, int seq,
+                   int stacked, int ctas, int threads, int resident,
+                   int draw, int stage_noise, int eval_bufs, int cache,
+                   long long smem, const void* capacity, const void* sched,
+                   const void* bw_avail, const void* node_ok, void* util,
+                   void* bw_used, void* ports_free, void* job_count,
+                   void* tg_count, const void* feasible, const void* ask_res,
+                   const void* ask_bw, const void* ask_ports,
+                   const void* tg_index, const void* active,
+                   const void* job_dh, const void* tg_dh, const void* keys,
+                   float scale, long long draw_total, long long draw_lo,
+                   const void* noise, const void* pref, void* choices,
+                   void* scores, void* prof, void* stream) {
   if (B <= 0 || K <= 0) return 0;
+  const bool bias = pref != nullptr;
   // Resident under seq, eval e + 1's rows load while eval e reads its
   // own: two buffers, or the copy would overwrite rows still in use.
   if (!nt_scan_shape_ok(ctas, threads) || eval_bufs < 0 || eval_bufs > 2 ||
       (resident && eval_bufs < 1) ||
       (resident && seq && B > 1 && eval_bufs != 2) ||
-      (draw ? (keys == nullptr || stage_noise) : noise == nullptr))
+      (draw ? (keys == nullptr || stage_noise || bias) : noise == nullptr))
     return (int)cudaErrorInvalidValue;
   const int L = (N + ctas - 1) / ctas;
-  const NtScanLayout lay = nt_scan_layout(ctas, threads / 32, L, G, resident,
-                                          stage_noise, eval_bufs, cache);
+  const NtScanLayout lay =
+      nt_scan_layout(ctas, threads / 32, L, G, resident, stage_noise,
+                     eval_bufs, cache, bias);
   if ((long long)lay.total != smem || lay.total > NT_SCAN_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   int err = nt_scan_setup();
@@ -860,14 +670,39 @@ NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
   p.tg_dh = (const unsigned char*)tg_dh;
   p.keys = (const long long*)keys;
   p.noise = (const float*)noise;
+  p.pref = (const float*)pref;
   p.choices = (int*)choices;
   p.scores = (float*)scores;
   p.prof = (long long*)prof;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = nt_scan_cfg(
       seq ? 1 : B, ctas, threads, lay.total, (cudaStream_t)stream, attr);
-  return (int)cudaLaunchKernelEx(&cfg, nt_scan_kernel(resident, prof, draw),
-                                 p);
+  return (int)cudaLaunchKernelEx(
+      &cfg, nt_scan_kernel(resident, prof, draw, bias), p);
+}
+
+// K1's entry: nt_scan_launch without a pref.
+NT_API int nt_greedy_scan(int B, int N, int G, int K, float penalty, int seq,
+                          int stacked, int ctas, int threads, int resident,
+                          int draw, int stage_noise, int eval_bufs, int cache,
+                          long long smem, const void* capacity,
+                          const void* sched, const void* bw_avail,
+                          const void* node_ok, void* util, void* bw_used,
+                          void* ports_free, void* job_count, void* tg_count,
+                          const void* feasible, const void* ask_res,
+                          const void* ask_bw, const void* ask_ports,
+                          const void* tg_index, const void* active,
+                          const void* job_dh, const void* tg_dh,
+                          const void* keys, float scale, long long draw_total,
+                          long long draw_lo, const void* noise, void* choices,
+                          void* scores, void* prof, void* stream) {
+  return nt_scan_launch(B, N, G, K, penalty, seq, stacked, ctas, threads,
+                        resident, draw, stage_noise, eval_bufs, cache, smem,
+                        capacity, sched, bw_avail, node_ok, util, bw_used,
+                        ports_free, job_count, tg_count, feasible, ask_res,
+                        ask_bw, ask_ports, tg_index, active, job_dh, tg_dh,
+                        keys, scale, draw_total, draw_lo, noise, nullptr,
+                        choices, scores, prof, stream);
 }
 
 // The clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
@@ -882,15 +717,9 @@ NT_API int nt_greedy_occupancy(int ctas, int threads, long long smem,
     return 0;
   int err = nt_scan_setup();
   if (err) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      nt_scan_cfg(1, ctas, threads, (size_t)smem, nullptr, attr);
-  if (cudaOccupancyMaxActiveClusters(
-          clusters, (const void*)nt_scan_kernel(resident, false, true), &cfg) !=
-      cudaSuccess) {
-    *clusters = 0;
-    cudaGetLastError();  // a refused shape is an answer, not a fault
-  }
+  nt_cluster_occupancy((const void*)nt_scan_kernel(resident, false, true,
+                                                   false),
+                       ctas, threads, (size_t)smem, clusters);
   return 0;
 }
 
@@ -903,7 +732,7 @@ NT_API int nt_argmax_chain_cluster(int K, int ctas, int threads, void* out,
   if (err) return err;
   cudaLaunchAttribute attr[1];
   const size_t smem =
-      nt_scan_layout(ctas, threads / 32, 0, 0, 0, 0, 0, 0).total;
+      nt_scan_layout(ctas, threads / 32, 0, 0, 0, 0, 0, 0, 0).total;
   const cudaLaunchConfig_t cfg = nt_scan_cfg(1, ctas, threads, smem,
                                              (cudaStream_t)stream, attr);
   return (int)cudaLaunchKernelEx(&cfg, nt_argmax_chain_cluster_kernel, K,

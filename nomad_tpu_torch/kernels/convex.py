@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cuda, relax
+from ..ops import cuda, relax, scan
 from ..ops.binpack import (
     NEG_INF,
     NUM_RESOURCES,
@@ -504,10 +504,13 @@ def convex_round(capacity, sched_capacity, bw_avail, node_ok, carry,
     relaxation's preference. Returns (choices [B,K] i32, scores [B,K]
     f32, the BestFit score without noise or bias).
 
-    On the card (csrc/convex_round.cu) the bound is K1's chain of K
-    dependent block-wide argmaxes: K1's design, with the bias and the
-    strand term added to each node's score in the plain version's
-    order of rounded operations.
+    On the card (csrc/convex_round.cu, one launch) the bound is K1's
+    chain of K dependent argmaxes: K1's cluster scan itself
+    (csrc/greedy_scan.cu, its bias case; ops/scan.py plans it with
+    ``bias``), the bias and the strand term added to each node's score
+    in the plain version's order of rounded operations, the pref row
+    staged beside the noise row and the strand term cached beside the
+    score.
     """
     b, n, g, k, stacked = _check_scan_args(
         capacity, sched_capacity, bw_avail, node_ok, carry, feasible, asks,
@@ -520,24 +523,12 @@ def convex_round(capacity, sched_capacity, bw_avail, node_ok, carry,
                                   penalty, pref, seq)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
-    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
-    util, bw_used, ports_free, job_count, tg_count = carry
-    with cuda.on_device(dev):  # the tensors' card, whichever is current
-        cuda.launch(
-            "nt_convex_round", b, n, g, k, float(penalty), int(seq),
-            int(stacked), capacity.data_ptr(), sched_capacity.data_ptr(),
-            bw_avail.data_ptr(), node_ok.data_ptr(), util.data_ptr(),
-            bw_used.data_ptr(), ports_free.data_ptr(), job_count.data_ptr(),
-            tg_count.data_ptr(), feasible.data_ptr(),
-            asks.resources.data_ptr(), asks.bw.data_ptr(),
-            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
-            pref.data_ptr(), choices.data_ptr(), scores.data_ptr(),
-            cuda.stream_ptr(dev))
+    out = scan.launch_round(
+        scan.plan_for(dev, b, n, g, seq, bias=True),
+        (capacity, sched_capacity, bw_avail, node_ok), carry, feasible,
+        asks, noise, pref, penalty, seq)
     cuda.count_launch(_launch_name("convex_round", seq, stacked))
-    return choices, scores
+    return out
 
 
 # ------------------------------------------------------------ program

@@ -37,7 +37,7 @@ SOURCES = ("threefry.cu", "greedy_scan.cu", "uniform_topk.cu",
            "gang_scan.cu", "convex_relax.cu", "convex_round.cu",
            "group_capacity.cu", "sharded_scan.cu", "sharded_topk.cu",
            "sharded_gang.cu")
-HEADERS = ("common.cuh", "gang.cuh", "relax.cuh", "topk.cuh")
+HEADERS = ("cluster.cuh", "common.cuh", "gang.cuh", "relax.cuh", "topk.cuh")
 LIB_NAME = "libnomad_kernels.so"
 # The kernels' arithmetic rounds as the plain versions' separate tensor
 # ops do through explicit round-to-nearest intrinsics (csrc/common.cuh),
@@ -65,11 +65,12 @@ SIGNATURES: Dict[str, List] = {
     "nt_argmax_chain": [_I, _P, _P],
     "nt_argmax_chain_cluster": [_I] * 3 + [_P, _P],
     "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
-    "nt_gang_scan": [_I] * 5 + [_F] + [_P] * 23,
+    "nt_gang_scan": [_I] * 5 + [_F] + [_I] * 6 + [_L] + [_P] * 26,
+    "nt_gang_occupancy": [_I, _I, _L, _I, _P],
     "nt_relax_solve": [_I, _I, _I, _F, _P, _P, _P],
     "nt_relax_occupancy": [_I, _P],
     "nt_relax_combine": [_I] * 3 + [_P] * 3,
-    "nt_convex_round": [_I, _I, _I, _I, _F, _I, _I] + [_P] * 22,
+    "nt_convex_round": [_I] * 4 + [_F] + [_I] * 8 + [_L] + [_P] * 23,
     "nt_group_capacity": [_I] * 5 + [_P] * 5,
     "nt_group_combine": [_I, _I] + [_P] * 3,
     "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 22,

@@ -299,17 +299,22 @@ def gang_scan(state: GangState, ask_res, ask_bw, ask_ports, active, noise,
     group_noise [g_pad]; the carry (util, bw_used, ports_free, placed,
     group_members) is updated in place.
 
-    On the card (csrc/gang_scan.cu) the bound is the chain of K
-    dependent block-wide argmaxes, as K1's. One block: in slice and
-    spread mode its threads compute every node's member units chunk by
-    chunk into shared memory, where one thread per topology group sums
-    its group in node order (so the float sums round as the plain
-    version's); the slice choice or the spread cap is one more block
-    reduction; then the K steps run; the all-K rewrite closes the
-    launch. Group capacities and member counts stay in shared memory up
-    to 1,024 groups and go to global memory past that: spread, affinity
-    and free gangs give every node without the level's meta its own
-    group, so any g_pad is taken.
+    On the card (csrc/gang_scan.cu, one launch) the bound is the chain
+    of K dependent argmaxes, as K1's: one thread-block cluster of up to
+    16 CTAs splits the node axis, each keeping its slice's rows in
+    shared memory where they fit (ops/scan.py gang_plan picks the
+    cluster, the form and where the group counts live); in slice and
+    spread mode the CTAs add their nodes' member units into rank 0's
+    group sums (exact atomics while the sums stay whole and under 2^24,
+    else rank 0 sums them again in node order, so the float sums round
+    as the plain version's), and rank 0 picks the slice or the spread
+    cap; each member step scores a slice from a cache of each node's
+    score (recomputed at the node its owner updated), exchanges one key
+    a CTA through distributed shared memory, and the owner updates the
+    winner's row while every CTA adds the member to its own copy of the
+    group counts; the all-K rewrite closes the launch. Group counts and
+    sums stay in shared memory where the layout fits and go to global
+    memory past that, so any g_pad is taken.
     """
     g_pad = config.g_pad
     n, k = _check_gang_args(state, ask_res, ask_bw, ask_ports, active,
@@ -322,26 +327,16 @@ def gang_scan(state: GangState, ask_res, ask_bw, ask_ports, active, noise,
                                group_members)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    choices = torch.empty((k,), dtype=torch.int32, device=dev)
-    scores = torch.empty((k,), dtype=torch.float32, device=dev)
-    slice_group = torch.empty((), dtype=torch.int32, device=dev)
-    group_cap = torch.empty((g_pad,), dtype=torch.float32, device=dev)
-    with cuda.on_device(dev):  # the tensors' card, whichever is current
-        cuda.launch(
-            "nt_gang_scan", n, k, g_pad, _MODE_IDS[config.mode],
-            int(config.distinct_hosts), float(config.anti_affinity_penalty),
-            state.capacity.data_ptr(), state.sched_capacity.data_ptr(),
-            state.util.data_ptr(), state.bw_avail.data_ptr(),
-            state.bw_used.data_ptr(), state.ports_free.data_ptr(),
-            state.feas_row.data_ptr(), state.job_count.data_ptr(),
-            state.dh_presence.data_ptr(), state.topo_ids.data_ptr(),
-            ask_res.data_ptr(), ask_bw.data_ptr(), ask_ports.data_ptr(),
-            active.data_ptr(), noise.data_ptr(), group_noise.data_ptr(),
-            placed.data_ptr(), group_members.data_ptr(), choices.data_ptr(),
-            scores.data_ptr(), slice_group.data_ptr(), group_cap.data_ptr(),
-            cuda.stream_ptr(dev))
+    from . import scan
+
+    mode = _MODE_IDS[config.mode]
+    plan = scan.gang_plan_for(dev, n, g_pad, mode)
+    out = scan.launch_gang(plan, state, ask_res, ask_bw, ask_ports, active,
+                           noise, group_noise, mode, config.distinct_hosts,
+                           config.anti_affinity_penalty, placed,
+                           group_members)
     cuda.count_launch("gang_scan")
-    return choices, scores, slice_group
+    return out
 
 
 def _program(state: GangState, ask_res, ask_bw, ask_ports, active, key,

@@ -1,5 +1,7 @@
-"""The host side of the greedy scan's cluster launch (K1, K5a-greedy and
-K5b-greedy: csrc/greedy_scan.cu).
+"""The host side of the cluster scans' launches: the greedy scan (K1,
+K5a-greedy and K5b-greedy: csrc/greedy_scan.cu), the convex kernel's
+rounding scan (K8b: the same kernel with the rounding bias,
+csrc/convex_round.cu) and the gang scan (K7: csrc/gang_scan.cu).
 
 One launch a call: a thread-block cluster of ``ctas`` CTAs an eval (one
 cluster walking the B evals under ``seq``), the node axis split over
@@ -25,11 +27,19 @@ occupancy:
   score cache and, read, the noise's four stages each kept where they
   fit).
 
-``layout`` is the kernel's shared-memory layout (nt_scan_layout); the
-C entry recomputes it and refuses a plan whose size differs.
+K8b's plan (``bias``) is K1's with the noise read and two more rows a
+node: its pref row staged beside each noise stage, and its strand term
+beside each cached score. K7's (``gang_plan``: one gang, one cluster)
+adds where the group member counts and sums live: shared memory where
+the layout fits, else global memory (a row of counts a CTA).
 
-Nothing here runs at import or on the CPU: ``binpack.greedy_scan`` runs
-the plain version for CPU tensors and calls ``launch`` for CUDA ones.
+``layout`` and ``gang_layout`` are the kernels' shared-memory layouts
+(nt_scan_layout, nt_gang_layout); the C entries recompute them and
+refuse a plan whose size differs.
+
+Nothing here runs at import or on the CPU: the wrappers run the plain
+versions for CPU tensors and call ``launch``, ``launch_round`` or
+``launch_gang`` for CUDA ones.
 """
 
 from __future__ import annotations
@@ -106,19 +116,24 @@ def stage_len(nbytes: int) -> int:
 
 
 def layout(ctas: int, warps: int, length: int, g: int, resident: bool,
-           stage_noise: bool, eval_bufs: int,
-           cache: bool) -> Tuple[Dict[str, int], int]:
-    """The kernel's shared memory: ({region: byte offset}, total)."""
+           stage_noise: bool, eval_bufs: int, cache: bool,
+           bias: bool = False) -> Tuple[Dict[str, int], int]:
+    """The kernel's shared memory: ({region: byte offset}, total). With
+    ``bias`` (K8b) the cache keeps a strand term beside each score and
+    each noise stage has a pref stage."""
     # The mbarriers (eval rows, noise, keys) and the profile's counters.
     at = _up(8 * BARRIERS + 8 * len(PARTS), 16)
     off = {"slots": at}
     at += _up(16 * (ctas + warps), 16)  # a key a CTA, a key a warp; 2 steps
     if cache:
         off["cache"] = at
-        at += _up(4 * length, 16)
+        at += _up((8 if bias else 4) * length, 16)
     if stage_noise:
         for x in range(STAGES):
             off[f"noise{x}"] = at
+            at += stage_len(4 * length)
+        for x in range(STAGES if bias else 0):
+            off[f"pref{x}"] = at
             at += stage_len(4 * length)
     if resident:
         for r, per in enumerate(STATIC_ROWS):
@@ -138,7 +153,8 @@ class ScanPlan(NamedTuple):
     memory where ``stage_noise``), whether the scores before the noise
     are cached in shared memory, and the shared memory a CTA.
     ``occupancy`` is the clusters the card holds at once (so ``waves`` =
-    clusters over it, rounded up)."""
+    clusters over it, rounded up). ``bias``: K8b's plan (the noise
+    read, its pref and strand rows in the layout)."""
 
     ctas: int
     threads: int
@@ -151,6 +167,7 @@ class ScanPlan(NamedTuple):
     smem: int
     clusters: int
     occupancy: int
+    bias: bool = False
 
     @property
     def form(self) -> str:
@@ -162,7 +179,7 @@ class ScanPlan(NamedTuple):
 
 
 def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
-           resident: Optional[bool], drawn: bool) -> Tuple:
+           resident: Optional[bool], drawn: bool, bias: bool) -> Tuple:
     """(threads, slice, resident, drawn, stage_noise, eval_bufs, cache,
     smem) at ``ctas``; ``resident`` None: resident where it fits.
     Streamed, the cache comes before the read noise's stages, and each
@@ -172,7 +189,7 @@ def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
     warps = threads // 32
     bufs = 2 if seq and b > 1 else 1
     staged = not drawn
-    smem = layout(ctas, warps, length, g, True, staged, bufs, True)[1]
+    smem = layout(ctas, warps, length, g, True, staged, bufs, True, bias)[1]
     if resident is not False and smem <= SMEM_MAX:
         return threads, length, True, drawn, staged, bufs, True, smem
     if resident:
@@ -180,7 +197,8 @@ def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
             f"greedy scan: the resident rows of {length} nodes a CTA "
             f"(G = {g}) take {smem} bytes of shared memory, over {SMEM_MAX}")
     for staged, cache in ((not drawn, True), (False, True), (False, False)):
-        smem = layout(ctas, warps, length, g, False, staged, 0, cache)[1]
+        smem = layout(ctas, warps, length, g, False, staged, 0, cache,
+                      bias)[1]
         if smem <= SMEM_MAX or not cache:
             return threads, length, False, drawn, staged, 0, cache, smem
 
@@ -189,12 +207,13 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
               occupancy: Callable[[int, int, int, bool], int],
               ctas: Optional[int] = None,
               resident: Optional[bool] = None, sms: int = 132,
-              drawn: Optional[bool] = None) -> ScanPlan:
+              drawn: Optional[bool] = None, bias: bool = False) -> ScanPlan:
     """The launch for B evals over N nodes and G task groups on a card
     of ``sms`` SMs. ``occupancy(ctas, threads, smem, resident)`` is the
     clusters of that shape the card holds at once (0: refused).
     ``ctas``, ``resident`` and ``drawn`` force the cluster, the form and
-    the noise's mode (the tests' and the measurements' hooks)."""
+    the noise's mode (the tests' and the measurements' hooks); ``bias``
+    plans K8b, whose noise is read."""
     if b < 1 or n < 0 or g < 1:
         raise ValueError(f"no greedy scan of B {b}, N {n}, G {g}")
     clusters = 1 if seq else b
@@ -208,13 +227,14 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
                    if c <= CLUSTER_MAX and (c == 1 or c <= n)]
     fits = []
     for c in choices:
-        draw = drawn if drawn is not None else draws(n, c, clusters, sms)
-        shape = _shape(b, n, g, seq, c, resident, draw)
+        draw = False if bias else (
+            drawn if drawn is not None else draws(n, c, clusters, sms))
+        shape = _shape(b, n, g, seq, c, resident, draw, bias)
         occ = occupancy(c, shape[0], shape[-1], shape[2])
         if occ >= clusters:
-            return ScanPlan(c, *shape, clusters, occ)
+            return ScanPlan(c, *shape, clusters, occ, bias)
         if occ >= 1:
-            fits.append(ScanPlan(c, *shape, clusters, occ))
+            fits.append(ScanPlan(c, *shape, clusters, occ, bias))
     if fits:
         return fits[-1]
     raise RuntimeError(
@@ -223,23 +243,26 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
 
 
 _occupancy: Dict[Tuple, int] = {}
-_plans: Dict[Tuple, ScanPlan] = {}
+_plans: Dict[Tuple, object] = {}
 
 
-def occupancy_of(dev) -> Callable[[int, int, int, bool], int]:
-    """``scan_plan``'s occupancy on ``dev``, asked once a shape."""
+def occupancy_of(dev, entry: str = "nt_greedy_occupancy"
+                 ) -> Callable[[int, int, int, bool], int]:
+    """``scan_plan``'s occupancy on ``dev``, asked once a shape, of the
+    kernel whose occupancy ``entry`` answers (``nt_gang_occupancy``:
+    K7's)."""
     dev = torch.device(dev)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
 
     def occ(ctas: int, threads: int, smem: int, resident: bool) -> int:
-        key = (index, ctas, threads, smem, resident)
+        key = (entry, index, ctas, threads, smem, resident)
         got = _occupancy.get(key)
         if got is None:
             out = ctypes.c_int(0)
             with cuda.on_device(dev):
-                cuda.launch("nt_greedy_occupancy", ctas, threads, smem,
-                            int(resident), ctypes.byref(out))
+                cuda.launch(entry, ctas, threads, smem, int(resident),
+                            ctypes.byref(out))
             got = _occupancy[key] = int(out.value)
         return got
 
@@ -248,15 +271,15 @@ def occupancy_of(dev) -> Callable[[int, int, int, bool], int]:
 
 def plan_for(dev, b: int, n: int, g: int, seq: bool,
              ctas: Optional[int] = None, resident: Optional[bool] = None,
-             drawn: Optional[bool] = None) -> ScanPlan:
+             drawn: Optional[bool] = None, bias: bool = False) -> ScanPlan:
     """``scan_plan`` on ``dev``'s occupancy and SMs, kept a shape."""
     dev = torch.device(dev)
-    key = (dev.index, b, n, g, bool(seq), ctas, resident, drawn)
+    key = (dev.index, b, n, g, bool(seq), ctas, resident, drawn, bias)
     plan = _plans.get(key)
     if plan is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = _plans[key] = scan_plan(b, n, g, seq, occupancy_of(dev),
-                                       ctas, resident, sms, drawn)
+                                       ctas, resident, sms, drawn, bias)
     return plan
 
 
@@ -295,3 +318,216 @@ def launch(plan: ScanPlan, static, carry, feasible, asks, draw,
             choices.data_ptr(), scores.data_ptr(),
             None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
     return choices, scores
+
+
+def launch_round(plan: ScanPlan, static, carry, feasible, asks, noise, pref,
+                 penalty: float, seq: bool,
+                 prof: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K8b (the cluster scan with the rounding bias) on a
+    plan with ``bias``, arguments as ``kernels.convex.convex_round``
+    (``carry`` updated in place, ``noise`` and ``pref`` [B, K, N]).
+    Returns (choices, scores); ``prof`` as ``launch``'s."""
+    b, n, g = feasible.shape
+    k = asks.resources.shape[1]
+    dev = feasible.device
+    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_convex_round", b, n, g, k, float(penalty), int(seq),
+            int(static[0].dim() == 3), plan.ctas, plan.threads,
+            int(plan.resident), int(plan.stage_noise), plan.eval_bufs,
+            int(plan.cache), plan.smem, *(x.data_ptr() for x in static),
+            *(x.data_ptr() for x in carry), feasible.data_ptr(),
+            asks.resources.data_ptr(), asks.bw.data_ptr(),
+            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
+            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
+            pref.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+            None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores
+
+
+# ------------------------------------------------------------ K7
+
+# csrc/gang_scan.cu: bytes a node of the resident rows (capacity,
+# sched, util, bw_avail, bw_used, ports_free, feas_row, job_count,
+# dh_presence, topo_ids, placed); the mbarriers (NT_G_COUNT: the rows,
+# the noise stages, the keys) and rank 0's control words (NT_C_WORDS).
+GANG_ROWS = (16, 16, 16, 4, 4, 4, 1, 4, 4, 4, 4)
+GANG_BARRIERS = 1 + STAGES + 2
+GANG_WORDS = 4
+
+
+def sums_groups(mode: int) -> bool:
+    """Whether K7 in kernel mode ``mode`` (0 free, 1 slice, 2 spread, 3
+    affinity) sums its groups' capacities: slice and spread mode do."""
+    return mode in (1, 2)
+
+
+def gang_layout(ctas: int, warps: int, length: int, g_pad: int,
+                resident: bool, stage_noise: bool, cache: bool,
+                groups: bool, capg: bool) -> Tuple[Dict[str, int], int]:
+    """K7's shared memory: ({region: byte offset}, total). ``groups``:
+    the group member counts (and, ``capg``, slice and spread mode, rank
+    0's group sums) in shared memory."""
+    at = 8 * GANG_BARRIERS + 8 * len(PARTS)
+    off = {"ctl": at}
+    at = _up(at + 4 * GANG_WORDS, 16)
+    off["slots"] = at
+    at += _up(16 * (ctas + warps), 16)  # a key a CTA, a key a warp; 2 steps
+    if cache:
+        off["cache"] = at
+        at += _up(4 * length, 16)
+    if stage_noise:
+        for x in range(STAGES):
+            off[f"noise{x}"] = at
+            at += stage_len(4 * length)
+    if resident:
+        for r, per in enumerate(GANG_ROWS):
+            off[f"row{r}"] = at
+            at += stage_len(per * length)
+    if groups:
+        off["members"] = at
+        at += _up(4 * g_pad, 16)
+        if capg:
+            off["sums"] = at
+            at += _up(4 * g_pad, 16)
+    return off, at
+
+
+class GangPlan(NamedTuple):
+    """One K7 launch: a cluster of ``ctas`` CTAs of ``threads`` threads,
+    slices up to ``slice`` nodes, the rows resident or streamed, the
+    noise staged, the score cache, the group counts (and sums) in shared
+    memory (``groups``) or global, the shared memory a CTA, and the
+    clusters the card holds at once."""
+
+    ctas: int
+    threads: int
+    slice: int
+    resident: bool
+    stage_noise: bool
+    cache: bool
+    groups: bool
+    smem: int
+    occupancy: int
+
+    @property
+    def form(self) -> str:
+        return "resident" if self.resident else "streamed"
+
+
+def _gang_shape(n: int, g_pad: int, capg: bool, ctas: int,
+                resident: Optional[bool], groups: Optional[bool]) -> Tuple:
+    """(threads, slice, resident, stage_noise, cache, groups, smem) at
+    ``ctas``: the rows resident and the groups in shared memory where
+    the layout fits, then the groups global, then the rows streamed
+    (with the noise's stages and the cache each kept where they fit);
+    ``resident`` and ``groups`` force one side."""
+    length = slice_len(n, ctas)
+    threads = threads_for(length)
+    warps = threads // 32
+    for res in (True, False):
+        for grp in (True, False):
+            if resident not in (None, res) or groups not in (None, grp):
+                continue
+            tries = ((True, True),) if res else ((True, True), (False, True),
+                                                 (False, False))
+            for staged, cache in tries:
+                smem = gang_layout(ctas, warps, length, g_pad, res, staged,
+                                   cache, grp, capg)[1]
+                if smem <= SMEM_MAX:
+                    return threads, length, res, staged, cache, grp, smem
+    raise RuntimeError(
+        f"gang scan: no layout of {length} nodes a CTA and {g_pad} groups "
+        f"(resident {resident}, groups {groups}) fits in {SMEM_MAX} bytes")
+
+
+def gang_plan(n: int, g_pad: int, capg: bool,
+              occupancy: Callable[[int, int, int, bool], int],
+              ctas: Optional[int] = None, resident: Optional[bool] = None,
+              groups: Optional[bool] = None) -> GangPlan:
+    """K7's launch for one gang over N nodes and ``g_pad`` groups
+    (``capg``: slice or spread mode, which sum the groups' capacities):
+    the largest cluster (up to ``CLUSTER_MAX``, at most N CTAs) the
+    card holds; ``ctas``, ``resident`` and ``groups`` force the cluster,
+    the form and where the group counts live (the tests' hooks)."""
+    if n < 0 or g_pad < 1:
+        raise ValueError(f"no gang scan of N {n}, g_pad {g_pad}")
+    if ctas is not None:
+        if not 1 <= ctas <= CLUSTER_MAX:
+            raise RuntimeError(f"gang scan: no cluster of {ctas} CTAs "
+                               f"(1 to {CLUSTER_MAX})")
+        choices = [ctas]
+    else:
+        choices = [c for c in (16, 8, 4, 2, 1) if c == 1 or c <= n]
+    for c in choices:
+        shape = _gang_shape(n, g_pad, capg, c, resident, groups)
+        occ = occupancy(c, shape[0], shape[-1], shape[2])
+        if occ >= 1:
+            return GangPlan(c, *shape, occ)
+    raise RuntimeError(f"gang scan: the card holds no cluster of {choices} "
+                       f"CTAs for N {n}, g_pad {g_pad}")
+
+
+def gang_plan_for(dev, n: int, g_pad: int, mode: int,
+                  ctas: Optional[int] = None,
+                  resident: Optional[bool] = None,
+                  groups: Optional[bool] = None) -> GangPlan:
+    """``gang_plan`` for K7 in kernel mode ``mode`` on ``dev``'s
+    occupancy of its kernel, kept a shape."""
+    dev = torch.device(dev)
+    capg = sums_groups(mode)
+    key = ("gang", dev.index, n, g_pad, capg, ctas, resident, groups)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = gang_plan(
+            n, g_pad, capg, occupancy_of(dev, "nt_gang_occupancy"), ctas,
+            resident, groups)
+    return plan
+
+
+def gang_scratch(plan: GangPlan, n: int, g_pad: int,
+                 capg: bool) -> Tuple[int, int, int]:
+    """Floats of K7's global scratch: the group sums (slice and spread
+    mode, the groups global), the CTAs' rows of member counts (the
+    groups global), the member units (slice and spread mode)."""
+    return (g_pad if capg and not plan.groups else 0,
+            0 if plan.groups else plan.ctas * g_pad, n if capg else 0)
+
+
+def launch_gang(plan: GangPlan, state, ask_res, ask_bw, ask_ports, active,
+                noise, group_noise, mode: int, distinct_hosts: bool,
+                penalty: float, placed, group_members,
+                prof: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K7 on ``plan``, arguments as ``gang.gang_scan``'s
+    (``state`` a GangState, its carry, ``placed`` and ``group_members``
+    updated in place), ``mode`` the kernel's mode number. Returns
+    (choices, scores, slice_group); ``prof`` as ``launch``'s."""
+    n, k, g_pad = state.util.shape[0], active.shape[0], group_noise.shape[0]
+    dev = state.capacity.device
+    capg = sums_groups(mode)
+    choices = torch.empty((k,), dtype=torch.int32, device=dev)
+    scores = torch.empty((k,), dtype=torch.float32, device=dev)
+    slice_group = torch.empty((), dtype=torch.int32, device=dev)
+    parts = gang_scratch(plan, n, g_pad, capg)
+    scratch = torch.empty((sum(parts),), dtype=torch.float32, device=dev)
+    ptrs, at = [], 0
+    for size in parts:
+        ptrs.append(scratch.data_ptr() + 4 * at if size else None)
+        at += size
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_gang_scan", n, k, g_pad, mode, int(distinct_hosts),
+            float(penalty), plan.ctas, plan.threads, int(plan.resident),
+            int(plan.stage_noise), int(plan.cache), int(plan.groups),
+            plan.smem, *(x.data_ptr() for x in state), ask_res.data_ptr(),
+            ask_bw.data_ptr(), ask_ports.data_ptr(), active.data_ptr(),
+            noise.data_ptr(), group_noise.data_ptr(), placed.data_ptr(),
+            group_members.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+            slice_group.data_ptr(), *ptrs,
+            None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores, slice_group

@@ -966,37 +966,81 @@ def gang_inputs(n, seed, dev, rack=8, zero_ask=False):
 
 GANG_CASES = [(mode, dh) for mode in ("free", "slice", "spread", "affinity")
               for dh in (False, True)]
+# K7's cluster forced (``scan.gang_plan_for``'s hooks): the plan's, 3
+# CTAs (N not a multiple of them), the rows streamed, the group counts
+# and sums in global memory.
+GANG_FORMS = [{}, {"ctas": 3}, {"resident": False}, {"groups": False}]
+GANG_FORM_IDS = ["plan", "3-ctas", "streamed", "global-groups"]
 
 
+@pytest.mark.parametrize("force", GANG_FORMS, ids=GANG_FORM_IDS)
 @pytest.mark.parametrize("mode,dh", GANG_CASES)
 @pytest.mark.parametrize("n,k_real,k,g_pad,rack", [
     (400, 12, 16, 64, 8), (1200, 16, 16, 64, 60),
     (3000, 200, 256, 1024, 3), (40, 200, 256, 16, 8)])
-def test_gang_scan_matches_plain(dev, mode, dh, n, k_real, k, g_pad, rack):
+def test_gang_scan_matches_plain(dev, mode, dh, n, k_real, k, g_pad, rack,
+                                 force):
     """K7 against its plain version in every mode, with and without
-    distinct_hosts: choices, scores, slice_group and the final carry
-    (util, bw_used, ports_free, placed, group members)."""
+    distinct_hosts, on the plan's cluster and on each forced form:
+    choices, scores, slice_group and the final carry (util, bw_used,
+    ports_free, placed, group members); one launch a call."""
     state, ask, abw, aports = gang_inputs(n, k_real + n, dev, rack=rack)
-    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad)
+    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad,
+                    **force)
 
 
+@pytest.mark.parametrize("force", [{}, {"groups": False}],
+                         ids=["plan", "global-groups"])
 @pytest.mark.parametrize("mode,dh", GANG_CASES)
 @pytest.mark.parametrize("n,k_real,k,g_pad,rack,shuffle", [
     (6000, 300, 512, 4096, 2, False), (5000, 4, 8, 4096, 2, False),
-    (2000, 64, 64, 2048, 1, True)])
+    (2000, 64, 64, 2048, 1, True), (6000, 300, 512, 65536, 2, False),
+    (10240, 512, 512, 10240, 1, True)])
 def test_gang_scan_many_groups(dev, mode, dh, n, k_real, k, g_pad, rack,
-                               shuffle):
-    """Past 1,024 groups (every node without the level's meta is its
-    own group in free, spread and affinity mode) the group sums and
-    member counts live in global memory: the same checks as above, on
-    racks of two and on singleton groups whose ids are shuffled over
-    the nodes."""
+                               shuffle, force):
+    """Many groups (every node without the level's meta is its own
+    group in free, spread and affinity mode): the group counts and sums
+    in shared memory where the plan's layout holds them (10,240 on 16
+    CTAs) and in global memory past it (65,536 groups: a row of counts a
+    CTA), or forced there; the same checks as above, on racks of two
+    and on singleton groups whose ids are shuffled over the nodes."""
     state, ask, abw, aports = gang_inputs(n, k_real + n, dev, rack=rack)
     if shuffle:
         perm = np.random.default_rng(n).permutation(n)
         state = state._replace(topo_ids=state.topo_ids[torch.from_numpy(
             perm).to(dev)].contiguous())
-    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad)
+    plan = scan.gang_plan_for(dev, n, g_pad, gang._MODE_IDS[mode], **force)
+    assert plan.groups == (g_pad <= 10240 and not force)
+    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad,
+                    **force)
+
+
+@pytest.mark.parametrize("mode,dh", GANG_CASES)
+@pytest.mark.parametrize("n,ctas", [(5, 8), (9, 16), (1, 2), (1025, 1),
+                                    (500, 16), (3001, 5),
+                                    (16 * 1024 + 7, 16)])
+def test_gang_scan_short_and_ragged_slices(dev, mode, dh, n, ctas):
+    """N below the cluster's CTAs (empty slices meet every barrier), N
+    under 32 a CTA, N not a multiple of the CTAs, and slices just past a
+    multiple of the threads."""
+    state, ask, abw, aports = gang_inputs(n, n + ctas, dev, rack=3)
+    _hold_gang_scan(state, ask, abw, aports, mode, dh, n, min(n, 6),
+                    min(n, 6) + 2, 64, ctas=ctas)
+
+
+@pytest.mark.parametrize("force", GANG_FORMS, ids=GANG_FORM_IDS)
+@pytest.mark.parametrize("mode", ["slice", "spread"])
+def test_gang_scan_zero_ask_group_sums_on_every_form(dev, mode, force):
+    """A zero ask gives every feasible node 1e9 units: the group sums
+    pass 2^24, so rank 0 sums them again in node order; on every form
+    (the sums in its shared memory or in global memory), racks of 2 and
+    of 13, the slice choice and the spread cap are the plain
+    version's."""
+    for n, rack, g_pad in ((4000, 2, 2048), (1000, 13, 256)):
+        state, ask, abw, aports = gang_inputs(n, 6, dev, rack=rack,
+                                              zero_ask=True)
+        _hold_gang_scan(state, ask, abw, aports, mode, False, n, 8, 8,
+                        g_pad, **force)
 
 
 def test_gang_scan_zero_ask_many_groups(dev):
@@ -1016,7 +1060,27 @@ def test_gang_scan_zero_ask_many_groups(dev):
     assert (sc - sc_p).abs().max().item() <= 1e-4
 
 
-def _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad):
+def forced_gang(**force):
+    """K7 launched on the cluster, form and group placement ``force``
+    gives (``scan.gang_plan_for``'s ``ctas``, ``resident`` and
+    ``groups``), arguments as ``gang.gang_scan``."""
+    def run(state, ask, abw, aports, active, noise, gnoise, cfg, placed,
+            members):
+        mode = gang._MODE_IDS[cfg.mode]
+        plan = scan.gang_plan_for(state.capacity.device,
+                                  state.util.shape[0], cfg.g_pad, mode,
+                                  **force)
+        return scan.launch_gang(plan, state, ask, abw, aports, active, noise,
+                                gnoise, mode, cfg.distinct_hosts,
+                                cfg.anti_affinity_penalty, placed, members)
+    return run
+
+
+def _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad,
+                    **force):
+    """K7 (through the wrapper, one launch a call, or on the forced
+    plan) and its plain version on copies of the carry: every output
+    and the final carry equal, scores within 1e-4."""
     dev = state.capacity.device
     active = torch.zeros(k, dtype=torch.bool, device=dev)
     active[:k_real] = True
@@ -1026,14 +1090,18 @@ def _hold_gang_scan(state, ask, abw, aports, mode, dh, n, k_real, k, g_pad):
     noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
     gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
     runs = []
-    for fn in (gang.gang_scan, gang.gang_scan_plain):
+    kernel = forced_gang(**force) if force else gang.gang_scan
+    for fn in (kernel, gang.gang_scan_plain):
         st = state._replace(util=state.util.clone(),
                             bw_used=state.bw_used.clone(),
                             ports_free=state.ports_free.clone())
         placed = torch.zeros(n, dtype=torch.int32, device=dev)
         members = torch.zeros(g_pad, dtype=torch.float32, device=dev)
+        before = cuda.launch_counts().get("gang_scan", 0)
         out = fn(st, ask, abw, aports, active, noise, gnoise, cfg, placed,
                  members)
+        if fn is gang.gang_scan:
+            assert cuda.launch_counts()["gang_scan"] == before + 1
         runs.append((*out, st, placed, members))
     (ch, sc, sg, st, pl, gm), (ch_p, sc_p, sg_p, st_p, pl_p, gm_p) = runs
     assert torch.equal(ch, ch_p)
@@ -1313,16 +1381,22 @@ def test_defrag_solve_matches_plain(dev, warm, k, w):
     assert got[1][-3:].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("layout,b,n,k,g", [
-    ("independent", 3, 300, 48, 2), ("seq", 4, 777, 40, 3),
-    ("stacked", 2, 500, 64, 2), ("independent", 1, 10240, 128, 2),
-    ("tight", 3, 300, 48, 2)])
-def test_convex_round_matches_plain(dev, layout, b, n, k, g):
-    """K8b fed one pref: choices and all five carried tensors equal,
-    scores within 1e-4, with ports and distinct_hosts binding. "tight"
-    gives every node the same pref and 1 to 3 asks of CPU headroom, so
-    the strand term decides between nodes."""
+def round_call(layout, b, n, k, g, dev):
+    """K8b's inputs for one layout: (static, base, feasible, asks,
+    noise, pref, seq). "tight" gives every node the same pref and 1 to
+    3 asks of CPU headroom, so the strand term decides between nodes;
+    "varied" gives each step other resources than the last (the score
+    cache serves no step); "alike" one ask throughout (it serves every
+    step but the first)."""
     static, base, feasible, asks = scan_inputs(n, k, g, b, n + 5, dev)
+    if layout == "varied":
+        res = asks.resources.clone()
+        res[:, :, 0] = 100.0 * (1 + torch.arange(k, device=dev) % 10)
+        asks = asks._replace(resources=res)
+    if layout == "alike":
+        pick = lambda x: x[:, :1].expand_as(x).contiguous()  # noqa: E731
+        asks = asks._replace(resources=pick(asks.resources),
+                             bw=pick(asks.bw), ports=pick(asks.ports))
     if layout == "tight":
         rng = np.random.default_rng(n)
         head = torch.from_numpy(rng.integers(8, 24, n) * 50.0).to(dev)
@@ -1340,15 +1414,93 @@ def test_convex_round_matches_plain(dev, layout, b, n, k, g):
                       generator=torch.Generator(dev).manual_seed(n))
     if layout == "tight":
         pref = torch.full_like(pref, 0.5)
+    return static, base, feasible, asks, noise, pref, seq
+
+
+def forced_round(**force):
+    """K8b launched on the cluster and form ``force`` gives
+    (``scan.plan_for``'s ``ctas`` and ``resident``, with ``bias``),
+    arguments as ``convex.convex_round``."""
+    def run(capacity, sched, bw_avail, node_ok, carry, feasible, asks, noise,
+            penalty, pref, seq=False):
+        b, n, g = feasible.shape
+        plan = scan.plan_for(feasible.device, b, n, g, seq, bias=True,
+                             **force)
+        return scan.launch_round(plan, (capacity, sched, bw_avail, node_ok),
+                                 carry, feasible, asks, noise, pref, penalty,
+                                 seq)
+    return run
+
+
+def hold_round(static, base, feasible, asks, noise, pref, seq, **force):
+    """K8b (through the wrapper, one launch a call, or on the forced
+    plan) against its plain version on copies of the carry; returns
+    K8b's (choices, scores, carry)."""
+    b, n, _g = feasible.shape
+    stacked = static[0].dim() == 3
+    name = "convex_round" + ("_seq" if seq else "_stacked" if stacked
+                             else "")
     runs = []
-    for fn in (convex.convex_round, convex.convex_round_plain):
+    kernel = forced_round(**force) if force else convex.convex_round
+    for fn in (kernel, convex.convex_round_plain):
         c = shared_carry(base) if seq else fresh(base, b, n)
+        before = cuda.launch_counts().get(name, 0)
         runs.append((*fn(*static, c, feasible, asks, noise, 10.0, pref,
                          seq), c))
+        if fn is convex.convex_round:
+            assert cuda.launch_counts()[name] == before + 1
     assert_scans_agree(*runs)
-    placed = runs[0][0] >= 0
-    assert placed.any()
-    assert ((base[2] >= 2) & (runs[0][2][2] < 2)).any()
+    return runs[0]
+
+
+@pytest.mark.parametrize("layout,b,n,k,g", [
+    ("independent", 3, 300, 48, 2), ("seq", 4, 777, 40, 3),
+    ("stacked", 2, 500, 64, 2), ("independent", 1, 10240, 128, 2),
+    ("tight", 3, 300, 48, 2), ("seq", 1, 10240, 8, 2),
+    ("seq", 1, 128, 8, 2), ("independent", 1, 128, 16, 2),
+    ("stacked", 3, 128, 16, 2), ("varied", 2, 3001, 64, 2),
+    ("alike", 2, 3001, 64, 2), ("seq", 3, 3001, 64, 2)])
+def test_convex_round_matches_plain(dev, layout, b, n, k, g):
+    """K8b fed one pref: choices and all five carried tensors equal,
+    scores within 1e-4, with ports and distinct_hosts binding, through
+    the wrapper (one launch a call): every batch layout (under seq one
+    eval, as each eval under pre_resolve, and several), the storm's 1 x
+    8 at N = 10,240 and the rig's N = 128, asks alike at every step and
+    asks that differ at every step."""
+    static, base, feasible, asks, noise, pref, seq = round_call(
+        layout, b, n, k, g, dev)
+    ch, _sc, c = hold_round(static, base, feasible, asks, noise, pref, seq)
+    assert (ch >= 0).any()
+    if k >= 40:  # the ports run out somewhere
+        assert ((base[2] >= 2) & (c[2] < 2)).any()
+
+
+@pytest.mark.parametrize("force", [{"ctas": 1}, {"ctas": 3}, {"ctas": 16},
+                                   {"resident": False},
+                                   {"ctas": 16, "resident": False}],
+                         ids=["1-cta", "3-ctas", "16-ctas", "streamed",
+                              "16-streamed"])
+@pytest.mark.parametrize("layout", ["independent", "seq", "stacked",
+                                    "tight", "varied"])
+def test_convex_round_on_every_cluster_and_form(dev, layout, force):
+    """K8b on clusters of 1, 3 and 16 CTAs (N = 3,001: not a multiple of
+    them) and streamed (the pref read in place where its stages do not
+    fit), in every layout: the plain version's choices and carry."""
+    b, n, k, g = (1 if layout == "seq" else 2), 3001, 40, 2
+    static, base, feasible, asks, noise, pref, seq = round_call(
+        layout, b, n, k, g, dev)
+    hold_round(static, base, feasible, asks, noise, pref, seq, **force)
+
+
+def test_convex_round_short_slices(dev):
+    """N below the cluster's CTAs and under 32 a CTA (empty slices meet
+    every exchange)."""
+    for n, ctas in ((5, 8), (9, 16), (100, 16)):
+        for layout in ("independent", "seq"):
+            static, base, feasible, asks, noise, pref, seq = round_call(
+                layout, 1, n, 6, 2, dev)
+            hold_round(static, base, feasible, asks, noise, pref, seq,
+                       ctas=ctas)
 
 
 def test_convex_wrappers_count_their_launches(dev):

@@ -3,7 +3,8 @@
 of the node-shard kernels K10a and K10b (parallel/shard.py
 sharded_base_delta, sharded_group_capacity), and of the relaxation's
 launch (csrc/relax.cuh) and of the greedy scan's cluster launch
-(csrc/greedy_scan.cu) goes on one NVIDIA card, at chip_smoke.py's
+(csrc/greedy_scan.cu, with K8b, its rounding-bias case, and K7's gang
+scan, csrc/gang_scan.cu) goes on one NVIDIA card, at chip_smoke.py's
 widths (N = 10,240 nodes, G = 2, inputs from chip_smoke.kernel_inputs;
 4 shards of one card).
 
@@ -83,7 +84,16 @@ Prints, one JSON object a line:
    measured time; each shape with the noise drawn in the kernel and
    read from K0's tensor (staged where it fits), in turns (drawn, read,
    drawn, read), the call's time including K0's launch where it reads.
-   Every call here takes the batch's keys (a ``prng.Draw``).
+   Every call here takes the batch's keys (a ``prng.Draw``). (d) K8b's
+   and K7's steps split the same way at their plans (the same kernel
+   with the rounding bias, and the gang scan of csrc/gang_scan.cu): K8b
+   at B = 1 x K = 1,024 and a storm eval under seq (1 x 8), K7 at phase
+   6's three timed shapes on chip_smoke's node rows (a free gang under
+   distinct_hosts at K = 1,024, an ici slice at K = 64, a spread over
+   10,240 one-node groups at K = 512), each held against its plain
+   version; K7's "asks" part is the member's active flag, and its
+   "winner" part holds the group-count add (and, in spread and affinity
+   mode, its block barrier).
 9. ``modes``: the greedy scan (K1, stacked, K = 1,024) at B = 4, 16,
    17, 31, 33 and 64 with its noise drawn in the kernel and read from
    K0's tensor, each mode on its own plan (``scan.plan_for(...,
@@ -523,6 +533,127 @@ def scan_section(torch, np, cs, seed):
                 one_block_chain_ms=cs.chain_ms(torch, steps, dev),
                 cluster_chain_ms=cs.cluster_chain_ms(
                     torch, steps, p.ctas, p.threads, dev))}))
+        torch.cuda.synchronize()
+    round_parts(torch, np, cs, seed)
+    gang_parts(torch, np, cs, seed)
+
+
+def parts_record(torch, cs, kind, label, plan, steps, prof, ms, dev, **more):
+    """One ``parts`` line: a step split into its parts from the kernel's
+    clock counters (``prof``), at the call's measured time."""
+    from nomad_tpu_torch.ops import scan
+
+    cycles = prof.tolist()
+    step_us = ms * 1000.0 / steps
+    share = [c / max(sum(cycles), 1) for c in cycles]
+    print(json.dumps({"parts": dict(
+        kernel=kind, shape=label, ctas=plan.ctas, threads=plan.threads,
+        form=plan.form, stage_noise=plan.stage_noise, cache=plan.cache,
+        ms=ms, step_us=step_us, cycles=dict(zip(scan.PARTS, cycles)),
+        share=dict(zip(scan.PARTS, share)),
+        us_a_step={x: step_us * f for x, f in zip(scan.PARTS, share)},
+        one_block_chain_ms=cs.chain_ms(torch, steps, dev),
+        cluster_chain_ms=cs.cluster_chain_ms(torch, steps, plan.ctas,
+                                             plan.threads, dev), **more)}))
+
+
+def round_parts(torch, np, cs, seed):
+    """K8b's step parts (section 8 (d)) at its plan, at the convex
+    program's shapes: the 512 + 512 eval (B = 1, K = 1,024) and a storm
+    eval under pre_resolve (seq, 1 x 8), N = 10,240; K0's noise and a
+    seeded pref read; held against the plain version."""
+    from nomad_tpu_torch.kernels import convex
+    from nomad_tpu_torch.ops import prng, scan
+
+    dev = torch.device("cuda")
+    n, g = cs.BENCH_N, 2
+    for label, k, seq in (("1x1024", 1024, False), ("seq 1x8", 8, True)):
+        base, jc, tgc, feas, asks, _u, keys = cs.kernel_inputs(
+            torch, np, n, k, g, 1, seed + 80 + k, dev)
+        static = (base["capacity"], base["sched_capacity"],
+                  base["bw_avail"], base["node_ok"])
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        pref = torch.rand((1, k, n), device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+        box = {}
+
+        def fresh():
+            box["c"] = (cs.seq_carry(base, jc, tgc) if seq
+                        else cs.new_carry(torch, base, jc, tgc))
+
+        plan = scan.plan_for(dev, 1, n, g, seq, bias=True)
+        prof = torch.zeros(len(scan.PARTS), dtype=torch.int64, device=dev)
+        fresh()
+        got = (*scan.launch_round(plan, static, box["c"], feas, asks, noise,
+                                  pref, 10.0, seq, prof), box["c"])
+        fresh()
+        want = (*convex.convex_round_plain(*static, box["c"], feas, asks,
+                                           noise, 10.0, pref, seq), box["c"])
+        cs.check_scan(torch, f"K8b {label} (timed kernel)", got, want)
+        ms = cs.time_cuda(torch, lambda: convex.convex_round(
+            *static, box["c"], feas, asks, noise, 10.0, pref, seq), cs.RUNS,
+            setup=fresh)
+        parts_record(torch, cs, "K8b", label, plan, k, prof, ms, dev)
+        torch.cuda.synchronize()
+
+
+def gang_parts(torch, np, cs, seed):
+    """K7's step parts (section 8 (d)) at its plan, at phase 6's timed
+    shapes on chip_smoke's node rows: a free gang under distinct_hosts
+    (K = 1,024, racks of 40, g_pad 256), an ici slice (K = 64, groups of
+    16, g_pad 1,024) and a spread without meta (K = 512, every node its
+    own group, g_pad 10,240); held against the plain version."""
+    from nomad_tpu_torch.ops import gang as ops_gang
+    from nomad_tpu_torch.ops import prng, scan
+
+    dev = torch.device("cuda")
+    n = cs.BENCH_N
+    for label, k, size, g_pad, mode, dh in (
+            ("free K=1024", 1024, 40, 256, "free", True),
+            ("ici slice K=64", 64, 16, 1024, "slice", False),
+            ("spread K=512 no meta", 512, 1, 10240, "spread", False)):
+        base, jc, _tgc, feas, _a, _u, keys = cs.kernel_inputs(
+            torch, np, n, 8, 2, 1, seed + 60 + k, dev)
+        topo = torch.arange(n, dtype=torch.int32, device=dev) // size
+        state = ops_gang.GangState(
+            base["capacity"], base["sched_capacity"], base["util"],
+            base["bw_avail"], base["bw_used"], base["ports_free"],
+            base["node_ok"] & feas[0, :, 0], jc[0].contiguous(),
+            torch.zeros(n, dtype=torch.int32, device=dev), topo)
+        ask = torch.tensor([500.0, 256.0, 300.0, 0.0], device=dev)
+        abw = torch.tensor(50.0, device=dev)
+        aports = torch.tensor(1.0, device=dev)
+        active = torch.ones(k, dtype=torch.bool, device=dev)
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)[0]
+        gnoise = prng.threefry_uniform(keys + 1, (g_pad,), 0.0, 1.0)[0]
+        cfg = ops_gang.GangConfig(anti_affinity_penalty=10.0, mode=mode,
+                                  distinct_hosts=dh, g_pad=g_pad)
+        box = {}
+
+        def fresh():
+            box["a"] = (state._replace(util=state.util.clone(),
+                                       bw_used=state.bw_used.clone(),
+                                       ports_free=state.ports_free.clone()),
+                        ask, abw, aports, active, noise, gnoise, cfg,
+                        torch.zeros(n, dtype=torch.int32, device=dev),
+                        torch.zeros(g_pad, device=dev))
+
+        m = ops_gang._MODE_IDS[mode]
+        plan = scan.gang_plan_for(dev, n, g_pad, m)
+        prof = torch.zeros(len(scan.PARTS), dtype=torch.int64, device=dev)
+        fresh()
+        a = box["a"]
+        got = scan.launch_gang(plan, *a[:7], m, dh, 10.0, a[8], a[9], prof)
+        fresh()
+        want = ops_gang.gang_scan_plain(*box["a"])
+        cs.check(torch.equal(got[0], want[0]) and int(got[2]) == int(
+            want[2]) and (got[1] - want[1]).abs().max().item() <= 1e-4,
+            f"K7 {label} (timed kernel) differs from the plain version")
+        ms = cs.time_cuda(torch, lambda: ops_gang.gang_scan(*box["a"]),
+                          cs.RUNS, setup=fresh)
+        parts_record(torch, cs, "K7", label, plan, k, prof, ms, dev,
+                     groups="shared" if plan.groups else "global",
+                     placed=int((got[0] >= 0).sum()))
         torch.cuda.synchronize()
 
 
