@@ -121,11 +121,17 @@ Phases (any failure exits non-zero and prints no result):
    solves) and K10g-a (the 512 + 512 eval and all 64 storm evals) to
    RELAX_TOLS as K8a and K9, and K10g-b (choices and carry equal its
    plain version's, and K8b's on the whole node axis fed the same
-   pref). K8a, K9, K10f and K10g-a (one persistent launch a card,
-   csrc/relax.cuh) also give their launches a call, counted around one
-   call and held to one, the host span of a call beside its device
-   time, and their calls by shape over phases 3 to 9 (ShapeCalls); the
-   K8a record also the cost of one grid barrier.
+   pref). K10c, K10e and K10g-b are held and timed on both routes: the
+   one-card route (one launch of K1's or K7's cluster kernel over the
+   shards' segments, held to one launch a call; with its plan, its
+   profiler device time and its host span) and the per-shard route on
+   the same shards (``force_shards``; K x (W + 1) + W launches an
+   eval, its own ``..._shards`` record). K8a, K9, K10f and K10g-a (one
+   persistent launch a card, csrc/relax.cuh) also give their launches
+   a call, counted around one call and held to one, the host span of a
+   call beside its device time, and their calls by shape over phases 3
+   to 9 (ShapeCalls); the K8a record also the cost of one grid
+   barrier.
 
 8. The convex kernel and the defrag solve (they run before phase 7's
    holds, which use their recorded calls): (a) config 4's job and the
@@ -149,7 +155,8 @@ Phases (any failure exits non-zero and prints no result):
    shard, K10d; round 2's base a K10a delta child of round 1's), plans,
    choices and scores identical to the unsharded batcher's on the same
    rows; the 512 + 512 eval through K10c (B = 1: a sharded base runs
-   the live rows only), equal to K1's; K10b over one-node groups
+   the live rows only; one launch of K1's cluster kernel over the
+   shards' segments), equal to K1's; K10b over one-node groups
    (g_pad 10,240) and racks of 40 (g_pad 256), equal to the one-device
    node-order sum; K10a's and K10b's launches counted around their
    calls, one a call on a card (K10b's combine adds one where the
@@ -168,8 +175,10 @@ Phases (any failure exits non-zero and prints no result):
    (K10f; fragmentation never rises, the warm plan's moves pass
    ``judge_migration_plan``); and phase 6's free gang, ici slice and
    meta-less spread through ``shard_gang_inputs`` + ``gang_placement``
-   (K10e, with K10b's group sums), equal to K7's choices, scores and
-   slice group on the same call. Phase 7 holds K10a-K10g against their
+   (K10e: one launch of K7's cluster kernel over the shards, the group
+   sums inside it; on distinct cards K10b's sums and a launch a shard
+   a step), equal to K7's choices, scores and slice group on the same
+   call. Phase 7 holds K10a-K10g against their
    plain versions on these calls, with each record's launches a call
    read from the launch counts around one call (K10a and K10b held to
    one a card, and given their device time, the library's, and the
@@ -2885,14 +2894,17 @@ def plan_nodes(plan):
             for a in allocs}
 
 
-def hold_shards(torch, label, call):
+def hold_shards(torch, label, call, force_shards=False, want=None):
     """One recorded sharded-scan call (K10c, K10d or K10g-b) re-run
     through the kernel and the plain version on copies of its inputs:
     choices, scores and every shard's carry equal (scores within
     SCORE_TOL), and the kernel's re-run equal to the recorded result.
     Then the whole node axis through the unsharded K1 / K2 / K8b (fed
-    the same pref): equal bit for bit. Returns the score error and the
-    kernel re-run's launches."""
+    the same pref): equal bit for bit. ``force_shards``: K10c's and
+    K10g-b's per-shard route on the same shards; ``want``: the plain
+    run of an earlier hold of the same call, taken instead of running
+    the plain version again. Returns the score error, the kernel
+    re-run's launches and the plain run."""
     from nomad_tpu_torch.kernels import convex
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.ops.prng import Draw
@@ -2911,13 +2923,17 @@ def hold_shards(torch, label, call):
                         (shard.sharded_greedy_scan,
                          shard.sharded_greedy_scan_plain,
                          binpack.greedy_scan))
+    extra = {"force_shards": True} if force_shards else {}
     runs = []
     for fn in (kern, plain):
+        if fn is plain and want is not None:
+            runs.append(want)
+            continue
         shards = [cloned(sh) for sh in inputs]
         if fn is plain:
             shards = plain_windows(shards)
         (ch, sc), n = launches_of(kern.__name__, lambda: fn(
-            shards, penalty, seq))
+            shards, penalty, seq, **(extra if fn is kern else {})))
         if fn is kern:
             launches = n
         runs.append((ch, sc, joined_carry(torch, shards, seq)))
@@ -2939,7 +2955,39 @@ def hold_shards(torch, label, call):
                  seq)
     check(torch.equal(ch, out[0]) and torch.equal(sc, out[1]),
           f"{label}: differs from the unsharded kernel")
-    return err, launches
+    return err, launches, runs[1]
+
+
+def scan_route(torch, inputs, seq, biased):
+    """The one-card route's plan of a recorded K10c / K10g-b call
+    (``parallel.shard.scan_ctas`` CTAs a shard over the shards'
+    segments; ops/scan.py caches it): its cluster and form."""
+    from nomad_tpu_torch.ops import scan
+    from nomad_tpu_torch.parallel.shard import scan_ctas
+
+    devices = [sh.feasible.device for sh in inputs]
+    cps = scan_ctas(devices)
+    if not cps:
+        return dict(route="shards")
+    b, _n, g = inputs[0].feasible.shape
+    rows = [sh.feasible.shape[1] for sh in inputs]
+    plan = scan.plan_for(devices[0], b, sum(rows), g, seq,
+                         ctas=cps * len(rows), bias=biased, segments=rows)
+    return dict(route="cluster", ctas=plan.ctas, cps=plan.cps,
+                threads=plan.threads, slice=plan.slice, form=plan.form)
+
+
+def shard_launches(b, k, w, seq):
+    """Launches of one K10c / K10g-b call on the per-shard route: K x (W
+    + 1) a step's shards and winner, B x that under ``seq``, and W to
+    apply the last winners."""
+    return (b if seq else 1) * k * (w + 1) + w
+
+
+def route_launches(route, per_shard):
+    """Launches a call on a record's route: one on one card's cluster,
+    ``per_shard`` on the per-shard route (distinct cards)."""
+    return 1 if route["route"] == "cluster" else per_shard
 
 
 def plain_windows(shards):
@@ -3154,35 +3202,60 @@ def bench_mesh(torch, np, rec):
               f"{n_launch} launch(es) a call, {ms:.4f} ms a call, device "
               f"{dev_ms} ms (kernels {kern_ms}); index_add_ {lib_ms:.4f} "
               f"ms (device {lib_dev}); host span {host:.4f} ms")
-    # ---- K10c on the 512 + 512 eval's call
+    # ---- K10c on the 512 + 512 eval's call: the one-card route (one
+    # launch of K1's cluster kernel over the shards), then the per-shard
+    # route on the same shards
     call = rec["greedy"][0]
-    err, launches = hold_shards(torch, "K10c (512 + 512 eval)", call)
     inputs, (penalty, seq), res = call
     b, k = res[0].shape
+    route = scan_route(torch, inputs, seq, False)
+    err, launches, want = hold_shards(torch, "K10c (512 + 512 eval)", call)
+    check(launches == route_launches(route, shard_launches(b, k, w, seq)),
+          f"K10c: {launches} launches a call on the {route} route")
     n = sum(sh.feasible.shape[1] for sh in inputs)
     g = inputs[0].feasible.shape[2]
     box = {}
     fresh = lambda: box.__setitem__(  # noqa: E731
         "s", [cloned(sh) for sh in inputs])
     ms = time_cuda(torch, lambda: shard.sharded_greedy_scan(
-        box["s"], penalty, seq), 5, setup=fresh, warmup=1)
+        box["s"], penalty, seq), RUNS, setup=fresh)
+    dev_ms = device_ms(torch, lambda: shard.sharded_greedy_scan(
+        box["s"], penalty, seq), RUNS, setup=fresh, match="cluster")
+    again = [cloned(sh) for sh in inputs]  # its carry fills up: a span
+    host = host_ms(torch, lambda: shard.sharded_greedy_scan(
+        again, penalty, seq), 5)
     plain_ms = time_cuda(torch, lambda: shard.sharded_greedy_scan_plain(
         box["s"], penalty, seq), 1, setup=fresh, warmup=0)
+    err_s, launches_s, _w = hold_shards(
+        torch, "K10c per-shard route (512 + 512 eval)", call,
+        force_shards=True, want=want)
+    check(launches_s == shard_launches(b, k, w, seq),
+          f"K10c per-shard route: {launches_s} launches a call")
+    shards_ms = time_cuda(torch, lambda: shard.sharded_greedy_scan(
+        box["s"], penalty, seq, force_shards=True), 5, setup=fresh,
+        warmup=1)
     chain = chain_ms(torch, b * k if seq else k, torch.device("cuda"))
     tg = inputs[0].asks.tg_index
     rows, cells = rows_written(torch, res[0], tg, n, g)
     bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
               + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * k * n * 4
               + rows * CARRY_ROW_BYTES + cells * 4)
+    limit = bound(bytes_, max(b * k * n * 60 / FP32_FLOPS, chain / 1000.0))
     out["sharded_greedy_scan"] = {(b, k): dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(bytes_, max(b * k * n * 60 / FP32_FLOPS, chain / 1000.0)),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **limit,
         library_ms=None, chain_ms=chain, launches_per_call=launches,
-        shards=w)}
+        shards=w, device_ms=dev_ms, host_ms=host, **route)}
+    out["sharded_greedy_scan_shards"] = {(b, k): dict(
+        max_abs_err=err_s, ms=shards_ms, plain_ms=plain_ms, **limit,
+        library_ms=None, chain_ms=chain, launches=launches_s,
+        launches_per_call=launches_s, shards=w, route="shards")}
     print(f"K10c (B x K = {b} x {k}, seq {seq}, {w} shards): held against "
-          f"the plain version and K1; {launches} launches a call")
+          f"the plain version and K1 on both routes; one card's cluster "
+          f"{route}: {launches} launch a call, {ms:.4f} ms (device "
+          f"{dev_ms}, host span {host:.4f}); per-shard route {launches_s} "
+          f"launches a call, {shards_ms:.4f} ms")
     # ---- K10d on the storm's calls
-    held = [hold_shards(torch, f"K10d storm call {i}", c)
+    held = [hold_shards(torch, f"K10d storm call {i}", c)[:2]
             for i, c in enumerate(rec["topk"])]
     errs = [e for e, _n in held]
     inputs, (penalty, seq), res = rec["topk"][0]
@@ -3228,7 +3301,7 @@ def bench_mesh(torch, np, rec):
     # call's rows over 16 shards of one card, more than a cluster's 8
     wide = 16
     call = (resharded(torch, inputs, seq, wide), (penalty, seq), res)
-    err, launches = hold_shards(
+    err, launches, _want = hold_shards(
         torch, f"K10d per-shard path ({wide} shards) storm call 0", call)
     want = b * (wide + 1) + wide if seq else 2 * wide + 1
     check(launches == want, f"K10d per-shard path: {launches} launches a "
@@ -3458,7 +3531,10 @@ def run_mesh_programs(seed, torch, total, main_h, storm_h, frag_h,
         state, ask_res, ask_bw, ask_ports, active, key, config, _d = \
             call.inputs
         names = ("threefry_uniform", "sharded_gang_scan")
-        if config.mode not in (GANG_MODE_FREE, GANG_MODE_AFFINITY):
+        # K10b sums the groups on the per-shard route only (distinct
+        # cards); one card's cluster sums them in its launch.
+        if config.mode not in (GANG_MODE_FREE, GANG_MODE_AFFINITY) \
+                and len(set(mesh_devices(torch))) > 1:
             names += ("group_capacity",)
         with ShardRecorder("sharded_gang_scan") as gs:
             got = counted(total, f"mesh gang {jid}", names, lambda: (
@@ -3473,6 +3549,26 @@ def run_mesh_programs(seed, torch, total, main_h, storm_h, frag_h,
               f"g_pad {config.g_pad}): {int((got[0] >= 0).sum())} placed; "
               "choices, scores and slice group equal to K7's")
     return figures, rec
+
+
+def gang_route(torch, shards, cfg):
+    """The one-card route's plan of a recorded K10e call (as
+    ``scan_route``'s)."""
+    from nomad_tpu_torch.ops import scan
+    from nomad_tpu_torch.ops.gang import _MODE_IDS
+    from nomad_tpu_torch.parallel.shard import scan_ctas
+
+    devices = [sh.state.capacity.device for sh in shards]
+    cps = scan_ctas(devices)
+    if not cps:
+        return dict(route="shards")
+    rows = [sh.state.capacity.shape[0] for sh in shards]
+    plan = scan.gang_plan_for(devices[0], sum(rows), cfg.g_pad,
+                              _MODE_IDS[cfg.mode], ctas=cps * len(rows),
+                              segments=rows)
+    return dict(route="cluster", ctas=plan.ctas, cps=plan.cps,
+                threads=plan.threads, slice=plan.slice, form=plan.form,
+                groups=plan.groups)
 
 
 def bench_mesh_programs(torch, np, rec):
@@ -3491,7 +3587,8 @@ def bench_mesh_programs(torch, np, rec):
         shards, args, res = call
         return fn([cloned(sh) for sh in shards], *cloned(args))
 
-    # ---- K10e
+    # ---- K10e: the one-card route (one launch of K7's cluster kernel
+    # over the shards), then the per-shard route on the same shards
     for jid in ("g-free", "g-slice-ici", "b-spread"):
         call = rec[("gang", jid)]
         shards, (active, gnoise, cfg), res = call
@@ -3500,30 +3597,52 @@ def bench_mesh_programs(torch, np, rec):
             shard.sharded_gang_scan, call))
         check(all(torch.equal(a, b) for a, b in zip(got, res)),
               f"{label}: the re-run differs from the recorded call")
-        kern = [cloned(sh) for sh in shards]
+        route = gang_route(torch, shards, cfg)
+        k = active.shape[0]
+        own = w + 1 if cfg.mode in ("slice", "spread") else 1
+        per_shard = own + k * (w + 1) + w + 1
+        check(launches == route_launches(route, per_shard),
+              f"{label}: {launches} launches a call on the {route} route")
         plain = [cloned(sh) for sh in shards]
-        ch, sc, sg = shard.sharded_gang_scan(kern, active, gnoise, cfg)
         ch_p, sc_p, sg_p = shard.sharded_gang_scan_plain(plain, active,
                                                          gnoise, cfg)
-        err = (sc - sc_p).abs().max().item()
-        check(torch.equal(ch, ch_p) and int(sg) == int(sg_p)
-              and err <= SCORE_TOL,
-              f"{label}: differs from the plain version (score error {err})")
-        for a, b in zip(kern, plain):
-            for name in ("util", "bw_used", "ports_free"):
-                check(torch.equal(getattr(a.state, name),
-                                  getattr(b.state, name)),
-                      f"{label}: final {name} differs")
-            check(torch.equal(a.placed, b.placed) and torch.equal(
-                a.group_members, b.group_members),
-                f"{label}: placed or group members differ")
+        errs = []
+        for way, force in (("cluster", False), ("shards", True)):
+            kern = [cloned(sh) for sh in shards]
+            (ch, sc, sg), n_launch = launches_of(
+                "sharded_gang_scan", lambda: shard.sharded_gang_scan(
+                    kern, active, gnoise, cfg, force_shards=force))
+            err = (sc - sc_p).abs().max().item()
+            check(torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+                  and err <= SCORE_TOL,
+                  f"{label} {way}: differs from the plain version (score "
+                  f"error {err})")
+            for a, b in zip(kern, plain):
+                for name in ("util", "bw_used", "ports_free"):
+                    check(torch.equal(getattr(a.state, name),
+                                      getattr(b.state, name)),
+                          f"{label} {way}: final {name} differs")
+                check(torch.equal(a.placed, b.placed) and torch.equal(
+                    a.group_members, b.group_members),
+                    f"{label} {way}: placed or group members differ")
+            errs.append((err, n_launch))
+        (err, _one), (err_s, launches_s) = errs
+        check(launches_s == per_shard, f"{label} per-shard route: "
+              f"{launches_s} launches a call, expected {per_shard}")
         n = sum(sh.state.capacity.shape[0] for sh in shards)
-        k = active.shape[0]
         box = {}
         setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
         ms = time_cuda(torch, lambda: shard.sharded_gang_scan(
-            box["s"], active, gnoise, cfg), 5 if k > 64 else RUNS,
-            setup=setup, warmup=1)
+            box["s"], active, gnoise, cfg), RUNS, setup=setup)
+        dev_ms = device_ms(torch, lambda: shard.sharded_gang_scan(
+            box["s"], active, gnoise, cfg), RUNS, setup=setup,
+            match="gang_cluster")
+        again = [cloned(sh) for sh in shards]
+        host = host_ms(torch, lambda: shard.sharded_gang_scan(
+            again, active, gnoise, cfg), 5)
+        shards_ms = time_cuda(torch, lambda: shard.sharded_gang_scan(
+            box["s"], active, gnoise, cfg, force_shards=True),
+            5 if k > 64 else RUNS, setup=setup, warmup=1)
         plain_ms = time_cuda(torch, lambda: shard.sharded_gang_scan_plain(
             box["s"], active, gnoise, cfg), 1, setup=setup, warmup=0)
         chain = chain_ms(torch, k, dev)
@@ -3531,14 +3650,21 @@ def bench_mesh_programs(torch, np, rec):
         bytes_ = (n * 73 + 24 + k + k * n * 4 + cfg.g_pad * (4 + 4 * w)
                   + k * 8 + 4 + rows * 28)
         flops = k * n * 60 + n * 20
-        print(f"{label}: {int((ch >= 0).sum())} placed; held against the "
-              f"plain version (score error {err:.3g}); {launches} launches "
-              "a call")
+        limit = bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0))
+        print(f"{label}: {int((ch_p >= 0).sum())} placed; both routes held "
+              f"against the plain version (score error {err:.3g} / "
+              f"{err_s:.3g}); one card's cluster {route}: {launches} launch "
+              f"a call, {ms:.4f} ms (device {dev_ms}, host span "
+              f"{host:.4f}); per-shard route {launches_s} launches a call, "
+              f"{shards_ms:.4f} ms")
         out.setdefault("sharded_gang_scan", {})[(k, cfg.g_pad)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, **limit,
             library_ms=None, chain_ms=chain, launches_per_call=launches,
-            shards=w)
+            shards=w, device_ms=dev_ms, host_ms=host, **route)
+        out.setdefault("sharded_gang_scan_shards", {})[(k, cfg.g_pad)] = dict(
+            max_abs_err=err_s, ms=shards_ms, plain_ms=plain_ms, **limit,
+            library_ms=None, chain_ms=chain, launches=launches_s,
+            launches_per_call=launches_s, shards=w, route="shards")
         torch.cuda.empty_cache()
     # ---- K10f on the defrag rounds' own calls
     for label, call in rec["defrag"].items():
@@ -3584,7 +3710,7 @@ def bench_mesh_programs(torch, np, rec):
     for key, calls in (("eval", [rec[("eval", 1024)]]),
                        ("storm", rec["storm"])):
         errs, kinds, far, rerrs = [], {}, {}, []
-        for rel_call, rnd_call in calls:
+        for ci, (rel_call, rnd_call) in enumerate(calls):
             shards, (iters, penalty), res = rel_call
             got, rel_launches = launches_of(
                 "sharded_convex_relax",
@@ -3606,9 +3732,18 @@ def bench_mesh_programs(torch, np, rec):
                 kinds[kind] = max(kinds.get(kind, 0.0), e)
             for kind, pair in kind_far.items():
                 far[kind] = max(far.get(kind, pair), pair)
-            rerr, rnd_launches = hold_shards(torch, f"K10g-b {key}",
-                                             rnd_call)
+            rerr, rnd_launches, rnd_want = hold_shards(
+                torch, f"K10g-b {key}", rnd_call)
+            rb, rk = rnd_call[2][0].shape
+            check(rnd_launches == route_launches(
+                scan_route(torch, rnd_call[0], False, True),
+                shard_launches(rb, rk, w, False)),
+                f"K10g-b {key}: {rnd_launches} launches a call")
             rerrs.append(rerr)
+            if ci == 0:
+                shards_hold = hold_shards(
+                    torch, f"K10g-b {key} per-shard route", rnd_call,
+                    force_shards=True, want=rnd_want)
         rel_call, rnd_call = calls[0]
         shards, (iters, penalty), res = rel_call
         b, k, _n = res[0][2].shape
@@ -3639,7 +3774,15 @@ def bench_mesh_programs(torch, np, rec):
         shards, (penalty, *_s), res = rnd_call
         setup = lambda: box.update(s=[cloned(sh) for sh in shards])  # noqa
         ms = time_cuda(torch, lambda: shard.sharded_convex_round(
-            box["s"], penalty), 5 if k > 64 else RUNS, setup=setup, warmup=1)
+            box["s"], penalty), RUNS, setup=setup)
+        dev_ms = device_ms(torch, lambda: shard.sharded_convex_round(
+            box["s"], penalty), RUNS, setup=setup, match="cluster")
+        again = [cloned(sh) for sh in shards]
+        host = host_ms(torch, lambda: shard.sharded_convex_round(
+            again, penalty), 5)
+        shards_ms = time_cuda(torch, lambda: shard.sharded_convex_round(
+            box["s"], penalty, force_shards=True), 5 if k > 64 else RUNS,
+            setup=setup, warmup=1)
         plain_ms = time_cuda(torch, lambda: shard.sharded_convex_round_plain(
             box["s"], penalty), 1 if k > 64 else 3, warmup=0, setup=setup)
         chain = chain_ms(torch, k, dev)
@@ -3648,12 +3791,25 @@ def bench_mesh_programs(torch, np, rec):
         bytes_ = (n * NODE_BYTES + b * n * (CARRY_ROW_BYTES + 5 * g)
                   + b * k * (ASK_BYTES + 8) + b * (1 + g)
                   + 2 * b * k * n * 4 + rows * CARRY_ROW_BYTES + cells * 4)
+        limit = bound(bytes_, max(b * k * n * 85 / FP32_FLOPS,
+                                  chain / 1000.0))
+        route = scan_route(torch, shards, False, True)
+        err_s, launches_s, _w = shards_hold
+        check(launches_s == shard_launches(b, k, w, False),
+              f"K10g-b {key} per-shard route: {launches_s} launches a call")
+        print(f"K10g-b ({key}, B={b}, K={k}): one card's cluster {route}: "
+              f"{ms:.4f} ms a call (device {dev_ms}, host span {host:.4f}); "
+              f"per-shard route held, {launches_s} launches a call, "
+              f"{shards_ms:.4f} ms")
         out.setdefault("sharded_convex_round", {})[(key, k)] = dict(
-            max_abs_err=max(rerrs), ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, max(b * k * n * 85 / FP32_FLOPS,
-                                chain / 1000.0)),
+            max_abs_err=max(rerrs), ms=ms, plain_ms=plain_ms, **limit,
             library_ms=None, chain_ms=chain,
-            launches_per_call=rnd_launches, shards=w, calls_held=len(calls))
+            launches_per_call=rnd_launches, shards=w, calls_held=len(calls),
+            device_ms=dev_ms, host_ms=host, **route)
+        out.setdefault("sharded_convex_round_shards", {})[(key, k)] = dict(
+            max_abs_err=err_s, ms=shards_ms, plain_ms=plain_ms, **limit,
+            library_ms=None, chain_ms=chain, launches=launches_s,
+            launches_per_call=launches_s, shards=w, route="shards")
         torch.cuda.empty_cache()
     return out
 
@@ -4305,24 +4461,31 @@ REPLACES = {
                            "nomad_tpu/parallel/shard.py:72"),
     "group_capacity": ("nomad_tpu_torch/csrc/group_capacity.cu",
                        "nomad_tpu/parallel/shard.py:109"),
-    "sharded_greedy_scan": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+    "sharded_greedy_scan": ("nomad_tpu_torch/csrc/greedy_scan.cu",
                             "nomad_tpu/parallel/mesh.py:212"),
+    "sharded_greedy_scan_shards": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+                                   "nomad_tpu/parallel/mesh.py:212"),
     "sharded_uniform_topk": ("nomad_tpu_torch/csrc/uniform_topk.cu",
                              "nomad_tpu/ops/binpack.py:302"),
     "sharded_uniform_topk_shards": ("nomad_tpu_torch/csrc/sharded_topk.cu",
                                     "nomad_tpu/ops/binpack.py:302"),
-    "sharded_gang_scan": ("nomad_tpu_torch/csrc/sharded_gang.cu",
+    "sharded_gang_scan": ("nomad_tpu_torch/csrc/gang_scan.cu",
                           "nomad_tpu/parallel/mesh.py:175"),
+    "sharded_gang_scan_shards": ("nomad_tpu_torch/csrc/sharded_gang.cu",
+                                 "nomad_tpu/parallel/mesh.py:175"),
     "sharded_defrag_solve": ("nomad_tpu_torch/csrc/relax.cuh",
                              "nomad_tpu/parallel/mesh.py:201"),
     "sharded_convex_relax": ("nomad_tpu_torch/csrc/relax.cuh",
                              "nomad_tpu/kernels/convex.py:136"),
-    "sharded_convex_round": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+    "sharded_convex_round": ("nomad_tpu_torch/csrc/greedy_scan.cu",
                              "nomad_tpu/kernels/convex.py:224"),
+    "sharded_convex_round_shards": ("nomad_tpu_torch/csrc/sharded_scan.cu",
+                                    "nomad_tpu/kernels/convex.py:224"),
 }
 # The shape each kernel's JSON record leads with (the others ride
-# along under "shapes"). A record off the main paths (K10d's per-shard
-# path) carries the launches of its own held call.
+# along under "shapes"). A record off the main paths (the per-shard
+# routes of K10c, K10d, K10e and K10g-b) carries the launches of its own
+# held call.
 PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "expand_overlay": 1, "base_delta": 256,
            "greedy_scan_seq": (4, 1024), "uniform_topk_seq": 64,
@@ -4332,12 +4495,15 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "convex_round_seq": ("storm", 8),
            "defrag_solve": ("cold", 512, BENCH_N),
            "sharded_base_delta": 256, "group_capacity": BENCH_N,
-           "sharded_greedy_scan": (1, BENCH_K), "sharded_uniform_topk": 64,
-           "sharded_uniform_topk_shards": 64,
+           "sharded_greedy_scan": (1, BENCH_K),
+           "sharded_greedy_scan_shards": (1, BENCH_K),
+           "sharded_uniform_topk": 64, "sharded_uniform_topk_shards": 64,
            "sharded_gang_scan": (1024, 256),
+           "sharded_gang_scan_shards": (1024, 256),
            "sharded_defrag_solve": ("cold", 512, BENCH_N),
            "sharded_convex_relax": ("eval", 1024),
-           "sharded_convex_round": ("eval", 1024)}
+           "sharded_convex_round": ("eval", 1024),
+           "sharded_convex_round_shards": ("eval", 1024)}
 
 
 def main(argv=None) -> int:

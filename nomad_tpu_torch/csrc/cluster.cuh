@@ -1,6 +1,7 @@
 // The thread-block cluster machinery of the scans that split the node
 // axis over a cluster of CTAs (K1 and K8b: csrc/greedy_scan.cu and
-// csrc/convex_round.cu; K7: csrc/gang_scan.cu): bulk copies of a
+// csrc/convex_round.cu; K7: csrc/gang_scan.cu; and over the segments
+// of node shards of one card, K10c, K10g-b and K10e): bulk copies of a
 // slice's rows into shared memory on an mbarrier, one st.async key
 // exchange a step for the cluster's argmax, the clock of a step's parts,
 // and the launch of one kernel as a cluster, its attributes set once a
@@ -33,6 +34,10 @@ namespace cg = cooperative_groups;
 #define NT_SCAN_CLUSTER_MAX 16
 // Shared-memory bytes a CTA may take (227 KB on sm_90).
 #define NT_SCAN_SMEM_MAX (227 * 1024)
+// Of those, kept from the dynamic shared memory of the kernels' segment
+// forms: each CTA's static copy of its segment's row (ops/scan.py
+// SEGMENT_SMEM).
+#define NT_SCAN_SEG_SMEM 1024
 // Noise rows (and K8b's pref rows) staged ahead of the step that reads
 // them.
 #define NT_SCAN_STAGES 4
@@ -236,11 +241,12 @@ __device__ __forceinline__ unsigned long long nt_cluster_argmax(
   return nt_warp_max(lane < x.nc ? x.keys[par * x.nc + lane] : 0ull);
 }
 
-// Sets a kernel's attributes: the largest dynamic shared memory, and
-// clusters above the portable 8 CTAs.
-static int nt_scan_attrs(const void* fn) {
+// Sets a kernel's attributes: the largest dynamic shared memory (less
+// a segment form's static row), and clusters above the portable 8 CTAs.
+static int nt_scan_attrs(const void* fn, bool seg = false) {
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, NT_SCAN_SMEM_MAX);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      NT_SCAN_SMEM_MAX - (seg ? NT_SCAN_SEG_SMEM : 0));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);

@@ -28,6 +28,8 @@
 // layouts are K1's: independent evals, sequential evals (seq = 1: one
 // shared util / bw_used / ports_free; under pre_resolve the wrapper runs
 // the relaxation and this scan eval by eval, B = 1) and stacked states.
+// K10g-b on the shards of one card is the same kernel over the shards'
+// segments (csrc/greedy_scan.cu nt_scan_segments with ``bias``).
 #include "cluster.cuh"
 
 // Shapes: K1's (csrc/greedy_scan.cu nt_greedy_scan) with the noise read

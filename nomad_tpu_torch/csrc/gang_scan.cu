@@ -56,6 +56,19 @@
 //    and slice_group to -1 (else the chosen group); it writes its copy
 //    of the member counts to group_members.
 //
+// Segments (SEG; K10e on the shards of one card, parallel/shard.py):
+// the node axis as W segments, each a shard's own rows, noise window,
+// ``placed`` and copy of the member counts, from global row ``lo``. CTA
+// r takes part r mod cps of segment r / cps; the keys and the units
+// scratch use global indices, the winner's topology id is read through
+// its segment. The counts load from segment 0's copy, and rank 0
+// writes them back to every segment's, as the plain version updates
+// every shard's replica. The ordered walk sums each segment's units in
+// node order into a partial (the ``walk`` scratch), and folds the
+// partials in segment order: K10b's order (each shard's partial in node
+// order, the partials in shard order). K7 is the one-segment case (SEG
+// false), whose walk covers the whole axis as before.
+//
 // Every + - * / is a round-to-nearest intrinsic (csrc/common.cuh), so
 // choices, the slice group and the carry equal the plain version's and
 // K10e's (csrc/sharded_gang.cu) bit for bit.
@@ -121,6 +134,32 @@ __host__ __device__ inline NtGangLayout nt_gang_layout(
   return o;
 }
 
+// One segment of the node axis: a shard's n rows of the GangState from
+// global row lo (the whole axis for K7), its noise window [K,n], its
+// ``placed`` [n] and its copy of the member counts [g_pad].
+struct NtGangSeg {
+  long long lo, n;
+  const float4* capacity;
+  const float4* sched;
+  float4* util;
+  const float* bw_avail;
+  float* bw_used;
+  float* ports_free;
+  const unsigned char* feas_row;
+  const int* job_count;
+  const int* dh_presence;
+  const int* topo_ids;
+  const float* noise;
+  int* placed;
+  float* group_members;
+};
+#define NT_GANG_SEG_PTRS 13
+
+// K7's arguments (its one segment: the rows at capacity .. topo_ids,
+// noise, placed, group_members, N of them), then the segment table of
+// K10e's launches (W segments of cps CTAs; those row fields unused).
+// K7 reads its rows from these fields, as before the table (its forms
+// then compile to the same registers and spills: PERF.md §6).
 struct NtGangArgs {
   int N, K, g_pad, mode, dh, L, stage_noise, cache, groups;
   float penalty;
@@ -149,7 +188,18 @@ struct NtGangArgs {
   float* members_rows;  // [ctas, g_pad]: CTA r's counts past the budget
   float* units;         // [N]: the member units, for the ordered walk
   long long* prof;
+  int W, cps;
+  float* walk;          // [g_pad]: a segment's partial (SEG, W > 1)
+  NtGangSeg seg[NT_SCAN_CLUSTER_MAX];
 };
+
+// K7's one segment, from its fields.
+__device__ __forceinline__ NtGangSeg nt_gang_one(const NtGangArgs& p) {
+  return NtGangSeg{0,          p.N,         p.capacity,    p.sched,
+                   p.util,     p.bw_avail,  p.bw_used,     p.ports_free,
+                   p.feas_row, p.job_count, p.dh_presence, p.topo_ids,
+                   p.noise,    p.placed,    p.group_members};
+}
 
 // The group sums again in node order, by one warp (K10b's ordered walk
 // over the whole node axis): ``sums`` zeroed; units and ids in global
@@ -184,8 +234,9 @@ __device__ __forceinline__ void nt_gang_walk(int N, int g_pad,
 }
 
 // RES: the resident form, else streamed; TIMED: the step parts are
-// timed into p.prof.
-template <bool RES, bool TIMED>
+// timed into p.prof; SEG: the CTAs over p.W segments, p.cps a segment
+// (else segment 0 over the whole cluster).
+template <bool RES, bool TIMED, bool SEG>
 __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_gang_cluster_kernel(const __grid_constant__ NtGangArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -195,7 +246,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const int rank = (int)cl.block_rank();
   const int T = blockDim.x, W = T >> 5;
   const int t = threadIdx.x;
-  const int N = p.N, K = p.K, g_pad = p.g_pad, mode = p.mode;
+  const int K = p.K, g_pad = p.g_pad, mode = p.mode;
   const bool dhb = p.dh != 0;
   const bool capg = mode == NT_GANG_SLICE || mode == NT_GANG_SPREAD;
   // A step reads the group member counts (every CTA keeps its copy).
@@ -205,8 +256,29 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
                                           capg);
   const NtExchange x =
       nt_exchange(smem, lay.slots, bar + NT_G_KEYS, nc, rank, W);
-  const int lo = (int)((long long)rank * N / nc);
-  const int cnt = (int)((long long)(rank + 1) * N / nc) - lo;
+  // This CTA's slice: part ``pj`` of segment ``si`` (a part may be
+  // empty; its CTA still meets every barrier), local rows [lo, lo +
+  // cnt), global rows from ``glo``.
+  const int cps = SEG ? p.cps : nc;
+  const int si = SEG ? rank / cps : 0;
+  const int pj = rank - si * cps;
+  // SEG: the segment's row from shared memory, read where it is used
+  // (its pointers held in registers across the steps spill).
+  NtGangSeg one = {};
+  const NtGangSeg* row = &one;
+  if constexpr (SEG) {
+    __shared__ NtGangSeg seg_row;
+    if (t == 0) seg_row = p.seg[si];
+    __syncthreads();
+    row = &seg_row;
+  } else {
+    one = nt_gang_one(p);
+  }
+  const NtGangSeg& sg = *row;
+  const int n_s = (int)sg.n;
+  const int lo = (int)((long long)pj * n_s / cps);
+  const int cnt = (int)((long long)(pj + 1) * n_s / cps) - lo;
+  const int glo = SEG ? (int)sg.lo + lo : lo;  // one segment: at 0
   int* ctl = (int*)(smem + lay.ctl);
   float* cache = (float*)(smem + lay.cache);
   float* members = p.groups ? (float*)(smem + lay.members)
@@ -219,18 +291,18 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   }
 
   // The slice's rows in global memory.
-  const float4* gcap = p.capacity + lo;
-  const float4* gsched = p.sched + lo;
-  float4* gutil = p.util + lo;
-  const float* gbwa = p.bw_avail + lo;
-  float* gbwu = p.bw_used + lo;
-  float* gports = p.ports_free + lo;
-  const unsigned char* gfeas = p.feas_row + lo;
-  const int* gjc = p.job_count + lo;
-  const int* gdhp = p.dh_presence + lo;
-  const int* gtopo = p.topo_ids + lo;
-  int* gplaced = p.placed + lo;
-  auto gnoise = [&](int k) { return p.noise + (size_t)k * N + lo; };
+  const float4* gcap = sg.capacity + lo;
+  const float4* gsched = sg.sched + lo;
+  float4* gutil = sg.util + lo;
+  const float* gbwa = sg.bw_avail + lo;
+  float* gbwu = sg.bw_used + lo;
+  float* gports = sg.ports_free + lo;
+  const unsigned char* gfeas = sg.feas_row + lo;
+  const int* gjc = sg.job_count + lo;
+  const int* gdhp = sg.dh_presence + lo;
+  const int* gtopo = sg.topo_ids + lo;
+  int* gplaced = sg.placed + lo;
+  auto gnoise = [&](int k) { return sg.noise + (size_t)k * n_s + lo; };
   auto issue_noise = [&](int k) {
     const float* src = gnoise(k);
     uint64_t* b = &bar[NT_G_NOISE + k % NT_SCAN_STAGES];
@@ -238,9 +310,10 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_bulk(smem + lay.noise[k % NT_SCAN_STAGES], src, (size_t)4 * cnt, b);
   };
 
-  // This CTA's copy of the member counts (carried in).
+  // This CTA's copy of the member counts (carried in; segment 0's).
+  const float* members0 = SEG ? p.seg[0].group_members : p.group_members;
   if (counts || rank == 0)
-    for (int g = t; g < g_pad; g += T) members[g] = p.group_members[g];
+    for (int g = t; g < g_pad; g += T) members[g] = members0[g];
   if (t == 0) {
     for (int i = 0; i < NT_G_COUNT; ++i) nt_mbar_init(&bar[i]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -302,7 +375,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     for (int i = t; i < cnt; i += T) {
       const float u = nt_member_units(i, mode, dhb, cap, util, bwa, bwu,
                                       ports, feas, dhp, topo, a, abw, aports);
-      p.units[lo + i] = u;
+      p.units[glo + i] = u;
       const int id = topo[i];
       if (id < 0 || id >= g_pad || u == 0.0f) continue;
       if (u >= 0.0f && u == truncf(u))
@@ -322,9 +395,25 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
       if (__syncthreads_or(past)) {
         for (int g = t; g < g_pad; g += T) capv[g] = 0.0f;
         __syncthreads();
-        if (t < 32)
-          nt_gang_walk(N, g_pad, p.units, p.topo_ids, capv, !p.groups);
-        __syncthreads();
+        if (!SEG || p.W == 1) {
+          if (t < 32)  // rank 0's segment is segment 0
+            nt_gang_walk(n_s, g_pad, p.units, sg.topo_ids, capv, !p.groups);
+          __syncthreads();
+        } else {
+          // Each segment's partial in node order, then added in segment
+          // order.
+          for (int s = 0; s < p.W; ++s) {
+            for (int g = t; g < g_pad; g += T) p.walk[g] = 0.0f;
+            __syncthreads();
+            if (t < 32)
+              nt_gang_walk((int)p.seg[s].n, g_pad, p.units + p.seg[s].lo,
+                           p.seg[s].topo_ids, p.walk, true);
+            __syncthreads();
+            for (int g = t; g < g_pad; g += T)
+              capv[g] = __fadd_rn(sum(g), __ldcg(p.walk + g));
+            __syncthreads();
+          }
+        }
       }
       int active = 0;  // k_actual: the active members, an exact count
       for (int b = 0; b < K; b += T)
@@ -417,7 +506,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         bn = n_i;
       }
     }
-    const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(lo + bi) : 0u;
+    const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(glo + bi) : 0u;
     clock.tick(NT_P_SCORE);
     const unsigned long long win = nt_cluster_argmax(
         ((unsigned long long)bh << 32) | bl, x, k, clock, [] {});
@@ -434,7 +523,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         gh != 0 && nt_unpack_score(win) > NT_NEG_INF / 2 && act;
     updated = -1;
     if (valid && bh == gh && bl == gl) {  // this thread owns the winner
-      p.choices[k] = lo + bi;
+      p.choices[k] = glo + bi;
       p.scores[k] = __fsub_rn(bs, bn);
       const float4 u = util[bi];
       util[bi] = make_float4(__fadd_rn(u.x, a.x), __fadd_rn(u.y, a.y),
@@ -449,7 +538,16 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     }
     missing = missing || (act && !valid);
     if (valid && t == 0 && (counts || rank == 0)) {
-      const int gid = __ldg(p.topo_ids + (0xffffffffu - gl));
+      // The winner's topology id, read through its segment.
+      const int wi = (int)(0xffffffffu - gl);
+      int gid;
+      if constexpr (SEG) {
+        int ws = 0;
+        while (ws + 1 < p.W && wi >= p.seg[ws + 1].lo) ++ws;
+        gid = __ldg(p.seg[ws].topo_ids + (wi - p.seg[ws].lo));
+      } else {
+        gid = __ldg(p.topo_ids + wi);
+      }
       if (gid >= 0 && gid < g_pad)
         members[gid] = __fadd_rn(members[gid], 1.0f);
     }
@@ -477,31 +575,132 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         p.choices[k] = -1;
         p.scores[k] = 0.0f;
       }
-    for (int g = t; g < g_pad; g += T) p.group_members[g] = members[g];
+    for (int s = 0; s < (SEG ? p.W : 1); ++s) {
+      float* gm = SEG ? p.seg[s].group_members : p.group_members;
+      for (int g = t; g < g_pad; g += T) gm[g] = members[g];
+    }
     if (t == 0) p.slice_group[0] = missing ? -1 : ctl[NT_C_CHOSEN];
   }
 }
 
 static std::atomic<int> nt_gang_ready[NT_SCAN_DEVICES];
 
-static void (*nt_gang_kernel(int resident, bool timed))(const NtGangArgs) {
+// The gang kernel for a form, timed or not; over segments (``seg``,
+// untimed) or one.
+static void (*nt_gang_kernel(int resident, bool timed,
+                             bool seg))(const NtGangArgs) {
+  if (seg)
+    return resident ? nt_gang_cluster_kernel<true, false, true>
+                    : nt_gang_cluster_kernel<false, false, true>;
   if (resident)
-    return timed ? nt_gang_cluster_kernel<true, true>
-                 : nt_gang_cluster_kernel<true, false>;
-  return timed ? nt_gang_cluster_kernel<false, true>
-               : nt_gang_cluster_kernel<false, false>;
+    return timed ? nt_gang_cluster_kernel<true, true, false>
+                 : nt_gang_cluster_kernel<true, false, false>;
+  return timed ? nt_gang_cluster_kernel<false, true, false>
+               : nt_gang_cluster_kernel<false, false, false>;
 }
 
 // The kernels' attributes on the current device, once a device.
 static int nt_gang_setup() {
   return nt_once_a_device(nt_gang_ready, [] {
     for (int r = 0; r < 2; ++r)
-      for (int timed = 0; timed < 2; ++timed) {
-        const int err = nt_scan_attrs((const void*)nt_gang_kernel(r, timed));
+      for (int form = 0; form < 3; ++form) {  // untimed, timed, segments
+        const int err = nt_scan_attrs(
+            (const void*)nt_gang_kernel(r, form == 1, form == 2), form == 2);
         if (err) return err;
       }
     return 0;
   });
+}
+
+// A segment from its rows' pointers, in NtGangSeg's order.
+static NtGangSeg nt_gang_seg(long long lo, long long n,
+                             const void* const* q) {
+  NtGangSeg sg;
+  sg.lo = lo;
+  sg.n = n;
+  sg.capacity = (const float4*)q[0];
+  sg.sched = (const float4*)q[1];
+  sg.util = (float4*)q[2];
+  sg.bw_avail = (const float*)q[3];
+  sg.bw_used = (float*)q[4];
+  sg.ports_free = (float*)q[5];
+  sg.feas_row = (const unsigned char*)q[6];
+  sg.job_count = (const int*)q[7];
+  sg.dh_presence = (const int*)q[8];
+  sg.topo_ids = (const int*)q[9];
+  sg.noise = (const float*)q[10];
+  sg.placed = (int*)q[11];
+  sg.group_members = (float*)q[12];
+  return sg;
+}
+
+// Checks the plan against ``p`` (its gang, segments and scratch set),
+// sets the slice length and launches: p.W segments of p.cps CTAs each
+// (``seg``) or one segment over the cluster of ``ctas``.
+static int nt_gang_run(NtGangArgs& p, int ctas, int threads, int resident,
+                       bool seg, long long smem, void* stream) {
+  const int mode = p.mode;
+  const bool capg = mode == NT_GANG_SLICE || mode == NT_GANG_SPREAD;
+  if (p.g_pad < 1 || mode < 0 || mode > 3 ||
+      !nt_scan_shape_ok(ctas, threads) || p.W < 1 || p.cps < 1 ||
+      p.W * p.cps != ctas || (!seg && p.W != 1) ||
+      (seg && p.prof != nullptr) ||
+      (capg && (p.units == nullptr || (!p.groups && p.group_cap == nullptr) ||
+                (p.W > 1 && p.walk == nullptr))) ||
+      (!p.groups && p.members_rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int L = 0;
+  for (int s = 0; s < p.W; ++s) {
+    const long long n = p.seg[s].n;
+    if (n < 0 || (s > 0 && p.seg[s].lo != p.seg[s - 1].lo + p.seg[s - 1].n))
+      return (int)cudaErrorInvalidValue;
+    const int part = (int)((n + p.cps - 1) / p.cps);
+    L = part > L ? part : L;
+  }
+  p.L = L;
+  const NtGangLayout lay =
+      nt_gang_layout(ctas, threads / 32, L, p.g_pad, resident, p.stage_noise,
+                     p.cache, p.groups, capg);
+  if ((long long)lay.total != smem ||
+      lay.total > NT_SCAN_SMEM_MAX - (seg ? NT_SCAN_SEG_SMEM : 0))
+    return (int)cudaErrorInvalidValue;
+  int err = nt_gang_setup();
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = nt_scan_cfg(1, ctas, threads, lay.total,
+                                             (cudaStream_t)stream, attr);
+  return (int)cudaLaunchKernelEx(
+      &cfg, nt_gang_kernel(resident, p.prof != nullptr, seg), p);
+}
+
+// The gang's arguments common to both entries.
+static void nt_gang_common(NtGangArgs& p, int K, int g_pad, int mode, int dh,
+                           float penalty, int stage_noise, int cache,
+                           int groups, const void* ask_res,
+                           const void* ask_bw, const void* ask_ports,
+                           const void* active, const void* group_noise,
+                           void* choices, void* scores, void* slice_group,
+                           void* group_cap, void* members_rows,
+                           void* units) {
+  p.K = K;
+  p.g_pad = g_pad;
+  p.mode = mode;
+  p.dh = dh;
+  p.stage_noise = stage_noise;
+  p.cache = cache;
+  p.groups = groups;
+  p.penalty = penalty;
+  p.ask_res = (const float4*)ask_res;
+  p.ask_bw = (const float*)ask_bw;
+  p.ask_ports = (const float*)ask_ports;
+  p.active = (const unsigned char*)active;
+  p.group_noise = (const float*)group_noise;
+  p.choices = (int*)choices;
+  p.scores = (float*)scores;
+  p.slice_group = (int*)slice_group;
+  p.group_cap = (float*)group_cap;
+  p.members_rows = (float*)members_rows;
+  p.units = (float*)units;
 }
 
 // Shapes: capacity/sched/util [N,4] f32; bw_avail/bw_used/ports_free [N]
@@ -534,60 +733,72 @@ NT_API int nt_gang_scan(int N, int K, int g_pad, int mode, int dh,
                         void* members_rows, void* units, void* prof,
                         void* stream) {
   if (K <= 0) return 0;
-  const bool capg = mode == NT_GANG_SLICE || mode == NT_GANG_SPREAD;
-  if (g_pad < 1 || N < 0 || mode < 0 || mode > 3 ||
-      !nt_scan_shape_ok(ctas, threads) ||
-      (capg && (units == nullptr || (!groups && group_cap == nullptr))) ||
-      (!groups && members_rows == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int L = (N + ctas - 1) / ctas;
-  const NtGangLayout lay = nt_gang_layout(ctas, threads / 32, L, g_pad,
-                                          resident, stage_noise, cache,
-                                          groups, capg);
-  if ((long long)lay.total != smem || lay.total > NT_SCAN_SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  int err = nt_gang_setup();
-  if (err) return err;
+  if (N < 0) return (int)cudaErrorInvalidValue;
   NtGangArgs p = {};
-  p.N = N;
-  p.K = K;
-  p.g_pad = g_pad;
-  p.mode = mode;
-  p.dh = dh;
-  p.L = L;
-  p.stage_noise = stage_noise;
-  p.cache = cache;
-  p.groups = groups;
-  p.penalty = penalty;
-  p.capacity = (const float4*)capacity;
-  p.sched = (const float4*)sched;
-  p.util = (float4*)util;
-  p.bw_avail = (const float*)bw_avail;
-  p.bw_used = (float*)bw_used;
-  p.ports_free = (float*)ports_free;
-  p.feas_row = (const unsigned char*)feas_row;
-  p.job_count = (const int*)job_count;
-  p.dh_presence = (const int*)dh_presence;
-  p.topo_ids = (const int*)topo_ids;
-  p.ask_res = (const float4*)ask_res;
-  p.ask_bw = (const float*)ask_bw;
-  p.ask_ports = (const float*)ask_ports;
-  p.active = (const unsigned char*)active;
-  p.noise = (const float*)noise;
-  p.group_noise = (const float*)group_noise;
-  p.placed = (int*)placed;
-  p.group_members = (float*)group_members;
-  p.choices = (int*)choices;
-  p.scores = (float*)scores;
-  p.slice_group = (int*)slice_group;
-  p.group_cap = (float*)group_cap;
-  p.members_rows = (float*)members_rows;
-  p.units = (float*)units;
+  nt_gang_common(p, K, g_pad, mode, dh, penalty, stage_noise, cache, groups,
+                 ask_res, ask_bw, ask_ports, active, group_noise, choices,
+                 scores, slice_group, group_cap, members_rows, units);
+  p.W = 1;
+  p.cps = ctas;
   p.prof = (long long*)prof;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = nt_scan_cfg(1, ctas, threads, lay.total,
-                                             (cudaStream_t)stream, attr);
-  return (int)cudaLaunchKernelEx(&cfg, nt_gang_kernel(resident, prof), p);
+  const void* rows[NT_GANG_SEG_PTRS] = {
+      capacity, sched, util, bw_avail, bw_used, ports_free, feas_row,
+      job_count, dh_presence, topo_ids, noise, placed, group_members};
+  p.seg[0] = nt_gang_seg(0, N, rows);  // for nt_gang_run's checks
+  const NtGangSeg& sg = p.seg[0];  // the kernel's own fields
+  p.N = N;
+  p.capacity = sg.capacity;
+  p.sched = sg.sched;
+  p.util = sg.util;
+  p.bw_avail = sg.bw_avail;
+  p.bw_used = sg.bw_used;
+  p.ports_free = sg.ports_free;
+  p.feas_row = sg.feas_row;
+  p.job_count = sg.job_count;
+  p.dh_presence = sg.dh_presence;
+  p.topo_ids = sg.topo_ids;
+  p.noise = sg.noise;
+  p.placed = sg.placed;
+  p.group_members = sg.group_members;
+  return nt_gang_run(p, ctas, threads, resident, false, smem, stream);
+}
+
+// K10e on the shards of one card: the gang over W <= 16 segments, cps
+// CTAs each (a cluster of cps x W), in node order. seg_dims [W,2] i64
+// (global lo, rows) and seg_ptrs [W,13] (capacity, sched, util,
+// bw_avail, bw_used, ports_free, feas_row, job_count, dh_presence,
+// topo_ids, noise [K,n], placed [n], group_members [g_pad]: a shard's
+// rows and carry, as nt_gang_scan's over the segment) are host arrays;
+// every segment's group_members is written with the gang's counts
+// (read from segment 0's). The ask, active, group_noise, the outputs,
+// the plan and the scratch as nt_gang_scan's (units over all the
+// segments' rows), and walk [g_pad] f32 (slice and spread mode, W > 1):
+// a segment's partial in the ordered walk.
+NT_API int nt_gang_segments(int K, int g_pad, int mode, int dh,
+                            float penalty, int W, int cps, int threads,
+                            int resident, int stage_noise, int cache,
+                            int groups, long long smem,
+                            const long long* seg_dims,
+                            const void* const* seg_ptrs, const void* ask_res,
+                            const void* ask_bw, const void* ask_ports,
+                            const void* active, const void* group_noise,
+                            void* choices, void* scores, void* slice_group,
+                            void* group_cap, void* members_rows, void* units,
+                            void* walk, void* stream) {
+  if (K <= 0) return 0;
+  if (W < 1 || W > NT_SCAN_CLUSTER_MAX || cps < 1)
+    return (int)cudaErrorInvalidValue;
+  NtGangArgs p = {};
+  nt_gang_common(p, K, g_pad, mode, dh, penalty, stage_noise, cache, groups,
+                 ask_res, ask_bw, ask_ports, active, group_noise, choices,
+                 scores, slice_group, group_cap, members_rows, units);
+  p.W = W;
+  p.cps = cps;
+  p.walk = (float*)walk;
+  for (int s = 0; s < W; ++s)
+    p.seg[s] = nt_gang_seg(seg_dims[2 * s], seg_dims[2 * s + 1],
+                           seg_ptrs + (size_t)s * NT_GANG_SEG_PTRS);
+  return nt_gang_run(p, cps * W, threads, resident, true, smem, stream);
 }
 
 // The clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
@@ -602,7 +813,7 @@ NT_API int nt_gang_occupancy(int ctas, int threads, long long smem,
     return 0;
   int err = nt_gang_setup();
   if (err) return err;
-  nt_cluster_occupancy((const void*)nt_gang_kernel(resident, false), ctas,
-                       threads, (size_t)smem, clusters);
+  nt_cluster_occupancy((const void*)nt_gang_kernel(resident, false, false),
+                       ctas, threads, (size_t)smem, clusters);
   return 0;
 }

@@ -75,6 +75,15 @@
 //   thread. The owner of the winning node (its own best key is the
 //   winner) updates the node's rows and writes the choice and score;
 //   rank 0 writes a step with no winner.
+// - Segments (SEG): the node axis as W segments, each a node shard's
+//   own rows from global row ``lo`` (K10c and K10g-b on the shards of
+//   one card, parallel/shard.py). CTA r takes part r mod cps of segment
+//   r / cps (cps CTAs a segment), with the segment's pointers and its
+//   own row strides; the keys pack the global index, so ties still go
+//   to the lowest global node (jnp.argmax's order, and the per-shard
+//   route's shard order). K1 and K8b are the one-segment case (SEG
+//   false: segment 0, cps = the cluster), whose forms compile as
+//   before.
 // - K8b (BIAS, the convex kernel's rounding scan: csrc/convex_round.cu)
 //   is this kernel with the rounding bias added to each node's score,
 //   biased = score + ROUND_BIAS x pref[k, n] - STRAND_BIAS x strand(n)
@@ -95,10 +104,12 @@
 // Steps ahead whose asks are prefetched into L1.
 #define NT_SCAN_ASK_AHEAD 8
 
-struct NtScanArgs {
-  int B, N, G, K, seq, stacked, stage_noise, eval_bufs, cache, L;
-  float penalty, scale;
-  long long draw_total, draw_lo;
+// One segment of the node axis: a shard's n rows from global row lo
+// (the whole axis for K1 and K8b); row pointers not yet offset to the
+// eval, strided by the segment's own n; its noise window [B,K,n] (read
+// mode) and, for K8b's bias, its pref columns [B,K,n].
+struct NtScanSeg {
+  long long lo, n;
   const float4* capacity;
   const float4* sched;
   const float* bw_avail;
@@ -109,6 +120,18 @@ struct NtScanArgs {
   int* job_count;
   int* tg_count;
   const unsigned char* feasible;
+  const float* noise;
+  const float* pref;
+};
+#define NT_SCAN_SEG_PTRS 12
+
+// The batch's arguments, then the segment table: K1 and K8b launch
+// with one segment (seg[0], the whole node axis, N its rows), K10c and
+// K10g-b with W of cps CTAs each.
+struct NtScanArgs {
+  int B, N, G, K, seq, stacked, stage_noise, eval_bufs, cache, L;
+  float penalty, scale;
+  long long draw_total, draw_lo;
   const float4* ask_res;
   const float* ask_bw;
   const float* ask_ports;
@@ -117,11 +140,11 @@ struct NtScanArgs {
   const unsigned char* job_dh;
   const unsigned char* tg_dh;
   const long long* keys;
-  const float* noise;
-  const float* pref;
   int* choices;
   float* scores;
   long long* prof;
+  int W, cps;
+  NtScanSeg seg[NT_SCAN_CLUSTER_MAX];
 };
 
 // The mbarriers at the start of shared memory.
@@ -208,9 +231,11 @@ __device__ __forceinline__ void nt_prefetch_l1(const void* p) {
 
 // RES: the resident form (the rows in shared memory), else streamed;
 // TIMED: the step parts are timed into p.prof; DRAW: the noise drawn in
-// the kernel, else read from p.noise (staged where p.stage_noise);
-// BIAS: K8b, the rounding bias from p.pref added (the noise read).
-template <bool RES, bool TIMED, bool DRAW, bool BIAS>
+// the kernel, else read from the segment's noise (staged where
+// p.stage_noise); BIAS: K8b, the rounding bias from the segment's pref
+// added (the noise read); SEG: the CTAs over p.W segments, p.cps a
+// segment (else segment 0 over the whole cluster).
+template <bool RES, bool TIMED, bool DRAW, bool BIAS, bool SEG>
 __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     nt_greedy_cluster_kernel(const __grid_constant__ NtScanArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -220,18 +245,44 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const int rank = (int)cl.block_rank();
   const int T = blockDim.x, W = T >> 5;
   const int t = threadIdx.x;
-  const int N = p.N, G = p.G, K = p.K;
+  const int G = p.G, K = p.K;
   static_assert(!(DRAW && BIAS), "K8b reads its noise");
   const NtScanLayout lay = nt_scan_layout(nc, W, p.L, G, RES, p.stage_noise,
                                           p.eval_bufs, p.cache, BIAS);
   const NtExchange x =
       nt_exchange(smem, lay.slots, bar + NT_B_KEYS, nc, rank, W);
-  const int lo = (int)((long long)rank * N / nc);
-  const int cnt = (int)((long long)(rank + 1) * N / nc) - lo;
+  // This CTA's slice: part ``pj`` of segment ``si`` (a part may be
+  // empty; its CTA still meets every barrier), local rows [lo, lo +
+  // cnt), global rows from ``glo``.
+  const int cps = SEG ? p.cps : nc;
+  const int si = SEG ? rank / cps : 0;
+  const int pj = rank - si * cps;
+  // SEG: the segment's row from shared memory, read where it is used
+  // (its pointers held in registers across the steps spill); the one
+  // segment from the parameters, as K1 and K8b always read them (their
+  // forms compile as they did without the table: PERF.md §6).
+  const NtScanSeg* row;
+  if constexpr (SEG) {
+    __shared__ NtScanSeg seg_row;
+    if (t == 0) seg_row = p.seg[si];
+    __syncthreads();
+    row = &seg_row;
+  } else {
+    row = &p.seg[0];
+  }
+  const NtScanSeg& sg = *row;
+  const int nrows = SEG ? (int)sg.n : p.N;
+  const int lo = (int)((long long)pj * nrows / cps);
+  const int cnt = (int)((long long)(pj + 1) * nrows / cps) - lo;
+  const int glo = SEG ? (int)sg.lo + lo : lo;  // one segment: at 0
   const int first = p.seq ? 0 : (int)(blockIdx.x / nc);
   const int evals = p.seq ? p.B : 1;
   const int steps = evals * K;
-  const size_t nn = (size_t)N;
+  // Row strides and the carried rows' write-back pointers: SEG forms
+  // them from the shared row where they are used (held across the
+  // steps, they spill), the one segment once.
+  const size_t nn0 = (size_t)nrows;
+  auto nn = [&] { return SEG ? (size_t)sg.n : nn0; };
   const size_t sb = p.stacked ? first : 0;  // static rows of the eval
   const size_t cb = p.seq ? 0 : first;      // claimed capacity
   const size_t ask_end = (size_t)p.B * K - 1;
@@ -247,25 +298,32 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   }
 
   // The slice's rows in global memory; ``e`` the cluster's eval index.
-  const float4* gcap = p.capacity + sb * nn + lo;
-  const float4* gsched = p.sched + sb * nn + lo;
-  const float* gbwa = p.bw_avail + sb * nn + lo;
-  const unsigned char* gok = p.node_ok + sb * nn + lo;
-  float4* gutil = p.util + cb * nn + lo;
-  float* gbwu = p.bw_used + cb * nn + lo;
-  float* gports = p.ports_free + cb * nn + lo;
-  auto gjc = [&](int e) { return p.job_count + (size_t)(first + e) * nn + lo; };
+  const float4* gcap = sg.capacity + sb * nn() + lo;
+  const float4* gsched = sg.sched + sb * nn() + lo;
+  const float* gbwa = sg.bw_avail + sb * nn() + lo;
+  const unsigned char* gok = sg.node_ok + sb * nn() + lo;
+  float4* const gutil0 = SEG ? nullptr : sg.util + cb * nn0 + lo;
+  float* const gbwu0 = SEG ? nullptr : sg.bw_used + cb * nn0 + lo;
+  float* const gports0 = SEG ? nullptr : sg.ports_free + cb * nn0 + lo;
+  auto gutil = [&] { return SEG ? sg.util + cb * nn() + lo : gutil0; };
+  auto gbwu = [&] { return SEG ? sg.bw_used + cb * nn() + lo : gbwu0; };
+  auto gports = [&] {
+    return SEG ? sg.ports_free + cb * nn() + lo : gports0;
+  };
+  auto gjc = [&](int e) {
+    return sg.job_count + (size_t)(first + e) * nn() + lo;
+  };
   auto gtgc = [&](int e) {
-    return p.tg_count + ((size_t)(first + e) * nn + lo) * G;
+    return sg.tg_count + ((size_t)(first + e) * nn() + lo) * G;
   };
   auto gfeas = [&](int e) {
-    return p.feasible + ((size_t)(first + e) * nn + lo) * G;
+    return sg.feasible + ((size_t)(first + e) * nn() + lo) * G;
   };
   auto gnoise = [&](int s) {  // step s's noise row slice (read mode)
-    return p.noise + ((size_t)first * K + s) * nn + lo;
+    return sg.noise + ((size_t)first * K + s) * nn() + lo;
   };
   auto gpref = [&](int s) {  // step s's pref row slice (BIAS)
-    return p.pref + ((size_t)first * K + s) * nn + lo;
+    return sg.pref + ((size_t)first * K + s) * nn() + lo;
   };
   auto erow = [&](int e, int r) {
     return smem + lay.erows[e % p.eval_bufs][r];
@@ -275,7 +333,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   // bar[e & 1]; step s's noise onto its stage's. By thread 0.
   auto issue_eval = [&](int e, bool all) {
     const void* src[NT_S_ROWS + NT_E_ROWS] = {
-        gcap, gsched, gutil, gbwa, gbwu, gports, gok, gjc(e), gtgc(e),
+        gcap, gsched, gutil(), gbwa, gbwu(), gports(), gok, gjc(e), gtgc(e),
         gfeas(e)};
     const size_t len[NT_S_ROWS + NT_E_ROWS] = {
         (size_t)16 * cnt, (size_t)16 * cnt, (size_t)16 * cnt,
@@ -314,7 +372,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     dk0 = (uint32_t)p.keys[2 * (size_t)(first + e)];
     dk1 = (uint32_t)p.keys[2 * (size_t)(first + e) + 1];
     dbase = (unsigned long long)k * (unsigned long long)p.draw_total +
-            (unsigned long long)(p.draw_lo + lo);
+            (unsigned long long)(p.draw_lo + glo);
 #pragma unroll
     for (int j = 0; j < NT_DRAW_AHEAD; ++j) {
       const int i = t + j * T;
@@ -342,11 +400,12 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   const float4* cap = RES ? nt_staged(smem + lay.rows[NT_S_CAP], gcap) : gcap;
   const float4* sched =
       RES ? nt_staged(smem + lay.rows[NT_S_SCHED], gsched) : gsched;
-  float4* util = RES ? nt_staged(smem + lay.rows[NT_S_UTIL], gutil) : gutil;
+  float4* util =
+      RES ? nt_staged(smem + lay.rows[NT_S_UTIL], gutil()) : gutil();
   const float* bwa = RES ? nt_staged(smem + lay.rows[NT_S_BWA], gbwa) : gbwa;
-  float* bwu = RES ? nt_staged(smem + lay.rows[NT_S_BWU], gbwu) : gbwu;
+  float* bwu = RES ? nt_staged(smem + lay.rows[NT_S_BWU], gbwu()) : gbwu();
   float* ports =
-      RES ? nt_staged(smem + lay.rows[NT_S_PORTS], gports) : gports;
+      RES ? nt_staged(smem + lay.rows[NT_S_PORTS], gports()) : gports();
   const unsigned char* ok =
       RES ? nt_staged(smem + lay.rows[NT_S_OK], gok) : gok;
   int* jc = nullptr;
@@ -450,7 +509,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
         if (BIAS) bs = v;
       }
     }
-    const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(lo + bi) : 0u;
+    const unsigned bl = bi >= 0 ? 0xffffffffu - (unsigned)(glo + bi) : 0u;
     clock.tick(NT_P_SCORE);
     // Step s + 1's noise is drawn while the cluster's keys of step s
     // are on their way.
@@ -477,7 +536,7 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
     updated = -1;
     if (valid && bh == gh && bl == gl) {  // this thread owns the winner
       const size_t cell = (size_t)bi * G + cur.tg;
-      p.choices[ai] = lo + bi;
+      p.choices[ai] = glo + bi;
       p.scores[ai] = __fsub_rn(BIAS ? bs : best, bn);
       const float4 u = util[bi];
       util[bi] = make_float4(__fadd_rn(u.x, cur.a.x), __fadd_rn(u.y, cur.a.y),
@@ -507,9 +566,9 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
   }
   if (RES)
     for (int i = t; i < cnt; i += T) {
-      gutil[i] = util[i];
-      gbwu[i] = bwu[i];
-      gports[i] = ports[i];
+      gutil()[i] = util[i];
+      gbwu()[i] = bwu[i];
+      gports()[i] = ports[i];
     }
   if (TIMED && clock.on)
     for (int i = 0; i < NT_P_PARTS; ++i) p.prof[i] = prof_acc[i];
@@ -558,12 +617,22 @@ __global__ void __launch_bounds__(NT_SCAN_THREADS, 1)
 static std::atomic<int> nt_scan_ready[NT_SCAN_DEVICES];
 
 // The scan kernel for a form, timed or not, drawing or reading the
-// noise, with K8b's bias (which reads it) or without.
-static void (*nt_scan_kernel(int resident, bool timed, bool draw,
-                             bool bias))(const NtScanArgs) {
-#define NT_SCAN_FORMS(R, D, B)                               \
-  return timed ? nt_greedy_cluster_kernel<R, true, D, B>     \
-               : nt_greedy_cluster_kernel<R, false, D, B>
+// noise, with K8b's bias (which reads it) or without; over segments
+// (``seg``: read or biased, untimed) or one.
+static void (*nt_scan_kernel(int resident, bool timed, bool draw, bool bias,
+                             bool seg))(const NtScanArgs) {
+#define NT_SCAN_FORMS(R, D, B)                                      \
+  return timed ? nt_greedy_cluster_kernel<R, true, D, B, false>     \
+               : nt_greedy_cluster_kernel<R, false, D, B, false>
+  if (seg) {
+    if (bias)
+      return resident ? nt_greedy_cluster_kernel<true, false, false, true, true>
+                      : nt_greedy_cluster_kernel<false, false, false, true,
+                                                 true>;
+    return resident ? nt_greedy_cluster_kernel<true, false, false, false, true>
+                    : nt_greedy_cluster_kernel<false, false, false, false,
+                                               true>;
+  }
   if (bias) {
     if (resident) NT_SCAN_FORMS(true, false, true);
     NT_SCAN_FORMS(false, false, true);
@@ -580,15 +649,110 @@ static void (*nt_scan_kernel(int resident, bool timed, bool draw,
 // The kernels' attributes on the current device, once a device.
 static int nt_scan_setup() {
   return nt_once_a_device(nt_scan_ready, [] {
-    for (int r = 0; r < 2; ++r)
+    for (int r = 0; r < 2; ++r) {
       for (int timed = 0; timed < 2; ++timed)
         for (int mode = 0; mode < 3; ++mode) {  // read, drawn, K8b
           const int err = nt_scan_attrs((const void*)nt_scan_kernel(
-              r, timed, mode == 1, mode == 2));
+              r, timed, mode == 1, mode == 2, false));
           if (err) return err;
         }
+      for (int bias = 0; bias < 2; ++bias) {  // segments: read, K8b
+        const int err = nt_scan_attrs(
+            (const void*)nt_scan_kernel(r, false, false, bias, true), true);
+        if (err) return err;
+      }
+    }
     return nt_scan_attrs((const void*)nt_argmax_chain_cluster_kernel);
   });
+}
+
+// Checks the plan against ``p`` (its batch, segments and pointers set),
+// sets the slice length and launches: p.W segments of p.cps CTAs each
+// (``seg``) or one segment over the cluster of ``ctas``.
+static int nt_scan_run(NtScanArgs& p, int ctas, int threads, int resident,
+                       int draw, bool bias, bool seg, long long smem,
+                       void* stream) {
+  // Resident under seq, eval e + 1's rows load while eval e reads its
+  // own: two buffers, or the copy would overwrite rows still in use.
+  if (!nt_scan_shape_ok(ctas, threads) || p.eval_bufs < 0 ||
+      p.eval_bufs > 2 || (resident && p.eval_bufs < 1) ||
+      (resident && p.seq && p.B > 1 && p.eval_bufs != 2) ||
+      (draw && (p.keys == nullptr || p.stage_noise || bias || seg)) ||
+      (seg && p.prof != nullptr) || p.W < 1 || p.cps < 1 ||
+      p.W * p.cps != ctas || (!seg && p.W != 1))
+    return (int)cudaErrorInvalidValue;
+  int L = 0;
+  for (int s = 0; s < p.W; ++s) {
+    const NtScanSeg& sg = p.seg[s];
+    if (sg.n < 0 || (!draw && sg.noise == nullptr) ||
+        (bias != (sg.pref != nullptr)))
+      return (int)cudaErrorInvalidValue;
+    const int part = (int)((sg.n + p.cps - 1) / p.cps);
+    L = part > L ? part : L;
+  }
+  p.L = L;
+  const NtScanLayout lay =
+      nt_scan_layout(ctas, threads / 32, L, p.G, resident, p.stage_noise,
+                     p.eval_bufs, p.cache, bias);
+  if ((long long)lay.total != smem ||
+      lay.total > NT_SCAN_SMEM_MAX - (seg ? NT_SCAN_SEG_SMEM : 0))
+    return (int)cudaErrorInvalidValue;
+  int err = nt_scan_setup();
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = nt_scan_cfg(
+      p.seq ? 1 : p.B, ctas, threads, lay.total, (cudaStream_t)stream, attr);
+  return (int)cudaLaunchKernelEx(
+      &cfg, nt_scan_kernel(resident, p.prof != nullptr, draw, bias, seg), p);
+}
+
+// The batch's arguments common to both entries.
+static void nt_scan_batch(NtScanArgs& p, int B, int G, int K, float penalty,
+                          int seq, int stacked, int stage_noise,
+                          int eval_bufs, int cache, const void* ask_res,
+                          const void* ask_bw, const void* ask_ports,
+                          const void* tg_index, const void* active,
+                          const void* job_dh, const void* tg_dh,
+                          void* choices, void* scores) {
+  p.B = B;
+  p.G = G;
+  p.K = K;
+  p.seq = seq;
+  p.stacked = stacked;
+  p.stage_noise = stage_noise;
+  p.eval_bufs = eval_bufs;
+  p.cache = cache;
+  p.penalty = penalty;
+  p.ask_res = (const float4*)ask_res;
+  p.ask_bw = (const float*)ask_bw;
+  p.ask_ports = (const float*)ask_ports;
+  p.tg_index = (const int*)tg_index;
+  p.active = (const unsigned char*)active;
+  p.job_dh = (const unsigned char*)job_dh;
+  p.tg_dh = (const unsigned char*)tg_dh;
+  p.choices = (int*)choices;
+  p.scores = (float*)scores;
+}
+
+// A segment from its rows' pointers, in NtScanSeg's order.
+static NtScanSeg nt_scan_seg(long long lo, long long n,
+                             const void* const* q) {
+  NtScanSeg sg;
+  sg.lo = lo;
+  sg.n = n;
+  sg.capacity = (const float4*)q[0];
+  sg.sched = (const float4*)q[1];
+  sg.bw_avail = (const float*)q[2];
+  sg.node_ok = (const unsigned char*)q[3];
+  sg.util = (float4*)q[4];
+  sg.bw_used = (float*)q[5];
+  sg.ports_free = (float*)q[6];
+  sg.job_count = (int*)q[7];
+  sg.tg_count = (int*)q[8];
+  sg.feasible = (const unsigned char*)q[9];
+  sg.noise = (const float*)q[10];
+  sg.pref = (const float*)q[11];
+  return sg;
 }
 
 // Shapes: capacity/sched [N,4] f32, bw_avail [N] f32, node_ok [N] u8
@@ -620,65 +784,60 @@ int nt_scan_launch(int B, int N, int G, int K, float penalty, int seq,
                    const void* noise, const void* pref, void* choices,
                    void* scores, void* prof, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  const bool bias = pref != nullptr;
-  // Resident under seq, eval e + 1's rows load while eval e reads its
-  // own: two buffers, or the copy would overwrite rows still in use.
-  if (!nt_scan_shape_ok(ctas, threads) || eval_bufs < 0 || eval_bufs > 2 ||
-      (resident && eval_bufs < 1) ||
-      (resident && seq && B > 1 && eval_bufs != 2) ||
-      (draw ? (keys == nullptr || stage_noise || bias) : noise == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int L = (N + ctas - 1) / ctas;
-  const NtScanLayout lay =
-      nt_scan_layout(ctas, threads / 32, L, G, resident, stage_noise,
-                     eval_bufs, cache, bias);
-  if ((long long)lay.total != smem || lay.total > NT_SCAN_SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  int err = nt_scan_setup();
-  if (err) return err;
   NtScanArgs p = {};
-  p.B = B;
-  p.N = N;
-  p.G = G;
-  p.K = K;
-  p.seq = seq;
-  p.stacked = stacked;
-  p.stage_noise = stage_noise;
-  p.eval_bufs = eval_bufs;
-  p.cache = cache;
-  p.L = L;
-  p.penalty = penalty;
+  nt_scan_batch(p, B, G, K, penalty, seq, stacked, stage_noise, eval_bufs,
+                cache, ask_res, ask_bw, ask_ports, tg_index, active, job_dh,
+                tg_dh, choices, scores);
+  p.W = 1;
+  p.cps = ctas;
   p.scale = scale;
   p.draw_total = draw_total;
   p.draw_lo = draw_lo;
-  p.capacity = (const float4*)capacity;
-  p.sched = (const float4*)sched;
-  p.bw_avail = (const float*)bw_avail;
-  p.node_ok = (const unsigned char*)node_ok;
-  p.util = (float4*)util;
-  p.bw_used = (float*)bw_used;
-  p.ports_free = (float*)ports_free;
-  p.job_count = (int*)job_count;
-  p.tg_count = (int*)tg_count;
-  p.feasible = (const unsigned char*)feasible;
-  p.ask_res = (const float4*)ask_res;
-  p.ask_bw = (const float*)ask_bw;
-  p.ask_ports = (const float*)ask_ports;
-  p.tg_index = (const int*)tg_index;
-  p.active = (const unsigned char*)active;
-  p.job_dh = (const unsigned char*)job_dh;
-  p.tg_dh = (const unsigned char*)tg_dh;
   p.keys = (const long long*)keys;
-  p.noise = (const float*)noise;
-  p.pref = (const float*)pref;
-  p.choices = (int*)choices;
-  p.scores = (float*)scores;
   p.prof = (long long*)prof;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = nt_scan_cfg(
-      seq ? 1 : B, ctas, threads, lay.total, (cudaStream_t)stream, attr);
-  return (int)cudaLaunchKernelEx(
-      &cfg, nt_scan_kernel(resident, prof, draw, bias), p);
+  const void* rows[NT_SCAN_SEG_PTRS] = {
+      capacity, sched, bw_avail, node_ok, util, bw_used, ports_free,
+      job_count, tg_count, feasible, noise, pref};
+  p.seg[0] = nt_scan_seg(0, N, rows);
+  p.N = N;
+  return nt_scan_run(p, ctas, threads, resident, draw, pref != nullptr,
+                     false, smem, stream);
+}
+
+// K10c and K10g-b on the shards of one card: the scan over W <= 16
+// segments, cps CTAs each (a cluster of cps x W). seg_dims [W,2] i64
+// (global lo, rows) and seg_ptrs [W,12] (capacity, sched, bw_avail,
+// node_ok, util, bw_used, ports_free, job_count, tg_count, feasible,
+// noise, pref: shapes as nt_greedy_scan's over the segment's rows; the
+// noise its window [B,K,n], always read; pref [B,K,n] with ``bias``,
+// else null) are host arrays; the asks, job_dh and tg_dh as
+// nt_greedy_scan's; choices [B,K] i32 (global node indices) and scores
+// [B,K] f32 written. The plan's fields as nt_greedy_scan's (draw off),
+// for slices of the longest segment's parts.
+NT_API int nt_scan_segments(int B, int G, int K, int W, int cps,
+                            float penalty, int seq, int stacked, int bias,
+                            int threads, int resident, int stage_noise,
+                            int eval_bufs, int cache, long long smem,
+                            const long long* seg_dims,
+                            const void* const* seg_ptrs, const void* ask_res,
+                            const void* ask_bw, const void* ask_ports,
+                            const void* tg_index, const void* active,
+                            const void* job_dh, const void* tg_dh,
+                            void* choices, void* scores, void* stream) {
+  if (B <= 0 || K <= 0) return 0;
+  if (W < 1 || W > NT_SCAN_CLUSTER_MAX || cps < 1)
+    return (int)cudaErrorInvalidValue;
+  NtScanArgs p = {};
+  nt_scan_batch(p, B, G, K, penalty, seq, stacked, stage_noise, eval_bufs,
+                cache, ask_res, ask_bw, ask_ports, tg_index, active, job_dh,
+                tg_dh, choices, scores);
+  p.W = W;
+  p.cps = cps;
+  for (int s = 0; s < W; ++s)
+    p.seg[s] = nt_scan_seg(seg_dims[2 * s], seg_dims[2 * s + 1],
+                           seg_ptrs + (size_t)s * NT_SCAN_SEG_PTRS);
+  return nt_scan_run(p, cps * W, threads, resident, 0, bias != 0, true, smem,
+                     stream);
 }
 
 // K1's entry: nt_scan_launch without a pref.
@@ -718,7 +877,7 @@ NT_API int nt_greedy_occupancy(int ctas, int threads, long long smem,
   int err = nt_scan_setup();
   if (err) return err;
   nt_cluster_occupancy((const void*)nt_scan_kernel(resident, false, true,
-                                                   false),
+                                                   false, false),
                        ctas, threads, (size_t)smem, clusters);
   return 0;
 }

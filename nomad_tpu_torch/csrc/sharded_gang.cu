@@ -4,6 +4,11 @@
 // GSPMD splits K7's node passes and lowers the group scatter-add and
 // each member's argmax to cross-device reductions).
 //
+// This is the per-shard route: shards on distinct cards, or more than
+// a cluster's 16 of one card (parallel/shard.py scan_ctas). The shards
+// of one card take one launch of K7's cluster kernel instead
+// (csrc/gang_scan.cu, its segment table).
+//
 // One process drives W shards, each a slice of N rows from global row
 // lo on its own device (W slices of one card, or W cards). Every shard
 // keeps a replicated copy of the per-group member counts [g_pad]; the
@@ -47,7 +52,8 @@
 //
 // Bound on the card: launches, as K10c's. A gang is K x (W + 1) + W
 // launches of the member steps, plus W + 2 (and K10b's W + 1 in slice
-// and spread mode); the chain of K dependent argmaxes stays.
+// and spread mode); the chain of K dependent argmaxes stays. On one
+// card the cluster route replaces it.
 #include "gang.cuh"
 
 #define NT_SGANG_THREADS 1024

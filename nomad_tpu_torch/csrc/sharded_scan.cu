@@ -4,6 +4,11 @@
 // masked-argmax scan with the node axis split over devices and lowers
 // each step's argmax to a cross-device reduction).
 //
+// This is the per-shard route: shards on distinct cards, or more than
+// a cluster's 16 of one card (parallel/shard.py scan_ctas). The shards
+// of one card take one launch of K1's cluster kernel instead
+// (csrc/greedy_scan.cu, its segment table).
+//
 // One process drives W shards, each a slice of N rows from global row
 // lo on its own device (W slices of one card, or W cards). Every step
 // of the scan is two launches, driven by a host loop over the K steps
@@ -53,6 +58,8 @@
 // Bound on the card: launches. An eval is K x (W + 1) + W launches of
 // a few microseconds each; every step kernel scores N / 1024 nodes a
 // thread. The chain of K dependent argmaxes stays, now across launches.
+// On one card that made the route tens of times slower than K1's one
+// launch (PERF.md §6), hence the cluster route there.
 #include "common.cuh"
 
 #define NT_SHARD_THREADS 1024

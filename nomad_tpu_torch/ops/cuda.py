@@ -71,6 +71,8 @@ SIGNATURES: Dict[str, List] = {
     "nt_relax_occupancy": [_I, _P],
     "nt_relax_combine": [_I] * 3 + [_P] * 3,
     "nt_convex_round": [_I] * 4 + [_F] + [_I] * 8 + [_L] + [_P] * 23,
+    "nt_scan_segments": [_I] * 5 + [_F] + [_I] * 8 + [_L] + [_P] * 12,
+    "nt_gang_segments": [_I] * 4 + [_F] + [_I] * 7 + [_L] + [_P] * 15,
     "nt_group_capacity": [_I] * 5 + [_P] * 5,
     "nt_group_combine": [_I, _I] + [_P] * 3,
     "nt_shard_step": [_I] * 5 + [_F] + [_I] * 6 + [_P] * 22,

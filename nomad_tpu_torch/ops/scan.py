@@ -33,6 +33,13 @@ beside each cached score. K7's (``gang_plan``: one gang, one cluster)
 adds where the group member counts and sums live: shared memory where
 the layout fits, else global memory (a row of counts a CTA).
 
+``segments`` plans the same kernels over node shards of one card (K10c
+and K10g-b on K1's kernel, K10e on K7's: parallel/shard.py): the
+cluster is ``cps`` CTAs a shard, each shard's rows their own segment,
+the slices the longest of the shards' parts, the noise always read
+(the shards carry drawn windows). ``launch_segments`` and
+``launch_gang_segments`` pass the kernels the segment table.
+
 ``layout`` and ``gang_layout`` are the kernels' shared-memory layouts
 (nt_scan_layout, nt_gang_layout); the C entries recompute them and
 refuse a plan whose size differs.
@@ -45,7 +52,8 @@ versions for CPU tensors and call ``launch``, ``launch_round`` or
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import torch
 
@@ -58,6 +66,9 @@ from .prng import threefry_uniform
 THREADS_MAX = 1024
 CLUSTER_MAX = 16
 SMEM_MAX = 227 * 1024
+# Shared memory the segment forms keep from their dynamic budget: each
+# CTA's static copy of its segment's row (NT_SCAN_SEG_SMEM).
+SEGMENT_SMEM = 1024
 # Bytes a node of the resident rows: static (capacity, sched, util,
 # bw_avail, bw_used, ports_free, node_ok) and an eval's (job_count,
 # tg_count, feasible: 4 + 5 G).
@@ -93,6 +104,16 @@ def slices(n: int, ctas: int) -> List[Tuple[int, int]]:
 def slice_len(n: int, ctas: int) -> int:
     """The longest slice."""
     return -(-n // ctas)
+
+
+def segment_len(segments: Sequence[int], ctas: int) -> int:
+    """The longest slice of ``segments`` (each shard's node count) split
+    over a cluster of ``ctas`` CTAs, an equal part of it a shard."""
+    w = len(segments)
+    if w < 1 or ctas % w:
+        raise RuntimeError(f"no cluster of {ctas} CTAs over {w} segments "
+                           "(CTAs a segment times segments)")
+    return max(slice_len(n, ctas // w) for n in segments)
 
 
 def threads_for(length: int) -> int:
@@ -154,7 +175,9 @@ class ScanPlan(NamedTuple):
     are cached in shared memory, and the shared memory a CTA.
     ``occupancy`` is the clusters the card holds at once (so ``waves`` =
     clusters over it, rounded up). ``bias``: K8b's plan (the noise
-    read, its pref and strand rows in the layout)."""
+    read, its pref and strand rows in the layout). ``segments``: the
+    node shards the cluster splits into, ``ctas // segments`` CTAs
+    each (1: the whole node axis, K1 and K8b)."""
 
     ctas: int
     threads: int
@@ -168,6 +191,7 @@ class ScanPlan(NamedTuple):
     clusters: int
     occupancy: int
     bias: bool = False
+    segments: int = 1
 
     @property
     def form(self) -> str:
@@ -177,29 +201,35 @@ class ScanPlan(NamedTuple):
     def waves(self) -> int:
         return -(-self.clusters // self.occupancy)
 
+    @property
+    def cps(self) -> int:
+        """CTAs a segment."""
+        return self.ctas // self.segments
 
-def _shape(b: int, n: int, g: int, seq: bool, ctas: int,
-           resident: Optional[bool], drawn: bool, bias: bool) -> Tuple:
+
+def _shape(b: int, length: int, g: int, seq: bool, ctas: int,
+           resident: Optional[bool], drawn: bool, bias: bool,
+           budget: int = SMEM_MAX) -> Tuple:
     """(threads, slice, resident, drawn, stage_noise, eval_bufs, cache,
-    smem) at ``ctas``; ``resident`` None: resident where it fits.
+    smem) at ``ctas`` for slices up to ``length`` nodes, in ``budget``
+    bytes of shared memory; ``resident`` None: resident where it fits.
     Streamed, the cache comes before the read noise's stages, and each
     only where it fits."""
-    length = slice_len(n, ctas)
     threads = threads_for(length)
     warps = threads // 32
     bufs = 2 if seq and b > 1 else 1
     staged = not drawn
     smem = layout(ctas, warps, length, g, True, staged, bufs, True, bias)[1]
-    if resident is not False and smem <= SMEM_MAX:
+    if resident is not False and smem <= budget:
         return threads, length, True, drawn, staged, bufs, True, smem
     if resident:
         raise RuntimeError(
             f"greedy scan: the resident rows of {length} nodes a CTA "
-            f"(G = {g}) take {smem} bytes of shared memory, over {SMEM_MAX}")
+            f"(G = {g}) take {smem} bytes of shared memory, over {budget}")
     for staged, cache in ((not drawn, True), (False, True), (False, False)):
         smem = layout(ctas, warps, length, g, False, staged, 0, cache,
                       bias)[1]
-        if smem <= SMEM_MAX or not cache:
+        if smem <= budget or not cache:
             return threads, length, False, drawn, staged, 0, cache, smem
 
 
@@ -207,16 +237,33 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
               occupancy: Callable[[int, int, int, bool], int],
               ctas: Optional[int] = None,
               resident: Optional[bool] = None, sms: int = 132,
-              drawn: Optional[bool] = None, bias: bool = False) -> ScanPlan:
+              drawn: Optional[bool] = None, bias: bool = False,
+              segments: Optional[Sequence[int]] = None) -> ScanPlan:
     """The launch for B evals over N nodes and G task groups on a card
     of ``sms`` SMs. ``occupancy(ctas, threads, smem, resident)`` is the
     clusters of that shape the card holds at once (0: refused).
     ``ctas``, ``resident`` and ``drawn`` force the cluster, the form and
     the noise's mode (the tests' and the measurements' hooks); ``bias``
-    plans K8b, whose noise is read."""
+    plans K8b, whose noise is read. ``segments`` (the node counts of
+    the shards of one card, N in all) plans the scan over them: the
+    cluster ``ctas`` (given: CTAs a shard times shards), the slices
+    the longest of the shards' parts, the noise read."""
     if b < 1 or n < 0 or g < 1:
         raise ValueError(f"no greedy scan of B {b}, N {n}, G {g}")
     clusters = 1 if seq else b
+    if segments is not None:
+        if ctas is None or not 1 <= ctas <= CLUSTER_MAX \
+                or sum(segments) != n:
+            raise RuntimeError(f"greedy scan: no cluster of {ctas} CTAs "
+                               f"over segments {tuple(segments)} of N {n}")
+        shape = _shape(b, segment_len(segments, ctas), g, seq, ctas,
+                       resident, False, bias, SMEM_MAX - SEGMENT_SMEM)
+        occ = occupancy(ctas, shape[0], shape[-1], shape[2])
+        if occ < 1:
+            raise RuntimeError(
+                f"greedy scan: the card holds no cluster of {ctas} CTAs "
+                f"over segments {tuple(segments)}, G {g}")
+        return ScanPlan(ctas, *shape, clusters, occ, bias, len(segments))
     if ctas is not None:
         if not 1 <= ctas <= CLUSTER_MAX:
             raise RuntimeError(f"greedy scan: no cluster of {ctas} CTAs "
@@ -229,7 +276,7 @@ def scan_plan(b: int, n: int, g: int, seq: bool,
     for c in choices:
         draw = False if bias else (
             drawn if drawn is not None else draws(n, c, clusters, sms))
-        shape = _shape(b, n, g, seq, c, resident, draw, bias)
+        shape = _shape(b, slice_len(n, c), g, seq, c, resident, draw, bias)
         occ = occupancy(c, shape[0], shape[-1], shape[2])
         if occ >= clusters:
             return ScanPlan(c, *shape, clusters, occ, bias)
@@ -271,15 +318,19 @@ def occupancy_of(dev, entry: str = "nt_greedy_occupancy"
 
 def plan_for(dev, b: int, n: int, g: int, seq: bool,
              ctas: Optional[int] = None, resident: Optional[bool] = None,
-             drawn: Optional[bool] = None, bias: bool = False) -> ScanPlan:
+             drawn: Optional[bool] = None, bias: bool = False,
+             segments: Optional[Sequence[int]] = None) -> ScanPlan:
     """``scan_plan`` on ``dev``'s occupancy and SMs, kept a shape."""
     dev = torch.device(dev)
-    key = (dev.index, b, n, g, bool(seq), ctas, resident, drawn, bias)
+    segments = None if segments is None else tuple(segments)
+    key = (dev.index, b, n, g, bool(seq), ctas, resident, drawn, bias,
+           segments)
     plan = _plans.get(key)
     if plan is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = _plans[key] = scan_plan(b, n, g, seq, occupancy_of(dev),
-                                       ctas, resident, sms, drawn, bias)
+                                       ctas, resident, sms, drawn, bias,
+                                       segments)
     return plan
 
 
@@ -349,6 +400,39 @@ def launch_round(plan: ScanPlan, static, carry, feasible, asks, noise, pref,
     return choices, scores
 
 
+def launch_segments(plan: ScanPlan, segs, asks, penalty: float, seq: bool,
+                    stacked: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the cluster scan over node segments on a plan with
+    ``segments`` (K10c; K10g-b where ``plan.bias``): ``segs`` one
+    (global first row, rows, (capacity, sched_capacity, bw_avail,
+    node_ok, util, bw_used, ports_free, job_count, tg_count, feasible,
+    noise, pref)) a shard of one card, in node order, each shard's
+    carry updated in place, pref None without the bias; ``asks`` the
+    batch's. Returns (choices, scores) [B, K] with global node
+    indices."""
+    b, k = asks.active.shape
+    g = segs[0][2][9].shape[2]
+    dev = asks.active.device
+    dims, ptrs = cuda.table(
+        [x for lo, rows, _t in segs for x in (lo, rows)],
+        [None if t is None else t.data_ptr()
+         for _lo, _rows, ts in segs for t in ts])
+    choices = torch.empty((b, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_scan_segments", b, g, k, len(segs), plan.cps, float(penalty),
+            int(seq), int(stacked), int(plan.bias), plan.threads,
+            int(plan.resident), int(plan.stage_noise), plan.eval_bufs,
+            int(plan.cache), plan.smem, dims, ptrs, asks.resources.data_ptr(),
+            asks.bw.data_ptr(), asks.ports.data_ptr(),
+            asks.tg_index.data_ptr(), asks.active.data_ptr(),
+            asks.job_distinct_hosts.data_ptr(),
+            asks.tg_distinct_hosts.data_ptr(), choices.data_ptr(),
+            scores.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores
+
+
 # ------------------------------------------------------------ K7
 
 # csrc/gang_scan.cu: bytes a node of the resident rows (capacity,
@@ -413,20 +497,27 @@ class GangPlan(NamedTuple):
     groups: bool
     smem: int
     occupancy: int
+    segments: int = 1
 
     @property
     def form(self) -> str:
         return "resident" if self.resident else "streamed"
 
+    @property
+    def cps(self) -> int:
+        """CTAs a segment."""
+        return self.ctas // self.segments
 
-def _gang_shape(n: int, g_pad: int, capg: bool, ctas: int,
-                resident: Optional[bool], groups: Optional[bool]) -> Tuple:
+
+def _gang_shape(length: int, g_pad: int, capg: bool, ctas: int,
+                resident: Optional[bool], groups: Optional[bool],
+                budget: int = SMEM_MAX) -> Tuple:
     """(threads, slice, resident, stage_noise, cache, groups, smem) at
-    ``ctas``: the rows resident and the groups in shared memory where
-    the layout fits, then the groups global, then the rows streamed
-    (with the noise's stages and the cache each kept where they fit);
-    ``resident`` and ``groups`` force one side."""
-    length = slice_len(n, ctas)
+    ``ctas`` for slices up to ``length`` nodes: the rows resident and
+    the groups in shared memory where the layout fits, then the groups
+    global, then the rows streamed (with the noise's stages and the
+    cache each kept where they fit); ``resident`` and ``groups`` force
+    one side; in ``budget`` bytes of shared memory."""
     threads = threads_for(length)
     warps = threads // 32
     for res in (True, False):
@@ -438,24 +529,41 @@ def _gang_shape(n: int, g_pad: int, capg: bool, ctas: int,
             for staged, cache in tries:
                 smem = gang_layout(ctas, warps, length, g_pad, res, staged,
                                    cache, grp, capg)[1]
-                if smem <= SMEM_MAX:
+                if smem <= budget:
                     return threads, length, res, staged, cache, grp, smem
     raise RuntimeError(
         f"gang scan: no layout of {length} nodes a CTA and {g_pad} groups "
-        f"(resident {resident}, groups {groups}) fits in {SMEM_MAX} bytes")
+        f"(resident {resident}, groups {groups}) fits in {budget} bytes")
 
 
 def gang_plan(n: int, g_pad: int, capg: bool,
               occupancy: Callable[[int, int, int, bool], int],
               ctas: Optional[int] = None, resident: Optional[bool] = None,
-              groups: Optional[bool] = None) -> GangPlan:
+              groups: Optional[bool] = None,
+              segments: Optional[Sequence[int]] = None) -> GangPlan:
     """K7's launch for one gang over N nodes and ``g_pad`` groups
     (``capg``: slice or spread mode, which sum the groups' capacities):
     the largest cluster (up to ``CLUSTER_MAX``, at most N CTAs) the
     card holds; ``ctas``, ``resident`` and ``groups`` force the cluster,
-    the form and where the group counts live (the tests' hooks)."""
+    the form and where the group counts live (the tests' hooks).
+    ``segments`` (the node counts of the shards of one card, N in all)
+    plans K10e's launch over them: the cluster ``ctas`` (given: CTAs a
+    shard times shards), the slices the longest of the shards' parts."""
     if n < 0 or g_pad < 1:
         raise ValueError(f"no gang scan of N {n}, g_pad {g_pad}")
+    if segments is not None:
+        if ctas is None or not 1 <= ctas <= CLUSTER_MAX \
+                or sum(segments) != n:
+            raise RuntimeError(f"gang scan: no cluster of {ctas} CTAs over "
+                               f"segments {tuple(segments)} of N {n}")
+        shape = _gang_shape(segment_len(segments, ctas), g_pad, capg, ctas,
+                            resident, groups, SMEM_MAX - SEGMENT_SMEM)
+        occ = occupancy(ctas, shape[0], shape[-1], shape[2])
+        if occ < 1:
+            raise RuntimeError(f"gang scan: the card holds no cluster of "
+                               f"{ctas} CTAs over segments "
+                               f"{tuple(segments)}, g_pad {g_pad}")
+        return GangPlan(ctas, *shape, occ, len(segments))
     if ctas is not None:
         if not 1 <= ctas <= CLUSTER_MAX:
             raise RuntimeError(f"gang scan: no cluster of {ctas} CTAs "
@@ -464,7 +572,8 @@ def gang_plan(n: int, g_pad: int, capg: bool,
     else:
         choices = [c for c in (16, 8, 4, 2, 1) if c == 1 or c <= n]
     for c in choices:
-        shape = _gang_shape(n, g_pad, capg, c, resident, groups)
+        shape = _gang_shape(slice_len(n, c), g_pad, capg, c, resident,
+                            groups)
         occ = occupancy(c, shape[0], shape[-1], shape[2])
         if occ >= 1:
             return GangPlan(c, *shape, occ)
@@ -475,17 +584,20 @@ def gang_plan(n: int, g_pad: int, capg: bool,
 def gang_plan_for(dev, n: int, g_pad: int, mode: int,
                   ctas: Optional[int] = None,
                   resident: Optional[bool] = None,
-                  groups: Optional[bool] = None) -> GangPlan:
+                  groups: Optional[bool] = None,
+                  segments: Optional[Sequence[int]] = None) -> GangPlan:
     """``gang_plan`` for K7 in kernel mode ``mode`` on ``dev``'s
     occupancy of its kernel, kept a shape."""
     dev = torch.device(dev)
     capg = sums_groups(mode)
-    key = ("gang", dev.index, n, g_pad, capg, ctas, resident, groups)
+    segments = None if segments is None else tuple(segments)
+    key = ("gang", dev.index, n, g_pad, capg, ctas, resident, groups,
+           segments)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = gang_plan(
             n, g_pad, capg, occupancy_of(dev, "nt_gang_occupancy"), ctas,
-            resident, groups)
+            resident, groups, segments)
     return plan
 
 
@@ -496,6 +608,18 @@ def gang_scratch(plan: GangPlan, n: int, g_pad: int,
     groups global), the member units (slice and spread mode)."""
     return (g_pad if capg and not plan.groups else 0,
             0 if plan.groups else plan.ctas * g_pad, n if capg else 0)
+
+
+def _carve(parts, dev) -> Tuple[torch.Tensor, List[Optional[int]]]:
+    """One float32 allocation of ``parts`` floats in all on ``dev`` and
+    the pointer of each part (None for an empty one); the allocation
+    lives until the launch that reads it is queued."""
+    scratch = torch.empty((sum(parts),), dtype=torch.float32, device=dev)
+    ptrs, at = [], 0
+    for size in parts:
+        ptrs.append(scratch.data_ptr() + 4 * at if size else None)
+        at += size
+    return scratch, ptrs
 
 
 def launch_gang(plan: GangPlan, state, ask_res, ask_bw, ask_ports, active,
@@ -513,12 +637,7 @@ def launch_gang(plan: GangPlan, state, ask_res, ask_bw, ask_ports, active,
     choices = torch.empty((k,), dtype=torch.int32, device=dev)
     scores = torch.empty((k,), dtype=torch.float32, device=dev)
     slice_group = torch.empty((), dtype=torch.int32, device=dev)
-    parts = gang_scratch(plan, n, g_pad, capg)
-    scratch = torch.empty((sum(parts),), dtype=torch.float32, device=dev)
-    ptrs, at = [], 0
-    for size in parts:
-        ptrs.append(scratch.data_ptr() + 4 * at if size else None)
-        at += size
+    scratch, ptrs = _carve(gang_scratch(plan, n, g_pad, capg), dev)
     with cuda.on_device(dev):  # the tensors' card, whichever is current
         cuda.launch(
             "nt_gang_scan", n, k, g_pad, mode, int(distinct_hosts),
@@ -530,4 +649,41 @@ def launch_gang(plan: GangPlan, state, ask_res, ask_bw, ask_ports, active,
             group_members.data_ptr(), choices.data_ptr(), scores.data_ptr(),
             slice_group.data_ptr(), *ptrs,
             None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores, slice_group
+
+
+def launch_gang_segments(plan: GangPlan, segs, ask_res, ask_bw, ask_ports,
+                         active, group_noise, mode: int,
+                         distinct_hosts: bool, penalty: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K7's kernel over node segments on a plan with
+    ``segments`` (K10e): ``segs`` one (global first row, rows,
+    (capacity, sched_capacity, util, bw_avail, bw_used, ports_free,
+    feas_row, job_count, dh_presence, topo_ids, noise, placed,
+    group_members)) a shard of one card, in node order, its carry
+    updated in place and every shard's group_members given the gang's
+    counts; the rest as ``launch_gang``'s. K7's scratch, and in slice
+    and spread mode over several segments a segment's partial for the
+    ordered walk of the group sums."""
+    k, g_pad = active.shape[0], group_noise.shape[0]
+    n = sum(rows for _lo, rows, _t in segs)
+    dev = active.device
+    capg = sums_groups(mode)
+    choices = torch.empty((k,), dtype=torch.int32, device=dev)
+    scores = torch.empty((k,), dtype=torch.float32, device=dev)
+    slice_group = torch.empty((), dtype=torch.int32, device=dev)
+    scratch, ptrs = _carve((*gang_scratch(plan, n, g_pad, capg),
+                            g_pad if capg and len(segs) > 1 else 0), dev)
+    dims, seg_ptrs = cuda.table(
+        [x for lo, rows, _t in segs for x in (lo, rows)],
+        [t.data_ptr() for _lo, _rows, ts in segs for t in ts])
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_gang_segments", k, g_pad, mode, int(distinct_hosts),
+            float(penalty), len(segs), plan.cps, plan.threads,
+            int(plan.resident), int(plan.stage_noise), int(plan.cache),
+            int(plan.groups), plan.smem, dims, seg_ptrs, ask_res.data_ptr(),
+            ask_bw.data_ptr(), ask_ports.data_ptr(), active.data_ptr(),
+            group_noise.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+            slice_group.data_ptr(), *ptrs, cuda.stream_ptr(dev))
     return choices, scores, slice_group

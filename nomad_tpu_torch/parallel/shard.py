@@ -16,8 +16,13 @@ outside the kernels (parallel/mesh.py's module docstring says how):
   scatter-add; each shard sums its members into a partial group vector
   in node order, and the W partials add up in shard order, in one
   launch a card (csrc/group_capacity.cu).
-- ``sharded_greedy_scan`` (K10c): K1 over node shards, two launches a
-  step (csrc/sharded_scan.cu).
+- ``sharded_greedy_scan`` (K10c), ``sharded_convex_round`` (K10g-b) and
+  ``sharded_gang_scan`` (K10e): K1, K8b and K7 over node shards. On the
+  shards of one card (at most a cluster's 16), one launch of K1's or
+  K7's cluster kernel with each shard's rows its own segment
+  (``scan_ctas``); otherwise a launch a shard a step and a winner
+  launch on the combining device (csrc/sharded_scan.cu,
+  csrc/sharded_gang.cu).
 - ``sharded_uniform_topk`` (K10d): K2 over node shards: one launch of
   K2's cluster kernel for the shards of one card (csrc/uniform_topk.cu,
   which draws the noise in the kernel from the shards' ``Draw``), else
@@ -51,6 +56,7 @@ from ..ops.binpack import (
     uniform_topk_cluster,
 )
 from ..ops.prng import Draw, threefry_uniform
+from ..ops.scan import CLUSTER_MAX
 from .mesh import NODE_AXIS, Mesh, Sharded, delta_row_specs, is_sharded, \
     place
 
@@ -750,8 +756,22 @@ class _Partials:
                 win.copy_(self.win, non_blocking=True)
 
 
+def scan_ctas(devices) -> int:
+    """The CTAs a shard of the one-launch route of K10c, K10e and K10g-b
+    for shards on ``devices`` (in shard order), or 0 for the per-shard
+    route: shards that share one card, at most CLUSTER_MAX of them,
+    split one thread-block cluster of K1's or K7's kernel,
+    ``CLUSTER_MAX // W`` CTAs each (W = 4: 4 CTAs of 2,560 / 4 nodes
+    at N = 10,240, K1's slices at B = 1); shards on distinct cards, or
+    more shards than a cluster has CTAs, take the per-shard route."""
+    devices = list(devices)
+    if len(set(devices)) != 1 or len(devices) > CLUSTER_MAX:
+        return 0
+    return max(1, CLUSTER_MAX // len(devices))
+
+
 def sharded_greedy_scan(shards: List[NodeShard], penalty: float,
-                        seq: bool = False):
+                        seq: bool = False, force_shards: bool = False):
     """K10c: greedy scans of K asks for B evals over node shards (K1
     over the node axis split into ``shards``, in K1's independent,
     sequential ``seq`` and stacked layouts). Replaces the GSPMD form of
@@ -761,18 +781,50 @@ def sharded_greedy_scan(shards: List[NodeShard], penalty: float,
     scores [B,K] f32 without the noise) on the first shard's device;
     the shards' carries are updated in place.
 
-    On the card (csrc/sharded_scan.cu) each step is one nt_shard_step
-    launch per shard (the last winner's update in its prologue, then
-    the slice's packed best key) and one nt_shard_winner launch on the
-    first shard's device (the max of the W keys, the owning shard's
-    noise-free score); a last step launch per shard applies the last
-    winner. K x (W + 1) + W launches an eval (B x that under ``seq``),
-    so launches bound it: the one-card form is slower than K1."""
+    On the card the route is ``scan_ctas``' choice. Shards of one card
+    (W <= 16): one launch of K1's cluster kernel (csrc/greedy_scan.cu,
+    ``_scan_on_cluster``), its CTAs' slices at the shards' boundaries,
+    each shard's rows and noise window its own segment; under ``seq``
+    the B evals run inside that launch. Otherwise (csrc/sharded_scan.cu)
+    each step is one nt_shard_step launch per shard (the last winner's
+    update in its prologue, then the slice's packed best key) and one
+    nt_shard_winner launch on the first shard's device (the max of the W
+    keys, the owning shard's noise-free score); a last step launch per
+    shard applies the last winner: K x (W + 1) + W launches an eval (B
+    x that under ``seq``), which bound it. ``force_shards`` takes that
+    route on one card (the tests' and the measurements' hook)."""
     dims = _check_shards(shards, seq, False)
     if _kind(sh.feasible for sh in shards) == "cpu":
         return sharded_greedy_scan_plain(shards, penalty, seq)
+    cps = scan_ctas(sh.feasible.device for sh in shards)
+    if cps and not force_shards:
+        return _scan_on_cluster(shards, penalty, seq, dims, False, cps,
+                                "sharded_greedy_scan")
     return _steps_on_card(shards, penalty, seq, dims, False,
                           "sharded_greedy_scan")
+
+
+def _scan_on_cluster(shards: List[NodeShard], penalty: float, seq: bool,
+                     dims, biased: bool, cps: int, name: str):
+    """One launch of K1's cluster kernel over the shards of one card
+    (K10c; with ``biased`` K8b's case, K10g-b), ``cps`` CTAs a shard,
+    on ``scan.plan_for``'s plan over the shards' segments; counts one
+    launch under ``name``. ``dims`` is _check_shards' result."""
+    from ..ops import scan
+
+    b, n_total, g, _k, stacked = dims
+    dev = shards[0].feasible.device
+    plan = scan.plan_for(dev, b, n_total, g, seq, ctas=cps * len(shards),
+                         bias=biased, segments=[sh.feasible.shape[1]
+                                                for sh in shards])
+    segs = [(sh.lo, sh.feasible.shape[1],
+             (sh.capacity, sh.sched_capacity, sh.bw_avail, sh.node_ok,
+              *sh.carry, sh.feasible, sh.noise,
+              sh.pref if biased else None)) for sh in shards]
+    out = scan.launch_segments(plan, segs, shards[0].asks, penalty, seq,
+                               stacked)
+    cuda.count_launch(name)
+    return out
 
 
 def _steps_on_card(shards: List[NodeShard], penalty: float, seq: bool,
@@ -839,20 +891,22 @@ def _steps_on_card(shards: List[NodeShard], penalty: float, seq: bool,
 
 
 def sharded_convex_round(shards: List[NodeShard], penalty: float,
-                         seq: bool = False):
+                         seq: bool = False, force_shards: bool = False):
     """K10g-b: the convex kernel's rounding scan of B evals over node
-    shards (K8b with the node axis split: K10c's step and winner
-    kernels with the rounding bias). Replaces the GSPMD form of the
-    body scan of ``convex_placement_program`` (kernels/convex.py:224 in
-    the JAX package) over a node-sharded base. Arguments and results as
-    ``sharded_greedy_scan``, with each shard's ``pref`` [B,K,N] set (its
-    columns of the relaxation's preference, K10g-a).
+    shards (K8b with the node axis split). Replaces the GSPMD form of
+    the body scan of ``convex_placement_program`` (kernels/convex.py:224
+    in the JAX package) over a node-sharded base. Arguments and results
+    as ``sharded_greedy_scan``, with each shard's ``pref`` [B,K,N] set
+    (its columns of the relaxation's preference, K10g-a).
 
-    On the card (csrc/sharded_scan.cu) each shard's step packs score +
+    On the card the route is K10c's. Shards of one card: one launch of
+    K8b's kernel (K1's cluster kernel with the rounding bias), each
+    shard's rows, noise window and pref columns its own segment.
+    Otherwise (csrc/sharded_scan.cu) each shard's step packs score +
     ROUND_BIAS x pref - STRAND_BIAS x strand penalty, its strand penalty
     read from its own carried rows, and reports the score without the
-    noise and the bias, as K8b does. K x (W + 1) + W launches an eval:
-    launches bound it, as K10c."""
+    noise and the bias, as K8b does: K x (W + 1) + W launches an eval.
+    ``force_shards`` as ``sharded_greedy_scan``'s."""
     dims = _check_shards(shards, seq, False)
     b, _n_total, _g, k, _stacked = dims
     for sh in shards:
@@ -863,6 +917,10 @@ def sharded_convex_round(shards: List[NodeShard], penalty: float,
                (b, k, sh.feasible.shape[1]), sh.feasible.device)
     if _kind(sh.feasible for sh in shards) == "cpu":
         return sharded_convex_round_plain(shards, penalty, seq)
+    cps = scan_ctas(sh.feasible.device for sh in shards)
+    if cps and not force_shards:
+        return _scan_on_cluster(shards, penalty, seq, dims, True, cps,
+                                "sharded_convex_round")
     return _steps_on_card(shards, penalty, seq, dims, True,
                           "sharded_convex_round")
 
@@ -1314,7 +1372,8 @@ def sharded_gang_scan_plain(shards: List[GangShard], active, group_noise,
             torch.tensor(chosen, dtype=torch.int32, device=home))
 
 
-def sharded_gang_scan(shards: List[GangShard], active, group_noise, config):
+def sharded_gang_scan(shards: List[GangShard], active, group_noise, config,
+                      force_shards: bool = False):
     """K10e: one gang's all-K placement over node shards (K7 with the
     node axis split). Replaces the GSPMD form of
     ``gang_placement_program_jit`` (ops/gang.py:264 in the JAX package)
@@ -1325,20 +1384,31 @@ def sharded_gang_scan(shards: List[GangShard], active, group_noise, config):
     carry (util, bw_used, ports_free, placed, group_members) is updated
     in place.
 
-    On the card (csrc/sharded_gang.cu): in slice and spread mode the
+    On the card the route is ``scan_ctas``' choice. Shards of one card
+    (W <= 16): one launch of K7's cluster kernel (csrc/gang_scan.cu,
+    ``_gang_on_cluster``), each shard's rows, noise window, ``placed``
+    and member counts its own segment: the member units and group sums
+    (summed again a shard in node order, then in shard order, where
+    they are not exact), the slice or spread cap, the K member steps
+    and the all-K rewrite, every shard's counts written at the end.
+    Otherwise (csrc/sharded_gang.cu): in slice and spread mode the
     member units a shard and K10b's group capacities; the slice or the
     spread cap on the first shard's device; K member steps of a step
     kernel a shard and a winner kernel that carries the winner's
     topology group id, read on its owning shard, so every shard adds
-    the member to the same group; the all-K rewrite. K x (W + 1) + 2 W
+    the member to the same group; the all-K rewrite: K x (W + 1) + 2 W
     + 2 launches of its own, plus K10b's (one a card) in slice and
-    spread mode."""
+    spread mode. ``force_shards`` takes that route on one card (the
+    tests' and the measurements' hook)."""
     from ..ops.gang import _MODE_IDS, GANG_MODE_SLICE, GANG_MODE_SPREAD
 
     _check_gang_shards(shards, active, group_noise, config)
     home = shards[0].state.capacity.device
     if _kind(sh.state.capacity for sh in shards) == "cpu":
         return sharded_gang_scan_plain(shards, active, group_noise, config)
+    cps = scan_ctas(sh.state.capacity.device for sh in shards)
+    if cps and not force_shards:
+        return _gang_on_cluster(shards, active, group_noise, config, cps)
     k = active.shape[0]
     g_pad, mode = config.g_pad, _MODE_IDS[config.mode]
     dh = int(config.distinct_hosts)
@@ -1417,3 +1487,27 @@ def sharded_gang_scan(shards: List[GangShard], active, group_noise, config):
         slice_group.data_ptr())
     cuda.count_launch("sharded_gang_scan", launches)
     return choices, scores, slice_group
+
+
+def _gang_on_cluster(shards: List[GangShard], active, group_noise, config,
+                     cps: int):
+    """One launch of K7's cluster kernel over the shards of one card
+    (K10e), ``cps`` CTAs a shard, on ``scan.gang_plan_for``'s plan over
+    the shards' segments; counts one launch."""
+    from ..ops import scan
+    from ..ops.gang import _MODE_IDS
+
+    mode = _MODE_IDS[config.mode]
+    rows = [sh.state.capacity.shape[0] for sh in shards]
+    plan = scan.gang_plan_for(shards[0].state.capacity.device, sum(rows),
+                              config.g_pad, mode, ctas=cps * len(shards),
+                              segments=rows)
+    segs = [(sh.lo, n, (*sh.state, sh.noise, sh.placed, sh.group_members))
+            for sh, n in zip(shards, rows)]
+    first = shards[0]
+    out = scan.launch_gang_segments(
+        plan, segs, first.ask_res, first.ask_bw, first.ask_ports, active,
+        group_noise, mode, config.distinct_hosts,
+        config.anti_affinity_penalty)
+    cuda.count_launch("sharded_gang_scan")
+    return out

@@ -1521,12 +1521,15 @@ def test_convex_wrappers_count_their_launches(dev):
 
 
 def shard_split(static, base, feasible, asks, keys, w, uniform, seq,
-                noise_scale=2.0, drawn=False):
+                noise_scale=2.0, drawn=False, bounds=None, views=False):
     """The scan inputs split into w node shards (NodeShard), each with
     its own carry copy and its window of the noise: K0's window
     (greedy), the window's Draw (uniform: K10d's one-card route draws
     it in its kernel), or with ``drawn`` the plain draw of the window
-    (the plain versions' yardstick)."""
+    (the plain versions' yardstick). ``bounds``: the shards' [lo, hi)
+    (default w equal ones); ``views``: each shard's rows a view into
+    the whole tensor where that is contiguous (rows that start at any
+    byte, as a mesh's one allocation gives them), else a copy."""
     from nomad_tpu_torch.parallel.mesh import shard_bounds
     from nomad_tpu_torch.parallel.shard import NodeShard
 
@@ -1536,8 +1539,10 @@ def shard_split(static, base, feasible, asks, keys, w, uniform, seq,
     carry = shared_carry(base) if seq else fresh(base, b, n)
     d = 1 if stacked else 0
     out = []
-    for lo, hi in shard_bounds(n, w):
-        part = lambda x, dim: x.narrow(dim, lo, hi - lo).contiguous()  # noqa: E731
+    for lo, hi in bounds or shard_bounds(n, w):
+        def part(x, dim):
+            v = x.narrow(dim, lo, hi - lo)
+            return v if views and v.is_contiguous() else v.contiguous()
         own = 0 if seq else 1
         shape = (hi - lo,) if uniform else (k, hi - lo)
         draw = prng.Draw(keys, noise_scale, lo, n)
@@ -1949,9 +1954,10 @@ def test_noise_window_at_an_offset(dev, w):
 
 
 def test_sharded_wrappers_count_their_launches(dev):
-    """K x (W + 1) + W launches for a greedy scan of one eval; one for
-    an independent top-k, a group capacity and a base delta on the
-    shards of one card; plain versions count nothing."""
+    """One launch for a greedy scan, an independent top-k, a group
+    capacity and a base delta on the shards of one card; K x (W + 1) +
+    W for a greedy scan of one eval on the per-shard route (forced);
+    plain versions count nothing."""
     from nomad_tpu_torch.parallel import shard
     from nomad_tpu_torch.parallel.mesh import make_mesh
 
@@ -1961,6 +1967,10 @@ def test_sharded_wrappers_count_their_launches(dev):
     cuda.reset_launch_counts()
     shard.sharded_greedy_scan(shard_split(static, base, feasible, asks, keys,
                                           w, False, False), 10.0)
+    assert cuda.launch_counts()["sharded_greedy_scan"] == 1
+    shard.sharded_greedy_scan(shard_split(static, base, feasible, asks, keys,
+                                          w, False, False), 10.0,
+                              force_shards=True)
     shard.sharded_greedy_scan_plain(shard_split(
         static, base, feasible, asks, keys, w, False, False, drawn=True),
         10.0)
@@ -1975,7 +1985,7 @@ def test_sharded_wrappers_count_their_launches(dev):
     shard.sharded_base_delta(make_mesh(devices=["cpu"] * w))(
         *parent, rows, *vals)
     counts = cuda.launch_counts()
-    assert counts["sharded_greedy_scan"] == k * (w + 1) + w
+    assert counts["sharded_greedy_scan"] == 1 + k * (w + 1) + w
     assert counts["sharded_uniform_topk"] == 1
     assert counts["group_capacity"] == 1
     assert counts["sharded_base_delta"] == 1
@@ -2003,9 +2013,10 @@ def test_sharded_uniform_topk_launches_per_path(dev, w, seq, launches):
 # ------------------------------ K10e-K10g: the last node-sharded programs
 
 
-def gang_shards(state, ask, abw, aports, noise, g_pad, w):
+def gang_shards(state, ask, abw, aports, noise, g_pad, w, bounds=None):
     """A gang state split into w GangShards (copies), each with its
-    window of the member noise and fresh carries."""
+    window of the member noise and fresh carries; ``bounds`` as
+    ``shard_split``'s."""
     from nomad_tpu_torch.parallel.mesh import shard_bounds
     from nomad_tpu_torch.parallel.shard import GangShard
 
@@ -2015,7 +2026,7 @@ def gang_shards(state, ask, abw, aports, noise, g_pad, w):
                       ask, abw, aports, noise[:, lo:hi].contiguous(),
                       torch.zeros(hi - lo, dtype=torch.int32, device=dev),
                       torch.zeros(g_pad, dtype=torch.float32, device=dev))
-            for lo, hi in shard_bounds(n, w)]
+            for lo, hi in bounds or shard_bounds(n, w)]
 
 
 @pytest.mark.parametrize("mode,dh", GANG_CASES)
@@ -2248,9 +2259,11 @@ def test_sharded_convex_round_matches_plain_and_k8b(dev, layout, b, n, k, g,
 
 
 def test_mesh_kernel_wrappers_count_their_launches(dev):
-    """K10g-b: K x (W + 1) + W a call; K10g-a and K10f: one (the shards
-    share one card); K10e in slice mode: W + 1 + K x (W + 1) + W + 1,
-    and K10b's one; plain versions count nothing."""
+    """On the shards of one card: K10g-b, K10g-a, K10f and K10e one a
+    call (K10e's group sums inside its launch: no K10b); on the
+    per-shard route (forced), K10g-b K x (W + 1) + W a call and K10e in
+    slice mode W + 1 + K x (W + 1) + W + 1, and K10b's one; plain
+    versions count nothing."""
     from nomad_tpu_torch.parallel import shard
 
     b, n, k, w, it = 1, 512, 5, 4, convex.SOLVE_ITERS
@@ -2262,6 +2275,10 @@ def test_mesh_kernel_wrappers_count_their_launches(dev):
     shard.sharded_relax_plain(shards, it, 10.0)
     shards = [sh._replace(pref=o[2]) for sh, o in zip(shards, outs)]
     shard.sharded_convex_round(shards, 10.0)
+    assert cuda.launch_counts()["sharded_convex_round"] == 1
+    shard.sharded_convex_round([sh._replace(pref=o[2]) for sh, o in zip(
+        shard_split(static, base, feasible, asks, keys, w, False, False),
+        outs)], 10.0, force_shards=True)
     shard.sharded_convex_round_plain([sh._replace(pref=o[2]) for sh, o in zip(
         shard_split(static, base, feasible, asks, keys, w, False, False),
         outs)], 10.0)
@@ -2280,14 +2297,255 @@ def test_mesh_kernel_wrappers_count_their_launches(dev):
     gnoise = torch.zeros(64, device=dev)
     shard.sharded_gang_scan(gang_shards(state, ask, abw, aports, noise, 64,
                                         w), active, gnoise, cfg)
+    assert cuda.launch_counts()["sharded_gang_scan"] == 1
+    assert "group_capacity" not in cuda.launch_counts()
+    shard.sharded_gang_scan(gang_shards(state, ask, abw, aports, noise, 64,
+                                        w), active, gnoise, cfg,
+                            force_shards=True)
     shard.sharded_gang_scan_plain(gang_shards(state, ask, abw, aports, noise,
                                               64, w), active, gnoise, cfg)
     counts = cuda.launch_counts()
-    assert counts["sharded_convex_round"] == k * (w + 1) + w
+    assert counts["sharded_convex_round"] == 1 + k * (w + 1) + w
     assert counts["sharded_convex_relax"] == 1
     assert counts["sharded_defrag_solve"] == 1
-    assert counts["sharded_gang_scan"] == w + 1 + 8 * (w + 1) + w + 1
+    assert counts["sharded_gang_scan"] == 1 + w + 1 + 8 * (w + 1) + w + 1
     assert counts["group_capacity"] == 1
+
+
+# ---------------------- K10c, K10g-b, K10e: one launch on one card's cluster
+
+# (W, bounds): W equal shards of N = 1,200 (16 of 75 rows), and uneven
+# shards whose rows start off 16-byte boundaries (one shorter than its
+# CTAs).
+CLUSTER_SHARDS = [
+    (1, None), (2, None), (3, None), (4, None), (5, None), (16, None),
+    (3, [(0, 333), (333, 700), (700, 1200)]),
+    (5, [(0, 101), (101, 333), (333, 336), (336, 801), (801, 1200)])]
+CLUSTER_IDS = ["w1", "w2", "w3", "w4", "w5", "w16", "uneven3", "uneven5"]
+
+
+def scan_launches(name):
+    return cuda.launch_counts().get(name, 0)
+
+
+def hold_cluster_scan(dev, biased, w, bounds, layout, n=1200, b=3, k=40,
+                      g=2, force=False):
+    """K10c (or with ``biased`` K10g-b, fed one pref) on w shards of the
+    card, each shard's rows views into the whole tensors where they are
+    contiguous: choices, scores (bit for bit; K10g-b within 1e-4) and
+    every shard's carry equal the plain version's, and K1's / K8b's on
+    the whole node axis bit for bit; one launch a call (``force``: the
+    per-shard route, K x (W + 1) + W launches an eval). Returns the
+    launches of the call."""
+    from nomad_tpu_torch.parallel import shard
+
+    seq = layout == "seq"
+    static, base, feasible, asks = scan_inputs(n, k, g, b, 7 * w + n, dev)
+    if layout == "stacked":
+        static = stacked_of(static, b, n, dev, w)
+    keys = torch.arange(2 * b, device=dev).view(b, 2) + w
+    pref = torch.rand((b, k, n), device=dev,
+                      generator=torch.Generator(dev).manual_seed(n + w))
+    kern, plain = ((shard.sharded_convex_round,
+                    shard.sharded_convex_round_plain) if biased else
+                   (shard.sharded_greedy_scan,
+                    shard.sharded_greedy_scan_plain))
+    runs, launches = [], None
+    for fn, drawn in ((kern, False), (plain, not biased)):
+        shards = shard_split(static, base, feasible, asks, keys, w, False,
+                             seq, drawn=drawn, bounds=bounds, views=True)
+        if biased:
+            shards = [sh._replace(pref=pref[..., sh.lo:sh.lo + sh.feasible
+                                            .shape[1]].contiguous())
+                      for sh in shards]
+        before = scan_launches(kern.__name__)
+        extra = {"force_shards": True} if force and fn is kern else {}
+        out = fn(shards, 10.0, seq, **extra)
+        if fn is kern:
+            launches = scan_launches(kern.__name__) - before
+        runs.append((*out, join_carry(shards, seq)))
+    assert_scans_agree(*runs, bits=not biased)
+    c = shared_carry(base) if seq else fresh(base, b, n)
+    if biased:
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)
+        ch, sc = convex.convex_round(*static, c, feasible, asks, noise, 10.0,
+                                     pref, seq)
+    else:
+        ch, sc = binpack.greedy_scan(*static, c, feasible, asks,
+                                     prng.Draw(keys, 2.0), 10.0, seq)
+    assert torch.equal(runs[0][0], ch) and torch.equal(runs[0][1], sc)
+    for name, x, y in zip(CARRY, runs[0][2], c):
+        assert torch.equal(x, y), name
+    assert (ch >= 0).any()
+    return launches
+
+
+@pytest.mark.parametrize("layout", ["independent", "seq", "stacked"])
+@pytest.mark.parametrize("w,bounds", CLUSTER_SHARDS, ids=CLUSTER_IDS)
+@pytest.mark.parametrize("biased", [False, True], ids=["k10c", "k10g_b"])
+def test_sharded_scans_on_one_cluster(dev, biased, w, bounds, layout):
+    """K10c and K10g-b on 1-16 shards of one card, equal and uneven, in
+    every batch layout: one launch of K1's cluster kernel over the
+    shards' segments, held against the plain version and the unsharded
+    kernel."""
+    assert hold_cluster_scan(dev, biased, w, bounds, layout) == 1
+
+
+@pytest.mark.parametrize("seq", [False, True])
+@pytest.mark.parametrize("biased", [False, True], ids=["k10c", "k10g_b"])
+def test_sharded_scans_per_shard_route(dev, biased, seq):
+    """Past a cluster's 16 shards of one card (17 of 24 rows) and forced
+    on 4, K10c and K10g-b take the per-shard launches (K x (W + 1) + W
+    an eval) and still equal the plain version and the unsharded
+    kernel."""
+    b, k = 2, 6
+    layout = "seq" if seq else "independent"
+    for w, force in ((17, False), (4, True)):
+        got = hold_cluster_scan(dev, biased, w, None, layout, n=24 * 17 if
+                                w == 17 else 400, b=b, k=k, force=force)
+        assert got == (b if seq else 1) * k * (w + 1) + w
+
+
+# (n, k_real, k, g_pad, rack, shuffle, shards): racks across the shard
+# edges, singleton groups shuffled past 1,024 groups.
+GANG_CLUSTER_CASES = [
+    *[(1200, 12, 16, 64, 8, False, s) for s in CLUSTER_SHARDS],
+    (3000, 200, 256, 1024, 3, False, (4, None)),
+    (3000, 200, 256, 1024, 3, False,
+     (5, [(0, 101), (101, 1333), (1333, 1336), (1336, 2801), (2801, 3000)])),
+    (2400, 64, 64, 2048, 1, True, (3, None)),
+    (2400, 64, 64, 2048, 1, True, (16, None))]
+
+
+@pytest.mark.parametrize("mode,dh", GANG_CASES)
+@pytest.mark.parametrize("n,k_real,k,g_pad,rack,shuffle,shards",
+                         GANG_CLUSTER_CASES)
+def test_sharded_gang_on_one_cluster(dev, mode, dh, n, k_real, k, g_pad,
+                                     rack, shuffle, shards):
+    """K10e on 1-16 shards of one card (equal and uneven) in every mode,
+    with and without distinct_hosts: one launch of K7's cluster kernel
+    over the shards' segments; choices, slice group and every shard's
+    carry (util, bw_used, ports_free, placed, its copy of the member
+    counts) equal the plain version's, scores within 1e-4; and K7's on
+    the whole node axis bit for bit."""
+    from nomad_tpu_torch.parallel import shard
+
+    w, bounds = shards
+    state, ask, abw, aports = gang_inputs(n, k_real + n + w, dev, rack=rack)
+    if shuffle:
+        perm = np.random.default_rng(n).permutation(n)
+        state = state._replace(topo_ids=state.topo_ids[torch.from_numpy(
+            perm).to(dev)].contiguous())
+    active = torch.zeros(k, dtype=torch.bool, device=dev)
+    active[:k_real] = True
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode,
+                          distinct_hosts=dh, g_pad=g_pad)
+    keys = torch.tensor([[0, k_real], [1, n]], device=dev)
+    noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
+    gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
+    runs = []
+    for fn in (shard.sharded_gang_scan, shard.sharded_gang_scan_plain):
+        parts = gang_shards(state, ask, abw, aports, noise, g_pad, w, bounds)
+        before = scan_launches("sharded_gang_scan")
+        runs.append((fn(parts, active, gnoise, cfg), parts))
+        if fn is shard.sharded_gang_scan:
+            assert scan_launches("sharded_gang_scan") == before + 1
+    ((ch, sc, sg), parts), ((ch_p, sc_p, sg_p), parts_p) = runs
+    assert torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    for a, b in zip(parts, parts_p):
+        for name in ("util", "bw_used", "ports_free"):
+            assert torch.equal(getattr(a.state, name),
+                               getattr(b.state, name)), name
+        assert torch.equal(a.placed, b.placed)
+        assert torch.equal(a.group_members, b.group_members)
+    st = state._replace(util=state.util.clone(),
+                        bw_used=state.bw_used.clone(),
+                        ports_free=state.ports_free.clone())
+    placed = torch.zeros(n, dtype=torch.int32, device=dev)
+    members = torch.zeros(g_pad, dtype=torch.float32, device=dev)
+    ch1, sc1, sg1 = gang.gang_scan(st, ask, abw, aports, active, noise,
+                                   gnoise, cfg, placed, members)
+    assert torch.equal(ch, ch1) and torch.equal(sc, sc1)
+    assert int(sg) == int(sg1)
+    assert torch.equal(torch.cat([a.placed for a in parts]), placed)
+    for a in parts:
+        assert torch.equal(a.group_members, members)
+
+
+@pytest.mark.parametrize("mode", ["slice", "spread"])
+@pytest.mark.parametrize("w,bounds", [
+    (2, None), (3, [(0, 333), (333, 700), (700, 1200)]),
+    (5, [(0, 101), (101, 333), (333, 336), (336, 801), (801, 1200)]),
+    (16, None)], ids=["w2", "uneven3", "uneven5", "w16"])
+@pytest.mark.parametrize("groups", [None, False], ids=["plan", "global"])
+def test_sharded_gang_on_one_cluster_sums_past_2_24(dev, mode, w, bounds,
+                                                    groups, monkeypatch):
+    """A zero ask gives every feasible node 1e9 units, so the group sums
+    (racks of 13 across the shard edges) pass 2^24 and round: the
+    cluster route sums each shard's units in node order and the
+    partials in shard order, K10b's order, so the slice choice, the
+    spread cap and every output equal the plain version's; with the
+    sums in shared memory (the plan's) and in global memory."""
+    from nomad_tpu_torch.parallel import shard
+
+    if groups is not None:  # the counts and sums forced to global memory
+        plan_for = scan.gang_plan_for
+        monkeypatch.setattr(scan, "gang_plan_for", lambda *a, **kw: plan_for(
+            *a, **kw, groups=groups))
+    n, k, g_pad = 1200, 8, 128
+    state, ask, abw, aports = gang_inputs(n, 6 + w, dev, rack=13,
+                                          zero_ask=True)
+    active = torch.ones(k, dtype=torch.bool, device=dev)
+    cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode, g_pad=g_pad)
+    keys = torch.tensor([[0, 3], [1, 4]], device=dev)
+    noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
+    gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
+    runs = []
+    for fn in (shard.sharded_gang_scan, shard.sharded_gang_scan_plain):
+        parts = gang_shards(state, ask, abw, aports, noise, g_pad, w, bounds)
+        runs.append((fn(parts, active, gnoise, cfg), parts))
+    ((ch, sc, sg), parts), ((ch_p, sc_p, sg_p), parts_p) = runs
+    assert torch.equal(ch, ch_p) and int(sg) == int(sg_p)
+    assert (sc - sc_p).abs().max().item() <= 1e-4
+    for a, b in zip(parts, parts_p):
+        assert torch.equal(a.placed, b.placed)
+        assert torch.equal(a.group_members, b.group_members)
+        assert torch.equal(a.state.util, b.state.util)
+    if mode == "slice":
+        assert int(sg) >= 0
+
+
+@pytest.mark.parametrize("mode", ["slice", "spread", "affinity"])
+def test_sharded_gang_per_shard_route(dev, mode):
+    """Past a cluster's 16 shards of one card (17 of 24 rows) and forced
+    on 4, K10e takes the per-shard launches and equals the plain
+    version."""
+    from nomad_tpu_torch.parallel import shard
+
+    k, g_pad = 8, 64
+    for w, n, force in ((17, 24 * 17, False), (4, 400, True)):
+        state, ask, abw, aports = gang_inputs(n, w, dev, rack=5)
+        active = torch.ones(k, dtype=torch.bool, device=dev)
+        cfg = gang.GangConfig(anti_affinity_penalty=10.0, mode=mode,
+                              g_pad=g_pad)
+        keys = torch.tensor([[0, 5], [1, 6]], device=dev)
+        noise = prng.threefry_uniform(keys[:1], (k, n), 0.0, 2.0)[0]
+        gnoise = prng.threefry_uniform(keys[1:], (g_pad,), 0.0, 1.0)[0]
+        parts = gang_shards(state, ask, abw, aports, noise, g_pad, w)
+        before = scan_launches("sharded_gang_scan")
+        got = shard.sharded_gang_scan(parts, active, gnoise, cfg,
+                                      force_shards=force)
+        own = w + 1 if mode in ("slice", "spread") else 1
+        assert scan_launches("sharded_gang_scan") - before == \
+            own + k * (w + 1) + w + 1
+        plain = gang_shards(state, ask, abw, aports, noise, g_pad, w)
+        want = shard.sharded_gang_scan_plain(plain, active, gnoise, cfg)
+        assert torch.equal(got[0], want[0]) and int(got[2]) == int(want[2])
+        assert (got[1] - want[1]).abs().max().item() <= 1e-4
+        for a, b in zip(parts, plain):
+            assert torch.equal(a.placed, b.placed)
+            assert torch.equal(a.group_members, b.group_members)
 
 
 def _to(x, device):
