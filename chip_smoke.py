@@ -28,8 +28,10 @@ Phases (any failure exits non-zero and prints no result):
    (ClusterMatrix + asks), one cohort dispatch, finalize (port offers,
    Allocation objects) on a 4-thread pool, and the round's plans
    committed, so each later round's base is a delta of the last (K4,
-   fused into the dispatch). Prints evals/s, per-eval p50/p99, the
-   batcher's dispatches, occupancy and stack/issue/sync times; checks
+   fused into the dispatch; each delta held bit-equal to the plain
+   version, its parent unchanged and its four arrays one allocation).
+   Prints evals/s, per-eval p50/p99, the batcher's dispatches,
+   occupancy and stack/issue/sync times; checks
    with bench.py's applier-style replay that no eval conflicts, holds
    one round against the same cohort through a CPU batcher (the plain
    versions), and counts conflicts of one round with pre_resolve off.
@@ -75,8 +77,13 @@ Phases (any failure exits non-zero and prints no result):
    deltas equal. K0-K3 at N = 10,240, K = 1,024, G = 2, B in {1, 64};
    the sequential scans at B = 4 x K = 1,024 and B = 64 x K = 64 (K1)
    and B = 64 x K = 8 (K2); the stacked scans at B = 4; K4 at R = 256
-   and 4,096; K6 on phase 5's own call (K = 1,024) and its first 8
-   asks (choices, victim counts, the carry and the victim mask equal);
+   and 4,096 (with its launches and allocations a call, its host span
+   and device time); K6 on phase 5's own call (K = 1,024) and its
+   first 8 asks (choices, victim counts, the carry and the victim mask
+   equal), with its plan (CTAs, threads, resident or streamed), the
+   launches of one call held to one, both chain terms (the bound takes
+   the smaller), its host span and device time, and ``uncached_ms``
+   (the call with the score cache off, held too);
    K7 on phase 6's own calls: the free gang (K = 1,024, g_pad = 256),
    the ici slice (K = 64, g_pad = 1,024) and the spread without meta
    (K = 512, g_pad = 10,240); K8a and K8b on phase 8's own calls (the
@@ -797,6 +804,7 @@ def run_storm(seed, torch, total):
     counts to ``total``; returns the storm's figures."""
     import numpy as np
 
+    from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.scheduler.batcher import get_batcher
     from nomad_tpu_torch.scheduler.testing import Harness
 
@@ -824,10 +832,12 @@ def run_storm(seed, torch, total):
                 storm.commit(out[-1][2])
             return out
 
-        with GcPauses() as gc_pauses:
+        with GcPauses() as gc_pauses, \
+                Recorder(binpack, "apply_base_delta", copy=False) as deltas:
             done = counted(total, "config 4 storm", (
                 "uniform_topk_seq", "expand_overlay", "base_delta"), config4,
                 DRAWN_IN_SCANS)
+        hold_deltas(torch, "config 4 storm", deltas.calls)
         stats = stats_delta(stats0, batcher.stats())
         lat = [t for r in done for t in r[3]]
         wall = sum(r[4] for r in done)
@@ -1018,6 +1028,36 @@ def run_storm(seed, torch, total):
     return figures, h
 
 
+def hold_deltas(torch, label, calls):
+    """K4 on a path's own calls, recorded by reference (no copy inside
+    the timed window; a cached base is never written, so the recorded
+    parent is still the one the call read): each child bit-equal to the
+    plain version on the call's inputs, and the four children one
+    allocation. Each call is then launched again on copies of its
+    inputs, untimed: the child equal to the recorded one, the parent's
+    copy unchanged."""
+    from nomad_tpu_torch.ops import binpack
+
+    check(calls, f"{label}: no base delta")
+    for call in calls:
+        want = binpack.apply_base_delta_plain(*call.inputs)
+        for x, y in zip(call.out, want):
+            check(torch.equal(x, y), f"{label}: K4 differs from the plain "
+                  "version")
+        check(len({x.untyped_storage().data_ptr() for x in call.out}) == 1,
+              f"{label}: K4's children are not one allocation")
+        args = cloned(call.inputs)
+        again = binpack.apply_base_delta(*args)
+        for x, y in zip(again, call.out):
+            check(torch.equal(x, y), f"{label}: K4 differs on a copy of "
+                  "its inputs")
+        for x, y in zip(args[:4], call.inputs[:4]):
+            check(torch.equal(x, y), f"{label}: K4 changed its parent")
+    print(f"{label}: K4 on its {len(calls)} base deltas (R = "
+          f"{sorted({c.inputs[4].shape[0] for c in calls})}): bit-equal to "
+          "the plain version, parents unchanged, one allocation each")
+
+
 def check_placed(label, results, placed, expect):
     """Every ask placed on the card, and every placement made into an
     allocation (exact port offers) on the host."""
@@ -1150,16 +1190,19 @@ class Recorder:
     keeps each call: its inputs (copied first, as the scans update
     their carry in place), its arguments after the call and its result.
     The smoke holds each kernel against its plain version, and times
-    it, on exactly the inputs the scheduler gave it."""
+    it, on exactly the inputs the scheduler gave it. With ``copy``
+    False the inputs are kept by reference (for a wrapper that writes
+    none of its arguments, inside a timed window)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, copy=True):
         self.module, self.name, self.calls = module, name, []
+        self.copy = copy
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapped(*args):
-            inputs = cloned(args)
+            inputs = cloned(args) if self.copy else args
             out = self.orig(*args)
             self.calls.append(Call(inputs, args, out))
             return out
@@ -1538,6 +1581,7 @@ def bench_legs(torch, k6, gangs):
             torch, lambda: preempt.preempt_scan_plain(*box["a"]), plain_runs,
             warmup=1, setup=lambda: box.update(a=cloned(call.inputs)))
         chain = chain_ms(torch, k, dev)
+        fig = preempt_figures(torch, f"K6 (N={n}, K={k})", call, ms)
         ch = call.out[0]
         rows = torch.unique(ch[ch >= 0]).numel()
         slots = int((vs.ok & ~call.after[2]).sum())
@@ -1551,8 +1595,9 @@ def bench_legs(torch, k6, gangs):
         out.setdefault("preempt_scan", {})[k] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             plain_runs=plain_runs,
-            **bound(bytes_, max(flops / FP32_FLOPS, chain / 1000.0)),
-            library_ms=None, chain_ms=chain)
+            **bound(bytes_, max(flops / FP32_FLOPS, min(
+                chain, fig["cluster_chain_ms"]) / 1000.0)),
+            library_ms=None, chain_ms=chain, **fig)
         torch.cuda.empty_cache()
     # ---- K7
     for jid in ("g-free", "g-slice-ici", "b-spread"):
@@ -1586,6 +1631,71 @@ def bench_legs(torch, k6, gangs):
             library_ms=None, chain_ms=chain, **fig)
         torch.cuda.empty_cache()
     return out
+
+
+def preempt_figures(torch, label, call, ms):
+    """A K6 record's design figures, as K7's (gang_figures): the plan's
+    cluster (CTAs, threads, resident or streamed, the noise staged, the
+    score cache), the launches of one call (counted around it, held to
+    one), the cluster chain term at the plan's shape, the call's host
+    span and profiler device time, ``launch_ms`` and ``launch_host_ms``:
+    the call less its argument checks and plan lookup
+    (``scan.launch_preempt`` alone), and ``uncached_ms``: the same call
+    with the score cache off, every step rescoring every node and
+    walking the victim slots of every node that does not fit (what
+    asks that differ at every step cost), held against the plain
+    version."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import preempt, scan
+
+    st, _vs, _vok, asks, _nz, prio, penalty = call.inputs
+    dev = st.capacity.device
+    (n, g), k = st.feasible.shape, asks.resources.shape[0]
+    plan = scan.preempt_plan_for(dev, n, g)
+    box = {}
+    setup = lambda: box.update(a=cloned(call.inputs))  # noqa: E731
+    setup()
+    _out, launches = launches_of(
+        "preempt_scan", lambda: preempt.preempt_scan(*box["a"]))
+    check(launches == 1, f"{label}: {launches} launches a call")
+    off = plan._replace(cache=False, smem=scan.preempt_layout(
+        plan.ctas, plan.threads // 32, plan.slice, g, plan.resident,
+        plan.stage_noise, False)[1])
+
+    def uncached():
+        a = box["a"]
+        return scan.launch_preempt(off, *a[:5], float(np.float32(prio)),
+                                   penalty)
+
+    def launch_only():  # the call less its checks and plan lookup
+        a = box["a"]
+        return scan.launch_preempt(plan, *a[:5], float(np.float32(prio)),
+                                   penalty)
+
+    setup()
+    hold_preempt(torch, f"{label}, cache off",
+                 Call(call.inputs, box["a"], uncached()))
+    fig = dict(ctas=plan.ctas, threads=plan.threads, form=plan.form,
+               cache=plan.cache, stage_noise=plan.stage_noise,
+               launches_per_call=launches,
+               cluster_chain_ms=cluster_chain_ms(torch, k, plan.ctas,
+                                                 plan.threads, dev),
+               uncached_ms=time_cuda(torch, uncached, RUNS, setup=setup),
+               launch_ms=time_cuda(torch, launch_only, RUNS, setup=setup),
+               host_ms=host_ms(torch, lambda: preempt.preempt_scan(
+                   *box["a"]), RUNS),
+               launch_host_ms=host_ms(torch, launch_only, RUNS),
+               device_ms=device_ms(torch, lambda: preempt.preempt_scan(
+                   *box["a"]), RUNS, setup=setup, match="preempt_cluster"))
+    print(f"{label}: {plan.ctas} CTAs x {plan.threads} threads, "
+          f"{plan.form}, {launches} launch a call, {ms:.4f} ms, device "
+          f"{fig['device_ms']} ms, host span {fig['host_ms']:.4f} ms; the "
+          f"launch alone {fig['launch_ms']:.4f} ms (host span "
+          f"{fig['launch_host_ms']:.4f}); cache off "
+          f"{fig['uncached_ms']:.4f} ms (equal to the plain version); "
+          f"cluster chain {fig['cluster_chain_ms']:.4f} ms")
+    return fig
 
 
 def gang_figures(torch, label, call, ms):
@@ -2345,8 +2455,20 @@ def bench_new_kernels(torch, np, seed):
             check(torch.equal(z, p0), f"K4 (R={r}): the parent changed")
         err = max((x.double() - y.double()).abs().max().item()
                   for x, y in zip(got, want))
-        ms = time_cuda(torch, lambda: binpack.apply_base_delta(
-            *parent, *payload), RUNS)
+        call = lambda: binpack.apply_base_delta(  # noqa: E731
+            *parent, *payload)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        _out, launches = launches_of("base_delta", call)
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - \
+            allocs
+        del _out
+        check(launches == 1 and allocs == 1, f"K4 (R={r}): {launches} "
+              f"launches and {allocs} allocations a call")
+        fig = dict(launches_per_call=launches, allocations_per_call=allocs,
+                   host_ms=host_ms(torch, call, RUNS),
+                   device_ms=device_ms(torch, call, RUNS))
+        ms = time_cuda(torch, call, RUNS)
         plain_ms = time_cuda(torch, lambda: binpack.apply_base_delta_plain(
             *parent, *payload), RUNS)
         idx = (payload[0].long(),)
@@ -2358,9 +2480,11 @@ def bench_new_kernels(torch, np, seed):
         bytes_ = 2 * n * 25 + r * (4 + 16 + 4 + 4 + 1)
         out.setdefault("base_delta", {})[r] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound(bytes_, 0.0), library_ms=lib_ms)
+            **bound(bytes_, 0.0), library_ms=lib_ms, **fig)
         print(f"base_delta R={r}: bit-equal to the plain version, parent "
-              "unchanged")
+              f"unchanged; {launches} launch and {allocs} allocation a call, "
+              f"{ms:.4f} ms, device {fig['device_ms']} ms, host span "
+              f"{fig['host_ms']:.4f} ms")
     # ---- K1 sequential at B x K = 4 x 1,024 and 64 x 64
     for b, k in ((4, 1024), (64, 64)):
         base, jc, tgc, feas, asks, _u, keys = kernel_inputs(
@@ -4549,11 +4673,12 @@ def main(argv=None) -> int:
             for line in open(log):
                 if line.startswith("=="):
                     section = line
-                # Every kernel's registers; the greedy scan's entries by
-                # name, with their spills.
+                # Every kernel's registers; the cluster scans' and the
+                # base delta's entries by name, with their spills.
                 if "registers" in line or line.startswith("==") or (
-                        ("greedy_scan.cu" in section
-                         or "gang_scan.cu" in section)
+                        any(x in section for x in (
+                            "greedy_scan.cu", "gang_scan.cu",
+                            "preempt_scan.cu", "base_delta.cu"))
                         and ("spill" in line or "Compiling entry" in line)):
                     print("  " + line.rstrip())
 

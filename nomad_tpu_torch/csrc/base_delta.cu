@@ -6,18 +6,22 @@
 // and node_ok [N] take the child's values at rows [R], and nothing
 // else moves.
 //
-// nt_base_delta (K4): the wrapper hands this kernel fresh copies of the
-// parent's arrays (Tensor.clone, a plain copy): the parent may still
-// be cached, and a dispatch on it may still be running. Padding rows
-// (ROW_BUCKETS) repeat the first changed row with the same values, so
-// duplicate writes store the same bytes and their order does not
-// matter. A row outside [0, N) is dropped, as the JAX scatter's
-// mode="drop" does. Bound on the card: bytes — the copies (~25 B a
-// node) and R rows of 29 B; at N = 10,240 and R <= 4,096 well under a
-// megabyte, a fraction of a microsecond at the HBM rate, so launch
-// latency is what a call costs. One thread per (row, column) of the
-// seven columns (util's four, bw_used, ports_free, node_ok), so
-// neighbouring threads write neighbouring addresses of a row.
+// nt_base_delta (K4): one launch and one allocation a call. The
+// wrapper allocates the four child arrays as 16-byte-aligned views of
+// one buffer (the parent may still be cached, and a dispatch on it may
+// still be running, so it is only read); the kernel runs over node
+// tiles of NT_DELTA_TILE nodes, a CTA each: it copies its tile of the
+// parent into the child, and after a block barrier reads the R payload
+// row indices (from L2 after the first CTA) and sets the rows that
+// land in its tile. Padding rows (ROW_BUCKETS) repeat a real row with
+// the same values, so duplicate writes store the same bytes and their
+// order does not matter. A row outside [0, N) is dropped, as the JAX
+// scatter's mode="drop" does. Bound on the card: bytes — the
+// parent read and the child written once (25 B a node) and the R
+// payload rows (29 B); at N = 10,240 and R <= 4,096 well under a
+// megabyte, a fraction of a microsecond at the HBM rate, so the host's
+// issue of the call is its cost: the design makes it one allocation and
+// one launch (four copies and a scatter before).
 //
 // nt_base_delta_shards (K10a, parallel/shard.py sharded_base_delta in
 // the JAX package): the same delta over the node shards of one card
@@ -37,49 +41,64 @@
 #include "common.cuh"
 
 #define NT_DELTA_THREADS 256
-#define NT_DELTA_COLS 7
+// Nodes a CTA.
+#define NT_DELTA_TILE 512
 
 __global__ void __launch_bounds__(NT_DELTA_THREADS) nt_base_delta_kernel(
-    int N, int R, int lo, const int* __restrict__ rows,
-    const float* __restrict__ util_rows, const float* __restrict__ bw_rows,
+    int N, int R, const int* __restrict__ rows,
+    const float4* __restrict__ util_rows, const float* __restrict__ bw_rows,
     const float* __restrict__ ports_rows,
-    const unsigned char* __restrict__ ok_rows, float* __restrict__ util,
-    float* __restrict__ bw_used, float* __restrict__ ports_free,
-    unsigned char* __restrict__ node_ok) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= R * NT_DELTA_COLS) return;
-  const int r = t / NT_DELTA_COLS;
-  const int c = t - r * NT_DELTA_COLS;
-  const int row = rows[r] - lo;
-  if (row < 0 || row >= N) return;
-  if (c < 4) {
-    util[(size_t)row * 4 + c] = util_rows[(size_t)r * 4 + c];
-  } else if (c == 4) {
-    bw_used[row] = bw_rows[r];
-  } else if (c == 5) {
-    ports_free[row] = ports_rows[r];
-  } else {
-    node_ok[row] = ok_rows[r];
+    const unsigned char* __restrict__ ok_rows,
+    const float4* __restrict__ util, const float* __restrict__ bw_used,
+    const float* __restrict__ ports_free,
+    const unsigned char* __restrict__ node_ok, float4* __restrict__ c_util,
+    float* __restrict__ c_bw_used, float* __restrict__ c_ports_free,
+    unsigned char* __restrict__ c_node_ok) {
+  const int t = threadIdx.x;
+  const int first = blockIdx.x * NT_DELTA_TILE;
+  const int end = min(first + NT_DELTA_TILE, N);
+  for (int i = first + t; i < end; i += NT_DELTA_THREADS) {
+    c_util[i] = util[i];
+    c_bw_used[i] = bw_used[i];
+    c_ports_free[i] = ports_free[i];
+    c_node_ok[i] = node_ok[i];
+  }
+  // The tile's copy is in before any of its rows is set.
+  __syncthreads();
+  for (int j = t; j < R; j += NT_DELTA_THREADS) {
+    const int row = rows[j];
+    if (row < first || row >= end) continue;
+    c_util[row] = util_rows[j];
+    c_bw_used[row] = bw_rows[j];
+    c_ports_free[row] = ports_rows[j];
+    c_node_ok[row] = ok_rows[j];
   }
 }
 
 // rows [R] i32; util_rows [R,4] f32; bw_rows/ports_rows [R] f32;
 // ok_rows [R] u8; util [N,4] f32, bw_used/ports_free [N] f32, node_ok
-// [N] u8: the child's copies, set in place; lo the global row of
-// their first row (0 unsharded).
-NT_API int nt_base_delta(int N, int R, int lo, const void* rows,
-                         const void* util_rows,
-                         const void* bw_rows, const void* ports_rows,
-                         const void* ok_rows, void* util, void* bw_used,
-                         void* ports_free, void* node_ok, void* stream) {
-  if (R <= 0) return 0;
-  const int total = R * NT_DELTA_COLS;
-  const int blocks = (total + NT_DELTA_THREADS - 1) / NT_DELTA_THREADS;
+// [N] u8: the parent's (read only), then the child's (written whole).
+// util_rows, util and c_util 16-byte aligned.
+NT_API int nt_base_delta(int N, int R, const void* rows,
+                         const void* util_rows, const void* bw_rows,
+                         const void* ports_rows, const void* ok_rows,
+                         const void* util, const void* bw_used,
+                         const void* ports_free, const void* node_ok,
+                         void* c_util, void* c_bw_used, void* c_ports_free,
+                         void* c_node_ok, void* stream) {
+  if (N < 0 || R < 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  if (((uintptr_t)util | (uintptr_t)c_util |
+       (R > 0 ? (uintptr_t)util_rows : 0)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int blocks = (N + NT_DELTA_TILE - 1) / NT_DELTA_TILE;
   nt_base_delta_kernel<<<blocks, NT_DELTA_THREADS, 0, (cudaStream_t)stream>>>(
-      N, R, lo, (const int*)rows, (const float*)util_rows,
-      (const float*)bw_rows,
-      (const float*)ports_rows, (const unsigned char*)ok_rows, (float*)util,
-      (float*)bw_used, (float*)ports_free, (unsigned char*)node_ok);
+      N, R, (const int*)rows, (const float4*)util_rows,
+      (const float*)bw_rows, (const float*)ports_rows,
+      (const unsigned char*)ok_rows, (const float4*)util,
+      (const float*)bw_used, (const float*)ports_free,
+      (const unsigned char*)node_ok, (float4*)c_util, (float*)c_bw_used,
+      (float*)c_ports_free, (unsigned char*)c_node_ok);
   return (int)cudaGetLastError();
 }
 

@@ -223,22 +223,12 @@ def apply_base_delta(util, bw_used, ports_free, node_ok, rows,
     f32, ok_rows [R] bool. Returns new tensors; the parent base stays
     as it was (it may still be cached).
 
-    On the card (csrc/base_delta.cu) the bound is bytes: the four
-    arrays copied (``Tensor.clone``, a plain copy) and R rows written,
-    a few hundred KB at N = 10,240. One thread per (row, column) sets
-    the rows.
+    On the card (csrc/base_delta.cu) the bound is bytes: the parent's
+    four arrays read and the child's written once, and R rows, a few
+    hundred KB at N = 10,240; the call's cost is its host issue, so it
+    is one allocation (``child_arrays``) and one launch over node tiles
+    that copies each tile and sets the rows that land in it.
     """
-    return base_delta_rows(util, bw_used, ports_free, node_ok, rows,
-                           util_rows, bw_rows, ports_rows, ok_rows, 0,
-                           "base_delta")
-
-
-def base_delta_rows(util, bw_used, ports_free, node_ok, rows, util_rows,
-                    bw_rows, ports_rows, ok_rows, lo: int, name: str):
-    """The launch behind K4 and its shard form K10a
-    (parallel/shard.py): the arrays are N rows from global row ``lo``,
-    ``rows`` global indices (others drop); counts one ``name`` launch
-    on the card."""
     n, r = util.shape[0], rows.shape[0]
     dev = util.device
     for label, t, dtype, shape in (
@@ -255,17 +245,42 @@ def base_delta_rows(util, bw_used, ports_free, node_ok, rows, util_rows,
     if dev.type == "cpu":
         return apply_base_delta_plain(util, bw_used, ports_free, node_ok,
                                       rows, util_rows, bw_rows, ports_rows,
-                                      ok_rows, lo)
+                                      ok_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = tuple(x.clone() for x in (util, bw_used, ports_free, node_ok))
+    out = launch_base_delta((util, bw_used, ports_free, node_ok),
+                            (rows, util_rows, bw_rows, ports_rows, ok_rows))
+    cuda.count_launch("base_delta")
+    return out
+
+
+def child_arrays(dev, n: int):
+    """A base delta's four child arrays (util [n,4] f32, bw_used,
+    ports_free [n] f32, node_ok [n] bool) as 16-byte-aligned views of
+    ONE allocation on ``dev``."""
+    q = -(-n // 4) * 4  # an [n] row's floats, rounded up to 16 bytes
+    util, bw, ports, ok = torch.empty(
+        4 * n + 2 * q + q // 4, dtype=torch.float32,
+        device=dev).split_with_sizes((4 * n, q, q, q // 4))
+    util, ok = util.view(n, 4), ok.view(torch.bool)
+    if q != n:
+        bw, ports, ok = bw[:n], ports[:n], ok[:n]
+    return util, bw, ports, ok
+
+
+def launch_base_delta(parent, payload):
+    """One launch of K4's kernel: the four ``parent`` arrays (read
+    only) and the ``payload`` (rows, util_rows, bw_rows, ports_rows,
+    ok_rows), arguments as ``apply_base_delta`` checked them. Returns
+    the child arrays (``child_arrays``: one allocation)."""
+    dev = parent[0].device
+    out = child_arrays(dev, parent[0].shape[0])
     with cuda.on_device(dev):  # the tensors' card, whichever is current
         cuda.launch(
-            "nt_base_delta", n, r, int(lo), rows.data_ptr(),
-            util_rows.data_ptr(), bw_rows.data_ptr(), ports_rows.data_ptr(),
-            ok_rows.data_ptr(), *(x.data_ptr() for x in out),
+            "nt_base_delta", parent[0].shape[0], payload[0].shape[0],
+            *(x.data_ptr() for x in payload),
+            *(x.data_ptr() for x in parent), *(x.data_ptr() for x in out),
             cuda.stream_ptr(dev))
-    cuda.count_launch(name)
     return out
 
 

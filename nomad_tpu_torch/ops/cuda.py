@@ -60,11 +60,12 @@ SIGNATURES: Dict[str, List] = {
                         + [_P] * 3),
     "nt_uniform_topk_occupancy": [_I] * 6 + [_P],
     "nt_expand_overlay": [_I] * 9 + [_P] * 10,
-    "nt_base_delta": [_I, _I, _I] + [_P] * 10,
+    "nt_base_delta": [_I, _I] + [_P] * 14,
     "nt_base_delta_shards": [_I] * 3 + [_P] * 9,
     "nt_argmax_chain": [_I, _P, _P],
     "nt_argmax_chain_cluster": [_I] * 3 + [_P, _P],
-    "nt_preempt_scan": [_I, _I, _I, _F, _F] + [_P] * 27,
+    "nt_preempt_scan": [_I] * 3 + [_F] * 2 + [_I] * 5 + [_L] + [_P] * 28,
+    "nt_preempt_occupancy": [_I, _I, _L, _I, _P],
     "nt_gang_scan": [_I] * 5 + [_F] + [_I] * 6 + [_L] + [_P] * 26,
     "nt_gang_occupancy": [_I, _I, _L, _I, _P],
     "nt_relax_solve": [_I, _I, _I, _F, _P, _P, _P],

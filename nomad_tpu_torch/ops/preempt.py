@@ -17,7 +17,8 @@ n_victims) per ask; the host maps ``n_victims`` back to the next
 unconsumed entries of the node's sorted candidate list.
 
 ``preempt_scan`` is the kernel wrapper: csrc/preempt_scan.cu for CUDA
-tensors, ``preempt_scan_plain`` for CPU ones. ``preempt_placement`` is
+tensors (one cluster launch, planned by ops/scan.py ``preempt_plan``),
+``preempt_scan_plain`` for CPU ones. ``preempt_placement`` is
 the program the scheduler calls (upload, K0 noise, K6);
 ``preempt_placement_plain`` runs the same program through the plain
 versions only.
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import numpy as _np
 import torch
 
-from . import cuda
+from . import cuda, scan
 from .binpack import (
     NEG_INF,
     R_CPU,
@@ -221,13 +222,13 @@ def preempt_scan(state: NodeState, victims: VictimState, vok, asks: Asks,
     without the noise, n_victims [K] i32).
 
     On the card (csrc/preempt_scan.cu) the bound is the chain of K
-    dependent block-wide argmaxes, as for K1, with each step's pass
-    over N nodes also walking the 8 victim slots of every node that
-    does not fit normally (232 bytes a node, from L2 after the first
-    step). One block walks the K steps; its threads keep two
-    candidates, the best normal fit and the best preemption, so one
-    reduction per step decides both, and thread 0 writes back the
-    chosen row and the consumed slots before the next step's barrier.
+    dependent argmaxes over N nodes, as for K1. One launch of a
+    thread-block cluster (``scan.preempt_plan_for``: up to 16 CTAs, the
+    slices' rows and victim slots resident in shared memory where they
+    fit): its threads keep two candidates, the best normal fit and the
+    best preemption, so one key exchange a step decides both; each
+    node's two scores before the noise are cached between alike asks
+    and recomputed only for the row the last step updated.
     """
     n, g, k = _check_preempt_args(state, victims, vok, asks, noise)
     dev = state.capacity.device
@@ -236,28 +237,11 @@ def preempt_scan(state: NodeState, victims: VictimState, vok, asks: Asks,
                                   eval_priority, penalty)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    choices = torch.empty((k,), dtype=torch.int32, device=dev)
-    scores = torch.empty((k,), dtype=torch.float32, device=dev)
-    counts = torch.empty((k,), dtype=torch.int32, device=dev)
-    with cuda.on_device(dev):  # the tensors' card, whichever is current
-        cuda.launch(
-            "nt_preempt_scan", n, g, k, float(penalty),
-            float(_np.float32(eval_priority)), state.capacity.data_ptr(),
-            state.sched_capacity.data_ptr(), state.bw_avail.data_ptr(),
-            state.node_ok.data_ptr(), state.util.data_ptr(),
-            state.bw_used.data_ptr(), state.ports_free.data_ptr(),
-            state.job_count.data_ptr(), state.tg_count.data_ptr(),
-            state.feasible.data_ptr(), victims.res.data_ptr(),
-            victims.bw.data_ptr(), victims.ports.data_ptr(),
-            victims.prio.data_ptr(), vok.data_ptr(),
-            asks.resources.data_ptr(), asks.bw.data_ptr(),
-            asks.ports.data_ptr(), asks.tg_index.data_ptr(),
-            asks.active.data_ptr(), asks.job_distinct_hosts.data_ptr(),
-            asks.tg_distinct_hosts.data_ptr(), noise.data_ptr(),
-            choices.data_ptr(), scores.data_ptr(), counts.data_ptr(),
-            cuda.stream_ptr(dev))
+    out = scan.launch_preempt(scan.preempt_plan_for(dev, n, g), state,
+                              victims, vok, asks, noise,
+                              float(_np.float32(eval_priority)), penalty)
     cuda.count_launch("preempt_scan")
-    return choices, scores, counts
+    return out
 
 
 def _fresh_carry(state: NodeState, victims: VictimState):

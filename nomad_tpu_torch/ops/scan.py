@@ -1,7 +1,8 @@
 """The host side of the cluster scans' launches: the greedy scan (K1,
 K5a-greedy and K5b-greedy: csrc/greedy_scan.cu), the convex kernel's
 rounding scan (K8b: the same kernel with the rounding bias,
-csrc/convex_round.cu) and the gang scan (K7: csrc/gang_scan.cu).
+csrc/convex_round.cu), the gang scan (K7: csrc/gang_scan.cu) and the
+preemption scan (K6: csrc/preempt_scan.cu).
 
 One launch a call: a thread-block cluster of ``ctas`` CTAs an eval (one
 cluster walking the B evals under ``seq``), the node axis split over
@@ -31,7 +32,10 @@ K8b's plan (``bias``) is K1's with the noise read and two more rows a
 node: its pref row staged beside each noise stage, and its strand term
 beside each cached score. K7's (``gang_plan``: one gang, one cluster)
 adds where the group member counts and sums live: shared memory where
-the layout fits, else global memory (a row of counts a CTA).
+the layout fits, else global memory (a row of counts a CTA). K6's
+(``preempt_plan``: one eval, one cluster) keeps each node's victim
+slots beside its rows in the resident form, and two cached scores a
+node (the normal fit and the preemption).
 
 ``segments`` plans the same kernels over node shards of one card (K10c
 and K10g-b on K1's kernel, K10e on K7's: parallel/shard.py): the
@@ -40,13 +44,14 @@ the slices the longest of the shards' parts, the noise always read
 (the shards carry drawn windows). ``launch_segments`` and
 ``launch_gang_segments`` pass the kernels the segment table.
 
-``layout`` and ``gang_layout`` are the kernels' shared-memory layouts
-(nt_scan_layout, nt_gang_layout); the C entries recompute them and
-refuse a plan whose size differs.
+``layout``, ``gang_layout`` and ``preempt_layout`` are the kernels'
+shared-memory layouts (nt_scan_layout, nt_gang_layout,
+nt_preempt_layout); the C entries recompute them and refuse a plan
+whose size differs.
 
 Nothing here runs at import or on the CPU: the wrappers run the plain
-versions for CPU tensors and call ``launch``, ``launch_round`` or
-``launch_gang`` for CUDA ones.
+versions for CPU tensors and call ``launch``, ``launch_round``,
+``launch_gang`` or ``launch_preempt`` for CUDA ones.
 """
 
 from __future__ import annotations
@@ -687,3 +692,162 @@ def launch_gang_segments(plan: GangPlan, segs, ask_res, ask_bw, ask_ports,
             group_noise.data_ptr(), choices.data_ptr(), scores.data_ptr(),
             slice_group.data_ptr(), *ptrs, cuda.stream_ptr(dev))
     return choices, scores, slice_group
+
+
+# ------------------------------------------------------------ K6
+
+# csrc/preempt_scan.cu: bytes a node of the resident rows staged by bulk
+# copies, in the kernel's order: the node rows (capacity, sched, util,
+# bw_avail, bw_used, ports_free, node_ok), job_count, then tg_count and
+# feasible (4 and 1 bytes a node a task group), then the victim slots'
+# footprints (res 8 x 16, bw 8 x 4, ports 8 x 4); beside them two bit
+# masks a node, built at load time and not staged: the live slots
+# (v_ok, 8 bytes a node in device memory) and the slots below the
+# eval's priority (v_prio, 32 bytes a node there).
+PREEMPT_ROWS = (16, 16, 16, 4, 4, 4, 1, 4)
+PREEMPT_GROUP_ROWS = (4, 1)
+PREEMPT_VICTIM_ROWS = (128, 32, 32)
+PREEMPT_MASKS = 2
+# The mbarriers (NT_PB_COUNT: the rows, the noise stages, the keys).
+PREEMPT_BARRIERS = 1 + STAGES + 2
+
+
+def preempt_rows(g: int) -> Tuple[int, ...]:
+    """Bytes a node of each staged resident row of K6 at G task
+    groups."""
+    return (*PREEMPT_ROWS, *(per * g for per in PREEMPT_GROUP_ROWS),
+            *PREEMPT_VICTIM_ROWS)
+
+
+def preempt_layout(ctas: int, warps: int, length: int, g: int,
+                   resident: bool, stage_noise: bool,
+                   cache: bool) -> Tuple[Dict[str, int], int]:
+    """K6's shared memory: ({region: byte offset}, total). Two keys a
+    CTA and a warp a step (the best normal fit and the best
+    preemption), two cached scores a node."""
+    at = _up(8 * PREEMPT_BARRIERS + 8 * len(PARTS), 16)
+    off = {"slots": at}
+    at += _up(32 * (ctas + warps), 16)  # two keys a CTA and a warp; 2 steps
+    if cache:
+        off["cache"] = at
+        at += _up(8 * length, 16)
+    if stage_noise:
+        for x in range(STAGES):
+            off[f"noise{x}"] = at
+            at += stage_len(4 * length)
+    if resident:
+        for r, per in enumerate(preempt_rows(g)):
+            off[f"row{r}"] = at
+            at += stage_len(per * length)
+        off["masks"] = at
+        at += _up(PREEMPT_MASKS * length, 16)
+    return off, at
+
+
+class PreemptPlan(NamedTuple):
+    """One K6 launch: a cluster of ``ctas`` CTAs of ``threads`` threads,
+    slices up to ``slice`` nodes, the rows and victim slots resident or
+    streamed, the noise staged, the score cache, the shared memory a CTA
+    and the clusters the card holds at once."""
+
+    ctas: int
+    threads: int
+    slice: int
+    resident: bool
+    stage_noise: bool
+    cache: bool
+    smem: int
+    occupancy: int
+
+    @property
+    def form(self) -> str:
+        return "resident" if self.resident else "streamed"
+
+
+def _preempt_shape(length: int, g: int, ctas: int,
+                   resident: Optional[bool]) -> Tuple:
+    """(threads, slice, resident, stage_noise, cache, smem) at ``ctas``
+    for slices up to ``length`` nodes: resident where the layout fits,
+    else streamed with the cache and then the noise's stages kept where
+    they fit; ``resident`` forces the form."""
+    threads = threads_for(length)
+    warps = threads // 32
+    for res in (True, False):
+        if resident not in (None, res):
+            continue
+        tries = ((True, True),) if res else ((True, True), (False, True),
+                                             (False, False))
+        for staged, cache in tries:
+            smem = preempt_layout(ctas, warps, length, g, res, staged,
+                                  cache)[1]
+            if smem <= SMEM_MAX:
+                return threads, length, res, staged, cache, smem
+    raise RuntimeError(
+        f"preemption scan: no layout of {length} nodes a CTA at G = {g} "
+        f"(resident {resident}) fits in {SMEM_MAX} bytes")
+
+
+def preempt_plan(n: int, g: int,
+                 occupancy: Callable[[int, int, int, bool], int],
+                 ctas: Optional[int] = None,
+                 resident: Optional[bool] = None) -> PreemptPlan:
+    """K6's launch for one eval over N nodes and G task groups: the
+    largest cluster (up to ``CLUSTER_MAX``, at most N CTAs) the card
+    holds; ``ctas`` and ``resident`` force the cluster and the form (the
+    tests' hooks)."""
+    if n < 0 or g < 1:
+        raise ValueError(f"no preemption scan of N {n}, G {g}")
+    if ctas is not None:
+        if not 1 <= ctas <= CLUSTER_MAX:
+            raise RuntimeError(f"preemption scan: no cluster of {ctas} "
+                               f"CTAs (1 to {CLUSTER_MAX})")
+        choices = [ctas]
+    else:
+        choices = [c for c in (16, 8, 4, 2, 1) if c == 1 or c <= n]
+    for c in choices:
+        shape = _preempt_shape(slice_len(n, c), g, c, resident)
+        occ = occupancy(c, shape[0], shape[-1], shape[2])
+        if occ >= 1:
+            return PreemptPlan(c, *shape, occ)
+    raise RuntimeError(f"preemption scan: the card holds no cluster of "
+                       f"{choices} CTAs for N {n}, G {g}")
+
+
+def preempt_plan_for(dev, n: int, g: int, ctas: Optional[int] = None,
+                     resident: Optional[bool] = None) -> PreemptPlan:
+    """``preempt_plan`` on ``dev``'s occupancy of K6's kernel, kept a
+    shape."""
+    dev = torch.device(dev)
+    key = ("preempt", dev.index, n, g, ctas, resident)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = preempt_plan(
+            n, g, occupancy_of(dev, "nt_preempt_occupancy"), ctas, resident)
+    return plan
+
+
+def launch_preempt(plan: PreemptPlan, state, victims, vok, asks, noise,
+                   eval_priority: float, penalty: float,
+                   prof: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K6 on ``plan``, arguments as
+    ``preempt.preempt_scan``'s (``state``'s carry and ``vok`` updated in
+    place). Returns (choices, scores, n_victims); ``prof`` as
+    ``launch``'s."""
+    n, g = state.feasible.shape
+    k = asks.resources.shape[0]
+    dev = state.capacity.device
+    choices, scores, counts = torch.empty(  # one allocation
+        (3, k), dtype=torch.int32, device=dev).unbind()
+    scores = scores.view(torch.float32)
+    with cuda.on_device(dev):  # the tensors' card, whichever is current
+        cuda.launch(
+            "nt_preempt_scan", n, g, k, float(penalty), float(eval_priority),
+            plan.ctas, plan.threads, int(plan.resident),
+            int(plan.stage_noise), int(plan.cache), plan.smem,
+            *(x.data_ptr() for x in state),
+            *(x.data_ptr() for x in victims[:4]), vok.data_ptr(),
+            *(x.data_ptr() for x in asks), noise.data_ptr(),
+            choices.data_ptr(), scores.data_ptr(), counts.data_ptr(),
+            None if prof is None else prof.data_ptr(), cuda.stream_ptr(dev))
+    return choices, scores, counts

@@ -808,18 +808,28 @@ def test_stacked_scans_match_plain(dev, uniform):
     assert_scans_agree(*runs, bits=True)
 
 
-@pytest.mark.parametrize("n,r", [(1000, 256), (10240, 4096)])
+@pytest.mark.parametrize("n,r", [(1000, 256), (10240, 4096), (10240, 256),
+                                 (1000, 1), (10241, 256), (513, 4096),
+                                 (511, 300)])
 def test_base_delta_matches_plain(dev, n, r):
     """K4 bit-equal to its plain version, padding rows repeating the
-    first changed row; the parent arrays stay as they were."""
-    rng = np.random.default_rng(r)
+    first changed row, rows at 0 and N - 1 and one past the end (which
+    drops), N a multiple of the kernel's tile or not; the parent arrays
+    stay as they were. One launch and one allocation a call: the four
+    children are views of one buffer."""
+    rng = np.random.default_rng(r + n)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     parent = (t(rng.random((n, 4)).astype(np.float32)),
               t(rng.random(n).astype(np.float32)),
               t(rng.random(n).astype(np.float32)), t(rng.random(n) < 0.5))
-    real = min(r - 3, n)
+    real = max(1, min(r - 3, n))
     rows = np.full(r, 0, np.int32)
-    rows[:real] = rng.choice(n, real, replace=False)
+    if real >= 3:  # distinct rows: 0, N - 1, one past the end, the rest
+        rows[:3] = (0, n - 1, n)
+        rows[3:real] = rng.choice(np.arange(1, n - 1), real - 3,
+                                  replace=False)
+    else:
+        rows[:real] = rng.choice(n, real, replace=False)
     rows[real:] = rows[0]
     vals = (rng.random((r, 4)).astype(np.float32),
             rng.random(r).astype(np.float32),
@@ -828,7 +838,15 @@ def test_base_delta_matches_plain(dev, n, r):
         v[real:] = v[0]
     payload = (t(rows), *(t(v) for v in vals))
     before = [x.clone() for x in parent]
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts().get("base_delta", 0)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     got = binpack.apply_base_delta(*parent, *payload)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        allocs + 1
+    assert cuda.launch_counts()["base_delta"] == launches + 1
+    assert len({x.untyped_storage().data_ptr() for x in got}) == 1
+    assert all(x.data_ptr() % 16 == 0 for x in got)
     want = binpack.apply_base_delta_plain(*parent, *payload)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
@@ -836,47 +854,65 @@ def test_base_delta_matches_plain(dev, n, r):
         assert torch.equal(x, y)
 
 
-def preempt_inputs(n, k, g, seed, dev, dh=True):
-    """A crowded cluster for K6: most nodes full, a few with room;
-    per node up to 8 priority-sorted victims (some outranking the
-    eval, some holding ports and bandwidth); asks with ports, under
-    task-group distinct_hosts on group 0 when ``dh``."""
+def preempt_inputs(n, k, g, seed, dev, dh=True, room=None, varied=False,
+                   holes=False):
+    """A crowded cluster for K6: most nodes full, a few with room (5%,
+    or ``room`` nodes); per node up to 8 priority-sorted victims (some
+    outranking the eval, some holding ports and bandwidth); asks with
+    ports, under task-group distinct_hosts on group 0 when ``dh``, one
+    ask throughout (``varied``: each its own resources), the last 3
+    inactive (``holes``: a run in the middle and the last quarter)."""
     rng = np.random.default_rng(seed)
     v = preempt.PREEMPT_MAX_VICTIMS
     t = lambda x: torch.from_numpy(np.array(x)).to(dev)
     cap = np.tile(np.array([[1000, 2000, 10000, 100]], np.float32), (n, 1))
     sched = cap - np.array([[100, 200, 0, 0]], np.float32)
+    # With ``room`` given, no other node fits the ask without eviction.
     util = (cap - sched) + np.stack(
-        [rng.integers(12, 19, n) * 50, rng.integers(10, 19, n) * 100,
-         np.zeros(n), np.zeros(n)], 1).astype(np.float32)
-    util[rng.random(n) < 0.05, :2] = (300, 400)  # room without eviction
+        [rng.integers(12 if room is None else 13, 19, n) * 50,
+         rng.integers(10, 19, n) * 100, np.zeros(n), np.zeros(n)],
+        1).astype(np.float32)
+    roomy = (rng.random(n) < 0.05 if room is None
+             else np.isin(np.arange(n), rng.choice(n, room, replace=False)))
+    util[roomy, :2] = (300, 400)  # room without eviction
+    feasible = rng.random((n, g)) < 0.9
+    node_ok = rng.random(n) < 0.95
+    tg_count = rng.integers(0, 2, (n, g)).astype(np.int32)
+    if room is not None:  # the roomy nodes take any ask
+        feasible[roomy] = node_ok[roomy] = True
+        tg_count[roomy] = 0
     state = binpack.NodeState(
         capacity=t(cap), sched_capacity=t(sched), util=t(util),
         bw_avail=t(np.full(n, 100, np.float32)),
         bw_used=t(rng.integers(0, 5, n).astype(np.float32) * 20),
         ports_free=t(rng.integers(0, 3, n).astype(np.float32)),
         job_count=t(rng.integers(0, 2, n).astype(np.int32)),
-        tg_count=t(rng.integers(0, 2, (n, g)).astype(np.int32)),
-        feasible=t(rng.random((n, g)) < 0.9), node_ok=t(rng.random(n) < 0.95))
+        tg_count=t(tg_count), feasible=t(feasible), node_ok=t(node_ok))
     res = np.zeros((n, v, 4), np.float32)
     vbw = np.zeros((n, v), np.float32)
     vports = np.zeros((n, v), np.float32)
     prio = np.full((n, v), np.inf, np.float32)
     ok = np.zeros((n, v), bool)
+    m = rng.integers(0, v + 1, n)
     for i in range(n):
-        m = int(rng.integers(0, v + 1))
-        prio[i, :m] = np.sort(rng.integers(5, 80, m))
-        res[i, :m, 0] = rng.integers(1, 6, m) * 50
-        res[i, :m, 1] = rng.integers(1, 6, m) * 100
-        vbw[i, :m] = rng.integers(0, 3, m) * 10
-        vports[i, :m] = rng.integers(0, 2, m)
-        ok[i, :m] = True
+        prio[i, :m[i]] = np.sort(rng.integers(5, 80, m[i]))
+        res[i, :m[i], 0] = rng.integers(1, 6, m[i]) * 50
+        res[i, :m[i], 1] = rng.integers(1, 6, m[i]) * 100
+        vbw[i, :m[i]] = rng.integers(0, 3, m[i]) * 10
+        vports[i, :m[i]] = rng.integers(0, 2, m[i])
+        ok[i, :m[i]] = True
     victims = preempt.VictimState(t(res), t(vbw), t(vports), t(prio), t(ok))
     active = np.ones(k, bool)
     active[-3:] = False
+    if holes:
+        active[k // 4:k // 4 + 5] = False
+        active[-(k // 4):] = False
+    ask = np.tile(np.array([[300, 400, 0, 0]], np.float32), (k, 1))
+    if varied:
+        ask[:, 0] = rng.integers(2, 8, k) * 50
+        ask[:, 1] = rng.integers(2, 8, k) * 100
     asks = binpack.Asks(
-        resources=t(np.tile(np.array([[300, 400, 0, 0]], np.float32),
-                            (k, 1))),
+        resources=t(ask),
         bw=t(np.full(k, 20, np.float32)), ports=t(np.ones(k, np.float32)),
         tg_index=t(rng.integers(0, g, k).astype(np.int32)), active=t(active),
         job_distinct_hosts=t(np.array(False)),
@@ -893,22 +929,74 @@ def preempt_carry(state, victims):
             victims.ok.clone())
 
 
-@pytest.mark.parametrize("n,k,dh", [(300, 64, True), (2000, 256, True),
-                                   (40, 64, False)])
-def test_preempt_scan_matches_plain(dev, n, k, dh):
+def forced_preempt(stage_noise=None, cache=None, **force):
+    """K6 launched on the cluster and form ``force`` gives
+    (``scan.preempt_plan_for``'s ``ctas`` and ``resident``), with the
+    noise's stages or the score cache turned off where ``stage_noise``
+    or ``cache`` is False (the forms a slice past the shared memory
+    takes), arguments as ``preempt.preempt_scan``."""
+    def run(state, victims, vok, asks, noise, prio, penalty):
+        n, g = state.feasible.shape
+        plan = scan.preempt_plan_for(state.capacity.device, n, g, **force)
+        if stage_noise is not None or cache is not None:
+            plan = plan._replace(
+                stage_noise=plan.stage_noise if stage_noise is None
+                else stage_noise,
+                cache=plan.cache if cache is None else cache)
+            plan = plan._replace(smem=scan.preempt_layout(
+                plan.ctas, plan.threads // 32, plan.slice, g, plan.resident,
+                plan.stage_noise, plan.cache)[1])
+        return scan.launch_preempt(plan, state, victims, vok, asks, noise,
+                                   float(np.float32(prio)), penalty)
+    return run
+
+
+@pytest.mark.parametrize("n,k,g,dh,room,varied,holes,force", [
+    (300, 64, 2, True, None, False, False, {}),
+    (2000, 256, 2, True, None, False, False, {}),
+    # 64 asks on 40 nodes without distinct_hosts evict on the same node
+    # more than once, so the consumed victims decide later choices.
+    (40, 64, 2, False, None, False, False, {}),
+    (40, 64, 2, False, None, False, False, {"resident": False}),
+    # The chip phase's shape (one task group, 256 nodes with room),
+    # resident on 16 CTAs.
+    (10240, 1024, 1, True, 256, False, False, {}),
+    (10240, 64, 16, True, 4, False, False, {}),  # streamed by its G
+    (3000, 128, 2, True, 10, False, False, {"resident": False}),
+    (3000, 128, 2, True, 10, False, False, {"ctas": 3}),
+    (2000, 256, 2, True, 10, True, False, {}),  # varied asks: cache misses
+    (2000, 8, 2, True, 1, False, False, {}),  # K = 8
+    (2000, 96, 2, True, 8, False, True, {}),  # inactive runs
+    (2000, 96, 2, True, 8, True, True, {"resident": False}),
+    # Streamed with the noise read from K0's tensor (no stages), the
+    # score cache on and off; inactive runs skip the block barrier.
+    (3000, 128, 2, True, 10, False, False,
+     {"resident": False, "stage_noise": False}),
+    (3000, 128, 2, True, 10, False, False,
+     {"resident": False, "stage_noise": False, "cache": False}),
+    (2000, 96, 2, True, 8, True, True,
+     {"resident": False, "stage_noise": False}),
+    (2000, 96, 2, True, 8, True, True,
+     {"resident": False, "stage_noise": False, "cache": False})])
+def test_preempt_scan_matches_plain(dev, n, k, g, dh, room, varied, holes,
+                                    force):
     """K6 against its plain version: choices, n_victims, scores, and
     the final carry (util, bw_used, ports_free, job_count, tg_count and
-    the consumed-victim mask). Without distinct_hosts, 64 asks on 40
-    nodes evict on the same node more than once, so the consumed
-    victims decide later choices."""
-    state, victims, asks = preempt_inputs(n, k, 2, n + k, dev, dh)
+    the consumed-victim mask), through the wrapper (one launch a call,
+    the plan's cluster and form) or on a forced plan."""
+    state, victims, asks = preempt_inputs(n, k, g, n + k, dev, dh, room,
+                                          varied, holes)
     noise = prng.threefry_uniform(
         torch.tensor([[3, n]], device=dev), (k, n), 0.0, 2.0)[0]
     runs = []
-    for fn in (preempt.preempt_scan, preempt.preempt_scan_plain):
+    kernel = forced_preempt(**force) if force else preempt.preempt_scan
+    for fn in (kernel, preempt.preempt_scan_plain):
         st, vok = preempt_carry(state, victims)
+        before = cuda.launch_counts().get("preempt_scan", 0)
         runs.append((*fn(st, victims, vok, asks, noise, 50.0, 10.0),
                      st, vok))
+        if fn is preempt.preempt_scan:
+            assert cuda.launch_counts()["preempt_scan"] == before + 1
     (ch, sc, nv, st, vok), (ch_p, sc_p, nv_p, st_p, vok_p) = runs
     assert torch.equal(ch, ch_p)
     assert torch.equal(nv, nv_p)
@@ -918,7 +1006,7 @@ def test_preempt_scan_matches_plain(dev, n, k, dh):
     assert torch.equal(vok, vok_p)
     # Both branches ran: some asks evicted, some fit without.
     assert (nv > 0).any() and ((ch >= 0) & (nv == 0)).any()
-    assert (ch[-3:] == -1).all()
+    assert (ch[~asks.active] == -1).all() and (nv[~asks.active] == 0).all()
 
 
 def test_preempt_placement_program_matches_plain(dev):

@@ -4,7 +4,8 @@ of the node-shard kernels K10a and K10b (parallel/shard.py
 sharded_base_delta, sharded_group_capacity), and of the relaxation's
 launch (csrc/relax.cuh) and of the greedy scan's cluster launch
 (csrc/greedy_scan.cu, with K8b, its rounding-bias case, and K7's gang
-scan, csrc/gang_scan.cu) goes on one NVIDIA card, at chip_smoke.py's
+scan, csrc/gang_scan.cu, and K6's preemption scan, csrc/preempt_scan.cu)
+goes on one NVIDIA card, at chip_smoke.py's
 widths (N = 10,240 nodes, G = 2, inputs from chip_smoke.kernel_inputs;
 4 shards of one card).
 
@@ -93,7 +94,10 @@ Prints, one JSON object a line:
    10,240 one-node groups at K = 512), each held against its plain
    version; K7's "asks" part is the member's active flag, and its
    "winner" part holds the group-count add (and, in spread and affinity
-   mode, its block barrier).
+   mode, its block barrier). K6 (csrc/preempt_scan.cu) at phase 5's
+   shapes, K = 1,024 and 8 on a red cluster (256 nodes with room, the
+   rest evicting); its "block" part holds both keys' reductions and
+   sends, its "winner" part the owner's walk again and row update.
 9. ``modes``: the greedy scan (K1, stacked, K = 1,024) at B = 4, 16,
    17, 31, 33 and 64 with its noise drawn in the kernel and read from
    K0's tensor, each mode on its own plan (``scan.plan_for(...,
@@ -536,6 +540,7 @@ def scan_section(torch, np, cs, seed):
         torch.cuda.synchronize()
     round_parts(torch, np, cs, seed)
     gang_parts(torch, np, cs, seed)
+    preempt_parts(torch, np, cs, seed)
 
 
 def parts_record(torch, cs, kind, label, plan, steps, prof, ms, dev, **more):
@@ -654,6 +659,83 @@ def gang_parts(torch, np, cs, seed):
         parts_record(torch, cs, "K7", label, plan, k, prof, ms, dev,
                      groups="shared" if plan.groups else "global",
                      placed=int((got[0] >= 0).sum()))
+        torch.cuda.synchronize()
+
+
+def preempt_inputs(torch, np, n, k, seed, dev):
+    """A red cluster of chip_smoke's phase 5 shape for K6: every node
+    full but 256, five victims a node at priorities 10-40 (the filler
+    jobs) with footprints from ``seed``, one task group under
+    distinct_hosts, K asks of one resource vector."""
+    from nomad_tpu_torch.ops import binpack, preempt
+
+    rng = np.random.default_rng(seed)
+    v = preempt.PREEMPT_MAX_VICTIMS
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    cap = np.tile(np.array([[4000, 8192, 102400, 150]], np.float32), (n, 1))
+    sched = cap - np.array([[100, 256, 4096, 0]], np.float32)
+    res = np.zeros((n, v, 4), np.float32)
+    res[:, :5, 0] = rng.integers(7, 9, (n, 5)) * 100
+    res[:, :5, 1] = rng.integers(12, 16, (n, 5)) * 100
+    util = (cap - sched) + res.sum(1)
+    util[rng.choice(n, 256, replace=False), :2] = (100, 256)
+    prio = np.full((n, v), np.inf, np.float32)
+    prio[:, :5] = np.sort(rng.choice([10, 20, 30, 40], (n, 5)), 1)
+    ok = np.zeros((n, v), bool)
+    ok[:, :5] = True
+    state = binpack.NodeState(
+        t(cap), t(sched), t(util), t(np.full(n, 1000, np.float32)),
+        t(np.zeros(n, np.float32)), t(np.full(n, 6, np.float32)),
+        t(np.zeros(n, np.int32)), t(np.zeros((n, 1), np.int32)),
+        t(np.ones((n, 1), bool)), t(np.ones(n, bool)))
+    victims = preempt.VictimState(t(res), t(np.zeros((n, v), np.float32)),
+                                  t(np.zeros((n, v), np.float32)), t(prio),
+                                  t(ok))
+    asks = binpack.Asks(
+        t(np.tile(np.array([[500, 256, 300, 0]], np.float32), (k, 1))),
+        t(np.zeros(k, np.float32)), t(np.ones(k, np.float32)),
+        t(np.zeros(k, np.int32)), t(np.ones(k, bool)),
+        torch.tensor(False, device=dev), t(np.array([True])))
+    return state, victims, asks
+
+
+def preempt_parts(torch, np, cs, seed):
+    """K6's step parts (section 8 (d)) at its plan, at phase 5's shapes
+    (K = 1,024 and 8 on a red cluster of 10,240 nodes: 256 with room,
+    the rest evicting); held against the plain version."""
+    from nomad_tpu_torch.ops import preempt, prng, scan
+
+    dev = torch.device("cuda")
+    n = cs.BENCH_N
+    for k in (1024, 8):
+        state, victims, asks = preempt_inputs(torch, np, n, k, seed + k, dev)
+        keys = torch.tensor([[0, seed + k]], device=dev)
+        noise = prng.threefry_uniform(keys, (k, n), 0.0, 2.0)[0]
+        box = {}
+
+        def fresh():
+            box["a"] = (state._replace(
+                util=state.util.clone(), bw_used=state.bw_used.clone(),
+                ports_free=state.ports_free.clone(),
+                job_count=state.job_count.clone(),
+                tg_count=state.tg_count.clone()), victims,
+                victims.ok.clone(), asks, noise, 70.0, 10.0)
+
+        plan = scan.preempt_plan_for(dev, n, 1)
+        prof = torch.zeros(len(scan.PARTS), dtype=torch.int64, device=dev)
+        fresh()
+        got = scan.launch_preempt(plan, *box["a"], prof)
+        fresh()
+        want = preempt.preempt_scan_plain(*box["a"])
+        cs.check(torch.equal(got[0], want[0]) and torch.equal(
+            got[2], want[2]) and (got[1] - want[1]).abs().max().item()
+            <= 1e-4, f"K6 K={k} (timed kernel) differs from the plain "
+            "version")
+        ms = cs.time_cuda(torch, lambda: preempt.preempt_scan(*box["a"]),
+                          cs.RUNS, setup=fresh)
+        parts_record(torch, cs, "K6", f"K={k}", plan, k, prof, ms, dev,
+                     placed=int((got[0] >= 0).sum()),
+                     evicting=int((got[2] > 0).sum()))
         torch.cuda.synchronize()
 
 
