@@ -197,10 +197,25 @@ Phases (any failure exits non-zero and prints no result):
    the first storm call's rows re-split into 16 shards of cuda:0:
    choices, scores and carry equal the plain version's and K2's, its
    launches (W + 1 an eval and W) counted around that one call.
+10. Config 5, the JAX package's drain storm (bench.py ``config_5``),
+   after phase 9 and before phase 7's holds: (a) 10,000 nodes in 200
+   racks, 200 rack-scoped system jobs, 10% of the nodes drained, one
+   node-update eval a job through ``"system"`` and ``"system-gpu"`` on
+   two harnesses of the same nodes (evals/s and p99 of each; the two
+   held job by job afterwards: the same allocs, statuses and queued
+   counts, none on a drained node; no kernel launches: both are host
+   passes); (b) the migration arm: 1,000 nodes, 20 service jobs x 24
+   allocs through ``service-gpu``, the 10% most occupied nodes drained,
+   the node-update and follow-up migration evals through
+   ``service-gpu`` under a migration budget of 8 (migrations/s,
+   disruption p99; bench.py's checks: something displaced and
+   migrated, the high water within the budget, deferrals, 24 live
+   allocs a job, none on a drained node; a main-path kernel launched).
+   Its figures print as ``system drain figures: {...}``.
 
-Every path of phases 3 to 6, 8 and 9 runs with the launch counts set to 0
-just before it and read just after, and fails if a kernel of that path
-was never launched.
+Every path of phases 3 to 6, 8, 9 and 10 runs with the launch counts set
+to 0 just before it and read just after, and fails if a kernel of that
+path was never launched (10a: if any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -417,6 +432,11 @@ def check_placements(state, job, plan):
         check(fit, f"node {node_id} over capacity after the plan ({dim})")
 
 
+# The kernels of the service main path (phase 3 launches each).
+MAIN_PATH_KERNELS = ("threefry_uniform", "greedy_scan", "uniform_topk",
+                     "expand_overlay", "base_delta")
+
+
 def run_main_path(seed, torch):
     from nomad_tpu_torch.ops import cuda
     from nomad_tpu_torch.scheduler.batcher import get_batcher
@@ -483,9 +503,7 @@ def run_main_path(seed, torch):
     print(f"batcher: {json.dumps(delta, sort_keys=True)}")
     # K0 draws the noise the greedy scan reads at these shapes (a lone
     # eval padded to 4: PERF.md §6); the uniform top-K draws its own.
-    require_launches(counts, "main path", (
-        "threefry_uniform", "greedy_scan", "uniform_topk", "expand_overlay",
-        "base_delta"))
+    require_launches(counts, "main path", MAIN_PATH_KERNELS)
     check(delta["fused_delta_updates"] > 0, "no fused base delta")
     total_s = sum(lat_ms) / 1000.0
     print(f"main path: {len(lat_ms)} evals, {len(lat_ms) / total_s:.2f} "
@@ -4630,6 +4648,280 @@ PRIMARY = {"threefry_uniform": 1, "greedy_scan": 1, "uniform_topk": 1,
            "sharded_convex_round_shards": ("eval", 1024)}
 
 
+# ------------------------------------------- system drain storm (config 5)
+
+# The JAX package's bench config 5 (bench.py:940 ``config_5``):
+# ``_system_drain_storm(10_000, 200, rack_partition=True)`` (bench.py:735)
+# and ``_drain_migration_arm(1000, 20, 24)`` (bench.py:813).
+SYSTEM_NODES = 10_000
+SYSTEM_JOBS = 200
+MIGRATION_NODES = 1_000
+MIGRATION_JOBS = 20
+MIGRATION_ALLOCS = 24
+MIGRATION_BUDGET = 8
+MIGRATION_DRAIN_FRAC = 0.1
+
+
+def system_storm_cluster(n_nodes, n_jobs):
+    """bench.py ``_system_drain_storm``'s cluster with the port's mock:
+    node i in rack ``r{i % n_jobs}``, and system job ``sys-j`` held to
+    rack ``rj`` by a constraint (cpu 5, 8 MB, no networks). Built once
+    and upserted into each harness (the store copies), so node ids
+    match across harnesses."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Constraint
+
+    nodes = []
+    for i in range(n_nodes):
+        node = mock.node()
+        node.meta["rack"] = f"r{i % n_jobs}"
+        node.compute_class()
+        nodes.append(node)
+    jobs = []
+    for j in range(n_jobs):
+        job = mock.system_job()
+        job.id = f"sys-{j}"
+        job.constraints.append(Constraint(
+            ltarget="${meta.rack}", operand="=", rtarget=f"r{j}"))
+        res = job.task_groups[0].tasks[0].resources
+        res.networks = []
+        res.cpu = 5
+        res.memory_mb = 8
+        jobs.append(job)
+    return nodes, jobs
+
+
+def system_storm_harness(nodes, jobs, drained, seed):
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    h = Harness(seed=seed)
+    for node in nodes:
+        h.state.upsert_node(h.next_index(), node)
+    for job in jobs:
+        h.state.upsert_job(h.next_index(), job)
+    for node_id in drained:
+        h.state.update_node_drain(h.next_index(), node_id, True)
+    return h
+
+
+def timed_evals(h, factory, evals):
+    """Each eval through ``h.process(factory, ...)`` in turn: (evals/s,
+    p99 ms per eval), host clock."""
+    import numpy as np
+
+    lat = []
+    start = time.perf_counter()
+    for ev in evals:
+        t0 = time.perf_counter()
+        h.process(factory, ev)
+        lat.append(time.perf_counter() - t0)
+    elapsed = time.perf_counter() - start
+    return len(evals) / elapsed, float(np.percentile(lat, 99)) * 1000.0
+
+
+def storm_outcome(h, jobs):
+    """Per job: its allocs as (node, task group, name), and its eval's
+    status and queued counts (one eval update a processed eval)."""
+    out = {}
+    for job, ev in zip(jobs, h.evals):
+        allocs = sorted((a.node_id, a.task_group, a.name)
+                        for a in h.state.allocs_by_job(job.id))
+        out[job.id] = (allocs, ev.status, ev.queued_allocations)
+    return out
+
+
+def run_system_drain(seed, total):
+    """Config 5 through the port, both arms (bench.py ``config_5``).
+
+    (a) The system drain storm: 10,000 nodes in 200 racks, 200
+    rack-scoped system jobs, the first 10% of the nodes drained, one
+    node-update eval a job through ``"system"`` on one harness and
+    ``"system-gpu"`` on another holding the same nodes. Both are host
+    passes (the JAX package's system-tpu does no device work either):
+    no kernel may launch. Each is timed over its evals (evals/s, p99),
+    then the two are held job by job: the same allocs (node, task group,
+    name), eval status and queued counts, none on a drained node. The
+    GC's pauses in each timed window are counted beside its p99.
+
+    (b) The migration arm (bench.py ``_drain_migration_arm``): 1,000
+    nodes, 20 service jobs x 24 allocs registered through
+    ``service-gpu``, the 10% most occupied nodes drained, the node-update
+    evals and the migration evals they create run through
+    ``service-gpu`` under a migration budget of 8
+    (``migrate.configure``, restored after), timed from the drain
+    (migrations/s; p99 of each displaced alloc's drain-to-replacement
+    time); bench.py's checks after the window; main-path kernels
+    launched over the arm."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import cuda
+    from nomad_tpu_torch.structs import consts
+
+    figures = {}
+    nodes, jobs = system_storm_cluster(SYSTEM_NODES, SYSTEM_JOBS)
+    drained = {n.id for n in nodes[:SYSTEM_NODES // 10]}
+    outcomes = {}
+    cuda.reset_launch_counts()
+    for factory in ("system", "system-gpu"):
+        t0 = time.perf_counter()
+        h = system_storm_harness(nodes, jobs, sorted(drained), seed)
+        build_s = time.perf_counter() - t0
+        evals = []
+        for job in jobs:
+            ev = mock.eval()
+            ev.job_id = job.id
+            ev.type = consts.JOB_TYPE_SYSTEM
+            ev.triggered_by = consts.EVAL_TRIGGER_NODE_UPDATE
+            evals.append(ev)
+        with GcPauses() as gc_pauses:
+            rate, p99 = timed_evals(h, factory, evals)
+        key = factory.replace("-", "_")
+        figures[f"{key}_evals"] = len(evals)
+        figures[f"{key}_evals_per_s"] = rate
+        figures[f"{key}_p99_ms"] = p99
+        figures[f"{key}_build_s"] = build_s
+        gc_fig = gc_pauses.summary()
+        figures[f"{key}_gc_gen2"] = gc_fig["gc_gen2_collections"]
+        figures[f"{key}_gc_max_pause_ms"] = gc_fig["gc_max_pause_ms"]
+        outcomes[factory] = storm_outcome(h, jobs)
+        del h
+    counts = cuda.launch_counts()
+    require_no_launches(counts, "system drain storm", sorted(counts))
+    host, dense = outcomes["system"], outcomes["system-gpu"]
+    placed = 0
+    for job_id, (allocs, status, queued) in dense.items():
+        check((allocs, status, queued) == host[job_id],
+              f"system drain storm: {job_id} differs between system "
+              f"and system-gpu")
+        check(status == consts.EVAL_STATUS_COMPLETE,
+              f"system drain storm: {job_id} {status}")
+        check(allocs, f"system drain storm: {job_id} placed nothing")
+        check(not {a[0] for a in allocs} & drained,
+              f"system drain storm: {job_id} placed on a drained node")
+        placed += len(allocs)
+    figures["system_placed"] = placed
+    figures["system_drained"] = len(drained)
+    print(f"system drain storm: {len(dense)} evals through each of system "
+          f"and system-gpu, {placed} allocs placed, no launch")
+
+    figures.update(run_migration_arm(seed, total))
+    return figures
+
+
+def run_migration_arm(seed, total):
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.migrate import (
+        DEFAULT_MAX_PARALLEL,
+        configure,
+        get_governor,
+    )
+    from nomad_tpu_torch.ops import cuda
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import consts
+    from nomad_tpu_torch.structs.eval import new_eval
+
+    h = Harness(seed=seed)
+    nodes = []
+    for _ in range(MIGRATION_NODES):
+        node = mock.node()
+        node.compute_class()
+        h.state.upsert_node(h.next_index(), node)
+        nodes.append(node)
+    jobs = []
+    for j in range(MIGRATION_JOBS):
+        job = mock.job()
+        job.id = f"mig-{j}"
+        job.task_groups[0].count = MIGRATION_ALLOCS
+        task = job.task_groups[0].tasks[0]
+        task.resources.cpu = 20
+        task.resources.memory_mb = 16
+        task.resources.networks = []
+        h.state.upsert_job(h.next_index(), job)
+        jobs.append(h.state.job_by_id(job.id))
+    cuda.reset_launch_counts()
+    for job in jobs:
+        h.process("service-gpu",
+                  new_eval(job, consts.EVAL_TRIGGER_JOB_REGISTER))
+
+    configure(migrate_max_parallel=MIGRATION_BUDGET)
+    try:
+        get_governor().reset_stats()
+        # The most occupied nodes, as bench.py drains them: BestFit
+        # packs the fleet onto few nodes, and draining where the allocs
+        # live makes each eval's migrate set larger than the budget.
+        occupancy = Counter(a.node_id for a in h.state.allocs()
+                            if not a.terminal_status())
+        by_load = sorted(occupancy, key=occupancy.get, reverse=True)
+        n_drain = max(1, int(MIGRATION_NODES * MIGRATION_DRAIN_FRAC))
+        drained = set(by_load[:n_drain])
+        drained |= {n.id for n in nodes[: n_drain - len(drained)]}
+        displaced = {a.id for a in h.state.allocs()
+                     if a.node_id in drained and not a.terminal_status()}
+        check(displaced, "migration arm: the drain displaced nothing")
+        for node_id in drained:
+            h.state.update_node_drain(h.next_index(), node_id, True)
+        affected = [j for j in jobs
+                    if any(a.node_id in drained
+                           for a in h.state.allocs_by_job(j.id))]
+        pending = [new_eval(j, consts.EVAL_TRIGGER_NODE_UPDATE)
+                   for j in affected]
+        seen = len(h.create_evals)
+        done = []
+        n_evals = 0
+        t_drain = time.perf_counter()
+        while pending:
+            for ev in pending:
+                h.process("service-gpu", ev)
+                done.append((ev.id, time.perf_counter()))
+            n_evals += len(pending)
+            created = h.create_evals[seen:]
+            seen = len(h.create_evals)
+            pending = [e for e in created
+                       if e.triggered_by == consts.EVAL_TRIGGER_MIGRATION]
+        elapsed = time.perf_counter() - t_drain
+        counts = cuda.launch_counts()
+        total.update(counts)
+        gov = get_governor().stats()
+    finally:
+        configure(migrate_max_parallel=DEFAULT_MAX_PARALLEL)
+
+    disruption = {}
+    for ev_id, t_done in done:
+        for a in h.state.allocs_by_eval(ev_id):
+            prev = a.previous_allocation
+            if prev in displaced and prev not in disruption:
+                disruption[prev] = t_done - t_drain
+    migrated = [a for a in h.state.allocs() if a.id in displaced
+                and a.desired_status == consts.ALLOC_DESIRED_STOP]
+    check(migrated, "migration arm: nothing migrated")
+    check(gov["high_water"] <= MIGRATION_BUDGET,
+          f"migration arm: high water {gov['high_water']} over the budget")
+    check(gov["deferred_total"] > 0,
+          "migration arm: the budget deferred nothing")
+    for job in jobs:
+        live = [a for a in h.state.allocs_by_job(job.id)
+                if not a.terminal_status()]
+        check(len(live) == MIGRATION_ALLOCS,
+              f"migration arm: {job.id} runs {len(live)} allocs")
+        check(not any(a.node_id in drained for a in live),
+              f"migration arm: {job.id} runs on a drained node")
+    check(any(counts.get(k, 0) > 0 for k in MAIN_PATH_KERNELS),
+          f"migration arm: no main-path kernel launched ({dict(counts)})")
+    print(f"migration arm launches: {json.dumps(counts, sort_keys=True)}")
+    p99 = (float(np.percentile(list(disruption.values()), 99))
+           if disruption else 0.0)
+    return {
+        "migration_evals": n_evals,
+        "migrations": len(migrated),
+        "migrations_per_s": len(migrated) / elapsed,
+        "disruption_p99_ms": p99 * 1000.0,
+        "migration_budget": MIGRATION_BUDGET,
+        "migration_high_water": gov["high_water"],
+        "migration_deferred": gov["deferred_total"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4702,6 +4994,8 @@ def main(argv=None) -> int:
             {k: relax_calls.of(k) for k in sorted(relax_calls.by_kernel)}))
         print(f"mesh figures: {json.dumps(mesh_figures, sort_keys=True)}")
         del main_h, storm_h
+        system = run_system_drain(args.seed, total)
+        print(f"system drain figures: {json.dumps(system, sort_keys=True)}")
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))

@@ -3,14 +3,16 @@
 Reference: scheduler/scheduler.go:13 (BuiltinSchedulers), :21
 (NewScheduler), :44 (Scheduler iface), :77 (Planner iface).
 
-The port's registry: "service" and "batch" are the host schedulers
-(the oracle), "service-gpu" and "batch-gpu" the dense factories whose
-placements run on the device (scheduler/tpu.py) with the process-global
-active placement kernel (nomad_tpu_torch/kernels ``configure``), and,
-for every registered kernel k, "service-k-gpu" and "batch-k-gpu" pinned
-to that kernel (the seam the differential rig selects kernels through).
-The dense factories are registered lazily so importing the scheduler
-package loads no device code.
+The port's registry: "service", "batch" and "system" are the host
+schedulers (the oracle); "service-gpu" and "batch-gpu" the dense
+factories whose placements run on the device (scheduler/tpu.py) with
+the process-global active placement kernel (nomad_tpu_torch/kernels
+``configure``); for every registered kernel k, "service-k-gpu" and
+"batch-k-gpu" pinned to that kernel (the seam the differential rig
+selects kernels through); and "system-gpu" the system scheduler's
+vectorized pass (scheduler/tpu.py DenseSystemScheduler, host numpy as
+in the JAX package). The dense factories are registered lazily so
+importing the scheduler package loads no device code.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable, Dict, Optional, Protocol, Tuple
 
 from ..structs import Evaluation, Plan, PlanResult
 from .generic import GenericScheduler
+from .system import SystemScheduler
 
 
 class Planner(Protocol):
@@ -74,13 +77,20 @@ register_scheduler(
         logger, state, planner, batch=True, rng=rng
     ),
 )
+register_scheduler(
+    "system",
+    lambda logger, state, planner, rng=None: SystemScheduler(
+        logger, state, planner, rng=rng
+    ),
+)
 
 
 def _register_gpu_factories() -> None:
-    """The dense factories: unpinned, and one pinned pair per registered
-    kernel (the JAX package's service-<k>-tpu, with the -gpu suffix)."""
+    """The dense factories: unpinned, one pinned pair per registered
+    kernel (the JAX package's service-<k>-tpu, with the -gpu suffix),
+    and system-gpu."""
     from ..kernels import kernel_names
-    from .tpu import BatchedGPUScheduler
+    from .tpu import BatchedGPUScheduler, DenseSystemScheduler
 
     def pinned(kernel):
         def factory(logger, state, planner, rng=None, *, batch):
@@ -95,10 +105,17 @@ def _register_gpu_factories() -> None:
                            functools.partial(factory, batch=False))
         register_scheduler(f"batch-{infix}gpu",
                            functools.partial(factory, batch=True))
+    register_scheduler(
+        "system-gpu",
+        lambda logger, state, planner, rng=None: DenseSystemScheduler(
+            logger, state, planner, rng=rng
+        ),
+    )
 
 
 __all__ = [
     "GenericScheduler",
+    "SystemScheduler",
     "Planner",
     "new_scheduler",
     "register_scheduler",

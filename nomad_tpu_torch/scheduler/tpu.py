@@ -1,4 +1,5 @@
-"""The dense GPU scheduler factories ("service-gpu", "batch-gpu").
+"""The dense GPU scheduler factories ("service-gpu", "batch-gpu",
+"system-gpu").
 
 The counterpart of the JAX package's scheduler/tpu.py
 BatchedTPUScheduler: the host scheduler's control flow — the same
@@ -17,11 +18,18 @@ A device fault raises out of ``process_eval``: there is no host
 fallback around the dispatch. The routing rules that are semantics
 stay as in the JAX package: sticky placements, and evals with at most
 3 asks, take the host path.
+
+"system-gpu" (DenseSystemScheduler, the JAX package's DenseSystemScheduler
+behind "system-tpu") is the system scheduler with its diff and its
+pinned placements as vectorized numpy passes over a ClusterMatrix of
+the pinned nodes. System placement pins every alloc to its node, so
+there is nothing to search: like the reference, it runs on the host and
+launches no kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +42,7 @@ from ..structs import (
 )
 from ..utils.ids import generate_uuid
 from .generic import GenericScheduler
+from .system import SystemScheduler
 from .util import AllocTuple
 
 
@@ -475,3 +484,276 @@ class BatchedGPUScheduler(GenericScheduler):
                 elig.set_task_group_eligibility(
                     bool(matrix.feasible[i, gi]), name, node.computed_class
                 )
+
+
+def dense_diff_system_allocs(state, job, nodes, tainted, allocs,
+                             terminal_allocs):
+    """diff_system_allocs (scheduler/util.go:62) with the place set
+    feasibility-gated up front: the host version materializes one
+    AllocTuple (and a stub Allocation) per required slot on every ready
+    node, then the placement loop filters the infeasible ones one
+    Python iteration at a time; at 10k nodes with rack-scoped system
+    jobs that is ~9k tuples built and discarded per eval. Here the
+    class-vectorized constraint mask picks the candidate rows first and
+    only those materialize; the infeasible remainder is returned as
+    per-task-group counts for the caller's metric and queued
+    bookkeeping (SystemScheduler._merge_prefiltered).
+
+    Returns (DiffResult, prefiltered) where prefiltered maps
+    tg name -> [count, first_infeasible_node]."""
+    from ..models.matrix import node_feasibility, ready_class_index
+    from .util import DiffResult, diff_allocs, materialize_task_groups
+
+    groups = job.task_groups
+    class_ids, class_reps = ready_class_index(state, nodes, job.datacenters)
+    feasible = node_feasibility(state, job, groups, nodes,
+                                class_ids, class_reps)
+    gi_by_name = {tg.name: gi for gi, tg in enumerate(groups)}
+    required = materialize_task_groups(job)
+    result = DiffResult()
+    prefiltered: Dict[str, list] = {}
+
+    def gate_place(tuples, row):
+        """Feasibility-gate one node's place tuples."""
+        kept = []
+        for tup in tuples:
+            if feasible[row, gi_by_name[tup.task_group.name]]:
+                kept.append(tup)
+            else:
+                ent = prefiltered.get(tup.task_group.name)
+                if ent is None:
+                    prefiltered[tup.task_group.name] = [1, nodes[row]]
+                else:
+                    ent[0] += 1
+        return kept
+
+    node_row = {n.id: i for i, n in enumerate(nodes)}
+    # Nodes holding this job's allocs: the per-node diff (stop, lost,
+    # update and ignore need the alloc-level comparisons).
+    node_allocs: Dict[str, List[Allocation]] = {}
+    for alloc in allocs:
+        node_allocs.setdefault(alloc.node_id, []).append(alloc)
+    for node_id, nallocs in node_allocs.items():
+        diff = diff_allocs(job, tainted, required, nallocs, terminal_allocs)
+        if node_id in tainted:
+            diff.place = []
+        else:
+            row = node_row.get(node_id)
+            for tup in diff.place:
+                if tup.alloc is None or tup.alloc.node_id != node_id:
+                    tup.alloc = Allocation(node_id=node_id)
+            diff.place = (gate_place(diff.place, row)
+                          if row is not None else diff.place)
+        # A tainted node invalidates the job there: migrations -> stops.
+        diff.stop.extend(diff.migrate)
+        diff.migrate = []
+        result.append(diff)
+
+    # Nodes without allocs place every required slot; the candidates and
+    # the infeasible tally come from array ops, Python only touches the
+    # (usually few) feasible rows.
+    has_alloc = np.zeros(len(nodes), bool)
+    for node_id in node_allocs:
+        row = node_row.get(node_id)
+        if row is not None:
+            has_alloc[row] = True
+    candidates = ~has_alloc
+    if tainted:
+        for node_id in tainted:
+            row = node_row.get(node_id)
+            if row is not None:
+                candidates[row] = False
+    cand_feasible = candidates[:, None] & feasible
+    any_rows = np.flatnonzero(cand_feasible.any(axis=1))
+    for i in any_rows:
+        node_id = nodes[i].id
+        for name, tg in required.items():
+            if not cand_feasible[i, gi_by_name[tg.name]]:
+                continue
+            talloc = terminal_allocs.get(name)
+            if talloc is None or talloc.node_id != node_id:
+                talloc = Allocation(node_id=node_id)
+            result.place.append(AllocTuple(name, tg, talloc))
+    # Infeasible tallies and the first offender per task group, without
+    # materializing them.
+    slots_per_tg = {tg.name: 0 for tg in groups}
+    for _name, tg in required.items():
+        slots_per_tg[tg.name] += 1
+    for tg in groups:
+        gi = gi_by_name[tg.name]
+        bad = candidates & ~feasible[:, gi]
+        n_bad = int(bad.sum()) * slots_per_tg[tg.name]
+        if not n_bad:
+            continue
+        ent = prefiltered.get(tg.name)
+        if ent is None:
+            prefiltered[tg.name] = [n_bad, nodes[int(np.argmax(bad))]]
+        else:
+            ent[0] += n_bad
+    return result, prefiltered
+
+
+class DenseSystemScheduler(SystemScheduler):
+    """SystemScheduler whose diff and placement loops are vectorized
+    passes ("system-gpu").
+
+    The host loop (system_sched.go:255) builds a one-node iterator
+    stack per pinned placement; here the whole placement set is checked
+    against a single ClusterMatrix of the pinned nodes: constraint
+    feasibility comes from the [N, G] mask, resource fit is a
+    vectorized AllocsFit over the pinned rows, and in-eval utilization
+    accumulates per task group so multi-group system jobs see their own
+    earlier placements. The diff is feasibility-gated up front
+    (dense_diff_system_allocs), so the pinned matrix and the plan only
+    ever see candidate nodes.
+
+    Host numpy only, as in the JAX package: no device is resolved and
+    no kernel launches. The reference's matrix-build trace span has no
+    counterpart (the port has no trace module yet)."""
+
+    def _diff_system(self, tainted, allocs, terminal_allocs):
+        """Feasibility-gated diff (see dense_diff_system_allocs). A
+        deregistered job (job=None: every alloc diffs into stop) takes
+        the host diff: there is nothing to gate without constraints."""
+        if self.job is None:
+            return super()._diff_system(tainted, allocs, terminal_allocs)
+        return dense_diff_system_allocs(
+            self.state, self.job, self.nodes, tainted, allocs,
+            terminal_allocs)
+
+    def _compute_placements(self, place: List[AllocTuple]) -> None:
+        from ..models.matrix import ClusterMatrix
+
+        # Matrix only the pinned nodes: system placements are fixed to
+        # their node up front (diff_system_allocs), so feasibility and
+        # fit for the other N-P nodes would be wasted work; at 10k nodes
+        # with rack-scoped jobs that is a 200x smaller matrix per eval.
+        pinned_ids = []
+        seen = set()
+        for missing in place:
+            nid = missing.alloc.node_id
+            if nid not in seen:
+                seen.add(nid)
+                pinned_ids.append(nid)
+        by_id = {n.id: n for n in self.nodes}
+        pinned_nodes = [by_id[nid] for nid in pinned_ids if nid in by_id]
+        matrix = ClusterMatrix(self.state, self.job, self.plan,
+                               nodes=pinned_nodes)
+        matrix.nodes_by_dc = self.nodes_by_dc
+        node_index = {n.id: i for i, n in enumerate(matrix.nodes)}
+        tg_by_name = {tg.name: i for i, tg in enumerate(self.job.task_groups)}
+
+        placements = [tg_by_name[m.task_group.name] for m in place]
+        resources, bw, ports, _tg_index, _active, _jdh, _tdh = \
+            matrix.build_asks(placements)
+
+        util = matrix.util.copy()
+        bw_used = matrix.bw_used.copy()
+        ports_free = matrix.ports_free.copy()
+
+        rows = np.empty(len(place), np.int64)
+        for j, missing in enumerate(place):
+            row = node_index.get(missing.alloc.node_id)
+            if row is None:
+                raise RuntimeError(
+                    f"could not find node {missing.alloc.node_id!r}")
+            rows[j] = row
+
+        gis = np.asarray(placements)
+        feasible = matrix.feasible[rows, gis]
+        # Vectorized AllocsFit per task group so same-node placements of
+        # different groups accumulate (G passes, each all numpy). The
+        # ask arrays from build_asks are per-placement rows; every row
+        # of one group carries that group's ask.
+        fits = np.zeros(len(place), bool)
+        for gi in sorted(set(placements)):
+            sel = gis == gi
+            j0 = int(np.flatnonzero(sel)[0])
+            ask_res, ask_bw, ask_ports = resources[j0], bw[j0], ports[j0]
+            r = rows[sel]
+            ok = (
+                feasible[sel]
+                & np.all(util[r] + ask_res <= matrix.capacity[r], axis=1)
+                & (bw_used[r] + ask_bw <= matrix.bw_avail[r])
+                & (ports_free[r] >= ask_ports)
+            )
+            fits[sel] = ok
+            acc = r[ok]
+            np.add.at(util, acc, ask_res)
+            np.add.at(bw_used, acc, ask_bw)
+            np.add.at(ports_free, acc, -ask_ports)
+
+        net_indexes: Dict[str, NetworkIndex] = {}
+        # Successful pinned placements all carry the identical metric
+        # record (one node evaluated, same availability): one object is
+        # shared across the plan. The store's upsert copies each alloc
+        # and its metrics (state/store.py upsert_allocs,
+        # Allocation.copy), so the sharing is invisible downstream.
+        success_metrics: Optional[AllocMetric] = None
+
+        for j, missing in enumerate(place):
+            name = missing.task_group.name
+            node = matrix.nodes[rows[j]]
+
+            if not fits[j]:
+                # Failure paths mutate their metric record, so those
+                # stay per placement, like the host path where every
+                # stack.select starts fresh; the pinned node is the one
+                # node evaluated.
+                metrics = AllocMetric()
+                metrics.nodes_available = self.nodes_by_dc
+                metrics.evaluate_node()
+                if not feasible[j]:
+                    # Constraint mismatch: the alloc was never really
+                    # "queued" on this node (the host path's
+                    # nodes_filtered branch undoes the count).
+                    metrics.filter_node(node, "constraint")
+                    self.queued_allocs[name] -= 1
+                    if (
+                        self.eval.annotate_plan
+                        and self.plan.annotations is not None
+                        and name in self.plan.annotations.desired_tg_updates
+                    ):
+                        self.plan.annotations.desired_tg_updates[name].place -= 1
+                else:
+                    metrics.exhausted_node(node, "resources")
+                # Record the first failure per task group, coalesce the
+                # rest, for filtered and exhausted alike
+                # (system_sched.go:261).
+                if self.failed_tg_allocs and name in self.failed_tg_allocs:
+                    self.failed_tg_allocs[name].coalesced_failures += 1
+                else:
+                    if self.failed_tg_allocs is None:
+                        self.failed_tg_allocs = {}
+                    self.failed_tg_allocs[name] = metrics
+                continue
+
+            task_resources = self._offer_networks_on(
+                missing, node, net_indexes, matrix)
+            if task_resources is None:
+                # The port-count approximation missed a collision: the
+                # exact host path places this one alloc.
+                super()._compute_placements([missing])
+                continue
+
+            if success_metrics is None:
+                success_metrics = AllocMetric()
+                success_metrics.nodes_available = self.nodes_by_dc
+                success_metrics.evaluate_node()
+            self.plan.append_alloc(_build_allocation(
+                self, missing, node, task_resources, success_metrics))
+
+    def _offer_networks_on(self, missing: AllocTuple, node, net_indexes,
+                           matrix):
+        """Exact per-task network offers on the pinned node (the same
+        logic as the service path's)."""
+        has_networks = any(
+            t.resources is not None and t.resources.networks
+            for t in missing.task_group.tasks
+        )
+        if not has_networks:
+            return {
+                t.name: t.resources.copy()
+                for t in missing.task_group.tasks
+            }
+        return _offer_networks(self.rng, missing, node, net_indexes, matrix)
