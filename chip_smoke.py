@@ -212,10 +212,35 @@ Phases (any failure exits non-zero and prints no result):
    migrated, the high water within the budget, deferrals, 24 live
    allocs a job, none on a drained node; a main-path kernel launched).
    Its figures print as ``system drain figures: {...}``.
+11. The runtime on the card (nomad_tpu_torch/trace and profile/, wired
+   into the scheduler, the batcher and the storm driver), in three
+   parts. (a) After phase 3, each of its evals' traces in the port's
+   flight recorder holds matrix.build, matrix.update, matrix.compress,
+   device.dispatch and device.solve under the eval's trace id;
+   device.solve lies inside device.dispatch and names the placement
+   kernel whose CUDA kernels the eval's launch counts show ran;
+   matrix.update's kind is "full", "delta", "full" (eval (c)'s plan
+   already holds in-place updates when its matrix is built, which
+   makes its base uncacheable); printed as ``main path spans: {...}``.
+   (b) Phase 4's rounds pass one (eval id, trace id) a row and trace
+   each eval as bench.py's executive arm does (the row's stage spans,
+   device.dispatch over the cohort dispatch, host.finalize, complete);
+   after the config 4 rounds each eval holds exactly one device.solve
+   whose batch is its cohort's live count; the rounds' stage table
+   (``stage_stats``), the lock table of the batcher's, the matrix's and
+   the recorder's sites, the GIL sampler's overshoot (running over the
+   rounds), and, after the parked storm, its ``batch_park`` run-queue
+   table and convoy table. (c) After phase 10, on a fresh cluster of
+   the same shape: 4 pairs of arms of 3 config 4 rounds each, with the
+   recorder and the profiler on in one arm of a pair and off in the
+   other (on-off, off-on, on-off, off-on); each arm's evals/s, p50/p99
+   and GC pauses, and each pair's on/off throughput ratio (printed,
+   never a gate). All print as ``runtime figures: {...}``. The phase launches
+   no kernel of its own.
 
-Every path of phases 3 to 6, 8, 9 and 10 runs with the launch counts set
-to 0 just before it and read just after, and fails if a kernel of that
-path was never launched (10a: if any kernel was).
+Every path of phases 3 to 6, 8, 9, 10 and 11 (c) runs with the launch
+counts set to 0 just before it and read just after, and fails if a
+kernel of that path was never launched (10a: if any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -438,6 +463,7 @@ MAIN_PATH_KERNELS = ("threefry_uniform", "greedy_scan", "uniform_topk",
 
 
 def run_main_path(seed, torch):
+    from nomad_tpu_torch import trace
     from nomad_tpu_torch.ops import cuda
     from nomad_tpu_torch.scheduler.batcher import get_batcher
     from nomad_tpu_torch.scheduler.testing import Harness
@@ -463,7 +489,9 @@ def run_main_path(seed, torch):
     batcher = get_batcher()
     stats0 = batcher.stats()
     lat_ms = []
+    traced = []  # (label, eval, launches of that eval)
     place_us = dispatch_us(stats0)
+    trace.get_recorder().reset()
     cuda.reset_launch_counts()
     with ScanModes("main path"):
         for label, job, expect in steps:
@@ -473,11 +501,14 @@ def run_main_path(seed, torch):
             existing = {a.id for a in h.state.allocs_by_job(job.id)}
             host_n = host_oracle_count(h.state, ev, seed, existing)
             n_plans = len(h.plans)
+            before = Counter(cuda.launch_counts())
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             h.process("service-gpu", ev)
             torch.cuda.synchronize()
             lat_ms.append((time.perf_counter() - t1) * 1000.0)
+            traced.append((label, ev,
+                           Counter(cuda.launch_counts()) - before))
             place_ms = (dispatch_us(batcher.stats()) - place_us) / 1000.0
             place_us = dispatch_us(batcher.stats())
             check(len(h.plans) == n_plans + 1, f"{label}: no plan submitted")
@@ -508,7 +539,68 @@ def run_main_path(seed, torch):
     total_s = sum(lat_ms) / 1000.0
     print(f"main path: {len(lat_ms)} evals, {len(lat_ms) / total_s:.2f} "
           f"evals/s, per-eval ms {[round(x, 3) for x in lat_ms]}")
+    spans = check_main_path_spans(traced)
+    print(f"main path spans: {json.dumps(spans, sort_keys=True)}")
     return counts, lat_ms, h
+
+
+# Phase 11 (a): the stages every dense service eval records, and the
+# base's build kind each of phase 3's evals must show. Eval (a) builds
+# the cluster's first base; (b) follows (a)'s commit, so its base is a
+# delta of (a)'s; (c)'s plan already holds in-place updates of (b)'s
+# allocs when its matrix is built, which makes its base uncacheable (the
+# JAX package's ClusterMatrix rule), so it is built in full again.
+DENSE_STAGES = ("matrix.build", "matrix.update", "matrix.compress",
+                "device.dispatch", "device.solve")
+MAIN_PATH_KINDS = ("full", "delta", "full")
+# The placement kernel a device.solve span names -> the launch-count
+# names (prefixes) of the CUDA kernels that implement it.
+SOLVE_KERNELS = {"greedy": ("greedy_scan", "uniform_topk")}
+
+
+def check_main_path_spans(traced):
+    """Phase 11 (a), read after phase 3's evals: each eval's trace in
+    the port's flight recorder holds DENSE_STAGES under its trace id;
+    device.solve lies inside device.dispatch and names a kernel the
+    eval's launch counts show ran; matrix.update's kind is the one
+    MAIN_PATH_KINDS gives. Returns each eval's span table."""
+    from nomad_tpu_torch import trace
+
+    rec = trace.get_recorder()
+    out = {}
+    for (label, ev, launched), kind in zip(traced, MAIN_PATH_KINDS):
+        rec.complete(ev.id)
+        tr = rec.trace_for(ev.id)
+        check(tr is not None, f"{label}: no trace recorded")
+        check(tr["trace_id"] == ev.trace_id,
+              f"{label}: trace id {tr['trace_id']} is not the eval's")
+        names = [sp["name"] for sp in tr["spans"]]
+        for stage in DENSE_STAGES:
+            check(names.count(stage) == 1,
+                  f"{label}: {names.count(stage)} {stage} spans ({names})")
+        sp = {x["name"]: x for x in tr["spans"]}
+        solve, disp = sp["device.solve"], sp["device.dispatch"]
+        check(disp["start_ms"] <= solve["start_ms"]
+              and solve["end_ms"] <= disp["end_ms"],
+              f"{label}: device.solve {solve} outside device.dispatch "
+              f"{disp}")
+        kernel = solve["annotations"]["kernel"]
+        ran = sorted(k for k, n in launched.items() if n and any(
+            k.startswith(x) for x in SOLVE_KERNELS.get(kernel, ())))
+        check(ran, f"{label}: device.solve names {kernel!r}, but none of "
+              f"its kernels launched ({dict(launched)})")
+        update = sp["matrix.update"]["annotations"]
+        check(update["kind"] in ("full", "hit", "delta")
+              and update["kind"] == kind,
+              f"{label}: matrix.update kind {update['kind']!r}, expected "
+              f"{kind!r}")
+        out[label] = {
+            "stages_ms": {x["name"]: x["duration_ms"] for x in tr["spans"]},
+            "kind": update["kind"], "delta_rows": update["rows"],
+            "kernel": kernel, "batch": solve["annotations"]["batch"],
+            "kernels_launched": ran,
+            "classes": sp["matrix.compress"]["annotations"]}
+    return out
 
 
 def dispatch_us(stats):
@@ -607,6 +699,11 @@ class GcPauses:
                                         default=0.0) * 1000.0)
 
 
+def storm_eval_id(job, seed):
+    """The trace identity of one storm row's eval."""
+    return f"{job.id}#{seed}"
+
+
 class Storm:
     """bench.py bench_tpu_e2e's executive arm on the port: rows built on
     a small pool, one cohort dispatch, finalize on a second pool."""
@@ -632,11 +729,29 @@ class Storm:
         return out
 
     def build_row(self, snap, job, seed):
+        """One eval's row (job, seed, matrix, asks, key), with the
+        executive's stage spans on its trace (the JAX package's
+        server/executive.py _build_row): matrix.build over the matrix and
+        asks, matrix.update over the base (its build kind and delta
+        rows), matrix.compress (the class index's stats). The caller
+        completes the trace (``storm_eval_id(job, seed)``)."""
+        from nomad_tpu_torch import trace
         from nomad_tpu_torch.models.matrix import ClusterMatrix
         from nomad_tpu_torch.ops.binpack import host_prng_key, make_asks
 
+        eid = storm_eval_id(job, seed)
+        t0 = time.monotonic()
         matrix = ClusterMatrix(snap, job)
-        asks = make_asks(*matrix.build_asks(tg_cycle_of(job)))
+        t_base = time.monotonic()
+        tgs = tg_cycle_of(job)
+        asks = make_asks(*matrix.build_asks(tgs))
+        trace.record_span(eid, trace.STAGE_MATRIX_BUILD, t0,
+                          ann={"placements": len(tgs), "executive": True})
+        trace.record_span(eid, trace.STAGE_MATRIX_UPDATE, t0, t_base,
+                          ann={"kind": matrix.build_kind,
+                               "rows": matrix.delta_rows})
+        trace.record_span(eid, trace.STAGE_MATRIX_COMPRESS, t_base, t_base,
+                          ann=matrix.class_index.stats())
         return job, seed, matrix, asks, host_prng_key(seed)
 
     def materialize(self, row, choices, scores):
@@ -679,17 +794,34 @@ class Storm:
 
     def round(self, jobs, seed, config_of):
         """One round: returns (rows, [(choices, scores)], [plan],
-        [per-eval seconds from round open], round seconds)."""
+        [per-eval seconds from round open], round seconds). Each eval is
+        traced as bench.py's executive arm traces it: the row's stage
+        spans, device.dispatch over the cohort dispatch (the batcher
+        adds device.solve inside it), host.finalize, then complete."""
+        from nomad_tpu_torch import trace
+
         t0 = time.perf_counter()
         snap = self.h.state.snapshot()
         rows = [f.result() for f in [
             self.pool.submit(self.build_row, snap, job, seed + i)
             for i, job in enumerate(jobs)]]
+        t_disp = time.monotonic()
         results = self.batcher.place_cohort([
-            (m, a, k, config_of(job, m)) for job, _s, m, a, k in rows])
+            (m, a, k, config_of(job, m), (storm_eval_id(job, s), ""))
+            for job, s, m, a, k in rows])
+        t_done = time.monotonic()
+        ann = {"cohort": len(rows)}
+        for job, s, _m, _a, _k in rows:
+            trace.record_span(storm_eval_id(job, s),
+                              trace.STAGE_DEVICE_DISPATCH, t_disp, t_done,
+                              ann=ann)
 
         def finalize(row, res):
+            t_fin = time.monotonic()
             plan = self.materialize(row, *res)
+            eid = storm_eval_id(row[0], row[1])
+            trace.record_span(eid, "host.finalize", t_fin)
+            trace.complete(eid)
             return plan, time.perf_counter() - t0
 
         done = [f.result() for f in [
@@ -752,7 +884,7 @@ def hold_against_cpu(label, rows, results, config_of):
     from nomad_tpu_torch.scheduler.batcher import PlacementBatcher
 
     cpu = PlacementBatcher("cpu").place_cohort([
-        (m, a, k, config_of(job, m)) for job, _s, m, a, k in rows])
+        (m, a, k, config_of(job, m), None) for job, _s, m, a, k in rows])
     err = 0.0
     for (c, s), (c_cpu, s_cpu) in zip(results, cpu):
         check(np.array_equal(c, c_cpu), f"{label}: choices differ from "
@@ -822,6 +954,7 @@ def run_storm(seed, torch, total):
     counts to ``total``; returns the storm's figures."""
     import numpy as np
 
+    from nomad_tpu_torch import profile, trace
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.scheduler.batcher import get_batcher
     from nomad_tpu_torch.scheduler.testing import Harness
@@ -850,11 +983,22 @@ def run_storm(seed, torch, total):
                 storm.commit(out[-1][2])
             return out
 
-        with GcPauses() as gc_pauses, \
-                Recorder(binpack, "apply_base_delta", copy=False) as deltas:
-            done = counted(total, "config 4 storm", (
-                "uniform_topk_seq", "expand_overlay", "base_delta"), config4,
-                DRAWN_IN_SCANS)
+        # Phase 11 (b): the storm's rounds alone in the recorder and the
+        # profiler, the GIL sampler running over them.
+        prof = profile.get_profiler()
+        trace.get_recorder().reset()
+        prof.reset()
+        prof.ensure_sampler()
+        try:
+            with GcPauses() as gc_pauses, \
+                    Recorder(binpack, "apply_base_delta",
+                             copy=False) as deltas:
+                done = counted(total, "config 4 storm", (
+                    "uniform_topk_seq", "expand_overlay", "base_delta"),
+                    config4, DRAWN_IN_SCANS)
+        finally:
+            prof.gil.stop()
+        runtime = storm_runtime(done, batcher)
         hold_deltas(torch, "config 4 storm", deltas.calls)
         stats = stats_delta(stats0, batcher.stats())
         lat = [t for r in done for t in r[3]]
@@ -984,9 +1128,12 @@ def run_storm(seed, torch, total):
 
             def worker(i):
                 try:
-                    job, _s, m, a, k = storm.build_row(snap, jobs[i],
-                                                       90_000 + i)
-                    answers[i] = batcher.place(m, a, k, on(job, m))
+                    job, s, m, a, k = storm.build_row(snap, jobs[i],
+                                                      90_000 + i)
+                    eid = storm_eval_id(job, s)
+                    answers[i] = batcher.place(m, a, k, on(job, m),
+                                               span=(eid, ""))
+                    trace.complete(eid)
                 except Exception as e:  # noqa: BLE001 - reported below
                     errors.append(e)
 
@@ -1010,6 +1157,17 @@ def run_storm(seed, torch, total):
               f"{st['dispatches']} dispatch(es), occupancy {occupancy:.1f}")
         check(occupancy > 1, f"parked storm occupancy {occupancy}")
         figures["parked_occupancy"] = occupancy
+        # Phase 11 (b): nothing parks in the cohort rounds; the parked
+        # storm's threads do, at the batch boundary.
+        runq = prof.runq_table()
+        check(runq.get("batch_park", {}).get("count", 0) > 0,
+              "parked storm: no batch_park run-queue delay recorded")
+        convoys = prof.convoy_table()
+        check("batcher.place" in convoys["sites"],
+              "parked storm: no park at batcher.place")
+        runtime.update(parked_runq=runq, parked_convoys={
+            k: v for k, v in convoys.items() if k != "recent"})
+        figures["runtime"] = runtime
 
         def stacked():
             # Token-less matrices: the batcher stacks full states, one
@@ -1028,7 +1186,10 @@ def run_storm(seed, torch, total):
                     row[2].compact_overlay = None
                     rows.append(row)
                 results = batcher.place_cohort([
-                    (m, a, k, on(job, m)) for job, _s, m, a, k in rows])
+                    (m, a, k, on(job, m), (storm_eval_id(job, s), ""))
+                    for job, s, m, a, k in rows])
+                for job, s, _m, _a, _k in rows:
+                    trace.complete(storm_eval_id(job, s))
                 out.append((label, rows, results))
             return out
 
@@ -1044,6 +1205,46 @@ def run_storm(seed, torch, total):
     finally:
         storm.close()
     return figures, h
+
+
+# The profiled lock sites of the storm path, under the JAX package's
+# names (the recorder's three share the trace.recorder. prefix).
+RUNTIME_LOCK_SITES = ("scheduler.batcher", "models.matrix.positions",
+                      "trace.recorder.stripe", "trace.recorder.hist",
+                      "trace.recorder.tail")
+
+
+def storm_runtime(done, batcher):
+    """Phase 11 (b), read after the config 4 storm's rounds: each eval
+    carries exactly one device.solve span whose batch is its cohort's
+    live count; returns the stage table (stage_stats) of the rounds, the
+    lock table of RUNTIME_LOCK_SITES and the GIL sampler's overshoot."""
+    from nomad_tpu_torch import profile, trace
+
+    rec, prof = trace.get_recorder(), profile.get_profiler()
+    for r, (rows, _res, _plans, _lat, _wall) in enumerate(done):
+        check(len(rows) <= batcher.max_batch,
+              f"storm round {r}: more rows than one chunk")
+        for job, seed, _m, _a, _k in rows:
+            tr = rec.trace_for(storm_eval_id(job, seed))
+            check(tr is not None, f"storm round {r}: {job.id} untraced")
+            solves = [x["annotations"] for x in tr["spans"]
+                      if x["name"] == "device.solve"]
+            check(len(solves) == 1 and solves[0]["batch"] == len(rows),
+                  f"storm round {r}: {job.id} device.solve spans "
+                  f"{solves}, cohort of {len(rows)}")
+    stages = rec.stage_stats()
+    for stage in DENSE_STAGES + ("e2e",):
+        check(stages.get(stage, {}).get("count", 0) >= len(done) * len(
+            done[0][0]), f"storm stage table lacks {stage}: {stages}")
+    locks = prof.lock_table()
+    for site in RUNTIME_LOCK_SITES:
+        check(site in locks, f"lock site {site} not in the profiler's table")
+    gil = prof.gil.stats()
+    check(gil["count"] > 0, "the GIL sampler took no sample over the storm")
+    return {"storm_stages": stages,
+            "storm_locks": {k: locks[k] for k in RUNTIME_LOCK_SITES},
+            "storm_gil": gil}
 
 
 def hold_deltas(torch, label, calls):
@@ -2835,6 +3036,7 @@ def run_mesh(seed, torch, total, storm_h):
     the recorded calls for the holds (bench_mesh)."""
     import numpy as np
 
+    from nomad_tpu_torch import trace
     from nomad_tpu_torch.ops import cuda
     from nomad_tpu_torch.parallel.mesh import make_mesh
     from nomad_tpu_torch.scheduler.batcher import (
@@ -2932,7 +3134,7 @@ def run_mesh(seed, torch, total, storm_h):
         for r, (rows, results, plans, _l, _w) in enumerate(done):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want = ref.place_cohort([(m, a, k, on(job, m))
+            want = ref.place_cohort([(m, a, k, on(job, m), None)
                                      for job, _s, m, a, k in rows])
             ref_ms.append((time.perf_counter() - t0) * 1000.0)
             print(f"  round {r}: {done[r][4] * 1000:.1f} ms, of it the mesh "
@@ -2964,11 +3166,12 @@ def run_mesh(seed, torch, total, storm_h):
         job = storm.jobs("mesh-greedy", 1,
                          lambda i: two_group_job_id(i, 512))[0]
         row = storm.build_row(storm_h.state.snapshot(), job, 120_000)
+        trace.complete(storm_eval_id(job, 120_000))
 
         def greedy():
             with ShardRecorder("sharded_greedy_scan") as scan:
                 got = mb.place_cohort([(row[2], row[3], row[4],
-                                        on(job, row[2]))])
+                                        on(job, row[2]), None)])
             rec["greedy"] = scan.calls
             return got
 
@@ -2977,7 +3180,8 @@ def run_mesh(seed, torch, total, storm_h):
             "threefry_uniform", "expand_overlay", "sharded_greedy_scan"),
             greedy)
         wall = time.perf_counter() - t0
-        want = ref.place_cohort([(row[2], row[3], row[4], on(job, row[2]))])
+        want = ref.place_cohort([(row[2], row[3], row[4], on(job, row[2]),
+                                  None)])
         (c, sc), (wc, ws) = got[0], want[0]
         check(np.array_equal(c, wc) and np.array_equal(
             sc.view(np.int32), ws.view(np.int32)),
@@ -4922,6 +5126,94 @@ def run_migration_arm(seed, total):
     }
 
 
+# Phase 11 (c): config 4's storm shape with the runtime on and off, in
+# pairs of arms, each arm on its own rounds of the same cluster. The
+# pairs alternate their order (on-off, off-on, ...) so that a drift of
+# the host over the phase cancels in the median of the pairs' ratios.
+RUNTIME_ARMS = ("on", "off", "off", "on", "on", "off", "off", "on")
+RUNTIME_ROUNDS = 3
+
+
+def run_runtime_cost(seed, torch, total):
+    """Phase 11 (c): the cost of the always-on runtime. A fresh cluster
+    of the north-star shape; after a warm-up round, arms of
+    RUNTIME_ROUNDS config 4 rounds (64 evals, pre_resolve on, each
+    round's plans committed so the next base is a delta) with the flight
+    recorder and the profiler both on or both off, in the order of
+    RUNTIME_ARMS. Each arm's evals/s, per-eval p50/p99 and garbage
+    collection, and each pair's on/off throughput and p99 ratios.
+    Reports the ratios and fails on none: 64-eval rounds are too noisy
+    for a gate. Both switches are on again when it returns."""
+    import numpy as np
+
+    from nomad_tpu_torch import profile, trace
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    t0 = time.perf_counter()
+    h = Harness(seed=seed + 11)
+    build_cluster(h, N_NODES, ALLOCS_PER_NODE, seed + 11)
+    print(f"runtime cluster: {N_NODES} nodes, built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    rec, prof = trace.get_recorder(), profile.get_profiler()
+    storm = Storm(h, get_batcher())
+    on = lambda job, m: placement_config(job, m, True)  # noqa: E731
+    arms = []
+    try:
+        storm.round(storm.jobs("rt-warm", STORM_BATCH, storm_job), 200_000,
+                    on)
+
+        def drive():
+            for i, arm in enumerate(RUNTIME_ARMS):
+                rec.set_enabled(arm == "on")
+                prof.set_enabled(arm == "on")
+                with GcPauses() as gc_pauses:
+                    done = []
+                    for r in range(RUNTIME_ROUNDS):
+                        jobs = storm.jobs(f"rt{i}-{r}", STORM_BATCH,
+                                          storm_job)
+                        done.append(storm.round(
+                            jobs, 210_000 + (i * RUNTIME_ROUNDS + r)
+                            * STORM_BATCH, on))
+                        storm.commit(done[-1][2])
+                lat = [t for d in done for t in d[3]]
+                wall = sum(d[4] for d in done)
+                arms.append(dict(
+                    arm=arm, evals=len(lat), evals_per_s=len(lat) / wall,
+                    p50_ms=float(np.percentile(lat, 50)) * 1000.0,
+                    p99_ms=float(np.percentile(lat, 99)) * 1000.0,
+                    **gc_pauses.summary()))
+                placed = sum(len(a) for d in done for p in d[2]
+                             for a in p.node_allocation.values())
+                check(placed == len(lat) * 8,
+                      f"runtime arm {i} ({arm}): placed {placed}")
+
+        counted(total, "runtime on/off storm", (
+            "uniform_topk_seq", "expand_overlay", "base_delta"), drive,
+            DRAWN_IN_SCANS)
+    finally:
+        rec.set_enabled(True)
+        prof.set_enabled(True)
+        storm.close()
+    pairs = [(a, b) if a["arm"] == "on" else (b, a)
+             for a, b in zip(arms[::2], arms[1::2])]
+    ratios = [a["evals_per_s"] / b["evals_per_s"] for a, b in pairs]
+    p99_ratios = [a["p99_ms"] / b["p99_ms"] for a, b in pairs]
+    for arm in arms:
+        print(f"runtime {arm['arm']}: {arm['evals']} evals, "
+              f"{arm['evals_per_s']:.2f} evals/s, p50 {arm['p50_ms']:.2f} "
+              f"ms, p99 {arm['p99_ms']:.2f} ms, gen-2 collections "
+              f"{arm['gc_gen2_collections']}, longest pause "
+              f"{arm['gc_max_pause_ms']:.1f} ms")
+    print(f"runtime on/off throughput ratio by pair: "
+          f"{[round(x, 4) for x in ratios]} (median "
+          f"{statistics.median(ratios):.4f}); p99 ratio "
+          f"{[round(x, 4) for x in p99_ratios]}")
+    return {"cost_arms": arms, "cost_on_off_evals_per_s": ratios,
+            "cost_on_off_median": statistics.median(ratios),
+            "cost_on_off_p99": p99_ratios}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4979,6 +5271,7 @@ def main(argv=None) -> int:
             counts, _lat_ms, main_h = run_main_path(args.seed, torch)
             total.update(counts)
             storm, storm_h = run_storm(args.seed, torch, total)
+            runtime = storm.pop("runtime")
             print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
             k6 = run_preemption(args.seed, torch, total)
             gangs, gang_programs = run_gangs(args.seed, torch, total)
@@ -4996,6 +5289,8 @@ def main(argv=None) -> int:
         del main_h, storm_h
         system = run_system_drain(args.seed, total)
         print(f"system drain figures: {json.dumps(system, sort_keys=True)}")
+        runtime.update(run_runtime_cost(args.seed, torch, total))
+        print(f"runtime figures: {json.dumps(runtime, sort_keys=True)}")
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))

@@ -2,7 +2,8 @@
 package's kernels/quality.py.
 
 Throughput says how FAST a kernel places; this module scores how WELL,
-on the two axes Tesserae (PAPERS.md) evaluates placement policies on:
+on the two axes Tesserae (PAPERS.md) evaluates placement policies on,
+plus the queueing axis:
 
 - **fragmentation** — the fraction of the cluster's free cpu+mem
   capacity stranded on nodes that can no longer fit a reference ask.
@@ -10,17 +11,17 @@ on the two axes Tesserae (PAPERS.md) evaluates placement policies on:
   is unusable fragments.
 - **binpack_score** — mean fill fraction (max of cpu/mem) over the
   OCCUPIED schedulable nodes. Higher = tighter.
+- **queueing_delay_ms** — p99 time placement work spent QUEUED, read
+  off the flight recorder's ``broker.wait`` stage (trace/). Until the
+  broker is ported no ``broker.wait`` span is recorded, so the field
+  reads 0.0: the JAX package's own reading with no broker spans.
 
-Both are computed from COMMITTED state: the dense scheduler feeds the
+Fragmentation and bin-pack are computed from COMMITTED state: the dense scheduler feeds the
 board from the post-placement claimed arrays right after appending to
 the plan (scheduler/tpu.py note_quality), and ``quality_from_store``
 recomputes from a state store for the differential rig and tests. The
 board never touches the state store and never blocks: bounded rings of
 samples under one leaf lock.
-
-The JAX package's third axis, ``queueing_delay_ms``, reads its flight
-recorder (``trace/``), which the port does not have yet: the board
-here reports the two axes above and no queueing field.
 """
 
 from __future__ import annotations
@@ -211,6 +212,9 @@ class QualityBoard:
         # kernel -> sample count at the last reset_window(), so
         # window_snapshot() reads only samples since. guarded-by: _lock
         self._window_marks: Dict[str, int] = {}
+        # broker.wait histogram snapshot at the last reset (count,
+        # buckets) for the windowed queueing p99. guarded-by: _lock
+        self._queue_mark = None
 
     def should_sample(self, kernel: str) -> bool:
         """Whether this eval should pay the O(N) scoring cost (see
@@ -237,22 +241,36 @@ class QualityBoard:
             self._rings.clear()
             self._ticks.clear()
             self._window_marks.clear()
+            self._queue_mark = None
 
     def reset_window(self) -> None:
         """Start a fresh rolling window: window_snapshot() then reads
-        only the samples noted after this call."""
+        only the samples noted after this call, and the broker-wait
+        histogram's growth since."""
+        marks = self._queue_marks_now()
         with self._lock:
             for kernel, ent in self._rings.items():
                 self._window_marks[kernel] = ent[2]
+            self._queue_mark = marks
+
+    @staticmethod
+    def _queue_marks_now():
+        from .. import trace
+
+        return trace.get_recorder().stage_buckets("broker.wait")
 
     def window_snapshot(self, reset: bool = False) -> Dict[str, dict]:
         """Per-kernel medians over the samples since the last
-        reset_window() (capped at the ring size). A kernel with no
-        window samples is omitted."""
+        reset_window() (capped at the ring size), plus the windowed
+        broker-wait queueing p99. A kernel with no window samples is
+        omitted."""
+        from ..utils.metrics import hist_percentile
+
         with self._lock:
             items = [(k, ent[0].copy(), ent[1].copy(), ent[2],
                       self._window_marks.get(k, 0))
                      for k, ent in self._rings.items()]
+            queue_mark = self._queue_mark
         kernels: Dict[str, dict] = {}
         for kernel, frag, binp, count, mark in items:
             n_window = min(count - mark, SAMPLE_CAP, count)
@@ -265,12 +283,28 @@ class QualityBoard:
                 "binpack_score": round(float(np.median(binp[slots])), 4),
                 "samples": int(n_window),
             }
+        cur = self._queue_marks_now()
+        queueing = 0.0
+        if cur is not None:
+            count, buckets = cur
+            if queue_mark is not None:
+                m_count, m_buckets = queue_mark
+                count -= m_count
+                buckets = [b - mb for b, mb in zip(buckets, m_buckets)]
+            if count > 0:
+                queueing = hist_percentile(buckets, count, 0.99)
+        out = {"kernels": kernels,
+               "queueing_delay_ms": round(float(queueing), 3)}
         if reset:
             self.reset_window()
-        return {"kernels": kernels}
+        return out
 
     def snapshot(self) -> Dict[str, dict]:
-        """Per-kernel medians and sample counts."""
+        """Per-kernel medians and sample counts, plus the queueing
+        p99 off the flight recorder (one number: queueing happens
+        before a kernel is chosen, so it is cluster-wide)."""
+        from .. import trace
+
         out: Dict[str, dict] = {}
         with self._lock:
             items = [(k, ent[0].copy(), ent[1].copy(), ent[2])
@@ -284,7 +318,12 @@ class QualityBoard:
                 "binpack_score": round(float(np.median(binp[:n])), 4),
                 "samples": count,
             }
-        return {"kernels": out}
+        stages = trace.get_recorder().stage_stats()
+        wait = stages.get("broker.wait", {})
+        return {
+            "kernels": out,
+            "queueing_delay_ms": round(float(wait.get("p99_ms", 0.0)), 3),
+        }
 
 
 _global: Optional[QualityBoard] = None

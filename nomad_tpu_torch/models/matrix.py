@@ -124,8 +124,10 @@ class _ClusterBase:
         self.alloc_groups: List[List[Tuple[str, str]]] = []
         self._init_class_index(nodes)
         # job_id -> {tg: row indices}, built lazily
+        from ..profile import ProfiledLock
+
         self._positions = None  # guarded-by: _positions_lock
-        self._positions_lock = threading.Lock()
+        self._positions_lock = ProfiledLock("models.matrix.positions")
         self._fill_all(nodes, proposed_fn)
 
     def _init_class_index(self, nodes) -> None:
@@ -391,7 +393,15 @@ class _ClusterBase:
         new.class_ids, new.class_reps = self.class_ids, self.class_reps
         new.class_index = self.class_index
         new.topology = self.topology
-        new._positions_lock = threading.Lock()
+        # Same profiled declaration site as __init__: delta clones are
+        # the storm's dominant base-build path, so an unprofiled lock
+        # here would leave 'models.matrix.positions' covering only the
+        # full rebuilds. Dead clones' stats retire on GC (profile
+        # _register_lock), so snapshot churn never exhausts the
+        # registry.
+        from ..profile import ProfiledLock
+
+        new._positions_lock = ProfiledLock("models.matrix.positions")
         new._positions = None  # patched below when the parent built one
         new.capacity = self.capacity.copy()
         new.sched_capacity = self.sched_capacity.copy()

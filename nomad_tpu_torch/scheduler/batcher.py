@@ -40,6 +40,12 @@ them (or a dispatcher thread) dispatches the batch after an adaptive
 window; ``place_cohort()`` dispatches a pre-formed cohort on the
 calling thread, with no queue and no parking.
 
+The runtime rides along as in the JAX package: the batcher's lock and
+condition are profiled (site ``scheduler.batcher``), a parked place()
+counts in the ``batcher.place`` convoy tracker and stamps its wake
+latency as ``batch_park`` run-queue delay, and every request that
+carries a trace identity gets one ``device.solve`` span per dispatch.
+
 A device fault raises out of ``place()`` and ``place_cohort()``; there
 is no host fallback.
 """
@@ -55,7 +61,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profile, trace
 from ..device import default_device
+from ..profile import ProfiledCondition, ProfiledLock
 
 MAX_BATCH = 64
 # Node count at which a batcher given a mesh keeps the cluster base
@@ -130,10 +138,11 @@ def _stack(items) -> list:
 
 class _Request:
     __slots__ = ("token", "base", "overlay", "compact", "asks", "key",
-                 "delta", "event", "choices", "scores", "error")
+                 "delta", "event", "choices", "scores", "error", "span",
+                 "ready_at")
 
     def __init__(self, token, base, overlay, asks, key, delta=None,
-                 compact=None):
+                 compact=None, span=None):
         self.token = token  # cluster-base identity, None = unshared
         self.base = base  # (capacity, sched_capacity, util, bw_avail,
         #                    bw_used, ports_free, node_ok, class_ids)
@@ -146,10 +155,15 @@ class _Request:
         self.asks = asks
         self.key = key
         self.delta = delta  # (parent_token, changed_rows) or None
+        self.span = span  # (eval_id, trace_id) for the device.solve span
         self.event = threading.Event()
         self.choices = None
         self.scores = None
         self.error: Optional[BaseException] = None
+        # Stamped (time.monotonic) by the dispatcher right before
+        # event.set(): the parked requester's wake latency from here is
+        # its run-queue delay (profile record_runq "batch_park").
+        self.ready_at = 0.0
 
     def full_state(self) -> tuple:
         """The NodeState field order: capacity .. feasible, node_ok."""
@@ -171,7 +185,7 @@ def _base_of(state):
             getattr(state, "base_delta", None))
 
 
-def _request(state, asks, rng_key, config):
+def _request(state, asks, rng_key, config, span=None):
     """(shape key, _Request) for one place() argument set."""
     token, base, delta = _base_of(state)
     overlay = (state.job_count, state.tg_count, state.feasible)
@@ -189,7 +203,7 @@ def _request(state, asks, rng_key, config):
         np.shape(state.feasible)[-1], config, token, compact_key,
     )
     return shape_key, _Request(token, base, overlay, asks, rng_key,
-                               delta=delta, compact=compact)
+                               delta=delta, compact=compact, span=span)
 
 
 class PlacementBatcher:
@@ -209,10 +223,12 @@ class PlacementBatcher:
         self.max_batch = max_batch
         self.window = window
         self.logger = logging.getLogger("nomad_tpu_torch.batcher")
-        self._lock = threading.Lock()
+        # Profiled (profile/): the hot lock of the dense path; its
+        # wait and hold histograms attribute the device.dispatch tail.
+        self._lock = ProfiledLock("scheduler.batcher")
         # Signaled by place() when a shape's queue reaches max_batch and
         # by cohort changes, so an accumulating dispatcher wakes at once.
-        self._full = threading.Condition(self._lock)
+        self._full = ProfiledCondition(self._lock, "scheduler.batcher")
         self._queues: Dict[Tuple, List[_Request]] = {}  # guarded-by: _lock
         self._dispatchers: Dict[Tuple, int] = {}  # guarded-by: _lock
         self._device_bases: "OrderedDict[object, tuple]" = OrderedDict()  # guarded-by: _lock
@@ -276,14 +292,15 @@ class PlacementBatcher:
 
     # ------------------------------------------------------------ place
 
-    def place(self, state, asks, rng_key, config):
+    def place(self, state, asks, rng_key, config, span=None):
         """Submit one eval's placement; blocks until its batch's
         dispatch returns. ``state`` is a ClusterMatrix (or anything with
         the NodeState field names; a ``base_token`` enables the shared
         device base); ``asks`` the host Asks arrays; ``rng_key`` a host
-        uint32[2]. Returns (choices, scores) of THIS request as host
-        numpy arrays."""
-        shape_key, req = _request(state, asks, rng_key, config)
+        uint32[2]; ``span`` an optional (eval_id, trace_id) on which the
+        dispatch records a ``device.solve`` span. Returns (choices,
+        scores) of THIS request as host numpy arrays."""
+        shape_key, req = _request(state, asks, rng_key, config, span)
         run_dispatch = False
         with self._lock:
             if self._cohort > 0:
@@ -303,31 +320,46 @@ class PlacementBatcher:
         # dispatcher that could not spawn cannot wedge this thread.
         # Ownership has a legal gap (between a dispatcher's queue pop
         # and its finally), so act only on the SECOND ownerless look.
+        # This wait is the batch boundary: the profiler's convoy tracker
+        # measures the pile-up here, and ready_at -> wake is the
+        # thread's run-queue delay.
         suspect = False
-        while not req.event.wait(REQUEST_WAIT_SLICE_S):
-            claim = orphaned = False
-            with self._lock:
-                live = self._dispatchers.get(shape_key, 0)
-                queued = any(r is req
-                             for r in self._queues.get(shape_key, ()))
-                if live > 0:
-                    suspect = False
-                elif suspect and queued:
-                    # Self-rescue: still queued with no dispatcher (a
-                    # respawn's Thread.start failed): dispatch inline.
-                    self._dispatchers[shape_key] = 1
-                    claim = True
-                elif suspect:
-                    orphaned = True
-                else:
-                    suspect = True
-            if claim:
-                self._dispatch(shape_key, config, wait_window=False)
-            elif orphaned and not req.event.is_set():
-                raise RuntimeError(
-                    "placement request orphaned: no live dispatcher for "
-                    "its shape key and the request left the queue "
-                    "without a result")
+        if not req.event.is_set():
+            parked = profile.park("batcher.place")
+            try:
+                while not req.event.wait(REQUEST_WAIT_SLICE_S):
+                    claim = orphaned = False
+                    with self._lock:
+                        live = self._dispatchers.get(shape_key, 0)
+                        queued = any(
+                            r is req
+                            for r in self._queues.get(shape_key, ()))
+                        if live > 0:
+                            suspect = False
+                        elif suspect and queued:
+                            # Self-rescue: still queued with no
+                            # dispatcher (a respawn's Thread.start
+                            # failed): dispatch inline.
+                            self._dispatchers[shape_key] = 1
+                            claim = True
+                        elif suspect:
+                            orphaned = True
+                        else:
+                            suspect = True
+                    if claim:
+                        self._dispatch(shape_key, config,
+                                       wait_window=False)
+                    elif orphaned and not req.event.is_set():
+                        raise RuntimeError(
+                            "placement request orphaned: no live "
+                            "dispatcher for its shape key and the "
+                            "request left the queue without a result")
+            finally:
+                if parked:
+                    profile.unpark("batcher.place")
+        if req.ready_at:
+            profile.record_runq(
+                "batch_park", (time.monotonic() - req.ready_at) * 1000.0)
         if req.error is not None:
             raise req.error
         return req.choices, req.scores
@@ -337,10 +369,11 @@ class PlacementBatcher:
         group by place()'s shape key, chunk to max_batch, and each chunk
         runs ``_run_batch`` inline. No queues, no events, no dispatcher
         threads. ``requests`` is a list of (state, asks, rng_key,
-        config) tuples as place() takes them. Returns [(choices,
-        scores)] in input order; a device fault raises out of the whole
-        call."""
-        built = [(*_request(*r), r[3]) for r in requests]
+        config, span) tuples as place() takes them (``span`` None where
+        nothing is traced). Returns [(choices, scores)] in input order;
+        a device fault raises out of the whole call."""
+        built = [(*_request(state, asks, rng_key, config, span), config)
+                 for state, asks, rng_key, config, span in requests]
         groups: "OrderedDict[Tuple, List[_Request]]" = OrderedDict()
         configs: Dict[Tuple, object] = {}
         for shape_key, req, config in built:
@@ -515,7 +548,8 @@ class PlacementBatcher:
             t2 = time.perf_counter()
             req.choices = choices.cpu().numpy()
             req.scores = scores.cpu().numpy()
-            self._account(t0, t1, t2, 0, lone=True)
+            t3 = self._account(t0, t1, t2, 0, lone=True)
+            self._record_solve(batch, config, t3 - t1, 1)
             return
 
         n_live = len(batch)
@@ -610,16 +644,18 @@ class PlacementBatcher:
                 with self._lock:
                     self._base_pending.pop(token, None)
                 fused[2].set()
-        self._account(t0, t1, t2, payload, overlay=overlay, compact=compact,
-                      pre_resolve=overlay and config.pre_resolve)
+        t3 = self._account(t0, t1, t2, payload, overlay=overlay,
+                           compact=compact,
+                           pre_resolve=overlay and config.pre_resolve)
         for i, req in enumerate(batch):
             req.choices = choices[i]
             req.scores = scores[i]
+        self._record_solve(batch, config, t3 - t1, n_live)
 
     def _account(self, t0, t1, t2, payload, lone=False, overlay=False,
-                 compact=False, pre_resolve=False) -> None:
+                 compact=False, pre_resolve=False) -> float:
         """Record one dispatch's timings (stack t0..t1, issue t1..t2,
-        sync t2..now) and path counters."""
+        sync t2..now) and path counters. Returns now (perf_counter)."""
         t3 = time.perf_counter()
         with self._lock:
             self.t_stack += t1 - t0
@@ -633,6 +669,25 @@ class PlacementBatcher:
             sync = t3 - t2
             self._sync_ema = (sync if self._sync_ema == 0.0
                               else 0.7 * self._sync_ema + 0.3 * sync)
+        return t3
+
+    def _record_solve(self, batch, config, dur: float, n_live: int) -> None:
+        """device.solve spans for the requests that carry a trace
+        identity: the issue + copy-back window (t1..t3 of _account),
+        kernel-annotated, the part of device.dispatch that is the
+        kernel (batch wait and host stacking excluded). The duration
+        was measured on perf_counter; the span is anchored to the
+        monotonic clock the recorder runs on by subtracting it from
+        now (both clocks tick at the same rate)."""
+        if not any(r.span for r in batch):
+            return
+        end = time.monotonic()
+        ann = {"kernel": config.kernel, "batch": n_live}
+        for req in batch:
+            if req.span:
+                trace.record_span(req.span[0], trace.STAGE_DEVICE_SOLVE,
+                                  end - dur, end, ann=ann,
+                                  trace_id=req.span[1])
 
     def _accumulate(self, shape_key, window: float) -> None:
         """Wait up to ``window`` for requests to pile on; a full batch
@@ -729,7 +784,9 @@ class PlacementBatcher:
             for req in batch:
                 req.error = e
         finally:
+            ready = time.monotonic()
             for req in batch:
+                req.ready_at = ready
                 req.event.set()
             with self._lock:
                 remaining = self._dispatchers.get(shape_key, 1) - 1

@@ -503,8 +503,10 @@ class GenericScheduler:
         # waves instead of thundering-herding the plan queue.
         migrate_now = diff.migrate
         if migrate_now:
+            from .. import trace
             from ..migrate import get_governor
 
+            _t0 = time.monotonic()
             # Defrag-marked migrations are budget-EXEMPT here: the
             # defrag loop already claimed their governor slots when it
             # minted the wave (and releases them when this eval goes
@@ -533,6 +535,11 @@ class GenericScheduler:
             self.limit_reached = evict_and_place(
                 self.ctx, diff, migrate_now, ALLOC_MIGRATING, limit
             )
+            trace.record_span(
+                self.eval.id, trace.STAGE_MIGRATE_PLACE, _t0,
+                ann={"migrations": len(migrate_now),
+                     "deferred": deferred},
+                trace_id=self.eval.trace_id)
         else:
             self.limit_reached = False
         self.limit_reached = self.limit_reached or evict_and_place(

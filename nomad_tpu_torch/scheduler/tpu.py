@@ -19,6 +19,19 @@ fallback around the dispatch. The routing rules that are semantics
 stay as in the JAX package: sticky placements, and evals with at most
 3 asks, take the host path.
 
+The flight recorder (trace/) gets the JAX package's stage spans under
+each eval's id and trace id: matrix.build, matrix.update (the base's
+build kind and delta rows), matrix.compress (a zero-length span
+carrying the class index's stats), device.dispatch around the batcher
+call (the batcher adds device.solve inside it), gang.select and
+preempt.select, and matrix.build on the system path. The JAX
+package's breaker and host-fallback variants of these spans, and
+their counters (scheduler.breaker_rejected, host_fallback,
+gang_breaker_rejected, gang_host_fallback, preempt_breaker_rejected,
+preempt_dispatch_failed), have no path here: there is no breaker and
+no fallback. A gang whose exact ports miss on a device-chosen node
+counts scheduler.gang_port_fallback (utils/metrics.py), as there.
+
 "system-gpu" (DenseSystemScheduler, the JAX package's DenseSystemScheduler
 behind "system-tpu") is the system scheduler with its diff and its
 pinned placements as vectorized numpy passes over a ClusterMatrix of
@@ -29,10 +42,12 @@ launches no kernel.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..structs import (
     Allocation,
     AllocMetric,
@@ -223,17 +238,37 @@ class BatchedGPUScheduler(GenericScheduler):
             super()._compute_placements(bulk)
             return
 
+        _t0 = time.monotonic()
         matrix = ClusterMatrix(self.state, self.job, self.plan)
+        _t_base = time.monotonic()
         tg_indices = {tg.name: i for i, tg in enumerate(self.job.task_groups)}
         placements = [tg_indices[m.task_group.name] for m in bulk]
         ask_arrays = matrix.build_asks(placements)
         asks = make_asks(*ask_arrays)
+        trace.record_span(self.eval.id, trace.STAGE_MATRIX_BUILD, _t0,
+                          ann={"placements": len(bulk)},
+                          trace_id=self.eval.trace_id)
+        # How this eval's base came to be (cache hit, incremental delta
+        # or full rebuild) and how many node rows the delta touched.
+        trace.record_span(
+            self.eval.id, trace.STAGE_MATRIX_UPDATE, _t0, _t_base,
+            ann={"kind": matrix.build_kind, "rows": matrix.delta_rows},
+            trace_id=self.eval.trace_id)
+        # How far the fleet interned (models/classes.py): a zero-length
+        # marker whose value is its annotation.
+        trace.record_span(
+            self.eval.id, trace.STAGE_MATRIX_COMPRESS, _t_base, _t_base,
+            ann=matrix.class_index.stats(), trace_id=self.eval.trace_id)
         config = build_placement_config(
             self.batch, bool(getattr(self.planner, "pre_resolve", False)),
             self.kernel, placements, ask_arrays)
         key = host_prng_key(self.rng.getrandbits(31))
+        _t0 = time.monotonic()
         choices, scores = get_batcher(self.device).place(
-            matrix, asks, key, config)
+            matrix, asks, key, config,
+            span=(self.eval.id, self.eval.trace_id))
+        trace.record_span(self.eval.id, trace.STAGE_DEVICE_DISPATCH, _t0,
+                          trace_id=self.eval.trace_id)
 
         # Host-side exact port assignment per chosen node, incremental.
         net_indexes: Dict[str, NetworkIndex] = {}
@@ -295,12 +330,14 @@ class BatchedGPUScheduler(GenericScheduler):
         from ..models.matrix import ClusterMatrix
         from ..ops.binpack import host_prng_key
         from ..ops.gang import gang_placement
+        from ..utils import metrics as _metrics
 
         name = tg.name
         if self.failed_tg_allocs and name in self.failed_tg_allocs:
             self.failed_tg_allocs[name].coalesced_failures += len(tuples)
             return
 
+        _t0 = time.monotonic()
         # The matrix includes this plan's earlier staged legs (gang
         # replacement stops free their capacity through the proposed-
         # alloc overlay): the all-K pass must see the room the
@@ -309,10 +346,15 @@ class BatchedGPUScheduler(GenericScheduler):
         state, active, (ask_res, ask_bw, ask_ports), config = \
             build_gang_state(matrix, self.job, tg)
         key = host_prng_key(self.rng.getrandbits(31))
-        choices, scores, _slice_group = (
+        choices, scores, slice_group = (
             x.cpu().numpy() for x in gang_placement(
                 state, ask_res, ask_bw, ask_ports, active, key, config,
                 self.device))
+        trace.record_span(
+            self.eval.id, trace.STAGE_GANG_SELECT, _t0,
+            ann={"members": len(tuples), "mode": config.mode,
+                 "slice_group": int(slice_group)},
+            trace_id=self.eval.trace_id)
 
         if int(choices[0]) < 0:
             # Whole-gang reject on the device (no slice fits all K, or a
@@ -352,6 +394,8 @@ class BatchedGPUScheduler(GenericScheduler):
                     self.rng, missing, node, net_indexes, matrix)
             if task_resources is None:
                 self.plan.pop_gang(gkey)
+                _metrics.incr_counter(
+                    ("scheduler", "gang_port_fallback"), len(tuples))
                 self._place_gang_host(tg, tuples)
                 return
             self.plan.append_gang_alloc(gkey, _build_allocation(
@@ -381,6 +425,7 @@ class BatchedGPUScheduler(GenericScheduler):
         )
         from .util import ALLOC_PREEMPTED
 
+        _t0 = time.monotonic()
         # A FRESH matrix including this very plan's placements and staged
         # stops: the preemption pass must not claim headroom an earlier
         # ask of this same eval just took, and its victim lists must
@@ -417,6 +462,10 @@ class BatchedGPUScheduler(GenericScheduler):
             x.cpu().numpy() for x in preempt_placement(
                 state, victims, asks, key,
                 np.float32(self.eval.priority), config, self.device))
+        trace.record_span(
+            self.eval.id, trace.STAGE_PREEMPT_SELECT, _t0,
+            ann={"asks": len(pending), "candidates": n_candidates},
+            trace_id=self.eval.trace_id)
 
         net_indexes: Dict[str, NetworkIndex] = {}
         consumed: Dict[int, int] = {}
@@ -608,8 +657,9 @@ class DenseSystemScheduler(SystemScheduler):
     ever see candidate nodes.
 
     Host numpy only, as in the JAX package: no device is resolved and
-    no kernel launches. The reference's matrix-build trace span has no
-    counterpart (the port has no trace module yet)."""
+    no kernel launches. The pinned matrix build records matrix.build
+    (``pinned: True``) on the eval's trace, as the JAX package's
+    does."""
 
     def _diff_system(self, tainted, allocs, terminal_allocs):
         """Feasibility-gated diff (see dense_diff_system_allocs). A
@@ -637,6 +687,7 @@ class DenseSystemScheduler(SystemScheduler):
                 pinned_ids.append(nid)
         by_id = {n.id: n for n in self.nodes}
         pinned_nodes = [by_id[nid] for nid in pinned_ids if nid in by_id]
+        _t0 = time.monotonic()
         matrix = ClusterMatrix(self.state, self.job, self.plan,
                                nodes=pinned_nodes)
         matrix.nodes_by_dc = self.nodes_by_dc
@@ -646,6 +697,9 @@ class DenseSystemScheduler(SystemScheduler):
         placements = [tg_by_name[m.task_group.name] for m in place]
         resources, bw, ports, _tg_index, _active, _jdh, _tdh = \
             matrix.build_asks(placements)
+        trace.record_span(self.eval.id, trace.STAGE_MATRIX_BUILD, _t0,
+                          ann={"placements": len(place), "pinned": True},
+                          trace_id=self.eval.trace_id)
 
         util = matrix.util.copy()
         bw_used = matrix.bw_used.copy()

@@ -123,12 +123,12 @@ def test_concurrent_requests_share_one_dispatch():
 
 def test_place_cohort_matches_direct_program_and_never_parks():
     batcher = PlacementBatcher("cpu", window=0.25)
-    reqs = [(*tiny_inputs(seed=100 + i), CONFIG) for i in range(6)]
+    reqs = [(*tiny_inputs(seed=100 + i), CONFIG, None) for i in range(6)]
     before_threads = threading.active_count()
     results = batcher.place_cohort(reqs)
     assert threading.active_count() <= before_threads
     assert len(results) == 6
-    for (state, asks, key, _c), got in zip(reqs, results):
+    for (state, asks, key, _c, _s), got in zip(reqs, results):
         assert_result(got, direct(state, asks, key))
     stats = batcher.stats()
     assert stats["cohort_dispatches"] == 1
@@ -141,7 +141,8 @@ def test_place_cohort_groups_mixed_shapes():
     s1, a1, k1 = tiny_inputs(seed=1)
     s2, a2, k2 = tiny_inputs(n=64, k=4, seed=2)
     results = batcher.place_cohort([
-        (s1, a1, k1, CONFIG), (s2, a2, k2, CONFIG), (s1, a1, k1, CONFIG)])
+        (s1, a1, k1, CONFIG, None), (s2, a2, k2, CONFIG, None),
+        (s1, a1, k1, CONFIG, None)])
     assert len(results) == 3
     assert batcher.stats()["dispatches"] == 2
     for inputs, got in zip(((s1, a1, k1), (s2, a2, k2), (s1, a1, k1)),
@@ -180,7 +181,7 @@ def test_dispatch_error_propagates_to_all_requests(monkeypatch):
     assert len(errors) == 4
     assert all("device fault" in str(e) for e in errors)
     with pytest.raises(RuntimeError, match="device fault"):
-        batcher.place_cohort([(*tiny_inputs(), CONFIG)])
+        batcher.place_cohort([(*tiny_inputs(), CONFIG, None)])
 
 
 def test_gpu_scheduler_uses_batcher():
@@ -367,8 +368,8 @@ def test_mixed_tokens_fall_back_to_full_state_path():
         assert_result(got, direct(si, asks, ki))
     # Token-less requests of one cohort stack their full states.
     reqs = [(build_state(token=None, job_seed=i), asks, jb.host_prng_key(i),
-             CONFIG) for i in range(3)]
-    for (s, a, k, _c), got in zip(reqs, b.place_cohort(reqs)):
+             CONFIG, None) for i in range(3)]
+    for (s, a, k, _c, _s), got in zip(reqs, b.place_cohort(reqs)):
         assert_result(got, direct(s, a, k))
 
 
@@ -587,13 +588,14 @@ def test_place_cohort_matches_reference(pre_resolve, path, uniform):
         r0, p0 = _cohort(h, hp, job, 1, "compact", 900)
         ref.place_cohort([(m, jb.make_asks(*a), k, cj, None)
                           for m, a, k in r0])
-        port.place_cohort([(m, tb.make_asks(*a), k, ct) for m, a, k in p0])
+        port.place_cohort([(m, tb.make_asks(*a), k, ct, None)
+                           for m, a, k in p0])
         _add_filler_allocs(h, hp, rows=range(0, 60, 3), seed=7)
     rr, pr = _cohort(h, hp, job, 6, "compact" if path == "fused" else path,
                      1000)
     want = ref.place_cohort([(m, jb.make_asks(*a), k, cj, None)
                              for m, a, k in rr])
-    got = port.place_cohort([(m, tb.make_asks(*a), k, ct)
+    got = port.place_cohort([(m, tb.make_asks(*a), k, ct, None)
                              for m, a, k in pr])
     for w, g in zip(want, got):
         assert_result(g, w)
@@ -621,10 +623,11 @@ def test_cached_child_base_is_pre_placement():
                             uniform_dh=True)
     port = PlacementBatcher("cpu")
     _r, p0 = _cohort(h, hp, job, 1, "compact", 1)
-    port.place_cohort([(m, tb.make_asks(*a), k, ct) for m, a, k in p0])
+    port.place_cohort([(m, tb.make_asks(*a), k, ct, None)
+                       for m, a, k in p0])
     _add_filler_allocs(h, hp, rows=range(0, 40, 2), seed=8)
     _r, p1 = _cohort(h, hp, job, 3, "compact", 2)
-    got = port.place_cohort([(m, tb.make_asks(*a), k, ct)
+    got = port.place_cohort([(m, tb.make_asks(*a), k, ct, None)
                              for m, a, k in p1])
     assert port.stats()["fused_delta_updates"] == 1
     assert sum(int((c >= 0).sum()) for c, _s in got) > 0
@@ -693,7 +696,7 @@ def test_cohort_announcement_holds_the_window():
 
 def test_stats_report_occupancy_and_timings():
     b = PlacementBatcher("cpu")
-    reqs = [(*tiny_inputs(seed=i), CONFIG) for i in range(5)]
+    reqs = [(*tiny_inputs(seed=i), CONFIG, None) for i in range(5)]
     b.place_cohort(reqs)
     st = b.stats()
     assert st["dispatches"] == 1 and st["occupancy"] == 5.0
@@ -846,7 +849,7 @@ def test_pre_resolve_cohort_on_the_mesh_matches_reference(big_cluster,
         rr, pr = _cohort(h, hp, job, 6, "compact", seed + 10 * uniform)
         want = ref.place_cohort([(m, jb.make_asks(*a), k, cj, None)
                                  for m, a, k in rr])
-        got = port.place_cohort([(m, tb.make_asks(*a), k, ct)
+        got = port.place_cohort([(m, tb.make_asks(*a), k, ct, None)
                                  for m, a, k in pr])
         for w_, g_ in zip(want, got):
             assert_result(g_, w_)
@@ -891,14 +894,14 @@ def test_registered_kernel_over_a_sharded_base_raises(big_cluster,
         return program(shards, config, seq)
 
     monkeypatch.setattr(tconvex, "convex_shard_program", spy)
-    got = b.place_cohort([(m, asks, tb.host_prng_key(2), cfg)])
+    got = b.place_cohort([(m, asks, tb.host_prng_key(2), cfg, None)])
     want = ref.place_cohort([(rm, rasks, jb.host_prng_key(2), rcfg, None)])
     assert_result(got[0], want[0])
     assert (np.asarray(got[0][0]) >= 0).sum() == 4
     rr, pr = _cohort(h, hp, job, 3, "compact", 77)
     cfg, rcfg = cfg._replace(pre_resolve=True), rcfg._replace(
         pre_resolve=True)
-    got = b.place_cohort([(m_, tb.make_asks(*a), k, cfg)
+    got = b.place_cohort([(m_, tb.make_asks(*a), k, cfg, None)
                           for m_, a, k in pr])
     want = ref.place_cohort([(m_, jb.make_asks(*a), k, rcfg, None)
                              for m_, a, k in rr])
