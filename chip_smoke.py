@@ -237,10 +237,47 @@ Phases (any failure exits non-zero and prints no result):
    and GC pauses, and each pair's on/off throughput ratio (printed,
    never a gate). All print as ``runtime figures: {...}``. The phase launches
    no kernel of its own.
+12. Config 8 through the port's dev-mode ``Server`` (bench.py:1210
+   ``config_8``, the dense arm of ``_live_pipeline``, bench.py:985-1140),
+   after phase 11 (c), on the ServerConfig default path: the dispatch
+   pipeline, 4 workers, ``{"service": "service-gpu"}``, nack timeout
+   60 s. 10,000 mock nodes through ``log.apply("node_register")`` and 5
+   filler allocs a node (cpu 50/100, memory 64/128, no networks, from
+   ``--seed``) through ``alloc_update``; two unmeasured warm waves of 60
+   jobs (one group of 8, cpu 20, 16 MB, dynamic ports, distinct_hosts),
+   each registered with the workers parked, released, waited on and
+   deregistered the same way; the measured storm of 60 such jobs (K5a
+   uniform, K3; its base is the warm waves' re-keyed); a greedy wave of
+   16 two-group jobs of phase 4's 512 + 512 shape (K0, K5a greedy, K3,
+   K4 on the delta after the storm's commits), each placing what the
+   host oracle places on the state before the wave, every placement
+   feasible on its node (``check_placements``); a wave with
+   ``pre_resolve`` off (8 config 8 jobs and 8 two-group jobs of 32 + 32
+   small asks: K2 and K1's independent forms, rejections back through
+   the pipeline's conflict requeue); the same with 16 two-group jobs
+   of phase 4's networked asks, 64 + 64 (K1), held to every eval
+   terminal, a failed one only on the scheduler's attempt limit, and
+   every applier rejection of a dense plan explained by a commit after
+   its matrix; 6 lone registrations on an idle
+   broker, each routed to the host factory (no launch). Holds: every
+   eval complete; 480 of 480 storm allocs, each job on 8 distinct
+   nodes; no node holds a port twice and every node's live allocs fit
+   (``allocs_fit``) in the final state; in the storm no eval routed to
+   the host on its first delivery (a conflict requeue that comes back
+   alone takes the host route, as in the reference: two batch members
+   can offer one dynamic port on a node) and no rejection of a dense
+   plan that its matrix cannot explain; the pipeline's ``routed_host``
+   is 6 over the lone evals; no ERROR record on the port's loggers. Prints evals/s, p50/p99 per eval from release to
+   complete, the lone p50/p99 from register to complete, the batcher's
+   dispatches, occupancy and stack/issue/sync, the pipeline's batches,
+   occupancy and retries per eval, the applier's rejections, the
+   storm's gen-2 GC pauses and the flight recorder's stage table over
+   the storm, as ``server storm figures: {...}``.
 
-Every path of phases 3 to 6, 8, 9, 10 and 11 (c) runs with the launch
-counts set to 0 just before it and read just after, and fails if a
-kernel of that path was never launched (10a: if any kernel was).
+Every path of phases 3 to 6, 8, 9, 10, 11 (c) and 12 runs with the
+launch counts set to 0 just before it and read just after, and fails if
+a kernel of that path was never launched (10a and 12's lone evals: if
+any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -283,6 +320,10 @@ ALLOCS_PER_NODE = 5
 BENCH_N = 10_240  # the node bucket of 10,000 nodes
 BENCH_K = 1_024   # the ask bucket of eval (b)
 RUNS = 20         # timed runs per kernel, after warm-up
+# Timed runs of the greedy scans' plain versions (2-9 s a call on the
+# card at K = 1,024 or B = 64; checked against the kernel just before,
+# so no warm-up): one keeps the smoke's wall time for phase 12.
+SLOW_PLAIN_RUNS = 1
 
 # Bytes of one node's static row (capacity, sched_capacity, bw_avail,
 # node_ok); of one carried row, read once or written back once (util,
@@ -931,11 +972,15 @@ class ScanModes:
 SCAN_MODES = {}
 
 
+# ``counted``'s ``absent`` for a path that may launch no kernel at all.
+ANY_KERNEL = "any kernel"
+
+
 def counted(total, label, names, fn, absent=()):
     """Run one path with the launch counts set to 0 just before it and
     read just after; fail if a kernel of the path never launched, or if
-    a kernel of ``absent`` did. The greedy scan's launches are tallied
-    by noise mode (``ScanModes``)."""
+    a kernel of ``absent`` did (every kernel, with ``ANY_KERNEL``). The
+    greedy scan's launches are tallied by noise mode (``ScanModes``)."""
     from nomad_tpu_torch.ops import cuda
 
     cuda.reset_launch_counts()
@@ -944,7 +989,8 @@ def counted(total, label, names, fn, absent=()):
     counts = cuda.launch_counts()
     print(f"{label} launches: {json.dumps(counts, sort_keys=True)}")
     require_launches(counts, label, names)
-    require_no_launches(counts, label, absent)
+    require_no_launches(counts, label,
+                        sorted(counts) if absent == ANY_KERNEL else absent)
     total.update(counts)
     return out
 
@@ -2443,11 +2489,12 @@ def bench_kernels(torch, np, seed):
         ms = time_cuda(torch, lambda: binpack.greedy_scan(
             *static, box["c"], feas, asks, draw, 10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
-            *static, box["c"], feas, asks, noise, 10.0), 3, warmup=1,
-            setup=fresh)
+            *static, box["c"], feas, asks, noise, 10.0), SLOW_PLAIN_RUNS,
+            warmup=0, setup=fresh)
         del noise
         fig = greedy_figures(torch, "greedy_scan", False, static, feas, asks,
                              draw, fresh, box, ms)
+        fig["plain_runs"] = SLOW_PLAIN_RUNS
         # Node rows, the carry and feasible read once, every ask and its
         # two outputs, the distinct_hosts flags, the keys, and the chosen
         # rows written back once; the draw's instructions (K0's, an
@@ -2730,13 +2777,14 @@ def bench_new_kernels(torch, np, seed):
             *static, box["c"], feas, asks, draw, 10.0, True), RUNS,
             setup=fresh)
         plain_ms = time_cuda(torch, lambda: binpack.greedy_scan_plain(
-            *static, box["c"], feas, asks, noise, 10.0, True), 3, warmup=1,
-            setup=fresh)
+            *static, box["c"], feas, asks, noise, 10.0, True),
+            SLOW_PLAIN_RUNS, warmup=0, setup=fresh)
         del noise
         k0_ms = time_cuda(torch, lambda: prng.threefry_uniform(
             keys, (k, n), 0.0, 2.0), RUNS)
         fig = greedy_figures(torch, "greedy_scan_seq", True, static, feas,
                              asks, draw, fresh, box, ms)
+        fig["plain_runs"] = SLOW_PLAIN_RUNS
         rows, cells = rows_written(torch, ch, asks.tg_index, n, g)
         nodes = torch.unique(ch[ch >= 0]).numel()
         chain = chain_ms(torch, b * k, dev)
@@ -2835,7 +2883,8 @@ def bench_new_kernels(torch, np, seed):
                                          10.0), RUNS, setup=fresh)
         plain_ms = time_cuda(torch, lambda: plain(
             *static, box["c"], feas, a, noise, 10.0),
-            3 if greedy else RUNS, warmup=1, setup=fresh)
+            SLOW_PLAIN_RUNS if greedy else RUNS, warmup=0 if greedy else 1,
+            setup=fresh)
         rows, cells = rows_written(torch, ch, a.tg_index, n, g)
         lib_ms = None
         k0_ms = time_cuda(torch, lambda: prng.threefry_uniform(
@@ -2843,8 +2892,10 @@ def bench_new_kernels(torch, np, seed):
         draw_s = noise.numel() * sass["seconds_per_element"]
         del noise
         if greedy:
-            extra = dict(chain_ms=chain_ms(torch, k, dev), **greedy_figures(
-                torch, name, False, static, feas, a, draw, fresh, box, ms))
+            extra = dict(chain_ms=chain_ms(torch, k, dev),
+                         plain_runs=SLOW_PLAIN_RUNS, **greedy_figures(
+                             torch, name, False, static, feas, a, draw,
+                             fresh, box, ms))
             chain = extra["chain_ms"]
             bytes_ = (b * n * (NODE_BYTES + CARRY_ROW_BYTES + 5 * g)
                       + b * k * (ASK_BYTES + 8) + b * (1 + g) + b * 16
@@ -5214,6 +5265,647 @@ def run_runtime_cost(seed, torch, total):
             "cost_on_off_p99": p99_ratios}
 
 
+# ------------------------------------ config 8 through the Server (phase 12)
+
+# The JAX package's bench config 8 (bench.py:1210 ``config_8``, the
+# dense arm of ``_live_pipeline``, bench.py:985-1140) through the port's
+# dev-mode Server on the ServerConfig default path (dispatch pipeline,
+# no executive): 10,000 nodes, 5 filler allocs each, 60 jobs x 8 allocs
+# with dynamic ports and distinct_hosts, 2 warm waves, 6 lone evals.
+SERVER_NODES = 10_000
+SERVER_ALLOCS_PER_NODE = 5
+SERVER_JOBS = 60
+SERVER_COUNT = 8
+SERVER_WARM_WAVES = 2
+SERVER_LONE = 6
+SERVER_GREEDY_JOBS = 16
+SERVER_GREEDY_COUNT = 512
+# The pre_resolve-off wave: config 8's job and a two-group job of small
+# asks without networks, whose rejections come back through the
+# pipeline's conflict requeue; every eval must end complete. Then the
+# same with phase 4's networked two-group asks: that wave collides so
+# often that an eval can end failed on the scheduler's attempt limit
+# (five plans in a row rejected whole: the reference's rule, to which
+# tests/test_torch_server_e2e_parity.py holds the port, with the
+# networked wave at a small size). It is held to what that rule fixes:
+# every eval terminal, a failed one only on the attempt limit, every
+# rejection of a dense plan explained by a commit its matrix could not
+# see.
+SERVER_OFF_JOBS = 8
+SERVER_OFF_COUNT = 32
+SERVER_NET_JOBS = 16
+SERVER_NET_COUNT = 64
+SERVER_WAIT_S = 300.0
+# The kernels each window must launch. The storm's base is the warm
+# waves' (their allocs were stopped again: the base is re-keyed, no
+# delta); the greedy wave's is a delta of it after the storm's commits
+# (K4), and with pre_resolve off the batched evals run K2's and K1's
+# independent forms.
+SERVER_KERNELS = {
+    "storm": ("uniform_topk_seq", "expand_overlay"),
+    "greedy": ("threefry_uniform", "greedy_scan_seq", "expand_overlay",
+               "base_delta"),
+    "pre_resolve off": ("uniform_topk", "greedy_scan", "expand_overlay"),
+}
+
+
+class ErrorRecords(logging.Handler):
+    """Every ERROR (or worse) record of the port's loggers while the
+    block runs: the server, workers, pipeline and applier log a failed
+    eval or launch there."""
+
+    def __init__(self, logger="nomad_tpu_torch"):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+        self._logger = logging.getLogger(logger)
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+
+class EvalClock:
+    """When each eval reached a terminal status: wraps the FSM's
+    eval_update handler (the commit every status change passes)."""
+
+    def __init__(self, server):
+        from nomad_tpu_torch.server import fsm as fsm_msgs
+        from nomad_tpu_torch.structs import consts
+
+        self.done = {}
+        self.status = {}
+        terminal = (consts.EVAL_STATUS_COMPLETE, consts.EVAL_STATUS_FAILED,
+                    consts.EVAL_STATUS_CANCELLED)
+        handlers = server.fsm._handlers
+        inner = handlers[fsm_msgs.EVAL_UPDATE]
+
+        def timed(index, payload):
+            out = inner(index, payload)
+            now = time.perf_counter()
+            for ev in payload["evals"]:
+                if ev.status in terminal and ev.id not in self.done:
+                    self.done[ev.id] = now
+                    self.status[ev.id] = ev.status
+            return out
+
+        handlers[fsm_msgs.EVAL_UPDATE] = timed
+
+    def wait(self, label, eval_ids, timeout=SERVER_WAIT_S,
+             allowed=("complete",)):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if all(e in self.done for e in eval_ids):
+                break
+            time.sleep(0.002)
+        missing = [e for e in eval_ids if e not in self.done]
+        check(not missing, f"{label}: {len(missing)} of {len(eval_ids)} "
+              f"evals not terminal after {timeout:.0f} s")
+        bad = {self.status[e] for e in eval_ids} - set(allowed)
+        check(not bad, f"{label}: evals ended {sorted(bad)}")
+
+
+class Batches:
+    """The sizes of the pipeline's batches launched inside the block,
+    each with its evals' conflict requeues: a batch smaller than
+    ``dense_min_batch`` runs on the host factory."""
+
+    def __init__(self, server):
+        self.pipeline = server.dispatch
+        self.seen = []
+
+    def __enter__(self):
+        launch = self.pipeline._launch
+
+        def logged(batch):
+            self.seen.append([entry.requeues for entry in batch])
+            return launch(batch)
+
+        self.pipeline._launch = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipeline._launch
+
+    def routed(self, min_batch):
+        """The requeue counts of the evals in host-routed batches."""
+        return [r for batch in self.seen if len(batch) < min_batch
+                for r in batch]
+
+
+class Rejections:
+    """The applier's node rejections inside the block, by the dimension
+    ``allocs_fit`` names and by kind: "ordinary" (an optimistic-
+    concurrency loss: a commit after the plan's matrix), "host plan" (a
+    plan of the host factory, which has no matrix: the applier cannot
+    tell, and notes stale state to be safe) or "suspect" (a dense plan
+    whose matrix's own snapshot refutes it: the device state was
+    wrong), with the first suspects' details and the stale-state
+    notes."""
+
+    def __enter__(self):
+        from nomad_tpu_torch.models import resident
+        from nomad_tpu_torch.scheduler.util import proposed_allocs_for_node
+        from nomad_tpu_torch.server import plan_apply
+        from nomad_tpu_torch.structs import allocs_fit
+
+        self.tally, self.stale, self.suspects = Counter(), 0, []
+        self.plan_apply, self.resident = plan_apply, resident
+        self.evaluate = plan_apply.evaluate_node_plan
+        self.note = resident.note_rejection
+
+        def evaluate(snapshot, plan, node_id):
+            ok = self.evaluate(snapshot, plan, node_id)
+            if not ok:
+                node = snapshot.node_by_id(node_id)
+                dim = "node"
+                if node is not None and plan.node_allocation.get(node_id):
+                    _, dim, _ = allocs_fit(node, proposed_allocs_for_node(
+                        snapshot, plan, node_id))
+                if plan.matrix_index < 0:
+                    kind = "host plan"
+                elif plan_apply.PlanApplier._ordinary_conflict(
+                        snapshot, plan, node_id):
+                    kind = "ordinary"
+                else:
+                    kind = "suspect"
+                    base = getattr(snapshot, "base", snapshot)
+                    self.suspects.append(dict(
+                        eval=plan.eval_id, node=node_id,
+                        matrix_index=plan.matrix_index,
+                        node_index=getattr(node, "modify_index", None),
+                        alloc_index=max((a.modify_index for a in
+                                         base.allocs_by_node(node_id)),
+                                        default=None)))
+                self.tally[f"{dim}, {kind}"] += 1
+            return ok
+
+        def note():
+            self.stale += 1
+            return self.note()
+
+        plan_apply.evaluate_node_plan = evaluate
+        resident.note_rejection = note
+        return self
+
+    def __exit__(self, *exc):
+        self.plan_apply.evaluate_node_plan = self.evaluate
+        self.resident.note_rejection = self.note
+
+
+def paused(server):
+    """Pause every worker and wait until each is parked (outside any
+    broker dequeue), so the evals registered next stay ready."""
+    for w in server.workers:
+        w.set_pause(True)
+    deadline = time.perf_counter() + 10.0
+    while not all(w.parked() for w in server.workers):
+        check(time.perf_counter() < deadline, "workers did not park")
+        time.sleep(0.002)
+
+
+def release(server):
+    for w in server.workers:
+        w.set_pause(False)
+
+
+def server_job(job_id, count=SERVER_COUNT):
+    """bench.py ``_live_pipeline``'s make_job for config 8: one group,
+    dynamic ports, distinct_hosts, cpu 20, 16 MB."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Constraint, consts
+
+    job = mock.job()
+    job.id = job_id
+    job.type = consts.JOB_TYPE_SERVICE
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.constraints.append(Constraint(operand=consts.CONSTRAINT_DISTINCT_HOSTS))
+    tg.tasks[0].resources.cpu = 20
+    tg.tasks[0].resources.memory_mb = 16
+    return job
+
+
+SERVER_ALLOC_CHUNK = 1_000  # nodes' filler allocs a log entry
+
+
+def server_greedy_job(job_id, count, small=False):
+    """Phase 4's two-group job in the server cluster's datacenter (the
+    mock nodes are all in dc1), so its base is in the storm's family;
+    ``small``: cpu 20, 16 MB and no networks in both groups."""
+    job = two_group_job_id(job_id, count)
+    job.datacenters = ["dc1"]
+    if small:
+        for tg in job.task_groups:
+            res = tg.tasks[0].resources
+            res.cpu, res.memory_mb, res.networks = 20, 16, []
+    return job
+
+
+def build_server_cluster(server, n_nodes, allocs_per_node, seed):
+    """bench.py:1047-1069 through the log: each node by
+    ``node_register``, then the filler allocs (cpu 50/100, memory
+    64/128, no networks, from ``seed``) by ``alloc_update``, those of
+    SERVER_ALLOC_CHUNK nodes an entry. (bench.py writes each node's
+    allocs right after the node: the FSM's node_register reads a
+    snapshot, so every later write copies the alloc table, quadratic in
+    the cluster; the allocs and their values are the same.)"""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import consts
+
+    rng = random.Random(seed)
+    filler = mock.job()
+    filler.id = "filler"
+    filler.type = consts.JOB_TYPE_SERVICE
+    filler.task_groups[0].tasks[0].resources.networks = []
+    fills = []
+    for i in range(n_nodes):
+        node = mock.node()
+        node.compute_class()
+        server.log.apply("node_register", {"node": node})
+        for _ in range(allocs_per_node):
+            alloc = mock.alloc()
+            alloc.node_id = node.id
+            alloc.job_id = filler.id
+            alloc.job = filler
+            alloc.desired_status = consts.ALLOC_DESIRED_RUN
+            alloc.client_status = consts.ALLOC_CLIENT_RUNNING
+            for tr in alloc.task_resources.values():
+                tr.cpu = rng.choice([50, 100])
+                tr.memory_mb = rng.choice([64, 128])
+                tr.networks = []
+            alloc.resources = None
+            fills.append(alloc)
+        if (i + 1) % SERVER_ALLOC_CHUNK == 0 or i + 1 == n_nodes:
+            server.log.apply("alloc_update", {"allocs": fills})
+            fills = []
+
+
+def server_wave(server, clock, label, jobs):
+    """Register ``jobs`` with every worker parked, release, and wait
+    until each eval is complete. Returns (eval ids, released-at)."""
+    paused(server)
+    evs = [server.job_register(job)[0] for job in jobs]
+    start = time.perf_counter()
+    release(server)
+    clock.wait(label, evs)
+    return evs, start
+
+
+def server_deregister(server, clock, label, jobs):
+    """Deregister ``jobs`` the same way (their stop evals as one
+    storm), so the next wave starts on an idle broker."""
+    paused(server)
+    evs = [server.job_deregister(job.id) for job in jobs]
+    release(server)
+    clock.wait(label, evs)
+
+
+def check_server_state(server, jobs, count, label, distinct=True):
+    """Each job holds ``count`` live allocs (on ``count`` distinct
+    nodes where the job asks for distinct hosts)."""
+    state = server.fsm.state
+    for job in jobs:
+        live = [a for a in state.allocs_by_job(job.id)
+                if not a.terminal_status()]
+        check(len(live) == count,
+              f"{label}: job {job.id} holds {len(live)} of {count} allocs")
+        nodes = {a.node_id for a in live}
+        check(not distinct or len(nodes) == count,
+              f"{label}: job {job.id} on {len(nodes)} distinct nodes")
+
+
+def check_server_nodes(server):
+    """On every node of the final state: no port held twice, and the
+    live allocs fit (``allocs_fit``)."""
+    from nomad_tpu_torch.structs import allocs_fit
+
+    state = server.fsm.state
+    checked = 0
+    for node in state.nodes():
+        live = state.allocs_by_node_terminal(node.id, False)
+        seen = set()
+        for a in live:
+            for tr in (a.task_resources or {}).values():
+                for net in tr.networks or []:
+                    for port in (list(net.reserved_ports)
+                                 + list(net.dynamic_ports)):
+                        check(port.value not in seen,
+                              f"node {node.id}: port {port.value} held "
+                              "twice")
+                        seen.add(port.value)
+        fit, dim, _ = allocs_fit(node, live)
+        check(fit, f"node {node.id} over capacity ({dim})")
+        checked += 1
+    return checked
+
+
+def run_server_storm(seed, torch, total):
+    """Phase 12 (see the module docstring): config 8 through the port's
+    Server. Adds each window's launch counts to ``total``; returns the
+    phase's figures."""
+    import numpy as np
+
+    from nomad_tpu_torch import trace
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import Plan
+
+    figures = {}
+    with ErrorRecords() as errors:
+        server = Server(ServerConfig(
+            num_schedulers=4, scheduler_factories={"service": "service-gpu"},
+            eval_nack_timeout=60.0))
+        server.start()
+        try:
+            clock = EvalClock(server)
+            t0 = time.perf_counter()
+            build_server_cluster(server, SERVER_NODES,
+                                 SERVER_ALLOCS_PER_NODE, seed + 11)
+            figures["cluster_build_s"] = time.perf_counter() - t0
+            print(f"server cluster: {SERVER_NODES} nodes, "
+                  f"{len(server.fsm.state.allocs())} allocs through the "
+                  f"log in {figures['cluster_build_s']:.1f} s (host)")
+            batcher = get_batcher()
+            for w in range(SERVER_WARM_WAVES):
+                warm = [server_job(f"warm{w}-{j}")
+                        for j in range(SERVER_JOBS)]
+                t0 = time.perf_counter()
+                server_wave(server, clock, f"server warm wave {w}", warm)
+                check_server_state(server, warm, SERVER_COUNT,
+                                   f"server warm wave {w}")
+                server_deregister(server, clock, f"server warm dereg {w}",
+                                  warm)
+                print(f"server warm wave {w}: {SERVER_JOBS} jobs placed and "
+                      f"stopped in {time.perf_counter() - t0:.1f} s")
+
+            jobs = [server_job(f"e2e-{j}") for j in range(SERVER_JOBS)]
+            stats0 = batcher.stats()
+            pipe0 = server.dispatch.stats()
+            applier0 = server.plan_applier.stats()
+            trace.get_recorder().reset()
+            with GcPauses() as gc_pauses, Batches(server) as launched, \
+                    Rejections() as rej:
+                evs, start = counted(
+                    total, "server storm", SERVER_KERNELS["storm"],
+                    lambda: server_wave(server, clock, "server storm",
+                                        jobs), DRAWN_IN_SCANS)
+            wall = max(clock.done[e] for e in evs) - start
+            lat = [clock.done[e] - start for e in evs]
+            check_server_state(server, jobs, SERVER_COUNT, "server storm")
+            stats = stats_delta(stats0, batcher.stats())
+            pipe = server.dispatch.stats()
+            pipe_d = stats_delta(pipe0, pipe)
+            applier = stats_delta(applier0, server.plan_applier.stats())
+            placed = sum(len(server.fsm.state.allocs_by_job(j.id))
+                         for j in jobs)
+            check(placed == SERVER_JOBS * SERVER_COUNT,
+                  f"server storm placed {placed}")
+            # Two batch members may offer one dynamic port on a node
+            # (the host draws ports per eval, in both packages): the
+            # applier rejects the second, whose requeue can come back
+            # alone and take the host route, as in the reference. No
+            # storm eval goes to the host on its first delivery.
+            retried = launched.routed(server.config.dense_min_batch)
+            print(f"  batches launched (evals): "
+                  f"{[len(b) for b in launched.seen]}; rejections "
+                  f"{json.dumps(dict(rej.tally), sort_keys=True)}")
+            check(pipe_d["routed_host"] == len(retried)
+                  and all(r > 0 for r in retried),
+                  f"server storm: {pipe_d['routed_host']} evals routed to "
+                  f"the host, requeues {retried}")
+            check(not rej.suspects, f"server storm: rejections of dense "
+                  f"plans that their matrix cannot explain "
+                  f"{json.dumps(rej.suspects[:5])}")
+            batches = max(pipe_d["batches"], 1)
+            done = pipe_d["acked"] + pipe_d["nacked"]
+            figures.update(
+                evals=SERVER_JOBS, placed=placed,
+                evals_per_s=SERVER_JOBS / wall,
+                p50_ms=float(np.percentile(lat, 50)) * 1000.0,
+                p99_ms=float(np.percentile(lat, 99)) * 1000.0,
+                dispatches=stats["dispatches"],
+                occupancy=stats["batched_requests"]
+                / max(stats["dispatches"], 1),
+                stack_ms=stats["stack_us"] / 1000.0,
+                issue_ms=stats["issue_us"] / 1000.0,
+                sync_ms=stats["sync_us"] / 1000.0,
+                pipeline_batches=pipe_d["batches"],
+                pipeline_occupancy=pipe_d["dispatched_evals"] / batches,
+                retries_per_eval=(pipe_d["requeues"]
+                                  + pipe_d["inline_retries"])
+                / max(done, 1),
+                plan_conflicts=pipe_d["plan_conflicts"],
+                routed_retries=len(retried),
+                nodes_rejected=applier["nodes_rejected"],
+                **gc_pauses.summary())
+            print(f"server storm: {SERVER_JOBS} evals in {wall:.3f} s = "
+                  f"{figures['evals_per_s']:.2f} evals/s; per eval from "
+                  f"release to complete p50 {figures['p50_ms']:.2f} ms, p99 "
+                  f"{figures['p99_ms']:.2f} ms; {placed} allocs placed")
+            print(f"  batcher: {stats['dispatches']} dispatches, occupancy "
+                  f"{figures['occupancy']:.1f}, stack "
+                  f"{figures['stack_ms']:.1f} ms, issue "
+                  f"{figures['issue_ms']:.1f} ms, sync "
+                  f"{figures['sync_ms']:.1f} ms")
+            print(f"  pipeline: {pipe_d['batches']} batches, occupancy "
+                  f"{figures['pipeline_occupancy']:.1f}, retries per eval "
+                  f"{figures['retries_per_eval']:.4f}, plan conflicts "
+                  f"{pipe_d['plan_conflicts']}; applier: nodes rejected "
+                  f"{applier['nodes_rejected']}, plans rejected "
+                  f"{applier['plans_rejected']}")
+            print(f"  garbage collection in the storm: "
+                  f"{json.dumps(gc_pauses.summary(), sort_keys=True)}")
+            # The flight recorder's stage table over the storm alone:
+            # where an eval's time goes from the broker to the commit.
+            stages = trace.get_recorder().stage_stats()
+            check(stages.get("e2e", {}).get("count", 0) >= SERVER_JOBS,
+                  f"server storm: the recorder completed "
+                  f"{stages.get('e2e', {}).get('count', 0)} traces")
+            figures["storm_stages"] = stages
+            print("  stages (count, p50 / p99 / max ms): " + "; ".join(
+                f"{k} {v['count']}, {v['p50_ms']} / {v['p99_ms']} / "
+                f"{v['max_ms']}" for k, v in sorted(stages.items())))
+
+            # The greedy wave: phase 4's two-group shape through the
+            # server, held against the host oracle on the state before.
+            greedy = [server_greedy_job(f"server-greedy-{i}",
+                                        SERVER_GREEDY_COUNT)
+                      for i in range(SERVER_GREEDY_JOBS)]
+            want = greedy_oracle(server, greedy[0], seed)
+            stats0 = batcher.stats()
+            t0 = time.perf_counter()
+            counted(total, "server greedy wave", SERVER_KERNELS["greedy"],
+                    lambda: server_wave(server, clock, "server greedy wave",
+                                        greedy))
+            figures["greedy_wall_s"] = time.perf_counter() - t0
+            st = stats_delta(stats0, batcher.stats())
+            figures["greedy_dispatches"] = st["dispatches"]
+            figures["greedy_base_deltas"] = st["base_delta_updates"]
+            for job in greedy:
+                live = [a for a in server.fsm.state.allocs_by_job(job.id)
+                        if not a.terminal_status()]
+                check(len(live) == want, f"server greedy wave: job {job.id} "
+                      f"placed {len(live)}, the host oracle {want}")
+                committed = Plan()
+                for a in live:
+                    committed.node_allocation.setdefault(
+                        a.node_id, []).append(a)
+                check_placements(server.fsm.state, job, committed)
+            print(f"server greedy wave: {SERVER_GREEDY_JOBS} jobs x "
+                  f"{2 * SERVER_GREEDY_COUNT} asks in "
+                  f"{figures['greedy_wall_s']:.2f} s, {st['dispatches']} "
+                  f"dispatch(es), {st['base_delta_updates']} base "
+                  f"delta(s), sync {st['sync_us'] / 1000:.1f} ms; each "
+                  f"placed {want} as the host oracle does")
+
+            # With pre_resolve off (the ServerConfig knob, flipped for
+            # one wave) the batched evals run independent scans (K2 and
+            # K1) and collide; the applier's rejections come back
+            # through the pipeline's conflict requeue.
+            off_uniform = [server_job(f"server-off-{i}")
+                           for i in range(SERVER_OFF_JOBS)]
+            off_greedy = [server_greedy_job(f"server-off-greedy-{i}",
+                                            SERVER_OFF_COUNT, small=True)
+                          for i in range(SERVER_OFF_JOBS)]
+            pipe0 = server.dispatch.stats()
+            server.config.dense_pre_resolve = False
+            try:
+                counted(total, "server wave, pre_resolve off",
+                        SERVER_KERNELS["pre_resolve off"],
+                        lambda: server_wave(server, clock,
+                                            "server wave, pre_resolve off",
+                                            off_uniform + off_greedy))
+            finally:
+                server.config.dense_pre_resolve = True
+            check_server_state(server, off_uniform, SERVER_COUNT,
+                               "server wave, pre_resolve off")
+            check_server_state(server, off_greedy, 2 * SERVER_OFF_COUNT,
+                               "server wave, pre_resolve off",
+                               distinct=False)
+            pipe_d = stats_delta(pipe0, server.dispatch.stats())
+            figures["off_plan_conflicts"] = pipe_d["plan_conflicts"]
+            figures["off_requeues"] = pipe_d["requeues"]
+            print(f"server wave with pre_resolve off: "
+                  f"{2 * SERVER_OFF_JOBS} evals, plan conflicts "
+                  f"{pipe_d['plan_conflicts']}, requeues "
+                  f"{pipe_d['requeues']}, inline retries "
+                  f"{pipe_d['inline_retries']}")
+            figures["net"] = server_networked_wave(server, clock, total)
+
+            # Lone evals on an idle broker: latency-aware routing sends
+            # each to the host factory, so no kernel launches.
+            routed0 = server.dispatch.stats()["routed_host"]
+
+            def lone():
+                out = []
+                for i in range(SERVER_LONE):
+                    job = server_job(f"lone-{i}")
+                    t = time.perf_counter()
+                    ev, _ = server.job_register(job)
+                    clock.wait("server lone eval", [ev], 60.0)
+                    out.append(clock.done[ev] - t)
+                    check_server_state(server, [job], SERVER_COUNT,
+                                       "server lone eval")
+                return out
+
+            lone_lat = counted(total, "server lone evals", (), lone,
+                               ANY_KERNEL)
+            routed = server.dispatch.stats()["routed_host"] - routed0
+            check(routed == SERVER_LONE,
+                  f"server lone evals: routed_host {routed}, not "
+                  f"{SERVER_LONE}")
+            figures["lone_p99_ms"] = float(
+                np.percentile(lone_lat, 99)) * 1000.0
+            figures["lone_p50_ms"] = float(
+                np.percentile(lone_lat, 50)) * 1000.0
+            print(f"server lone evals: {SERVER_LONE}, all routed to the "
+                  f"host; register to complete p50 "
+                  f"{figures['lone_p50_ms']:.2f} ms, p99 "
+                  f"{figures['lone_p99_ms']:.2f} ms")
+            t0 = time.perf_counter()
+            figures["nodes_checked"] = check_server_nodes(server)
+            print(f"server final state: ports unique and allocs_fit on all "
+                  f"{figures['nodes_checked']} nodes "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            figures["pipeline"] = server.dispatch.stats()
+            figures["applier"] = server.plan_applier.stats()
+        finally:
+            server.shutdown()
+    check(not errors.records, f"server phase logged errors: "
+          f"{errors.records[:5]}")
+    return figures
+
+
+def server_networked_wave(server, clock, total):
+    """Phase 12's networked wave with pre_resolve off (see
+    SERVER_NET_JOBS): held to every eval terminal, a failed eval only on
+    the attempt limit, and no suspect rejection (``Rejections``);
+    returns its outcome."""
+    from nomad_tpu_torch.structs import consts
+
+    label = "server networked wave, pre_resolve off"
+    jobs = [server_greedy_job(f"server-net-{i}", SERVER_NET_COUNT)
+            for i in range(SERVER_NET_JOBS)]
+    pipe0 = server.dispatch.stats()
+    server.config.dense_pre_resolve = False
+    try:
+        with Rejections() as rej:
+            def wave():
+                paused(server)
+                evs = [server.job_register(job)[0] for job in jobs]
+                t = time.perf_counter()
+                release(server)
+                clock.wait(label, evs, allowed=(consts.EVAL_STATUS_COMPLETE,
+                                                consts.EVAL_STATUS_FAILED))
+                return evs, time.perf_counter() - t
+
+            evs, wall = counted(total, label, ("greedy_scan",
+                                               "expand_overlay"), wave)
+    finally:
+        server.config.dense_pre_resolve = True
+    state = server.fsm.state
+    statuses = Counter()
+    for e in evs:
+        ev = state.eval_by_id(e)
+        statuses[ev.status] += 1
+        check(ev.status == consts.EVAL_STATUS_COMPLETE
+              or ev.status_description.startswith("maximum attempts"),
+              f"{label}: eval {e} {ev.status}: {ev.status_description!r}")
+    check(not rej.suspects, f"{label}: rejections of dense plans that "
+          f"their matrix cannot explain {json.dumps(rej.suspects[:5])}; "
+          f"all rejections {json.dumps(rej.tally)}")
+    pipe_d = stats_delta(pipe0, server.dispatch.stats())
+    out = dict(
+        evals=len(evs), wall_s=wall, statuses=dict(statuses),
+        placed=sum(len([a for a in state.allocs_by_job(j.id)
+                        if not a.terminal_status()]) for j in jobs),
+        asks=2 * SERVER_NET_COUNT * len(jobs),
+        rejections=dict(rej.tally), stale_notes=rej.stale,
+        **{k: pipe_d[k] for k in ("batches", "plan_conflicts", "requeues",
+                                  "inline_retries", "routed_host")})
+    print(f"{label}: {len(evs)} evals of {2 * SERVER_NET_COUNT} networked "
+          f"asks in {wall:.2f} s: {json.dumps(out, sort_keys=True)}")
+    return out
+
+
+def greedy_oracle(server, job, seed):
+    """The placements the host "service" scheduler makes for ``job`` on
+    the server's state as it stands (nothing committed)."""
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.structs import consts, new_eval
+
+    state = StateStore.restore(server.fsm.state.persist())
+    state.upsert_job(state.latest_index() + 1, job)
+    ev = new_eval(state.job_by_id(job.id), consts.EVAL_TRIGGER_JOB_REGISTER)
+    return host_oracle_count(state, ev, seed, set())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5291,6 +5983,8 @@ def main(argv=None) -> int:
         print(f"system drain figures: {json.dumps(system, sort_keys=True)}")
         runtime.update(run_runtime_cost(args.seed, torch, total))
         print(f"runtime figures: {json.dumps(runtime, sort_keys=True)}")
+        server = run_server_storm(args.seed, torch, total)
+        print(f"server storm figures: {json.dumps(server, sort_keys=True)}")
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))

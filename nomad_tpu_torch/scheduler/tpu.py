@@ -207,6 +207,8 @@ class BatchedGPUScheduler(GenericScheduler):
         for tg, tuples in gang_sets:
             self._place_gang_dense(tg, tuples)
         if not place:
+            if gang_sets:
+                self._repay_cohort()
             return
         # Sticky-disk placements keep the host path (they pin to one node).
         sticky: List[AllocTuple] = []
@@ -228,6 +230,7 @@ class BatchedGPUScheduler(GenericScheduler):
                 remaining.append(missing)
         bulk = remaining
         if not bulk:
+            self._repay_cohort()
             return
         may_preempt = preemption_eligible(self.eval.priority)
         if len(bulk) <= 3 and not may_preempt:
@@ -235,6 +238,7 @@ class BatchedGPUScheduler(GenericScheduler):
             # iterators place a handful with identical semantics. A
             # preemption-eligible eval stays dense at any size: the host
             # iterators cannot evict.
+            self._repay_cohort()
             super()._compute_placements(bulk)
             return
 
@@ -263,6 +267,11 @@ class BatchedGPUScheduler(GenericScheduler):
             self.batch, bool(getattr(self.planner, "pre_resolve", False)),
             self.kernel, placements, ask_arrays)
         key = host_prng_key(self.rng.getrandbits(31))
+        # The announced place() call is about to arrive: mark the
+        # cohort unit consumed so the dispatch pipeline does not also
+        # repay it (place() itself decrements the batcher's counter).
+        if getattr(self.planner, "announced_cohort", False):
+            self.planner.announced_cohort = False
         _t0 = time.monotonic()
         choices, scores = get_batcher(self.device).place(
             matrix, asks, key, config,
@@ -319,6 +328,18 @@ class BatchedGPUScheduler(GenericScheduler):
                      ask_arrays[0], committed)
         if unplaced:
             self._preempt_placements(unplaced, tg_indices)
+
+    def _repay_cohort(self) -> None:
+        """Un-announce this eval's place() call: the dispatch pipeline
+        told the batcher a dispatch was coming (add_cohort), but this
+        eval took a host path instead — without the repayment the
+        batcher's window would stretch COHORT_WAIT_MAX for a request
+        that never arrives."""
+        if getattr(self.planner, "announced_cohort", False):
+            from .batcher import get_batcher
+
+            self.planner.announced_cohort = False
+            get_batcher(self.device).cohort_cancel(1)
 
     def _place_gang_dense(self, tg, tuples: List[AllocTuple]) -> None:
         """One gang's all-K dispatch (ops/gang.py, K7): per-node member

@@ -95,6 +95,39 @@ def test_dense_factory_needs_cuda_unless_cpu_is_asked_for():
         set_default_device("cpu")
 
 
+def test_the_port_carries_no_fault_injection_and_no_breaker():
+    """The JAX package's chaos module and device-path circuit breaker
+    are not carried: nothing under nomad_tpu_torch/ is named for them
+    or imports them, and the admission package exports no breaker."""
+    import importlib.util
+
+    import nomad_tpu_torch.admission as admission
+    import nomad_tpu_torch.dispatch.pipeline as pipeline
+
+    for name in ("chaos", "admission.breaker"):
+        assert importlib.util.find_spec(f"nomad_tpu_torch.{name}") is None
+    assert not [p for p in PORT.rglob("*.py")
+                if p.stem in ("chaos", "breaker")]
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+                names = []
+            else:
+                continue
+            bad = [m for m in mods + names
+                   if m.split(".")[-1] in ("chaos", "breaker")
+                   or m in ("get_breaker", "CircuitBreaker")]
+            assert not bad, f"{path} imports {bad}"
+    assert not hasattr(admission, "get_breaker")
+    assert not hasattr(admission, "CircuitBreaker")
+    assert "breaker_routed" not in pipeline.DispatchPipeline.stats.__code__.co_consts
+
+
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
     """A wrapper given a tensor on a device it has no kernel for
     raises; it never falls back to the plain version."""
