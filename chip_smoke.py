@@ -273,11 +273,44 @@ Phases (any failure exits non-zero and prints no result):
    occupancy and retries per eval, the applier's rejections, the
    storm's gen-2 GC pauses and the flight recorder's stage table over
    the storm, as ``server storm figures: {...}``.
+13. The scheduler executive and the live defrag loop through the port's
+   ``Server`` (``scheduler_executive=True``, 4 workers, 4 executive
+   threads, ``service-gpu``, nack timeout 60 s), after phase 12. (a)
+   Config 8 as bench.py's ``_live_pipeline`` runs it (bench.py:1035-1039,
+   :1210): phase 12's cluster, warm waves, storm and lone evals, the
+   warm waves and the storm registered with the workers and the
+   executive's drain parked. Holds: every eval complete, 480 of 480
+   allocs on 8 distinct nodes a job, ports unique and ``allocs_fit`` on
+   every node, the dispatch pipeline disabled, at least one cohort and
+   one fast eval, a cohort dispatch, K5a uniform (or K2) and K3
+   launched and no K0, no storm eval routed to the host on its first
+   delivery, no device fault, the 6 lone evals routed to the host with
+   no launch. Prints ``server executive figures: {...}`` (evals/s,
+   p50/p99 release to complete, lone p50/p99, the executive's cohorts,
+   occupancy, fast/legacy evals with reasons and drain/build/dispatch/
+   finalize time, the applier's counters, gen-2 GC pauses, the stage
+   table) and phase 12's pipeline figures beside them (printed, never a
+   gate). (b) Config 6 (bench.py:1197): 1,000 nodes, no fillers, 120
+   jobs x 4 allocs without networks, warm waves of 120, 12 lone evals:
+   held as (a), with two or more cohorts (``eval_batch_size`` 64) and
+   K5a greedy and K3 launched; ``server config 6 figures: {...}``. (c)
+   The live ``DefragLoop`` with ``defrag_enabled`` on phase 8's
+   fragmented layout at 10,000 nodes, loaded through the log, budget
+   16 (``migrate_max_parallel``), 16 moves a wave, stepped by an
+   injected clock for 6 rounds (bench.py:2569 ``_defrag_churn_arm``),
+   each wave's evals waited on until terminal (the executive's legacy
+   lane, ``service-gpu``, the applier, the FSM). Holds: every displaced
+   alloc in exactly one committed eviction leg, stopped, with one
+   replacement; the governor's high water within the budget and back at
+   0 after a settle tick; fragmentation never rising; one cold solve
+   then warm ones; K9 launched (the replacements prefer the solver's
+   targets, which the scheduler places on the host, so no scan
+   launches); no stale discard, lost wave or ERROR record. Prints ``server defrag figures: {...}``.
 
-Every path of phases 3 to 6, 8, 9, 10, 11 (c) and 12 runs with the
+Every path of phases 3 to 6, 8, 9, 10, 11 (c), 12 and 13 runs with the
 launch counts set to 0 just before it and read just after, and fails if
-a kernel of that path was never launched (10a and 12's lone evals: if
-any kernel was).
+a kernel of that path was never launched (10a's evals and the lone
+evals of 12 and 13: if any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -657,9 +690,11 @@ def stats_delta(before, after):
 
 
 def require_launches(counts, label, names):
+    """Each name launched on ``label`` (a tuple of names: any one)."""
     for name in names:
-        check(counts.get(name, 0) > 0,
-              f"kernel {name} never launched on {label}")
+        alts = name if isinstance(name, tuple) else (name,)
+        check(any(counts.get(n, 0) > 0 for n in alts),
+              f"kernel {' or '.join(alts)} never launched on {label}")
 
 
 # The uniform top-K (K2, K5 uniform, K10d on one card) draws its noise in
@@ -4229,15 +4264,33 @@ CHAOS_CAP = 0.1
 X_TOL = 5e-3
 
 
-def build_fragmented_cluster(harness, n_nodes):
-    """The defrag phase's cluster, tests/test_defrag.py's fragmented
+def harness_sink(harness):
+    """build_fragmented_cluster's writes into a Harness's store."""
+
+    def put_job(job):
+        harness.state.upsert_job(harness.next_index(), job)
+        return harness.state.job_by_id(job.id)
+
+    def put_node(node):
+        harness.state.upsert_node(harness.next_index(), node)
+
+    def put_allocs(allocs):
+        harness.state.upsert_allocs(harness.next_index(), allocs)
+
+    return put_job, put_node, put_allocs
+
+
+def build_fragmented_cluster(n_nodes, put_job, put_node, put_allocs):
+    """The defrag phases' cluster, tests/test_defrag.py's fragmented
     layout at full width: nodes of 1000 CPU / 1000 MB over dc1/dc2;
     two in five hold one 600/600 alloc of job "dfbig", two in five two
     300/300 allocs (jobs "dfs0", "dfs1"), one in five is empty. Every
     occupied node keeps 400 free, which fits a 300 but strands against
     a 600: consolidating the 300s is a strict fragmentation win. Job
     counts, alloc names and job references are the scheduler's, so a
-    wave eval reconciles to the marked moves only."""
+    wave eval reconciles to the marked moves only. Written through
+    ``put_job`` (returns the stored job), ``put_node`` and, after every
+    node, ``put_allocs`` (``harness_sink``, ``server_sink``)."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import Resources, consts
 
@@ -4251,8 +4304,7 @@ def build_fragmented_cluster(harness, n_nodes):
         task = job.task_groups[0].tasks[0]
         task.resources.cpu = task.resources.memory_mb = size
         task.resources.networks = []
-        harness.state.upsert_job(harness.next_index(), job)
-        jobs[jid] = harness.state.job_by_id(jid)
+        jobs[jid] = put_job(job)
     slot = Counter()
     allocs = []
     for i in range(n_nodes):
@@ -4261,7 +4313,7 @@ def build_fragmented_cluster(harness, n_nodes):
         node.resources.cpu = node.resources.memory_mb = 1000
         node.reserved = None
         node.compute_class()
-        harness.state.upsert_node(harness.next_index(), node)
+        put_node(node)
         for jid in {0: ("dfbig",), 1: ("dfbig",), 2: ("dfs0", "dfs1"),
                     3: ("dfs0", "dfs1")}.get(i % 5, ()):
             job = jobs[jid]
@@ -4277,7 +4329,7 @@ def build_fragmented_cluster(harness, n_nodes):
             a.desired_status = consts.ALLOC_DESIRED_RUN
             a.client_status = consts.ALLOC_CLIENT_RUNNING
             allocs.append(a)
-    harness.state.upsert_allocs(harness.next_index(), allocs)
+    put_allocs(allocs)
 
 
 def run_convex(seed, torch, total, main_h, storm_h):
@@ -4424,7 +4476,7 @@ def run_convex(seed, torch, total, main_h, storm_h):
 
     t0 = time.perf_counter()
     frag_h = Harness(seed=seed + 8)
-    build_fragmented_cluster(frag_h, N_NODES)
+    build_fragmented_cluster(N_NODES, *harness_sink(frag_h))
     print(f"defrag cluster: {N_NODES} nodes, {len(frag_h.state.allocs())} "
           f"allocs, built in {time.perf_counter() - t0:.1f} s (host)")
     warm = WarmState()
@@ -5459,12 +5511,15 @@ class Rejections:
 
 
 def paused(server):
-    """Pause every worker and wait until each is parked (outside any
-    broker dequeue), so the evals registered next stay ready."""
+    """Pause every worker and the executive's drain, and wait until each
+    is parked (outside any broker dequeue), so the evals registered next
+    stay ready. A disabled executive counts as parked."""
     for w in server.workers:
         w.set_pause(True)
+    server.executive.set_pause(True)
     deadline = time.perf_counter() + 10.0
-    while not all(w.parked() for w in server.workers):
+    while not (all(w.parked() for w in server.workers)
+               and server.executive.parked()):
         check(time.perf_counter() < deadline, "workers did not park")
         time.sleep(0.002)
 
@@ -5472,6 +5527,7 @@ def paused(server):
 def release(server):
     for w in server.workers:
         w.set_pause(False)
+    server.executive.set_pause(False)
 
 
 def server_job(job_id, count=SERVER_COUNT):
@@ -5541,7 +5597,8 @@ def build_server_cluster(server, n_nodes, allocs_per_node, seed):
                 tr.networks = []
             alloc.resources = None
             fills.append(alloc)
-        if (i + 1) % SERVER_ALLOC_CHUNK == 0 or i + 1 == n_nodes:
+        if fills and ((i + 1) % SERVER_ALLOC_CHUNK == 0
+                      or i + 1 == n_nodes):
             server.log.apply("alloc_update", {"allocs": fills})
             fills = []
 
@@ -5801,21 +5858,10 @@ def run_server_storm(seed, torch, total):
             # Lone evals on an idle broker: latency-aware routing sends
             # each to the host factory, so no kernel launches.
             routed0 = server.dispatch.stats()["routed_host"]
-
-            def lone():
-                out = []
-                for i in range(SERVER_LONE):
-                    job = server_job(f"lone-{i}")
-                    t = time.perf_counter()
-                    ev, _ = server.job_register(job)
-                    clock.wait("server lone eval", [ev], 60.0)
-                    out.append(clock.done[ev] - t)
-                    check_server_state(server, [job], SERVER_COUNT,
-                                       "server lone eval")
-                return out
-
-            lone_lat = counted(total, "server lone evals", (), lone,
-                               ANY_KERNEL)
+            lone_lat = lone_evals(
+                server, clock, total, "server",
+                [server_job(f"lone-{i}") for i in range(SERVER_LONE)],
+                SERVER_COUNT)
             routed = server.dispatch.stats()["routed_host"] - routed0
             check(routed == SERVER_LONE,
                   f"server lone evals: routed_host {routed}, not "
@@ -5840,6 +5886,26 @@ def run_server_storm(seed, torch, total):
     check(not errors.records, f"server phase logged errors: "
           f"{errors.records[:5]}")
     return figures
+
+
+def lone_evals(server, clock, total, label, jobs, count, distinct=True):
+    """Register ``jobs`` one at a time on an idle broker, each waited on
+    until complete and holding ``count`` allocs. Latency-aware routing
+    sends each lone eval to the host factory, so the window fails on any
+    launch. Returns each eval's seconds from register to complete."""
+
+    def lone():
+        out = []
+        for job in jobs:
+            t = time.perf_counter()
+            ev, _ = server.job_register(job)
+            clock.wait(f"{label} lone eval", [ev], 60.0)
+            out.append(clock.done[ev] - t)
+            check_server_state(server, [job], count, f"{label} lone eval",
+                               distinct)
+        return out
+
+    return counted(total, f"{label} lone evals", (), lone, ANY_KERNEL)
 
 
 def server_networked_wave(server, clock, total):
@@ -5904,6 +5970,409 @@ def greedy_oracle(server, job, seed):
     state.upsert_job(state.latest_index() + 1, job)
     ev = new_eval(state.job_by_id(job.id), consts.EVAL_TRIGGER_JOB_REGISTER)
     return host_oracle_count(state, ev, seed, set())
+
+
+# --------------- configs 8 and 6 through the executive, the live defrag
+# loop (phase 13)
+
+# bench.py's ``_live_pipeline`` runs its dense arm with the scheduler
+# executive on (bench.py:1035-1039): config 8 (bench.py:1210) at phase
+# 12's size, and config 6 (bench.py:1197: 1,000 nodes, no fillers, 120
+# jobs x 4 allocs, no networks, no distinct_hosts; warm waves of
+# max(40, 120) jobs; 12 lone evals).
+EXECUTIVE_THREADS = 4
+CONFIG6_NODES = 1_000
+CONFIG6_JOBS = 120
+CONFIG6_COUNT = 4
+CONFIG6_LONE = 12
+# The kernels each storm must launch (a tuple: any one of them): config
+# 8's uniform distinct_hosts asks under pre_resolve (K5a uniform, or K2)
+# and K3; config 6's greedy asks (K5a greedy) and K3.
+EXECUTIVE_KERNELS = {
+    "config 8": (("uniform_topk_seq", "uniform_topk"), "expand_overlay"),
+    "config 6": ("greedy_scan_seq", "expand_overlay"),
+}
+# The live defrag loop (bench.py:2569 ``_defrag_churn_arm``'s knobs):
+# phase 8's fragmented layout at 10,000 nodes through the Server's log,
+# stepped by an injected clock.
+DEFRAG_LIVE_ROUNDS = 6
+DEFRAG_LIVE_MOVES = 16   # defrag_max_moves_per_wave
+DEFRAG_LIVE_BUDGET = 16  # migrate_max_parallel
+# bench.py's arm gates a round on a gain of 0.001 over 200 nodes; a wave
+# of 16 moves over 10,000 nodes gains about 0.0005 (the fragmentation
+# is a cluster-wide share), so the gate scales with the node count.
+DEFRAG_LIVE_MIN_GAIN = 0.0001
+DEFRAG_LIVE_STEP = 20_000.0  # the injected clock between rounds (s)
+
+
+def config6_job(job_id):
+    """bench.py ``_live_pipeline``'s make_job for config 6: one group of
+    4, cpu 20, 16 MB, no networks, no distinct_hosts."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import consts
+
+    job = mock.job()
+    job.id = job_id
+    job.type = consts.JOB_TYPE_SERVICE
+    tg = job.task_groups[0]
+    tg.count = CONFIG6_COUNT
+    tg.tasks[0].resources.networks = []
+    tg.tasks[0].resources.cpu = 20
+    tg.tasks[0].resources.memory_mb = 16
+    return job
+
+
+class Cohorts:
+    """The eval ids of each cohort the executive processed inside the
+    block: a cohort smaller than ``dense_min_batch`` runs on the host
+    factories."""
+
+    def __init__(self, server):
+        self.executive = server.executive
+        self.seen = []
+
+    def __enter__(self):
+        process = self.executive._process_cohort
+
+        def logged(batch):
+            self.seen.append([entry.eval.id for entry in batch])
+            return process(batch)
+
+        self.executive._process_cohort = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.executive._process_cohort
+
+    def routed_first(self, min_batch):
+        """The evals routed to the host on their first delivery (a
+        redelivered eval that comes back alone takes the host route, as
+        a conflict requeue does in phase 12)."""
+        earlier, out = set(), []
+        for cohort in self.seen:
+            if len(cohort) < min_batch:
+                out += [e for e in cohort if e not in earlier]
+            earlier.update(cohort)
+        return out
+
+
+def executive_server(**over):
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    server = Server(ServerConfig(
+        num_schedulers=4, scheduler_factories={"service": "service-gpu"},
+        scheduler_executive=True, executive_threads=EXECUTIVE_THREADS,
+        eval_nack_timeout=60.0, **over))
+    server.start()
+    return server
+
+
+def executive_arm(label, prefix, seed, total, n_nodes, allocs_per_node,
+                  job_of, n_jobs, count, distinct, lone, min_cohorts,
+                  absent=()):
+    """One dense arm of bench.py's ``_live_pipeline`` with the executive
+    on (phase 13 (a) and (b)): the cluster through the log, two warm
+    waves of ``n_jobs`` registered with the workers and the executive
+    parked, the measured storm, then ``lone`` registrations on an idle
+    broker. Adds each window's launch counts to ``total``; returns the
+    arm's figures."""
+    import numpy as np
+
+    from nomad_tpu_torch import trace
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+
+    figures = {}
+    with ErrorRecords() as errors:
+        server = executive_server()
+        try:
+            check(server.executive.enabled and not server.dispatch.enabled,
+                  f"{label}: executive {server.executive.enabled}, "
+                  f"pipeline {server.dispatch.enabled}")
+            clock = EvalClock(server)
+            t0 = time.perf_counter()
+            build_server_cluster(server, n_nodes, allocs_per_node, seed + 11)
+            figures["cluster_build_s"] = time.perf_counter() - t0
+            for w in range(SERVER_WARM_WAVES):
+                warm = [job_of(f"{prefix}-warm{w}-{j}") for j in range(n_jobs)]
+                server_wave(server, clock, f"{label} warm wave {w}", warm)
+                check_server_state(server, warm, count,
+                                   f"{label} warm wave {w}", distinct)
+                server_deregister(server, clock, f"{label} warm dereg {w}",
+                                  warm)
+            print(f"{label}: {n_nodes} nodes, {len(server.fsm.state.allocs())}"
+                  f" allocs through the log in "
+                  f"{figures['cluster_build_s']:.1f} s; "
+                  f"{SERVER_WARM_WAVES} warm waves of {n_jobs} jobs placed "
+                  f"and stopped in {time.perf_counter() - t0:.1f} s (host)")
+
+            jobs = [job_of(f"{prefix}-e2e-{j}") for j in range(n_jobs)]
+            batcher = get_batcher()
+            stats0 = batcher.stats()
+            ex0 = server.executive.stats()
+            applier0 = server.plan_applier.stats()
+            trace.get_recorder().reset()
+            with GcPauses() as gc_pauses, Cohorts(server) as cohorts:
+                evs, start = counted(
+                    total, f"{label} storm", EXECUTIVE_KERNELS[label],
+                    lambda: server_wave(server, clock, f"{label} storm",
+                                        jobs), absent)
+            wall = max(clock.done[e] for e in evs) - start
+            lat = [clock.done[e] - start for e in evs]
+            check_server_state(server, jobs, count, f"{label} storm", distinct)
+            placed = sum(len(server.fsm.state.allocs_by_job(j.id))
+                         for j in jobs)
+            check(placed == n_jobs * count, f"{label} storm placed {placed}")
+            ex = stats_delta(ex0, server.executive.stats())
+            st = stats_delta(stats0, batcher.stats())
+            applier = stats_delta(applier0, server.plan_applier.stats())
+            check(ex["cohorts"] >= min_cohorts and ex["fast_evals"] >= 1,
+                  f"{label} storm: {ex['cohorts']} cohorts, "
+                  f"{ex['fast_evals']} fast evals")
+            check(st["cohort_dispatches"] > 0,
+                  f"{label} storm: no cohort dispatch")
+            check(ex["device_faults"] == 0,
+                  f"{label} storm: {ex['device_faults']} device faults")
+            routed = cohorts.routed_first(server.config.dense_min_batch)
+            check(not routed, f"{label} storm: {len(routed)} evals routed "
+                  f"to the host on their first delivery")
+            stages = trace.get_recorder().stage_stats()
+            check(stages.get("e2e", {}).get("count", 0) >= n_jobs,
+                  f"{label} storm: the recorder completed "
+                  f"{stages.get('e2e', {}).get('count', 0)} traces")
+            final = server.executive.stats()
+            figures.update(
+                evals=n_jobs, placed=placed, evals_per_s=n_jobs / wall,
+                p50_ms=float(np.percentile(lat, 50)) * 1000.0,
+                p99_ms=float(np.percentile(lat, 99)) * 1000.0,
+                cohort_sizes=[len(c) for c in cohorts.seen],
+                executive=dict(
+                    cohorts=ex["cohorts"],
+                    occupancy=ex["cohort_evals"] / max(ex["cohorts"], 1),
+                    largest_cohort=final["largest_cohort"],
+                    fast_evals=ex["fast_evals"],
+                    legacy_evals=ex["legacy_evals"],
+                    legacy_reasons=final["legacy_reasons"],
+                    plan_conflicts=ex["plan_conflicts"],
+                    routed_host=ex["routed_host"],
+                    device_faults=ex["device_faults"],
+                    **{k: ex[k] for k in ("drain_us", "build_us",
+                                          "dispatch_us", "finalize_us")}),
+                dispatches=st["dispatches"],
+                cohort_dispatches=st["cohort_dispatches"],
+                sync_ms=st["sync_us"] / 1000.0,
+                applier=applier, storm_stages=stages,
+                **gc_pauses.summary())
+            print(f"{label} storm: {n_jobs} evals in {wall:.3f} s = "
+                  f"{figures['evals_per_s']:.2f} evals/s; per eval from "
+                  f"release to complete p50 {figures['p50_ms']:.2f} ms, "
+                  f"p99 {figures['p99_ms']:.2f} ms; {placed} allocs placed; "
+                  f"cohorts {figures['cohort_sizes']}")
+            print(f"  executive: {json.dumps(figures['executive'], sort_keys=True)}")
+            print(f"  applier: {json.dumps(applier, sort_keys=True)}")
+            print("  stages (count, p50 / p99 / max ms): " + "; ".join(
+                f"{k} {v['count']}, {v['p50_ms']} / {v['p99_ms']} / "
+                f"{v['max_ms']}" for k, v in sorted(stages.items())))
+
+            # Lone evals on an idle broker: a cohort of one is smaller
+            # than dense_min_batch, so each takes the host factory.
+            routed0 = server.executive.stats()["routed_host"]
+
+            lone_lat = lone_evals(
+                server, clock, total, label,
+                [job_of(f"{prefix}-lone-{i}") for i in range(lone)], count,
+                distinct)
+            routed = server.executive.stats()["routed_host"] - routed0
+            check(routed == lone, f"{label} lone evals: routed_host "
+                  f"{routed}, not {lone}")
+            figures["lone_p50_ms"] = float(np.percentile(lone_lat, 50)) * 1e3
+            figures["lone_p99_ms"] = float(np.percentile(lone_lat, 99)) * 1e3
+            print(f"{label} lone evals: {lone}, all routed to the host; "
+                  f"register to complete p50 {figures['lone_p50_ms']:.2f} "
+                  f"ms, p99 {figures['lone_p99_ms']:.2f} ms")
+            figures["nodes_checked"] = check_server_nodes(server)
+        finally:
+            server.shutdown()
+    check(not errors.records, f"{label} logged errors: {errors.records[:5]}")
+    return figures
+
+
+def run_executive_storms(seed, torch, total, pipeline):
+    """Phase 13 (a) and (b): configs 8 and 6 through the executive.
+    ``pipeline`` is phase 12's figures, printed beside (a)'s."""
+    figures = {"config 8": executive_arm(
+        "config 8", "x8", seed, total, SERVER_NODES, SERVER_ALLOCS_PER_NODE,
+        server_job, SERVER_JOBS, SERVER_COUNT, True, SERVER_LONE, 1,
+        DRAWN_IN_SCANS)}
+    side = {k: (pipeline.get(k), figures["config 8"][k])
+            for k in ("evals_per_s", "p50_ms", "p99_ms", "lone_p50_ms",
+                      "lone_p99_ms")}
+    print(f"config 8, pipeline (phase 12) against executive: "
+          f"{json.dumps(side, sort_keys=True)}")
+    print(f"server executive figures: "
+          f"{json.dumps(figures['config 8'], sort_keys=True)}")
+    figures["config 6"] = executive_arm(
+        "config 6", "x6", seed, total, CONFIG6_NODES, 0, config6_job,
+        CONFIG6_JOBS, CONFIG6_COUNT, False, CONFIG6_LONE, 2)
+    print(f"server config 6 figures: "
+          f"{json.dumps(figures['config 6'], sort_keys=True)}")
+    return figures
+
+
+def server_sink(server):
+    """build_fragmented_cluster's writes through the server's log: each
+    job and node by its own entry, the allocs SERVER_ALLOC_CHUNK nodes'
+    worth an entry, after every node (build_server_cluster's order)."""
+
+    def put_job(job):
+        server.log.apply("job_register", {"job": job})
+        return server.fsm.state.job_by_id(job.id)
+
+    def put_node(node):
+        server.log.apply("node_register", {"node": node})
+
+    def put_allocs(allocs):
+        per = 2 * SERVER_ALLOC_CHUNK
+        for at in range(0, len(allocs), per):
+            server.log.apply("alloc_update", {"allocs": allocs[at:at + per]})
+
+    return put_job, put_node, put_allocs
+
+
+def run_live_defrag(seed, total):
+    """Phase 13 (c): the live DefragLoop through the port's Server with
+    the executive on, stepped by an injected clock (bench.py:2569
+    ``_defrag_churn_arm``), each round's wave waited on until its evals
+    are terminal. Adds the window's launch counts to ``total``; returns
+    the figures."""
+    import numpy as np
+
+    from nomad_tpu_torch import trace
+    from nomad_tpu_torch.defrag import cluster_fragmentation
+    from nomad_tpu_torch.migrate import get_governor
+    from nomad_tpu_torch.scheduler.util import ALLOC_MIGRATING
+    from nomad_tpu_torch.structs import consts
+
+    figures = {}
+    dcs = ["dc1", "dc2"]
+    with ErrorRecords() as errors:
+        server = executive_server(
+            migrate_max_parallel=DEFRAG_LIVE_BUDGET, defrag_enabled=True,
+            defrag_interval=10_000.0, defrag_min_gain=DEFRAG_LIVE_MIN_GAIN,
+            defrag_max_moves_per_wave=DEFRAG_LIVE_MOVES)
+        # The loop's own thread would race the injected clock: stop it
+        # and step the loop here.
+        server.defrag.stop()
+        loop = server.defrag
+        try:
+            clock = EvalClock(server)
+            t0 = time.perf_counter()
+            build_fragmented_cluster(N_NODES, *server_sink(server))
+            print(f"live defrag cluster: {N_NODES} nodes, "
+                  f"{len(server.fsm.state.allocs())} allocs through the log "
+                  f"in {time.perf_counter() - t0:.1f} s (host)")
+            get_governor().reset_stats()
+            # Committed eviction legs of migrations, by alloc id.
+            evicted = Counter()
+            submit = server.plan_submit
+
+            def recorded(plan):
+                result = submit(plan)
+                for victims in result.node_update.values():
+                    for a in victims:
+                        if a.desired_description == ALLOC_MIGRATING:
+                            evicted[a.id] += 1
+                return result
+
+            server.plan_submit = recorded
+            frag = [cluster_fragmentation(server.fsm.state.snapshot(), dcs)]
+            trace.get_recorder().reset()
+            routed0 = server.executive.stats()["routed_host"]
+            settle_ms, waves, gains = [], [], []
+
+            def rounds():
+                for k in range(DEFRAG_LIVE_ROUNDS):
+                    loop.tick(now=DEFRAG_LIVE_STEP * (k + 1))
+                    gains.append(loop.last_gain)
+                    wave = list(loop._wave)
+                    t = time.perf_counter()
+                    clock.wait(f"live defrag round {k}", wave)
+                    settle_ms.append(
+                        (max(clock.done[e] for e in wave) - t) * 1000.0
+                        if wave else 0.0)
+                    waves.append(len(wave))
+                    frag.append(cluster_fragmentation(
+                        server.fsm.state.snapshot(), dcs))
+
+            # K9 each round. The replacements launch no scan: a wave
+            # eval's marked allocs prefer the solver's target nodes, and
+            # the scheduler places a preferred node on the host
+            # (scheduler/generic.py _find_preferred_node, as in the
+            # reference).
+            counted(total, "live defrag", ("defrag_solve",), rounds)
+            # Settle: release the last wave's governor slots.
+            loop.configure(enabled=False)
+            loop.tick(now=DEFRAG_LIVE_STEP * (DEFRAG_LIVE_ROUNDS + 1))
+            st = loop.stats()
+            gov = get_governor().stats()
+            state = server.fsm.state
+            moved = [a for a in state.allocs()
+                     if a.desired_description == ALLOC_MIGRATING]
+            replaced = Counter(a.previous_allocation for a in state.allocs()
+                               if a.previous_allocation)
+            check(st["rounds"] == DEFRAG_LIVE_ROUNDS and st["waves"] >= 1,
+                  f"live defrag: {st['rounds']} rounds, {st['waves']} waves")
+            check(len(moved) == st["moves_proposed"] == st["moves_completed"]
+                  and set(evicted) == {a.id for a in moved},
+                  f"live defrag: {len(moved)} allocs moved, "
+                  f"{st['moves_proposed']} proposed, {st['moves_completed']} "
+                  f"completed, {len(evicted)} evicted")
+            for a in moved:
+                check(evicted[a.id] == 1 and replaced[a.id] == 1
+                      and a.desired_status == consts.ALLOC_DESIRED_STOP,
+                      f"live defrag: alloc {a.id} evicted {evicted[a.id]} "
+                      f"times, {replaced[a.id]} replacements, "
+                      f"{a.desired_status}")
+            check(gov["high_water"] <= DEFRAG_LIVE_BUDGET
+                  and gov["in_flight"] == 0,
+                  f"live defrag: governor {json.dumps(gov)}")
+            check(all(b <= a + 1e-9 for a, b in zip(frag, frag[1:])),
+                  f"live defrag: fragmentation rose: {frag}")
+            check(st["cold_solves"] == 1
+                  and st["warm_solves"] == DEFRAG_LIVE_ROUNDS - 1,
+                  f"live defrag: {st['cold_solves']} cold, "
+                  f"{st['warm_solves']} warm solves")
+            check(st["stale_discards"] == 0 and st["waves_lost"] == 0,
+                  f"live defrag: {st['stale_discards']} stale discards, "
+                  f"{st['waves_lost']} waves lost")
+            ex = server.executive.stats()
+            solve = trace.get_recorder().stage_stats().get("defrag.solve", {})
+            figures.update(
+                rounds=st["rounds"], waves=st["waves"], wave_evals=waves,
+                moves_proposed=st["moves_proposed"],
+                moves_completed=st["moves_completed"],
+                fragmentation=frag, gains=gains,
+                first_cold_solve_ms=st["first_cold_solve_ms"],
+                min_warm_solve_ms=st["min_warm_solve_ms"],
+                last_warm_solve_ms=st["last_warm_solve_ms"],
+                solve_stage={k: solve.get(k) for k in ("count", "p50_ms",
+                                                       "p99_ms", "max_ms")},
+                wave_settle_ms=settle_ms, governor=gov,
+                wave_legacy_evals=ex["legacy_reasons"].get(
+                    f"trigger {consts.EVAL_TRIGGER_DEFRAG!r}", 0),
+                wave_routed_host=ex["routed_host"] - routed0,
+                settle_p50_ms=float(np.percentile(settle_ms, 50)))
+            print(f"live defrag: {st['rounds']} rounds, {st['waves']} waves "
+                  f"({waves} evals), {len(moved)} allocs moved, each evicted "
+                  f"once with one replacement; fragmentation "
+                  f"{' -> '.join(f'{f:.6f}' for f in frag)}; cold solve "
+                  f"{st['first_cold_solve_ms']:.1f} ms, warm min "
+                  f"{st['min_warm_solve_ms']:.1f} ms (host spans); governor "
+                  f"high water {gov['high_water']} of {DEFRAG_LIVE_BUDGET}")
+        finally:
+            server.shutdown()
+    check(not errors.records, f"live defrag logged errors: "
+          f"{errors.records[:5]}")
+    return figures
 
 
 def main(argv=None) -> int:
@@ -5985,6 +6454,9 @@ def main(argv=None) -> int:
         print(f"runtime figures: {json.dumps(runtime, sort_keys=True)}")
         server = run_server_storm(args.seed, torch, total)
         print(f"server storm figures: {json.dumps(server, sort_keys=True)}")
+        run_executive_storms(args.seed, torch, total, server)
+        defrag = run_live_defrag(args.seed, total)
+        print(f"server defrag figures: {json.dumps(defrag, sort_keys=True)}")
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))

@@ -175,10 +175,14 @@ class DispatchPipeline:
             t for t in cfg.enabled_schedulers
             if is_dense_factory(cfg.factory_for(t))
         ]
-        # The scheduler executive is not ported (Server refuses
-        # scheduler_executive=True), so the pipeline owns the central
-        # dense drain whenever a dense type batches.
-        self.enabled = bool(self.types and cfg.eval_batch_size > 1)
+        # The scheduler executive (server/executive.py) supersedes the
+        # pipeline when enabled: both own the central dense drain, and
+        # two drains racing the broker would split every storm into
+        # half-filled cohorts.
+        self.enabled = bool(
+            self.types and cfg.eval_batch_size > 1
+            and not cfg.scheduler_executive
+        )
 
         # Profiled (nomad_tpu_torch/profile): the accumulator lock every
         # worker handoff and batch cut crosses.

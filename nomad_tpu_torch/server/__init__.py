@@ -1,8 +1,8 @@
 """The control plane's server side, in dev mode: the eval broker,
 blocked evals, plan queue and applier, FSM over the dev log, workers,
-heartbeats, periodic dispatch, core GC, vault and the Server that
-composes them (the port of the JAX package's server package; raft,
-serf, leader forwarding and the scheduler executive are not ported
+heartbeats, periodic dispatch, core GC, vault, the scheduler executive
+and the Server that composes them (the port of the JAX package's
+server package; raft, serf and leader forwarding are not ported
 yet)."""
 
 from .broker import EvalBroker

@@ -7,14 +7,12 @@ command/agent/agent.go:129 (num_schedulers overlay).
 
 Left out until their parts are ported, so that no option is accepted
 and then ignored: the multi-server ones (``node_name``,
-``bootstrap_expect``), the executive's thread count, the defrag loop's
-tuning, the read plane (``read_mux_*``, ``read_scoped_index``), and the
-device-path breaker (``breaker_*``: the port has none, a device fault
-fails the eval and the broker redelivers it). The pipeline-off
-``dispatch_pipeline=False`` arm is not carried either: dense evals
-always go through the dispatch pipeline when ``eval_batch_size > 1``.
-``scheduler_executive=True`` and ``defrag_enabled=True`` make Server()
-raise.
+``bootstrap_expect``), the read plane (``read_mux_*``,
+``read_scoped_index``), and the device-path breaker (``breaker_*``: the
+port has none, a device fault fails the eval and the broker redelivers
+it). The pipeline-off ``dispatch_pipeline=False`` arm is not carried
+either: with the executive off, dense evals always go through the
+dispatch pipeline when ``eval_batch_size > 1``.
 """
 
 from __future__ import annotations
@@ -79,7 +77,7 @@ class ServerConfig:
     # inline retry loop (bounded like MAX_SERVICE_SCHEDULE_ATTEMPTS).
     dispatch_max_requeues: int = 3
 
-    # ---- Scheduler executive (not ported yet: True raises) ----
+    # ---- Scheduler executive (server/executive.py) ----
     # Replace the thread-per-eval dense worker model with a batched
     # event-loop executive: one drain-owner thread pulls whole cohorts
     # from the broker, reconciles them as arrays host-side
@@ -88,8 +86,16 @@ class ServerConfig:
     # (place_cohort), and fans results back out through per-eval
     # plan-submit + ack — an evaluation's identity is a batch row, not
     # a parked thread. False (the default) keeps the dispatch-pipeline
-    # + worker fan-out path, the only one the port has.
+    # + worker fan-out path; the Worker pool always remains the host/
+    # system scheduler either way.
     scheduler_executive: bool = False
+    # Host-side helper threads the executive uses for per-eval matrix
+    # builds and plan-submit/ack fan-out WITHIN a cohort (numpy releases
+    # the GIL, so a few help; 64 was the convoy). The drain itself is
+    # always one thread. Replaces num_schedulers as the dense path's
+    # parallelism knob when the executive is on (num_schedulers then
+    # only sizes the host/system worker pool).
+    executive_threads: int = 4
 
     # In-batch conflict pre-resolution: serialize the eval axis of a
     # shared-base device dispatch so batch members see each other's
@@ -139,8 +145,7 @@ class ServerConfig:
     # job priority, so only above-normal work may evict).
     preempt_priority_threshold: int = 50
 
-    # ---- Continuous defragmentation (the loop is not ported yet:
-    # defrag_enabled=True raises) ----
+    # ---- Continuous defragmentation (nomad_tpu_torch/defrag) ----
     # Leader-side background optimizer: periodically solves the relaxed
     # GLOBAL re-placement (the convex kernel's mirror-descent program,
     # warm-started across rounds) over the device-resident node state
@@ -148,6 +153,17 @@ class ServerConfig:
     # + verified eviction legs. Off by default — it moves healthy
     # allocs, which is an operator's call to enable.
     defrag_enabled: bool = False
+    # Seconds between optimization rounds on a green, led cluster
+    # (yellow/red pressure backs off multiplicatively).
+    defrag_interval: float = 30.0
+    # Minimum NET fragmentation gain (0..1, the quality scoreboard's
+    # fragmentation units) a round must measure before it proposes any
+    # wave — below it, churning allocs isn't worth the disruption.
+    defrag_min_gain: float = 0.01
+    # Per-wave move cap; each wave also claims MigrationGovernor slots,
+    # so disruption is additionally bounded by migrate_max_parallel
+    # (one budget shared with drain storms).
+    defrag_max_moves_per_wave: int = 16
 
     # ---- Overload protection (nomad_tpu_torch/admission) ----
     # Bounded broker ready queues: default per-scheduler-type depth cap

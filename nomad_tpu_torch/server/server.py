@@ -8,12 +8,11 @@ leader over a DevLog.
 
 The port of the JAX package's server/server.py in dev mode: the broker,
 blocked evals, plan queue and applier, workers, the dispatch pipeline,
-admission, heartbeats, periodic dispatch, core GC and vault. Not carried
-yet: the scheduler executive and the defrag loop (``ServerConfig(
-scheduler_executive=True)`` and ``defrag_enabled=True`` raise), the read
-plane (the HTTP API's), and the multi-server entry points (raft, serf,
-leader forwarding): dev mode is the only mode, so every leader-only
-operation runs on this server.
+the scheduler executive, the continuous defrag loop, admission,
+heartbeats, periodic dispatch, core GC and vault. Not carried yet: the
+read plane (the HTTP API's), and the multi-server entry points (raft,
+serf, leader forwarding): dev mode is the only mode, so every
+leader-only operation runs on this server.
 """
 
 from __future__ import annotations
@@ -54,23 +53,10 @@ from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .worker import Worker
 
-# Options whose parts are still to be ported: each names its queued
-# item, and a config that asks for one is refused, never ignored.
-NOT_PORTED = (
-    ("scheduler_executive",
-     "the scheduler executive (server/executive.py) is not ported yet"),
-    ("defrag_enabled",
-     "the continuous defrag loop (defrag DefragLoop) is not ported yet"),
-)
-
 
 class Server:
     def __init__(self, config: Optional[ServerConfig] = None):
         self.config = config or ServerConfig()
-        for option, reason in NOT_PORTED:
-            if getattr(self.config, option):
-                raise NotImplementedError(
-                    f"ServerConfig({option}=True): {reason}")
         self.logger = logging.getLogger("nomad_tpu_torch.server")
 
         self.fsm = FSM()
@@ -110,6 +96,14 @@ class Server:
         from ..dispatch import DispatchPipeline
 
         self.dispatch = DispatchPipeline(self)
+        # Scheduler executive (server/executive.py): the batched
+        # event-loop replacement for thread-per-eval dense scheduling —
+        # behind `scheduler_executive` (the pipeline+worker fan-out
+        # stays the default). Constructed unconditionally so stats()
+        # always has the surface.
+        from .executive import SchedulerExecutive
+
+        self.executive = SchedulerExecutive(self)
         # Overload protection (admission/): pressure monitor +
         # token-bucket intake control. There is no device-path breaker.
         from ..admission import AdmissionController
@@ -150,6 +144,13 @@ class Server:
             preempt_priority_threshold=self.config.preempt_priority_threshold,
             pressure_probe=self.admission.level,
         )
+        # Continuous defragmentation (defrag/): the leader-side
+        # optimizer loop. Constructed unconditionally (stats surface);
+        # it only optimizes while defrag_enabled AND this server leads
+        # AND the admission monitor reads green.
+        from ..defrag import DefragLoop
+
+        self.defrag = DefragLoop(self)
         self._leader = False
         self._shutdown = False
         self._gc_threads: List[threading.Timer] = []
@@ -206,6 +207,8 @@ class Server:
             self.workers.append(worker)
             worker.start()
         self.dispatch.start()
+        self.executive.start()
+        self.defrag.start()
         self.establish_leadership()
         self._start_telemetry()
 
@@ -287,6 +290,16 @@ class Server:
                             ("placement_quality", kname,
                              "window_binpack_score"),
                             q["binpack_score"])
+                    # Continuous defragmentation (defrag/): the loop's
+                    # trajectory + gate counters, so an operator can see
+                    # rounds/waves/moves and the last measured gain.
+                    df = self.defrag.stats()
+                    for gname in ("rounds", "waves", "waves_lost",
+                                  "moves_proposed", "moves_completed",
+                                  "pressure_skips", "stale_discards",
+                                  "last_gain", "last_fragmentation",
+                                  "last_solve_ms"):
+                        metrics.set_gauge(("defrag", gname), df[gname])
                     if not self._leader:
                         # Broker/plan-queue/heartbeats are leader-only
                         # (eval_broker.go:650 runs in the leader loop).
@@ -323,6 +336,8 @@ class Server:
             self._telemetry_stop.set()
         self.revoke_leadership()
         self.dispatch.stop()
+        self.executive.stop()
+        self.defrag.stop()
         for w in self.workers:
             w.stop()
         if self.vault is not None and hasattr(self.vault, "stop"):
@@ -357,10 +372,16 @@ class Server:
     def revoke_leadership(self) -> None:
         self._leader = False
         # Drain FIRST, while the broker still accepts nacks: the
-        # pipeline's accumulated evals go back to the ready queue (a
-        # later establish_leadership re-seeds from state through
-        # _restore_evals) — either way no eval is lost with the batch.
+        # pipeline's/executive's accumulated evals go back to the ready
+        # queue (a later establish_leadership re-seeds from state
+        # through _restore_evals) — either way no eval is lost with the
+        # batch.
         self.dispatch.drain()
+        self.executive.drain()
+        # The defrag loop pauses itself on is_leader() per tick; the
+        # explicit abandon here returns its wave's governor slots NOW
+        # instead of on the next tick.
+        self.defrag._abandon_wave("leadership-revoked")
         self._stop_eval_hygiene()
         for timer in self._gc_threads:
             timer.cancel()
@@ -951,6 +972,10 @@ class Server:
             "heartbeat_timers": self.heartbeats.count(),
             "num_workers": len(self.workers),
             "dispatch_pipeline": self.dispatch.stats(),
+            # Scheduler executive (server/executive.py): cohort sizes,
+            # fast-vs-legacy lane split (with routing reasons), and
+            # the drain/build/dispatch/finalize time breakdown.
+            "scheduler_executive": self.executive.stats(),
             "plan_applier": self.plan_applier.stats(),
             # Overload-protection surface (admission/): pressure level
             # + reasons and intake-bucket stats.
@@ -976,6 +1001,10 @@ class Server:
             # Churn control (migrate/): migration-budget counters +
             # preemption staged/committed/placement tallies.
             "churn": _churn_stats(),
+            # Continuous defragmentation (defrag/): rounds/waves/moves,
+            # gate skips (pressure/budget/stale) and the solve cost
+            # split cold-vs-warm.
+            "defrag": self.defrag.stats(),
             # Gang scheduling (gang/): gangs placed/rejected per path;
             # the applier-side whole-gang rejections live in
             # plan_applier stats ("gangs_rejected").

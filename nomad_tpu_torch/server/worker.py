@@ -7,17 +7,17 @@ plan queue; a RefreshIndex response makes the worker catch its local
 state up and hand the scheduler a fresh snapshot.
 
 Extension over the reference: when an eval routes to a dense factory
-(``-gpu``), the worker hands it to the central dispatch pipeline
-(dispatch/), which packs evals from every worker into one batched
-device dispatch (scheduler/batcher.py) and routes batches smaller than
-``dense_min_batch`` to the host factory. With ``eval_batch_size=1`` the
-pipeline is off and the worker runs each eval alone on the factory it
-was configured with.
+(``-gpu``), the worker hands it to the scheduler executive
+(server/executive.py) when ``scheduler_executive`` is on, else to the
+central dispatch pipeline (dispatch/); either packs evals from every
+worker into one batched device dispatch (scheduler/batcher.py) and
+routes batches smaller than ``dense_min_batch`` to the host factory.
+With ``eval_batch_size=1`` both are off and the worker runs each eval
+alone on the factory it was configured with.
 
 The port of the JAX package's server/worker.py. Not carried: the
-scheduler executive's handoff (the executive is not ported, and
-Server() refuses ``scheduler_executive=True``) and the per-worker
-drain-to-batch loop the reference runs with its pipeline off.
+per-worker drain-to-batch loop the reference runs with its pipeline
+off.
 """
 
 from __future__ import annotations
@@ -38,9 +38,10 @@ from .. import trace
 DEQUEUE_TIMEOUT = 0.5
 BACKOFF_BASE = 0.02
 BACKOFF_LIMIT = 2.0
-# Nap between saturation re-checks when the dispatch pipeline's
-# accumulator is full (intake backpressure, nomad_tpu_torch/admission):
-# bounded, and short enough that drain resumes within a batch launch.
+# Nap between saturation re-checks when the executive's or the dispatch
+# pipeline's accumulator is full (intake backpressure,
+# nomad_tpu_torch/admission): bounded, and short enough that drain
+# resumes within a batch launch.
 BACKPRESSURE_NAP = 0.01
 
 
@@ -196,8 +197,12 @@ class Worker:
     def run(self) -> None:
         while not self._stop.is_set():
             self._check_paused()
+            executive = getattr(self.server, "executive", None)
+            if executive is not None and not executive.enabled:
+                executive = None
             pipeline = getattr(self.server, "dispatch", None)
-            if (pipeline is not None and pipeline.enabled
+            if (executive is not None and executive.saturated()) or (
+                    pipeline is not None and pipeline.enabled
                     and pipeline.saturated()):
                 # Intake backpressure (nomad_tpu_torch/admission): the
                 # central accumulator already holds two full batches.
@@ -217,6 +222,15 @@ class Worker:
                 continue
             metrics.measure_since(("worker", "dequeue_eval"), start)
             factory = self.server.config.factory_for(ev.type)
+            if executive is not None and is_dense_factory(factory):
+                # Scheduler executive (server/executive.py): the worker
+                # is only the broker's long-poll seed — the executive
+                # owns the drain from here (bulk top-ups, array-side
+                # reconcile, one no-park cohort dispatch). The worker
+                # immediately returns to the broker for host-path work.
+                executive.submit(ev, token)
+                metrics.incr_counter(("worker", "executive_handoff"))
+                continue
             if (pipeline is not None and pipeline.enabled
                     and is_dense_factory(factory)):
                 # Central dispatch pipeline (nomad_tpu_torch/dispatch): hand

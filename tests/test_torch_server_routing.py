@@ -259,8 +259,7 @@ def test_batch_size_one_runs_dense_alone():
 
 
 @pytest.mark.parametrize("option", [
-    "node_name", "bootstrap_expect", "dispatch_pipeline", "executive_threads", "defrag_interval",
-    "defrag_min_gain", "defrag_max_moves_per_wave", "read_mux_enabled",
+    "node_name", "bootstrap_expect", "dispatch_pipeline", "read_mux_enabled",
     "read_mux_workers", "read_mux_max_parked", "read_scoped_index",
     "breaker_enabled", "breaker_failure_threshold", "breaker_slow_ms",
     "breaker_slow_batches", "breaker_cooldown",
@@ -272,13 +271,31 @@ def test_options_of_unported_parts_are_refused(option):
         ServerConfig(**{option: 1})
 
 
-@pytest.mark.parametrize("option,names", [
-    ("scheduler_executive", "executive"),
-    ("defrag_enabled", "DefragLoop"),
+@pytest.mark.parametrize("field", [
+    "executive_threads", "defrag_interval", "defrag_min_gain",
+    "defrag_max_moves_per_wave",
 ])
-def test_unported_parts_raise(option, names):
-    """The executive and the defrag loop are kept as options of the
-    reference's config, and a server asked for either refuses to
-    start."""
-    with pytest.raises(NotImplementedError, match=names):
-        Server(ServerConfig(**{option: True}))
+def test_executive_and_defrag_fields_keep_the_reference_defaults(field):
+    """The executive's and the defrag loop's knobs came back with their
+    parts, with the JAX ServerConfig's defaults."""
+    from nomad_tpu.server.config import ServerConfig as RefConfig
+
+    assert getattr(ServerConfig(), field) == getattr(RefConfig(), field)
+
+
+@pytest.mark.parametrize("option,surface", [
+    ("scheduler_executive", "scheduler_executive"),
+    ("defrag_enabled", "defrag"),
+])
+def test_executive_and_defrag_loop_start(option, surface):
+    """A server asked for the executive or the defrag loop starts, and
+    reports the part enabled in stats()."""
+    server = make_server(**{option: True})
+    try:
+        stats = server.stats()
+        assert stats[surface]["enabled"] is True, stats[surface]
+        assert "scheduler_executive" in stats and "defrag" in stats
+        # The executive supersedes the dispatch pipeline.
+        assert server.dispatch.enabled is (option != "scheduler_executive")
+    finally:
+        server.shutdown()
