@@ -306,11 +306,52 @@ Phases (any failure exits non-zero and prints no result):
    then warm ones; K9 launched (the replacements prefer the solver's
    targets, which the scheduler places on the host, so no scan
    launches); no stale discard, lost wave or ERROR record. Prints ``server defrag figures: {...}``.
+14. The multi-server control plane, after phase 13: three servers a
+   cluster, each as phase 13's (the executive, 4 workers, 4 executive
+   threads, ``service-gpu``, nack timeout 60 s). Each cluster is loaded
+   through its leader's raft log from 4 writer threads with the
+   collector off, its objects then frozen out of the collector
+   (``bulk_load``: a gen-2 pause over three stores would outlast the
+   150 ms election floor), a filler entry 100 nodes' allocs; the
+   nodes' clients heartbeat every 5 s through the current leader
+   (``Clients``). (a) Config 8 over ``InmemTransport``
+   (``start_with_raft``): phase 12's 10,000 nodes and 50,000 fillers,
+   the warm waves through the leader, the storm of 60 jobs x 8 and 6
+   lone evals registered through a follower. Holds: every eval
+   complete, 480 of 480 allocs on 8 distinct nodes a job, ports unique
+   and ``allocs_fit`` on every node, the three FSMs' node, alloc, eval
+   and job tables equal by id with create/modify indexes, K5a uniform
+   (or K2) and K3 launched and no K0, no device fault, the lone evals
+   with no launch, no ERROR record. Prints ``server cluster figures``
+   with evals/s, p50/p99 release to complete, lone p50/p99, a server's
+   cohorts, fast evals and placements, forwarded writes, the largest
+   follower lag behind the leader's commit index, new terms and
+   elections, the stage table, and phase 13 (a)'s figures beside
+   (printed, never a gate). (b) Failover during config 6's storm
+   (1,000 nodes, warm waves of 120, 120 jobs x 4): the storm registered
+   with every server parked, the leader cut off
+   (``transport.disconnect``), the two others released once both name
+   a new leader (the in-process cluster map would hand them the cut
+   leader's broker before that; the cut leader stays parked). Holds: a
+   new leader with its broker enabled, all 120 evals complete on it, 4
+   allocs a job with no alloc placed twice, the two FSMs equal, K5a
+   greedy and K3 launched after the cut. Prints the cut to the new
+   leader, to the broker enabled, to the first and the last eval
+   complete, and evals/s. (c) Config 6 over ``TCPTransport``: three
+   servers ``setup_serf``, ``serf_join`` and ``setup_raft_cluster(
+   expect=3)`` on 127.0.0.1 ephemeral ports; the storm through the
+   leader (the port has no HTTP API, so the followers find no leader
+   address in the serf tags and back off). Holds: one leader over the
+   three raft addresses, every eval complete, the followers' decoded
+   FSMs equal to the leader's field by field (``to_dict``, but for the
+   nodes' ``status_updated_at``, which each replica stamps with its own
+   clock), K5a greedy and K3 launched. Prints the bootstrap time,
+   evals/s and p99.
 
-Every path of phases 3 to 6, 8, 9, 10, 11 (c), 12 and 13 runs with the
-launch counts set to 0 just before it and read just after, and fails if
-a kernel of that path was never launched (10a's evals and the lone
-evals of 12 and 13: if any kernel was).
+Every path of phases 3 to 6, 8, 9, 10, 11 (c), 12, 13 and 14 runs with
+the launch counts set to 0 just before it and read just after, and
+fails if a kernel of that path was never launched (10a's evals and the
+lone evals of 12, 13 and 14: if any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -323,6 +364,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import logging
 import os
@@ -5623,10 +5665,12 @@ def server_deregister(server, clock, label, jobs):
     clock.wait(label, evs)
 
 
-def check_server_state(server, jobs, count, label, distinct=True):
+def check_server_state(server, jobs, count, label, distinct=True,
+                       state=None):
     """Each job holds ``count`` live allocs (on ``count`` distinct
-    nodes where the job asks for distinct hosts)."""
-    state = server.fsm.state
+    nodes where the job asks for distinct hosts) in ``state`` (the
+    server's store by default)."""
+    state = state or server.fsm.state
     for job in jobs:
         live = [a for a in state.allocs_by_job(job.id)
                 if not a.terminal_status()]
@@ -5637,12 +5681,13 @@ def check_server_state(server, jobs, count, label, distinct=True):
               f"{label}: job {job.id} on {len(nodes)} distinct nodes")
 
 
-def check_server_nodes(server):
-    """On every node of the final state: no port held twice, and the
-    live allocs fit (``allocs_fit``)."""
+def check_server_nodes(server, state=None):
+    """On every node of the final state (``state``, the server's store by
+    default): no port held twice, and the live allocs fit
+    (``allocs_fit``)."""
     from nomad_tpu_torch.structs import allocs_fit
 
-    state = server.fsm.state
+    state = state or server.fsm.state
     checked = 0
     for node in state.nodes():
         live = state.allocs_by_node_terminal(node.id, False)
@@ -6375,6 +6420,706 @@ def run_live_defrag(seed, total):
     return figures
 
 
+# Phase 14: the multi-server control plane. Three servers a cluster,
+# each as phase 13's (the executive, 4 workers, 4 executive threads,
+# service-gpu, nack timeout 60 s). The load goes through the leader's raft
+# log from CLUSTER_WRITERS threads at once; a filler entry carries
+# CLUSTER_ALLOC_CHUNK nodes' allocs (500 allocs: phase 12's entries of
+# 5,000 would hold every follower's apply for a large part of the 150 ms
+# election floor).
+CLUSTER_SERVERS = 3
+CLUSTER_WRITERS = 4
+CLUSTER_ALLOC_CHUNK = 100
+CLUSTER_WAIT_S = 60.0
+CLIENT_HEARTBEAT_S = 5.0
+# The kernels the failover storm must launch after the disconnect: the
+# greedy scan, K3, and K0 or K4 (the scan reads K0's noise at B = 64 on
+# 16 CTAs; the new leader's base is the warm waves' re-keyed, since they
+# stop what they place, so K4 fuses no delta there).
+FAILOVER_KERNELS = ("greedy_scan_seq", "expand_overlay",
+                    ("threefry_uniform", "base_delta"))
+
+
+@contextlib.contextmanager
+def bulk_load():
+    """The collector off while the block loads a cluster, then every
+    object it tracks (the loaded cluster, three stores' worth) moved out
+    of its reach (``gc.freeze``, no collection first), as a long-lived
+    server process would after loading its state: a gen-2 collection
+    over three 10,000-node stores stops every thread, raft's heartbeats
+    and election timers included, for well over the 150 ms election
+    floor (one store's gen-2 pause was 1.3-1.5 s on the H100's host in
+    phases 12 and 13). ``gc.unfreeze`` gives them back."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.freeze()
+        gc.enable()
+
+
+def cluster_server(**over):
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    return Server(ServerConfig(
+        num_schedulers=4, scheduler_factories={"service": "service-gpu"},
+        scheduler_executive=True, executive_threads=EXECUTIVE_THREADS,
+        eval_nack_timeout=60.0, **over))
+
+
+def inmem_cluster():
+    """CLUSTER_SERVERS servers over one InmemTransport (start_with_raft),
+    each with its EvalClock; returns (transport, servers, clocks)."""
+    from nomad_tpu_torch.server.raft import InmemTransport
+
+    transport = InmemTransport()
+    ids = [f"s{i}" for i in range(CLUSTER_SERVERS)]
+    servers, cluster = [], {}
+    for node_id in ids:
+        server = cluster_server(node_name=node_id)
+        server.start_with_raft(node_id, ids, transport, cluster)
+        servers.append(server)
+    return transport, servers, [EvalClock(s) for s in servers]
+
+
+def stable_leader(servers, label, timeout=CLUSTER_WAIT_S):
+    """The one leader every server names, once its election barrier has
+    committed and it still leads 0.5 s later (a boot can flap)."""
+    deadline = time.perf_counter() + timeout
+
+    def settled():
+        leaders = [s for s in servers
+                   if s.raft is not None and s.is_leader()]
+        if len(leaders) != 1 or any(s.raft is None or s.raft.leader_id
+                                    != leaders[0].node_id for s in servers):
+            return None
+        raft = leaders[0].raft
+        if raft.known_commit_index() < raft._term_start_index:
+            return None
+        return leaders[0], raft.stats()["term"]
+
+    while True:
+        check(time.perf_counter() < deadline,
+              f"{label}: no stable leader after {timeout:.0f} s: "
+              f"{[s.raft and s.raft.stats() for s in servers]}")
+        first = settled()
+        if first is None:
+            time.sleep(0.01)
+            continue
+        time.sleep(0.5)
+        if settled() == first:
+            return first[0]
+
+
+def cluster_paused(servers):
+    for server in servers:
+        paused(server)
+
+
+def cluster_release(servers):
+    for server in servers:
+        release(server)
+
+
+def caught_up(servers, leader, label, timeout=CLUSTER_WAIT_S):
+    """Wait until every server has applied the leader's commit index."""
+    index = leader.raft.known_commit_index()
+    deadline = time.perf_counter() + timeout
+    while any(s.raft.last_index() < index for s in servers):
+        check(time.perf_counter() < deadline,
+              f"{label}: followers behind index {index}: "
+              f"{[s.raft.last_index() for s in servers]}")
+        time.sleep(0.005)
+
+
+def cluster_entries(n_nodes, allocs_per_node, seed):
+    """build_server_cluster's nodes and filler allocs (the same values
+    from ``seed``) as raft payloads: every node, then the allocs
+    CLUSTER_ALLOC_CHUNK nodes' worth an entry."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import consts
+
+    rng = random.Random(seed)
+    filler = mock.job()
+    filler.id = "filler"
+    filler.type = consts.JOB_TYPE_SERVICE
+    filler.task_groups[0].tasks[0].resources.networks = []
+    nodes, chunks, fills = [], [], []
+    for i in range(n_nodes):
+        node = mock.node()
+        node.compute_class()
+        nodes.append(("node_register", {"node": node}))
+        for _ in range(allocs_per_node):
+            alloc = mock.alloc()
+            alloc.node_id = node.id
+            alloc.job_id = filler.id
+            alloc.job = filler
+            alloc.desired_status = consts.ALLOC_DESIRED_RUN
+            alloc.client_status = consts.ALLOC_CLIENT_RUNNING
+            for tr in alloc.task_resources.values():
+                tr.cpu = rng.choice([50, 100])
+                tr.memory_mb = rng.choice([64, 128])
+                tr.networks = []
+            alloc.resources = None
+            fills.append(alloc)
+        if fills and ((i + 1) % CLUSTER_ALLOC_CHUNK == 0 or i + 1 == n_nodes):
+            chunks.append(("alloc_update", {"allocs": fills}))
+            fills = []
+    return nodes, chunks
+
+
+def load_cluster(servers, label, n_nodes, allocs_per_node, seed):
+    """The cluster's nodes and fillers written through the leader's raft
+    log from CLUSTER_WRITERS threads at once (``bulk_load``), every
+    follower caught up. A write that finds no leader (an election under
+    the load) is retried, as a client retries "no cluster leader": the
+    loader's writes are upserts, so a repeat is harmless. Returns the
+    leader after the load and the load's figures (seconds, entries,
+    retries, elections)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.server.raft import NotLeaderError
+
+    leader = stable_leader(servers, label)
+    nodes, chunks = cluster_entries(n_nodes, allocs_per_node, seed)
+    retries = Counter()
+
+    def write(entry):
+        deadline = time.perf_counter() + CLUSTER_WAIT_S
+        while True:
+            try:
+                return leader.log.apply(*entry)
+            except (NotLeaderError, TimeoutError, ConnectionError):
+                check(time.perf_counter() < deadline,
+                      f"{label}: no leader took the load's writes")
+                retries[entry[0]] += 1
+                time.sleep(0.05)
+
+    t0 = time.perf_counter()
+    with Elections(servers) as elections, bulk_load():
+        with ThreadPoolExecutor(CLUSTER_WRITERS) as pool:
+            list(pool.map(write, nodes))
+            list(pool.map(write, chunks))
+        leader = stable_leader(servers, label)
+        caught_up(servers, leader, label)
+    figures = dict(build_s=time.perf_counter() - t0,
+                   entries=len(nodes) + len(chunks),
+                   retries=sum(retries.values()), **elections.summary())
+    print(f"{label}: {n_nodes} nodes, {n_nodes * allocs_per_node} allocs "
+          f"in {figures['entries']} raft entries through the leader's log, "
+          f"every follower caught up in {figures['build_s']:.1f} s (host); "
+          f"{figures['elections']} elections and {figures['retries']} "
+          f"retried writes under the load")
+    return leader, figures
+
+
+class Clients:
+    """The nodes' clients: every CLIENT_HEARTBEAT_S, every node the
+    current leader times heartbeats through it, as a node's client agent
+    does. A leader that takes over arms a TTL timer for every node in its
+    state (heartbeat.go initializeHeartbeatTimers) and marks down each
+    node that does not heartbeat within its TTL."""
+
+    def __init__(self, servers):
+        import threading
+
+        self.servers = servers
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(CLIENT_HEARTBEAT_S):
+            leader = next((s for s in self.servers if s.is_leader()), None)
+            if leader is None:
+                continue
+            timers = leader.heartbeats
+            with timers._lock:
+                node_ids = list(timers._timers)
+            for node_id in node_ids:
+                timers.reset_timer(node_id)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+
+
+@contextlib.contextmanager
+def running_cluster(label, servers):
+    """Run the block with the cluster's clients heartbeating and no ERROR
+    record on the port's loggers; shut every server down after it and
+    give the frozen load back to the collector."""
+    with ErrorRecords() as errors:
+        try:
+            with Clients(servers):
+                yield
+        finally:
+            for server in servers:
+                server.shutdown()
+            gc.unfreeze()
+    check(not errors.records, f"{label} logged errors: {errors.records[:5]}")
+
+
+class Elections:
+    """Terms and won elections across the cluster while the block runs
+    (each leadership gain is one won election)."""
+
+    def __init__(self, servers):
+        self.servers = servers
+        self.won = Counter()
+
+    def __enter__(self):
+        self.term0 = max(s.raft.current_term for s in self.servers)
+        for s in self.servers:
+            notify = s.raft._notify_leadership
+
+            def counted_notify(is_leader, notify=notify, name=s.node_id):
+                if is_leader:
+                    self.won[name] += 1
+                return notify(is_leader)
+
+            s.raft._notify_leadership = counted_notify
+        return self
+
+    def __exit__(self, *exc):
+        for s in self.servers:
+            del s.raft._notify_leadership
+        self.terms = max(s.raft.current_term for s in self.servers) - \
+            self.term0
+
+    def summary(self):
+        return dict(terms=self.terms, elections=sum(self.won.values()),
+                    won_by=dict(self.won))
+
+
+class FollowerLag:
+    """The largest gap between the leader's commit index and a
+    follower's applied index, sampled every 2 ms while the block runs."""
+
+    def __init__(self, leader, servers):
+        import threading
+
+        self.leader = leader
+        self.followers = [s for s in servers if s is not leader]
+        self.most = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            commit = self.leader.raft.commit_index
+            lag = commit - min(f.raft.last_applied for f in self.followers)
+            self.most = max(self.most, lag)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+
+class PlacedBy:
+    """Allocs placed by the plans each server submits while the block
+    runs (the executive and workers submit through ``plan_submit``)."""
+
+    def __init__(self, servers):
+        self.servers = servers
+        self.placed = Counter()
+
+    def __enter__(self):
+        for s in self.servers:
+            submit = s.plan_submit
+
+            def counted_submit(plan, submit=submit, name=s.node_id):
+                result = submit(plan)
+                self.placed[name] += sum(
+                    len(v) for v in result.node_allocation.values())
+                return result
+
+            s.plan_submit = counted_submit
+        return self
+
+    def __exit__(self, *exc):
+        for s in self.servers:
+            del s.plan_submit
+
+
+class Forwarded:
+    """Writes forwarded from a follower to the leader over the
+    transport while the block runs."""
+
+    def __init__(self, transport):
+        self.transport = transport
+        self.count = 0
+
+    def __enter__(self):
+        forward = self.transport.forward_apply
+
+        def counted(peer, msg_type, payload):
+            self.count += 1
+            return forward(peer, msg_type, payload)
+
+        self.transport.forward_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.transport.forward_apply
+
+
+def fsm_tables(server, full=False):
+    """The FSM's node, alloc and eval tables by id: with create/modify
+    indexes, or (``full``) as plain data, without the nodes'
+    ``status_updated_at``, which each replica stamps with its own clock
+    when it applies a status change (the JAX store does the same)."""
+    from nomad_tpu_torch.utils.codec import to_dict
+
+    state = server.fsm.state.snapshot()
+
+    def rec(obj):
+        if not full:
+            return (obj.create_index, obj.modify_index)
+        out = to_dict(obj)
+        out.pop("status_updated_at", None)
+        return out
+
+    return {"nodes": {n.id: rec(n) for n in state.nodes()},
+            "allocs": {a.id: rec(a) for a in state.allocs()},
+            "evals": {e.id: rec(e) for e in state.evals()},
+            "jobs": {j.id: (j.create_index, j.modify_index)
+                     for j in state.jobs()}}
+
+
+def check_equal_fsms(servers, label, full=False):
+    """The servers' FSM tables are equal once every server has applied
+    the same index (the leader's commit index at that moment); compared
+    against the current leader's. Returns the row counts."""
+    deadline = time.perf_counter() + CLUSTER_WAIT_S
+    while True:
+        check(time.perf_counter() < deadline,
+              f"{label}: the servers never reached one applied index")
+        leader = next((s for s in servers if s.is_leader()), None)
+        applied = {s.raft.last_index() for s in servers}
+        if (leader is not None and len(applied) == 1
+                and applied == {leader.raft.known_commit_index()}):
+            want = fsm_tables(leader, full)
+            others = [fsm_tables(s, full) for s in servers if s is not leader]
+            if {s.raft.last_index() for s in servers} == applied:
+                break
+        time.sleep(0.01)
+    for got in others:
+        for table in want:
+            differ = [k for k in set(want[table]) | set(got[table])
+                      if want[table].get(k) != got[table].get(k)]
+            check(not differ, f"{label}: a server's {table} differ from "
+                  f"the leader's on {len(differ)} rows, e.g. {differ[:3]}")
+    return {t: len(v) for t, v in want.items()}
+
+
+def percentile_ms(values, q):
+    import numpy as np
+
+    return float(np.percentile(values, q)) * 1000.0
+
+
+def cluster_storm(label, servers, leader, via, clock, total, jobs, count,
+                  distinct, kernels, absent=()):
+    """Register ``jobs`` through ``via`` with every server parked,
+    release all, and wait until each eval is complete; returns (eval
+    ids, released-at, figures) with each server's cohorts, fast evals and
+    placements."""
+    figures = {}
+    ex0 = {s.node_id: s.executive.stats() for s in servers}
+    applier0 = leader.plan_applier.stats()
+    with contextlib.ExitStack() as stack:
+        cohorts = {s.node_id: stack.enter_context(Cohorts(s))
+                   for s in servers}
+        placed = stack.enter_context(PlacedBy(servers))
+        evs, start = counted(
+            total, label, kernels,
+            lambda: cluster_wave(servers, via, clock, label, jobs), absent)
+    wall = max(clock.done[e] for e in evs) - start
+    lat = [clock.done[e] - start for e in evs]
+    # One snapshot for the holds: a store read makes the FSM's next
+    # write copy the table it shares, under the raft apply.
+    snap = leader.fsm.state.snapshot()
+    check_server_state(leader, jobs, count, label, distinct, snap)
+    n = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
+    check(n == len(jobs) * count, f"{label} placed {n}")
+    per_server = {}
+    for s in servers:
+        ex = stats_delta(ex0[s.node_id], s.executive.stats())
+        check(ex["device_faults"] == 0,
+              f"{label}: {ex['device_faults']} device faults on {s.node_id}")
+        per_server[s.node_id] = dict(
+            leader=s is leader, cohorts=ex["cohorts"],
+            fast_evals=ex["fast_evals"], legacy_evals=ex["legacy_evals"],
+            routed_host=ex["routed_host"],
+            plan_conflicts=ex["plan_conflicts"],
+            placements=placed.placed[s.node_id],
+            cohort_sizes=[len(c) for c in cohorts[s.node_id].seen])
+    figures.update(
+        evals=len(jobs), placed=n, evals_per_s=len(jobs) / wall,
+        p50_ms=percentile_ms(lat, 50), p99_ms=percentile_ms(lat, 99),
+        servers=per_server,
+        applier=stats_delta(applier0, leader.plan_applier.stats()))
+    return evs, start, figures
+
+
+def cluster_wave(servers, via, clock, label, jobs):
+    cluster_paused(servers)
+    evs = [via.job_register(job)[0] for job in jobs]
+    start = time.perf_counter()
+    cluster_release(servers)
+    clock.wait(label, evs)
+    return evs, start
+
+
+def cluster_deregister(servers, via, clock, label, jobs):
+    cluster_paused(servers)
+    evs = [via.job_deregister(job.id) for job in jobs]
+    cluster_release(servers)
+    clock.wait(label, evs)
+
+
+def run_cluster_config8(seed, total, single):
+    """Phase 14 (a): config 8 on three servers over InmemTransport, the
+    storm and the lone evals registered through a follower. ``single`` is
+    phase 13 (a)'s figures, printed beside."""
+    from nomad_tpu_torch import trace
+
+    label = "cluster config 8"
+    transport, servers, clocks = inmem_cluster()
+    with running_cluster(label, servers):
+        leader, load = load_cluster(servers, label, SERVER_NODES,
+                                    SERVER_ALLOCS_PER_NODE, seed + 11)
+        figures = {"load": load}
+        clock = clocks[servers.index(leader)]
+        follower = next(s for s in servers if s is not leader)
+        t0 = time.perf_counter()
+        for w in range(SERVER_WARM_WAVES):
+            warm = [server_job(f"c8-warm{w}-{j}") for j in range(SERVER_JOBS)]
+            cluster_wave(servers, leader, clock, f"{label} warm wave {w}",
+                         warm)
+            check_server_state(leader, warm, SERVER_COUNT,
+                               f"{label} warm wave {w}")
+            cluster_deregister(servers, leader, clock,
+                               f"{label} warm dereg {w}", warm)
+        print(f"{label}: {SERVER_WARM_WAVES} warm waves of {SERVER_JOBS} "
+              f"jobs placed and stopped in {time.perf_counter() - t0:.1f} s "
+              f"(host)")
+
+        jobs = [server_job(f"c8-e2e-{j}") for j in range(SERVER_JOBS)]
+        trace.get_recorder().reset()
+        with Elections(servers) as elections, \
+                FollowerLag(leader, servers) as lag, \
+                Forwarded(transport) as forwarded:
+            evs, start, storm = cluster_storm(
+                f"{label} storm", servers, leader, follower, clock, total,
+                jobs, SERVER_COUNT, True, EXECUTIVE_KERNELS["config 8"],
+                DRAWN_IN_SCANS)
+        figures.update(storm)
+        figures.update(elections.summary())
+        figures["forwarded_writes"] = forwarded.count
+        figures["max_follower_lag"] = lag.most
+        figures["storm_stages"] = trace.get_recorder().stage_stats()
+        figures["fsm_rows"] = check_equal_fsms(servers, f"{label} storm")
+        print(f"{label} storm: {SERVER_JOBS} evals registered through "
+              f"follower {follower.node_id}, {figures['evals_per_s']:.2f} "
+              f"evals/s, release to complete p50 {figures['p50_ms']:.2f} ms, "
+              f"p99 {figures['p99_ms']:.2f} ms; {figures['forwarded_writes']}"
+              f" writes forwarded; follower lag at most "
+              f"{figures['max_follower_lag']} entries; {figures['terms']} new "
+              f"terms, {figures['elections']} elections; the three FSMs "
+              f"equal ({json.dumps(figures['fsm_rows'], sort_keys=True)})")
+        print(f"  servers: {json.dumps(figures['servers'], sort_keys=True)}")
+
+        # The follower's own clock: the eval reads complete there once
+        # the follower applied its plan.
+        with Forwarded(transport) as forwarded:
+            lone = lone_evals(
+                follower, clocks[servers.index(follower)], total, label,
+                [server_job(f"c8-lone-{i}") for i in range(SERVER_LONE)],
+                SERVER_COUNT)
+        figures["lone_forwarded_writes"] = forwarded.count
+        figures["lone_p50_ms"] = percentile_ms(lone, 50)
+        figures["lone_p99_ms"] = percentile_ms(lone, 99)
+        figures["nodes_checked"] = check_server_nodes(
+            leader, leader.fsm.state.snapshot())
+        print(f"{label} lone evals: {SERVER_LONE} through follower "
+              f"{follower.node_id}, register to complete p50 "
+              f"{figures['lone_p50_ms']:.2f} ms, p99 "
+              f"{figures['lone_p99_ms']:.2f} ms")
+    side = {k: (single.get(k), figures[k])
+            for k in ("evals_per_s", "p50_ms", "p99_ms", "lone_p50_ms",
+                      "lone_p99_ms")}
+    print(f"config 8, one server (phase 13 (a)) against three: "
+          f"{json.dumps(side, sort_keys=True)}")
+    return figures
+
+
+def cut_leader(transport, leader, survivors, evs, clocks, label):
+    """Cut ``leader`` off, wait until both survivors name a new leader
+    and its broker is enabled, release the survivors, and wait until
+    ``evs`` are complete on the new leader. The survivors are released
+    only then: before it, the in-process cluster map would still hand
+    them the cut leader's broker, which no partition allows. Returns the
+    new leader and the times of the cut, the election and the broker."""
+    cut = time.perf_counter()
+    transport.disconnect(leader.node_id)
+    deadline = cut + CLUSTER_WAIT_S
+    new = None
+    while new is None:
+        check(time.perf_counter() < deadline, f"{label}: no new leader")
+        time.sleep(0.001)
+        new = next((s for s in survivors if s.is_leader() and all(
+            f.raft.leader_id == s.node_id for f in survivors)), None)
+    elected = time.perf_counter()
+    while not new.broker.enabled():
+        check(time.perf_counter() < deadline,
+              f"{label}: the new leader's broker is disabled")
+        time.sleep(0.001)
+    enabled = time.perf_counter()
+    cluster_release(survivors)
+    clocks[survivors.index(new)].wait(label, evs)
+    return new, cut, elected, enabled
+
+
+def run_cluster_failover(seed, total):
+    """Phase 14 (b): config 6's storm registered with every server
+    parked, then the leader cut off (``transport.disconnect``) and the two
+    others released once they name a new leader (``cut_leader``). The cut
+    leader stays parked: it cannot commit, and whatever it launched would
+    count as the survivors' launches."""
+    label = "cluster failover"
+    transport, servers, clocks = inmem_cluster()
+    with running_cluster(label, servers):
+        _leader, load = load_cluster(servers, label, CONFIG6_NODES, 0,
+                                     seed + 11)
+        figures = failover_storm(label, transport, servers, clocks, total)
+        figures["load"] = load
+    return figures
+
+
+def failover_storm(label, transport, servers, clocks, total):
+    """Phase 14 (b) on a loaded cluster: warm waves through the leader,
+    the storm registered parked, the cut (``cut_leader``) and the holds;
+    the cut leader rejoins at the end."""
+    leader = stable_leader(servers, label)
+    clock = clocks[servers.index(leader)]
+    for w in range(SERVER_WARM_WAVES):
+        warm = [config6_job(f"fo-warm{w}-{j}") for j in range(CONFIG6_JOBS)]
+        cluster_wave(servers, leader, clock, f"{label} warm wave {w}", warm)
+        cluster_deregister(servers, leader, clock, f"{label} warm dereg {w}",
+                           warm)
+    jobs = [config6_job(f"fo-e2e-{j}") for j in range(CONFIG6_JOBS)]
+    cluster_paused(servers)
+    evs = [leader.job_register(job)[0] for job in jobs]
+    caught_up(servers, leader, label)
+    survivors = [s for s in servers if s is not leader]
+    with Elections(survivors) as elections:
+        new, cut, elected, enabled = counted(
+            total, f"{label} storm", FAILOVER_KERNELS,
+            lambda: cut_leader(transport, leader, survivors, evs,
+                               [clocks[servers.index(s)] for s in survivors],
+                               label))
+    done = [clocks[servers.index(new)].done[e] for e in evs]
+    snap = new.fsm.state.snapshot()
+    check_server_state(new, jobs, CONFIG6_COUNT, label, False, snap)
+    allocs = [a for j in jobs for a in snap.allocs_by_job(j.id)]
+    check(len(allocs) == CONFIG6_JOBS * CONFIG6_COUNT
+          and len({a.id for a in allocs}) == len(allocs)
+          and len({(a.job_id, a.name) for a in allocs}) == len(allocs),
+          f"{label}: {len(allocs)} allocs, some placed twice")
+    figures = dict(
+        new_leader=new.node_id, old_leader=leader.node_id,
+        to_new_leader_ms=(elected - cut) * 1000.0,
+        to_broker_enabled_ms=(enabled - cut) * 1000.0,
+        to_first_complete_ms=(min(done) - cut) * 1000.0,
+        to_last_complete_ms=(max(done) - cut) * 1000.0,
+        evals_per_s=len(evs) / (max(done) - cut),
+        fsm_rows=check_equal_fsms(survivors, label), **elections.summary())
+    print(f"{label}: leader {leader.node_id} cut off with {len(evs)} evals "
+          f"registered; {new.node_id} elected in "
+          f"{figures['to_new_leader_ms']:.1f} ms, broker enabled at "
+          f"{figures['to_broker_enabled_ms']:.1f} ms, first eval complete at "
+          f"{figures['to_first_complete_ms']:.1f} ms, last at "
+          f"{figures['to_last_complete_ms']:.1f} ms "
+          f"({figures['evals_per_s']:.2f} evals/s); every job "
+          f"{CONFIG6_COUNT} allocs, none placed twice; the two FSMs equal")
+    transport.reconnect(leader.node_id)
+    return figures
+
+
+def run_cluster_tcp(seed, total):
+    """Phase 14 (c): config 6 on three servers over TCPTransport that
+    find each other by gossip (setup_serf, serf_join,
+    setup_raft_cluster(expect=3) on 127.0.0.1 ephemeral ports). The port
+    has no HTTP API: the followers find no leader address in the serf
+    tags and back off, so the leader's own workers and executive place
+    the storm."""
+    from nomad_tpu_torch.server.transport import (TCPTransport,
+                                                  fsm_payload_decoder)
+
+    label = "cluster over TCP"
+    servers, transports = [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(CLUSTER_SERVERS):
+            servers.append(cluster_server(node_name=f"t{i}",
+                                          bootstrap_expect=CLUSTER_SERVERS))
+            transport = TCPTransport(fsm_payload_decoder)
+            transports.append((transport, transport.serve("127.0.0.1", 0)))
+        with running_cluster(label, servers):
+            for server, (_t, addr) in zip(servers, transports):
+                server.setup_serf("127.0.0.1", 0, rpc_addr=addr)
+            seed_addr = servers[0].serf.local_member.addr
+            for server in servers[1:]:
+                check(server.serf_join([seed_addr]) == 1,
+                      f"{label}: serf join failed")
+            for server, (transport, addr) in zip(servers, transports):
+                server.setup_raft_cluster(transport, addr,
+                                          expect=CLUSTER_SERVERS)
+            leader = stable_leader(servers, label)
+            figures = {"bootstrap_s": time.perf_counter() - t0}
+            check(sorted(leader.raft.stats()["members"])
+                  == sorted(a for _t, a in transports),
+                  f"{label}: members {leader.raft.stats()['members']}")
+            leader, figures["load"] = load_cluster(
+                servers, label, CONFIG6_NODES, 0, seed + 11)
+            clock = EvalClock(leader)
+            jobs = [config6_job(f"tcp-e2e-{j}") for j in range(CONFIG6_JOBS)]
+            _evs, _start, storm = cluster_storm(
+                f"{label} storm", servers, leader, leader, clock, total,
+                jobs, CONFIG6_COUNT, False, EXECUTIVE_KERNELS["config 6"])
+            figures.update(storm)
+            figures["fsm_rows"] = check_equal_fsms(servers, label, full=True)
+            print(f"{label}: bootstrap to one leader in "
+                  f"{figures['bootstrap_s']:.2f} s; storm "
+                  f"{figures['evals_per_s']:.2f} evals/s, p99 "
+                  f"{figures['p99_ms']:.2f} ms; the followers' decoded FSMs "
+                  f"equal the leader's field by field")
+    finally:
+        for transport, _addr in transports:
+            transport.close()
+    return figures
+
+
+def run_cluster(seed, total, single):
+    """Phase 14: (a), (b) and (c); prints ``server cluster figures``."""
+    t0 = time.perf_counter()
+    figures = {"config 8": run_cluster_config8(seed, total, single)}
+    figures["failover"] = run_cluster_failover(seed, total)
+    figures["tcp"] = run_cluster_tcp(seed, total)
+    figures["wall_s"] = time.perf_counter() - t0
+    print(f"server cluster figures: {json.dumps(figures, sort_keys=True)}")
+    return figures
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6454,9 +7199,10 @@ def main(argv=None) -> int:
         print(f"runtime figures: {json.dumps(runtime, sort_keys=True)}")
         server = run_server_storm(args.seed, torch, total)
         print(f"server storm figures: {json.dumps(server, sort_keys=True)}")
-        run_executive_storms(args.seed, torch, total, server)
+        executive = run_executive_storms(args.seed, torch, total, server)
         defrag = run_live_defrag(args.seed, total)
         print(f"server defrag figures: {json.dumps(defrag, sort_keys=True)}")
+        run_cluster(args.seed, total, executive["config 8"])
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))

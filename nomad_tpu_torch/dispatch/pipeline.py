@@ -50,7 +50,7 @@ from typing import List, Optional, Tuple
 from .. import profile, trace
 from ..profile import ProfiledCondition, ProfiledLock
 from ..scheduler import new_scheduler
-from ..server.worker import EvalSession
+from ..server.worker import EvalSession, refresh_index
 from ..structs import Evaluation, Plan, PlanResult, consts
 from ..utils import metrics
 from ..utils.backoff import poll_until
@@ -142,13 +142,13 @@ class PipelineSession(EvalSession):
                 # Replan as part of the next packed batch — which must
                 # snapshot at or past this plan's partial commit.
                 self.entry.min_index = max(self.entry.min_index,
-                                           result.refresh_index)
+                                           refresh_index(result))
                 raise _RequeueConflict()
             # Bounded out (or side effects exist): classic inline
             # retry — catch local state up, hand back a fresh snapshot.
             self.pipeline._note_inline_retry()
             self.pipeline._wait_for_index(
-                result.refresh_index, WAIT_INDEX_TIMEOUT)
+                refresh_index(result), WAIT_INDEX_TIMEOUT)
             return result, self.server.fsm.state.snapshot()
         return result, None
 
@@ -548,8 +548,9 @@ class DispatchPipeline:
         # share one token, one device upload, and (pre_resolve) one
         # serialized claim scan. Same invariant as the worker drain
         # path; optimistic concurrency keeps it safe.
-        max_index = max(max(e.eval.modify_index, e.min_index)
-                        for e in batch)
+        max_index = max(max(max(e.eval.modify_index, e.min_index)
+                            for e in batch),
+                        self.server.snapshot_min_index())
         if not self._wait_for_index(max_index, WAIT_INDEX_TIMEOUT):
             return None
         snapshot = self.server.fsm.state.snapshot()

@@ -1,9 +1,9 @@
-"""The control plane's server side, in dev mode: the eval broker,
-blocked evals, plan queue and applier, FSM over the dev log, workers,
-heartbeats, periodic dispatch, core GC, vault, the scheduler executive
-and the Server that composes them (the port of the JAX package's
-server package; raft, serf and leader forwarding are not ported
-yet)."""
+"""The control plane's server side: the eval broker, blocked evals,
+plan queue and applier, FSM over the dev log or the raft log, workers,
+heartbeats, periodic dispatch, core GC, vault, the scheduler executive,
+the multi-server layer (raft and its storage, the TCP transport, serf
+gossip, leader forwarding) and the Server that composes them (the port
+of the JAX package's server package)."""
 
 from .broker import EvalBroker
 from .blocked import BlockedEvals

@@ -6,8 +6,7 @@ Reference: nomad/config.go (defaults at :225-238) and
 command/agent/agent.go:129 (num_schedulers overlay).
 
 Left out until their parts are ported, so that no option is accepted
-and then ignored: the multi-server ones (``node_name``,
-``bootstrap_expect``), the read plane (``read_mux_*``,
+and then ignored: the read plane (``read_mux_*``,
 ``read_scoped_index``), and the device-path breaker (``breaker_*``: the
 port has none, a device fault fails the eval and the broker redelivers
 it). The pipeline-off ``dispatch_pipeline=False`` arm is not carried
@@ -25,6 +24,8 @@ from typing import Dict, List, Optional
 class ServerConfig:
     region: str = "global"
     datacenter: str = "dc1"
+    node_name: str = ""
+    bootstrap_expect: int = 1
 
     # Scheduling workers (reference default 1; the agent sets NumCPU).
     num_schedulers: int = 1

@@ -429,7 +429,8 @@ class SchedulerExecutive:
         # One MVCC snapshot for the whole cohort (same invariant as the
         # pipeline launch: shared base token, one device upload;
         # optimistic concurrency keeps it safe).
-        max_index = max(e.eval.modify_index for e in batch)
+        max_index = max(max(e.eval.modify_index for e in batch),
+                        self.server.snapshot_min_index())
         if not self._wait_for_index(max_index, WAIT_INDEX_TIMEOUT):
             for entry in batch:
                 self._finish(entry, acked=False)
@@ -811,8 +812,10 @@ class SchedulerExecutive:
         start = time.monotonic()
         try:
             if snapshot is None:
-                if not self._wait_for_index(ev.modify_index,
-                                            WAIT_INDEX_TIMEOUT):
+                if not self._wait_for_index(
+                        max(ev.modify_index,
+                            self.server.snapshot_min_index()),
+                        WAIT_INDEX_TIMEOUT):
                     self._finish(entry, acked=False)
                     return
                 snapshot = self.server.fsm.state.snapshot()

@@ -300,8 +300,8 @@ class FSM:
 class DevLog:
     """Single-node, in-memory replicated-log stand-in: applies entries
     synchronously to the local FSM (the reference's dev mode uses
-    raft.InmemStore with a single peer, server.go:657-663). The port
-    has no raft log yet: dev mode is the only mode."""
+    raft.InmemStore with a single peer, server.go:657-663). The raft
+    log (raft.RaftLog) replaces it in multi-server mode."""
 
     def __init__(self, fsm: FSM):
         self.fsm = fsm

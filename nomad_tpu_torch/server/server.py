@@ -4,15 +4,22 @@ Reference: nomad/server.go:69 (Server, NewServer:169), leader-only
 services (leader.go:108 establishLeadership), and the RPC endpoints
 (job_endpoint.go, node_endpoint.go, eval_endpoint.go, plan_endpoint.go,
 alloc_endpoint.go). In dev mode a single in-process server is its own
-leader over a DevLog.
+leader over a DevLog; the raft log replaces DevLog behind the same
+apply() interface.
 
-The port of the JAX package's server/server.py in dev mode: the broker,
-blocked evals, plan queue and applier, workers, the dispatch pipeline,
-the scheduler executive, the continuous defrag loop, admission,
-heartbeats, periodic dispatch, core GC and vault. Not carried yet: the
-read plane (the HTTP API's), and the multi-server entry points (raft,
-serf, leader forwarding): dev mode is the only mode, so every
-leader-only operation runs on this server.
+The port of the JAX package's server/server.py: the broker, blocked
+evals, plan queue and applier, workers, the dispatch pipeline, the
+scheduler executive, the continuous defrag loop, admission, heartbeats,
+periodic dispatch, core GC and vault, in dev mode (``start``) and in
+the multi-server modes: a raft cluster of in-process servers
+(``start_with_raft`` over an InmemTransport, leader-only operations
+routed to the leader's object) or of servers that find each other by
+gossip (``setup_serf``, ``serf_join``, ``setup_raft_cluster`` over a
+TCPTransport, leader-only operations forwarded by ``RemoteLeader`` to
+the leader's HTTP address from its serf tags). Not carried yet: the read
+plane and the HTTP API, so a follower in TCP mode finds no leader
+address until a server of the JAX package, or a later port of the API,
+serves the leader's internal routes.
 """
 
 from __future__ import annotations
@@ -58,6 +65,13 @@ class Server:
     def __init__(self, config: Optional[ServerConfig] = None):
         self.config = config or ServerConfig()
         self.logger = logging.getLogger("nomad_tpu_torch.server")
+        # Cluster TLS material: None = plaintext. Declared here so every
+        # construction path has the attributes — a missing attribute
+        # would silently downgrade gossip and leader forwarding to
+        # plaintext.
+        self.tls_client_ctx = None  # outbound HTTP (leader/region/peers)
+        self.tls_rpc_server_ctx = None  # gossip + raft mTLS, server side
+        self.tls_rpc_client_ctx = None  # gossip + raft mTLS, client side
 
         self.fsm = FSM()
         self.log = DevLog(self.fsm)
@@ -155,6 +169,27 @@ class Server:
         self._shutdown = False
         self._gc_threads: List[threading.Timer] = []
         self._telemetry_stop: Optional[threading.Event] = None
+        # Multi-server mode (start_with_raft): consensus node + peer
+        # registry for leader-routed operations (the reference forwards
+        # RPCs to the leader, rpc.go:178).
+        self.raft = None
+        self.cluster: Optional[Dict[str, "Server"]] = None
+        self.node_id = self.config.node_name or "server-0"
+        self._leadership_lock = threading.Lock()
+        # Gossip membership (serf.go): peers is all known servers keyed
+        # by region, local_peers the same-region subset — mirroring
+        # server.go:100-104 peers/localPeers.
+        self.serf = None
+        self.peers: Dict[str, Dict[str, object]] = {}
+        self._peers_lock = threading.Lock()
+        # Raft membership changes triggered by gossip run here, never
+        # on the serf event thread (they block on a raft commit).
+        self._membership_pool = WorkPool(1, name="raft-membership")
+        # The membership sweep and the gossip bootstrap wait on this,
+        # so that shutdown ends them at once.
+        self._cluster_stop = threading.Event()
+        self._cluster_threads: List[threading.Thread] = []
+        self._remote_leader_cache = None
         # Vault token authority (vault.go): the HTTP provider when an
         # address is configured, else the in-process stub so the
         # derive→renew→revoke lifecycle works without an external
@@ -324,17 +359,197 @@ class Server:
         t.start()
         self._telemetry_thread = t
 
+    def start_with_raft(self, node_id: str, peers: List[str], transport,
+                        cluster: Dict[str, "Server"],
+                        data_dir: str = "",
+                        snapshot_threshold: int = 1024) -> None:
+        """Multi-server mode: leadership follows raft elections. With a
+        data_dir the raft log/meta persist and the FSM snapshots with
+        compaction (reference: raft-boltdb + fsm.go snapshots)."""
+        from .raft import RaftLog, RaftNode
+
+        storage = None
+        if data_dir:
+            from .raft_storage import RaftStorage
+            from .transport import _encode_payload, fsm_payload_decoder
+
+            storage = RaftStorage(
+                data_dir,
+                encode=lambda mt, p: _encode_payload(p),
+                decode=fsm_payload_decoder,
+            )
+        self.node_id = node_id
+        self.cluster = cluster
+        cluster[node_id] = self
+        self.raft = RaftNode(
+            node_id, peers, transport, self.fsm.apply,
+            self._leadership_changed,
+            fsm_snapshot=self.fsm.snapshot_data,
+            fsm_restore=self.fsm.restore,
+            storage=storage,
+            snapshot_threshold=snapshot_threshold if storage else 0,
+        )
+        self.log = RaftLog(self.raft)
+        self.plan_applier.log = self.log
+        transport.register(self.raft)
+        # RPC intake admission (raft + leader-forward kinds exempt;
+        # transport.py _dispatch). Plain attribute assignment: the
+        # in-memory transport simply never consults it.
+        transport.admission = self.admission
+        for i in range(self.config.num_schedulers):
+            worker = Worker(self, i)
+            self.workers.append(worker)
+            worker.start()
+        self.dispatch.start()
+        self.executive.start()
+        self.defrag.start()
+        self.raft.start()
+        self._start_cluster_thread(self._membership_reconcile_loop,
+                                   "raft-membership-sweep")
+        self._start_telemetry()
+
+    def _start_cluster_thread(self, target, name: str) -> None:
+        t = threading.Thread(target=target, name=name, daemon=True)
+        self._cluster_threads.append(t)
+        t.start()
+
+    def setup_raft_cluster(self, transport, raft_addr: str, expect: int,
+                           data_dir: str = "",
+                           snapshot_threshold: int = 1024) -> None:
+        """Form a raft cluster through gossip: wait until
+        `bootstrap_expect` same-region servers advertise a raft address
+        in their serf tags, then start raft over that seed peer set
+        (server.go bootstrap_expect + leader.go peer wiring). Until
+        then, writes fail with no-leader.
+
+        The seed set only bootstraps: afterwards gossip drives dynamic
+        membership (_reconcile_raft_member -> raft add_peer/remove_peer),
+        so servers can join an established cluster late — the leader
+        adds them and replication corrects their seed config."""
+        from .raft import UnavailableLog
+
+        self.log = UnavailableLog()
+        self.plan_applier.log = self.log
+
+        def wait_and_start():
+            while not self._shutdown:
+                members = [
+                    m for m in self.serf_members()
+                    if getattr(m, "region", None) == self.config.region
+                    and getattr(m, "status", "alive") == "alive"
+                ]
+                addrs = sorted(
+                    {m.tags.get("rpc_addr") for m in members
+                     if m.tags.get("rpc_addr")} | {raft_addr}
+                )
+                if len(addrs) >= expect:
+                    self.logger.info(
+                        "raft bootstrap reached %d servers: %s",
+                        len(addrs), addrs)
+                    self.start_with_raft(
+                        raft_addr, addrs, transport, {},
+                        data_dir=data_dir,
+                        snapshot_threshold=snapshot_threshold)
+                    return
+                if self._cluster_stop.wait(0.5):
+                    return
+
+        self._start_cluster_thread(wait_and_start, "raft-bootstrap")
+
+    def _leadership_changed(self, is_leader: bool) -> None:
+        # Serialized: elections can flap faster than the services
+        # start/stop.
+        with self._leadership_lock:
+            if is_leader:
+                # Barrier first (leader.go leaderLoop): the FSM applies
+                # everything committed before this term, so the evals
+                # restored next and the plans verified next see every
+                # earlier commit, a plan committed just before a flap
+                # included. A term that ends first queues its loss next.
+                if self.raft.wait_leader_barrier():
+                    self.establish_leadership()
+            else:
+                self.revoke_leadership()
+
+    def snapshot_min_index(self) -> int:
+        """The store index a scheduler on this server waits for before it
+        plans an eval it dequeued, beside the eval's own modify index: in
+        a cluster of in-process servers, the leader's store index, so
+        that the snapshot holds every plan the leader had applied when
+        the eval was delivered. A redelivery after a leader flap then
+        sees what its earlier delivery committed and places nothing
+        twice (a new leader applies every earlier commit before it
+        restores the broker: ``wait_leader_barrier``). The store's
+        index, not raft's: a raft noop or config entry never reaches
+        the store. 0 in dev mode, where the local FSM is the authority,
+        and where the leader is remote."""
+        leader = self._leader_server() if self.raft is not None else None
+        if leader is None or leader is self:
+            return 0
+        return leader.fsm.state.latest_index()
+
+    def _leader_server(self) -> Optional["Server"]:
+        """The server object currently holding leadership (self in dev
+        mode). Leader-only operations route through this."""
+        if self._leader or self.cluster is None:
+            return self
+        leader_id = self.raft.leader_id if self.raft is not None else None
+        if leader_id is None:
+            return None
+        return self.cluster.get(leader_id)
+
+    def leader_http_addr(self) -> Optional[str]:
+        """The leader's advertised HTTP address, resolved through serf
+        tags (how followers route to the leader in TCP mode)."""
+        leader_id = self.raft.leader_id if self.raft is not None else None
+        if leader_id is None:
+            return None
+        for m in self.serf_members():
+            if m.tags.get("rpc_addr") == leader_id:
+                return m.tags.get("http_addr") or None
+        return None
+
+    def _remote_leader(self):
+        """Remote-leader proxy for TCP multi-server mode (rpc.go:178
+        forward): used when the leader isn't an in-process Server."""
+        addr = self.leader_http_addr()
+        if addr is None:
+            return None
+        from .leader_client import RemoteLeader
+
+        cached = self._remote_leader_cache
+        if cached is None or cached.addr != addr.rstrip("/"):
+            cached = RemoteLeader(addr, ssl_context=self.tls_client_ctx)
+            self._remote_leader_cache = cached
+        return cached
+
     def _reset_heartbeat(self, node_id: str) -> float:
-        return self.heartbeats.reset_timer(node_id)
+        leader = self._leader_server()
+        if leader is not None:
+            return leader.heartbeats.reset_timer(node_id)
+        remote = self._remote_leader()
+        if remote is not None:
+            return remote.heartbeat_reset(node_id)
+        return 0.0
 
     def _clear_heartbeat(self, node_id: str) -> None:
-        self.heartbeats.clear_timer(node_id)
+        leader = self._leader_server()
+        if leader is not None:
+            leader.heartbeats.clear_timer(node_id)
 
     def shutdown(self) -> None:
         self._shutdown = True
+        self._cluster_stop.set()
         if self._telemetry_stop is not None:
             self._telemetry_stop.set()
         self.revoke_leadership()
+        if self.serf is not None:
+            self.serf.shutdown()
+        if self.raft is not None:
+            self.raft.stop()
+        for t in list(self._cluster_threads):
+            if t is not threading.current_thread():
+                t.join(timeout=5.0)
         self.dispatch.stop()
         self.executive.stop()
         self.defrag.stop()
@@ -345,6 +560,150 @@ class Server:
 
     def is_leader(self) -> bool:
         return self._leader
+
+    def read_staleness(self) -> tuple:
+        """(last_contact_ms, known_leader) for `?stale` read headers:
+        how old this replica's view may be (0.0 while leading or in
+        dev mode — the local store IS the authority) and whether a
+        leader is currently known."""
+        if self._leader:
+            return 0.0, True
+        raft = self.raft
+        if raft is None:
+            # Dev mode never revokes leadership; a non-leader without
+            # raft is mid-shutdown — report unknown.
+            return 0.0, False
+        return raft.last_contact() * 1000.0, raft.leader_id is not None
+
+    def wait_consistent(self, timeout: float = 5.0) -> None:
+        """`?consistent` read barrier: block until the local FSM has
+        applied the leader's last-known commit index (read-your-writes
+        on a follower without forwarding the read). No-op on the
+        leader/dev server, whose FSM is the commit authority."""
+        raft = self.raft
+        if raft is None or self._leader:
+            return
+        self._wait_applied(raft.known_commit_index(), timeout=timeout)
+
+    # ---------------------------------------------------- serf/federation
+
+    def setup_serf(self, host: str = "127.0.0.1", port: int = 0,
+                   http_addr: str = "", rpc_addr: str = "") -> str:
+        """Join the gossip pool, advertising this server's addresses.
+
+        Reference: server.go:740-760 (setupSerf tags) + serf.go
+        (serfEventHandler maintaining peers/localPeers).
+        """
+        from .serf import ALIVE, Serf
+
+        def on_event(event: str, member) -> None:
+            with self._peers_lock:
+                region_peers = self.peers.setdefault(member.region, {})
+                if member.status == ALIVE:
+                    region_peers[member.name] = member
+                else:
+                    region_peers.pop(member.name, None)
+                    if not region_peers:
+                        self.peers.pop(member.region, None)
+            # Off the gossip thread: add/remove_peer waits for a raft
+            # commit (up to APPLY_TIMEOUT) and blocking here would
+            # freeze probing — missed acks would mark healthy members
+            # failed.
+            self._membership_pool.submit(self._reconcile_raft_member, member)
+
+        self.serf = Serf(
+            name=f"{self.node_id}.{self.config.region}",
+            region=self.config.region,
+            datacenter=self.config.datacenter,
+            tags={
+                "role": "nomad",
+                "http_addr": http_addr,
+                "rpc_addr": rpc_addr,
+                "bootstrap_expect": str(self.config.bootstrap_expect),
+            },
+            on_event=on_event,
+            # Gossip rides the same mTLS material as raft: its member
+            # records carry the addresses forwarding trusts.
+            ssl_server_ctx=self.tls_rpc_server_ctx,
+            ssl_client_ctx=self.tls_rpc_client_ctx,
+        )
+        return self.serf.serve(host, port)
+
+    def _reconcile_raft_member(self, member) -> None:
+        """Gossip drives raft membership on the leader (leader.go:491
+        reconcileMember -> :551 addRaftPeer / :577 removeRaftPeer):
+        a same-region server joining with a raft address is added as a
+        peer; one that LEAVES is removed (failures are transient and do
+        not shrink the quorum, matching the reference). Serf fires an
+        event only on the status TRANSITION, so a miss here (no leader
+        yet, or a config change in flight) is not redelivered — the
+        periodic sweep in _membership_reconcile_loop retries until the
+        cluster converges (the reference reconciles on its leader-loop
+        interval too, leader.go:47-60)."""
+        from .serf import ALIVE, LEFT
+
+        if self.raft is None or not self.raft.is_leader():
+            return
+        if getattr(member, "region", None) != self.config.region:
+            return
+        rpc_addr = member.tags.get("rpc_addr") if member.tags else None
+        if not rpc_addr or rpc_addr == self.raft.node_id:
+            return
+        try:
+            if member.status == ALIVE:
+                self.raft.add_peer(rpc_addr)
+            elif member.status == LEFT:
+                self.raft.remove_peer(rpc_addr)
+        except Exception as e:  # noqa: BLE001
+            self.logger.warning(
+                "raft membership reconcile for %s failed (periodic sweep"
+                " will retry): %s", rpc_addr, e)
+
+    def _membership_reconcile_loop(self, interval: float = 5.0) -> None:
+        """Leader-only periodic sweep over the serf member list: the
+        event-driven path can miss transitions (see above), and
+        add_peer/remove_peer are no-ops when already converged, so the
+        sweep is cheap."""
+        while not self._cluster_stop.wait(interval):
+            try:
+                if self.raft is None or not self.raft.is_leader():
+                    continue
+                for member in self.serf_members():
+                    self._reconcile_raft_member(member)
+            except Exception:  # noqa: BLE001 - sweep must survive
+                self.logger.exception("membership reconcile sweep failed")
+
+    def serf_join(self, addrs: List[str]) -> int:
+        if self.serf is None:
+            raise ValueError("serf not configured on this server")
+        return self.serf.join(addrs)
+
+    def serf_members(self) -> List[object]:
+        return self.serf.members() if self.serf is not None else []
+
+    def serf_force_leave(self, name: str) -> bool:
+        if self.serf is None:
+            return False
+        return self.serf.force_leave(name)
+
+    def regions(self) -> List[str]:
+        """Sorted known regions (region_endpoint.go:13)."""
+        with self._peers_lock:
+            known = set(self.peers.keys())
+        known.add(self.config.region)
+        return sorted(known)
+
+    def peer_http_addr(self, region: str) -> Optional[str]:
+        """An HTTP address of some alive server in the region, for
+        cross-region request forwarding (rpc.go:263 forwardRegion picks
+        a random server)."""
+        import random as _random
+
+        with self._peers_lock:
+            members = list(self.peers.get(region, {}).values())
+        candidates = [m.tags.get("http_addr") for m in members]
+        candidates = [a for a in candidates if a]
+        return _random.choice(candidates) if candidates else None
 
     def establish_leadership(self) -> None:
         """Enable leader-only services and restore their state
@@ -373,14 +732,15 @@ class Server:
         self._leader = False
         # Drain FIRST, while the broker still accepts nacks: the
         # pipeline's/executive's accumulated evals go back to the ready
-        # queue (a later establish_leadership re-seeds from state
-        # through _restore_evals) — either way no eval is lost with the
-        # batch.
+        # queue (or, on a real flap where the broker flushes anyway,
+        # fail cleanly and re-seed from raft state via the new leader's
+        # _restore_evals) — either way no eval is lost with the batch.
         self.dispatch.drain()
         self.executive.drain()
         # The defrag loop pauses itself on is_leader() per tick; the
         # explicit abandon here returns its wave's governor slots NOW
-        # instead of on the next tick.
+        # instead of on the next tick (the new leader's drain storms
+        # should not find the budget pre-spent by a ghost wave).
         self.defrag._abandon_wave("leadership-revoked")
         self._stop_eval_hygiene()
         for timer in self._gc_threads:
@@ -442,8 +802,8 @@ class Server:
             stop.set()
 
     def _reap_failed_evals(self, stop: threading.Event) -> None:
-        """Mark delivery-limit evals status=failed through the log, then
-        ack them out of the broker. On a log error the eval stays
+        """Mark delivery-limit evals status=failed through raft, then
+        ack them out of the broker. On a raft error the eval stays
         unacked — its nack timer re-parks it on the failed queue and a
         later pass retries."""
         while self._leader and not self._shutdown and not stop.is_set():
@@ -530,7 +890,8 @@ class Server:
                         raise ValueError(f"vault policies not allowed: {bad}")
         # The enforce-index gate is decided inside the FSM apply (same
         # log position -> same verdict on every replica), which makes
-        # check+commit atomic.
+        # check+commit atomic even when this server is a raft follower
+        # forwarding the write to the leader.
         payload = {"job": job}
         if enforce_index:
             payload["enforce_index"] = True
@@ -551,7 +912,8 @@ class Server:
         return ev.id, index
 
     def _wait_applied(self, index: int, timeout: float = 5.0) -> None:
-        """Wait until the local FSM has applied `index`."""
+        """Wait until the local FSM has applied `index` (a follower's
+        FSM lags the leader commit it just forwarded)."""
         from ..utils.backoff import poll_until
 
         if not poll_until(lambda: self.fsm.last_applied_index >= index,
@@ -861,31 +1223,97 @@ class Server:
     def eval_dequeue(
         self, schedulers: List[str], timeout: float
     ) -> Tuple[Optional[Evaluation], str]:
-        return self.broker.dequeue(schedulers, timeout)
+        leader = self._leader_server()
+        if leader is not None:
+            return leader.broker.dequeue(schedulers, timeout)
+        remote = self._remote_leader()
+        if remote is not None:
+            try:
+                return remote.eval_dequeue(schedulers, timeout)
+            except Exception:  # noqa: BLE001 - leader flap: retry later
+                self.logger.debug(
+                    "remote eval dequeue failed; retrying next loop",
+                    exc_info=True)
+        # Jittered: on a leader flap EVERY follower worker lands here —
+        # a fixed interval would hammer the recovering leader in
+        # lockstep (utils/backoff.py sleep_jittered).
+        from ..utils.backoff import sleep_jittered
+
+        sleep_jittered(min(timeout, 0.2))
+        return None, ""
 
     def eval_dequeue_many(
         self, schedulers: List[str], max_n: int
     ) -> List[Tuple[Evaluation, str]]:
         """Non-blocking drain of additional ready evals (dense-backend
-        batch path; see broker.dequeue_many)."""
+        batch path; see broker.dequeue_many). Followers forward to the
+        leader so their executives form device cohorts too — the dense
+        backend's throughput must hold for every server's drain, not
+        just the leader's."""
         if max_n <= 0:
             return []
-        return self.broker.dequeue_many(schedulers, max_n)
+        leader = self._leader_server()
+        if leader is not None:
+            return leader.broker.dequeue_many(schedulers, max_n)
+        remote = self._remote_leader()
+        if remote is not None:
+            try:
+                return remote.eval_dequeue_many(schedulers, max_n)
+            except Exception:  # noqa: BLE001 - leader flap: batch later
+                self.logger.debug(
+                    "remote eval drain failed; batching later",
+                    exc_info=True)
+        return []
 
     def eval_ack(self, eval_id: str, token: str) -> None:
-        self.broker.ack(eval_id, token)
+        leader = self._leader_server()
+        if leader is not None:
+            leader.broker.ack(eval_id, token)
+            return
+        remote = self._remote_leader()
+        if remote is None:
+            raise ValueError("no leader")
+        remote.eval_ack(eval_id, token)
 
     def eval_nack(self, eval_id: str, token: str) -> None:
-        self.broker.nack(eval_id, token)
+        leader = self._leader_server()
+        if leader is not None:
+            leader.broker.nack(eval_id, token)
+            return
+        remote = self._remote_leader()
+        if remote is None:
+            raise ValueError("no leader")
+        remote.eval_nack(eval_id, token)
 
     def eval_pause_nack(self, eval_id: str, token: str) -> None:
-        self.broker.pause_nack_timeout(eval_id, token)
+        leader = self._leader_server()
+        if leader is not None:
+            leader.broker.pause_nack_timeout(eval_id, token)
+            return
+        remote = self._remote_leader()
+        if remote is not None:
+            remote.eval_pause_nack(eval_id, token)
 
     def eval_resume_nack(self, eval_id: str, token: str) -> None:
-        self.broker.resume_nack_timeout(eval_id, token)
+        leader = self._leader_server()
+        if leader is not None:
+            leader.broker.resume_nack_timeout(eval_id, token)
+            return
+        remote = self._remote_leader()
+        if remote is not None:
+            remote.eval_resume_nack(eval_id, token)
 
     def eval_outstanding(self, eval_id: str) -> Optional[str]:
-        return self.broker.outstanding(eval_id)
+        leader = self._leader_server()
+        if leader is not None:
+            return leader.broker.outstanding(eval_id)
+        remote = self._remote_leader()
+        if remote is not None:
+            try:
+                return remote.eval_outstanding(eval_id)
+            except Exception:  # noqa: BLE001
+                return None
+        return None
 
     def eval_reap(self, eval_ids: List[str], alloc_ids: List[str]) -> int:
         # Reaped allocs take their derived vault tokens with them
@@ -905,10 +1333,16 @@ class Server:
     def plan_submit(self, plan: Plan) -> PlanResult:
         """Plan.Submit (plan_endpoint.go:16). The eval token is the
         split-brain guard: it must still be the outstanding token."""
-        token = self.broker.outstanding(plan.eval_id)
+        leader = self._leader_server()
+        if leader is None:
+            remote = self._remote_leader()
+            if remote is None:
+                raise ValueError("no leader to submit plan to")
+            return remote.plan_submit(plan)
+        token = leader.broker.outstanding(plan.eval_id)
         if token != plan.eval_token:
             raise ValueError("plan's eval token does not match outstanding eval")
-        pending = self.plan_queue.enqueue(plan)
+        pending = leader.plan_queue.enqueue(plan)
         return pending.wait(timeout=30.0)
 
     # --------------------------------------------------------- periodic
@@ -919,7 +1353,10 @@ class Server:
         )
 
     def periodic_force(self, job_id: str) -> Optional[str]:
-        return self.periodic.force_run(job_id)
+        leader = self._leader_server()
+        if leader is None:
+            raise ValueError("no leader")
+        return leader.periodic.force_run(job_id)
 
     # --------------------------------------------------------------- gc
 
@@ -935,7 +1372,10 @@ class Server:
 
     def force_gc(self) -> None:
         """System.GC endpoint (system_endpoint.go:16)."""
-        self.broker.enqueue(self._core_eval(consts.CORE_JOB_FORCE_GC))
+        leader = self._leader_server()
+        if leader is None:
+            raise ValueError("no leader")
+        leader.broker.enqueue(leader._core_eval(consts.CORE_JOB_FORCE_GC))
 
     def _schedule_gc(self) -> None:
         """Leader GC timers enqueue core-job evals on their intervals
@@ -963,7 +1403,7 @@ class Server:
     # ------------------------------------------------------------ stats
 
     def stats(self) -> Dict[str, object]:
-        return {
+        out = {
             "leader": self._leader,
             "last_index": self.log.last_index(),
             "broker": self.broker.stats(),
@@ -1010,3 +1450,9 @@ class Server:
             # plan_applier stats ("gangs_rejected").
             "gang": _gang_stats(),
         }
+        if self.raft is not None:
+            # Term/commit/membership for operators (the reference's
+            # Server.Stats exposes the raft section the same way,
+            # server.go:915).
+            out["raft"] = self.raft.stats()
+        return out

@@ -48,6 +48,13 @@ BACKPRESSURE_NAP = 0.01
 DENSE_SUFFIX = "-gpu"
 
 
+def refresh_index(result: PlanResult) -> int:
+    """The index a rejected plan's retry snapshots at: the applier's
+    refresh index, and at least the index of whatever part of the plan
+    committed, so that the retry sees those allocs as placed."""
+    return max(result.refresh_index, result.alloc_index or 0)
+
+
 def is_dense_factory(name: str) -> bool:
     """Dense factories (the port's registry: names ending in ``-gpu``)
     go through the dispatch pipeline's batched device dispatch."""
@@ -118,8 +125,10 @@ class EvalSession:
         trace.record_span(self.eval.id, trace.STAGE_PLAN_SUBMIT, start,
                           trace_id=self.eval.trace_id)
         if result.refresh_index:
-            # Stale snapshot: catch up and hand back fresh state.
-            self.worker._wait_for_index(result.refresh_index, timeout=5.0)
+            # Stale snapshot: catch up and hand back fresh state, at or
+            # past the plan's own partial commit (a raft follower's FSM
+            # applies it after plan_submit returns).
+            self.worker._wait_for_index(refresh_index(result), timeout=5.0)
             return result, self.server.fsm.state.snapshot()
         return result, None
 
@@ -247,7 +256,9 @@ class Worker:
     def _process_eval(self, ev: Evaluation, token: str,
                       factory: Optional[str] = None) -> None:
         start = time.monotonic()
-        if not self._wait_for_index(ev.modify_index, timeout=5.0):
+        if not self._wait_for_index(
+                max(ev.modify_index, self.server.snapshot_min_index()),
+                timeout=5.0):
             self._safe_nack(ev.id, token)
             return
         metrics.measure_since(("worker", "wait_for_index"), start)

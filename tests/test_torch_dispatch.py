@@ -492,6 +492,9 @@ def test_dispatcher_keeps_accumulating_while_launch_blocks():
         def eval_nack(self, eval_id, token):
             self.nacked.append(eval_id)
 
+        def snapshot_min_index(self):
+            return 0  # dev mode: the eval's own index suffices
+
     server = FakeServer()
     pipeline = DispatchPipeline(server)
     assert pipeline.enabled

@@ -259,7 +259,7 @@ def test_batch_size_one_runs_dense_alone():
 
 
 @pytest.mark.parametrize("option", [
-    "node_name", "bootstrap_expect", "dispatch_pipeline", "read_mux_enabled",
+    "dispatch_pipeline", "read_mux_enabled",
     "read_mux_workers", "read_mux_max_parked", "read_scoped_index",
     "breaker_enabled", "breaker_failure_threshold", "breaker_slow_ms",
     "breaker_slow_batches", "breaker_cooldown",
@@ -278,6 +278,15 @@ def test_options_of_unported_parts_are_refused(option):
 def test_executive_and_defrag_fields_keep_the_reference_defaults(field):
     """The executive's and the defrag loop's knobs came back with their
     parts, with the JAX ServerConfig's defaults."""
+    from nomad_tpu.server.config import ServerConfig as RefConfig
+
+    assert getattr(ServerConfig(), field) == getattr(RefConfig(), field)
+
+
+@pytest.mark.parametrize("field", ["node_name", "bootstrap_expect"])
+def test_cluster_fields_keep_the_reference_defaults(field):
+    """The multi-server fields came back with raft and serf, with the
+    JAX ServerConfig's defaults."""
     from nomad_tpu.server.config import ServerConfig as RefConfig
 
     assert getattr(ServerConfig(), field) == getattr(RefConfig(), field)
