@@ -248,13 +248,13 @@ Phases (any failure exits non-zero and prints no result):
    each registered with the workers parked, released, waited on and
    deregistered the same way; the measured storm of 60 such jobs (K5a
    uniform, K3; its base is the warm waves' re-keyed); a greedy wave of
-   16 two-group jobs of phase 4's 512 + 512 shape (K0, K5a greedy, K3,
+   8 two-group jobs of phase 4's 512 + 512 shape (K0, K5a greedy, K3,
    K4 on the delta after the storm's commits), each placing what the
    host oracle places on the state before the wave, every placement
    feasible on its node (``check_placements``); a wave with
-   ``pre_resolve`` off (8 config 8 jobs and 8 two-group jobs of 32 + 32
+   ``pre_resolve`` off (4 config 8 jobs and 4 two-group jobs of 32 + 32
    small asks: K2 and K1's independent forms, rejections back through
-   the pipeline's conflict requeue); the same with 16 two-group jobs
+   the pipeline's conflict requeue); the same with 8 two-group jobs
    of phase 4's networked asks, 64 + 64 (K1), held to every eval
    terminal, a failed one only on the scheduler's attempt limit, and
    every applier rejection of a dense plan explained by a commit after
@@ -312,11 +312,17 @@ Phases (any failure exits non-zero and prints no result):
    through its leader's raft log from 4 writer threads with the
    collector off, its objects then frozen out of the collector
    (``bulk_load``: a gen-2 pause over three stores would outlast the
-   150 ms election floor), a filler entry 100 nodes' allocs; the
+   150 ms election floor), a filler entry 100 nodes' allocs, the
+   entries made with the collector off too, and each wave and the
+   lone evals started with the heap frozen (``settle_heap``); the
    nodes' clients heartbeat every 5 s through the current leader
-   (``Clients``). (a) Config 8 over ``InmemTransport``
+   (``Clients``). (a) and (c) draw raft's election timeouts from
+   [1 s, 2 s), hashicorp/raft's defaults (``election_timeouts``): the
+   three servers share one GIL, and under the storm a follower's timer
+   could wait past the port's 300 ms and elect a new leader mid-storm;
+   (b) measures an election and keeps the port's 150-300 ms. (a) Config 8 over ``InmemTransport``
    (``start_with_raft``): phase 12's 10,000 nodes and 50,000 fillers,
-   the warm waves through the leader, the storm of 60 jobs x 8 and 6
+   one warm wave through the leader (``CLUSTER_WARM_WAVES``), the storm of 60 jobs x 8 and 6
    lone evals registered through a follower. Holds: every eval
    complete, 480 of 480 allocs on 8 distinct nodes a job, ports unique
    and ``allocs_fit`` on every node, the three FSMs' node, alloc, eval
@@ -339,19 +345,55 @@ Phases (any failure exits non-zero and prints no result):
    leader, to the broker enabled, to the first and the last eval
    complete, and evals/s. (c) Config 6 over ``TCPTransport``: three
    servers ``setup_serf``, ``serf_join`` and ``setup_raft_cluster(
-   expect=3)`` on 127.0.0.1 ephemeral ports; the storm through the
-   leader (the port has no HTTP API, so the followers find no leader
-   address in the serf tags and back off). Holds: one leader over the
-   three raft addresses, every eval complete, the followers' decoded
-   FSMs equal to the leader's field by field (``to_dict``, but for the
-   nodes' ``status_updated_at``, which each replica stamps with its own
-   clock), K5a greedy and K3 launched. Prints the bootstrap time,
-   evals/s and p99.
+   expect=3)`` on 127.0.0.1 ephemeral ports, each behind the port's
+   ``HTTPServer`` on 127.0.0.1:0 whose address it tags into serf; the
+   storm registered through the leader, the followers' workers and
+   executives dequeuing, submitting plans and acking through the
+   leader's HTTP (phase 15 (b)); the followers are released first and
+   the leader once a follower has dequeued through its HTTP (released
+   together, the leader's executive can drain the whole storm into one
+   cohort before a follower's first call arrives). Holds: one leader over the three raft
+   addresses, each follower finding the leader's HTTP address, every
+   eval complete, the followers' decoded FSMs equal to the leader's
+   field by field (``to_dict``, but for the nodes' ``status_updated_at``,
+   which each replica stamps with its own clock), K5a greedy and K3
+   launched. Prints the bootstrap time, evals/s and p99.
+15. The API (nomad_tpu_torch/api, readplane/). (a) Config 8 over HTTP,
+   on phase 13 (a)'s loaded server after its lone evals, before it
+   stops: the port's ``HTTPServer`` on 127.0.0.1:0 in front of it; the
+   storm's 60 jobs x 8 registered through the SDK
+   (``Client.jobs.register``) from 4 threads with the workers and the
+   executive held; each eval watched by a blocking query,
+   ``GET /v1/evaluation/<id>?index=N``, on its own keep-alive socket,
+   the 60 sockets read by one thread through a selector, so the
+   process's thread count shows the server side. Holds: the 60 queries
+   parked on the read mux with fewer Python threads in the process than
+   parked queries, every eval complete, 480 of 480 allocs on 8 distinct
+   nodes a job, ports unique and ``allocs_fit`` on every node, the read
+   mux's wakes each for a scope that moved (no spurious wake, no
+   timeout, every blocking answer served by the mux), at least one
+   cohort dispatch, K5a uniform (or K2) and K3 launched and no K0, none
+   routed to the host on its first delivery; then 6 lone evals
+   registered one at a time and watched the same way, routed to the
+   host with no launch. Prints ``server API figures: {...}``: evals/s,
+   p50/p99 from register to the blocking query's answer of complete
+   (and from release), the lone p50/p99, the parked high water and the
+   thread counts while parked. (b) Phase 14 (c)'s followers schedule
+   through the leader's HTTP: at least one storm eval dequeued by a
+   follower through it (counted and printed), and a ``?consistent``
+   read of the last eval on each follower's API, once it has heard of
+   the leader's last commit, serves at or past the leader's store
+   index with the eval as the leader holds it.
 
-Every path of phases 3 to 6, 8, 9, 10, 11 (c), 12, 13 and 14 runs with
-the launch counts set to 0 just before it and read just after, and
+Each phase prints ``phase <n>: <name> (at <t> s)`` as it starts, t the
+seconds since the script started, and a failure names the phase it
+stopped in. Every wait of phase 15 has its own
+deadline, and its HTTP servers stop in a ``finally``.
+
+Every path of phases 3 to 6, 8, 9, 10, 11 (c), 12, 13, 14 and 15 runs
+with the launch counts set to 0 just before it and read just after, and
 fails if a kernel of that path was never launched (10a's evals and the
-lone evals of 12, 13 and 14: if any kernel was).
+lone evals of 12, 13, 14 and 15: if any kernel was).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -411,6 +453,18 @@ ASK_BYTES = 16 + 4 + 4 + 4 + 1
 
 class SmokeFailure(Exception):
     pass
+
+
+# The phase that runs now, named by a failure.
+PHASE = ["start"]
+STARTED = time.perf_counter()
+
+
+def phase(number, name):
+    """Name the phase that starts now, on a line of its own."""
+    PHASE[0] = f"{number} ({name})"
+    print(f"phase {number}: {name} (at {time.perf_counter() - STARTED:.1f}"
+          f" s)")
 
 
 def check(cond, msg):
@@ -5372,7 +5426,7 @@ SERVER_JOBS = 60
 SERVER_COUNT = 8
 SERVER_WARM_WAVES = 2
 SERVER_LONE = 6
-SERVER_GREEDY_JOBS = 16
+SERVER_GREEDY_JOBS = 8
 SERVER_GREEDY_COUNT = 512
 # The pre_resolve-off wave: config 8's job and a two-group job of small
 # asks without networks, whose rejections come back through the
@@ -5385,9 +5439,9 @@ SERVER_GREEDY_COUNT = 512
 # every eval terminal, a failed one only on the attempt limit, every
 # rejection of a dense plan explained by a commit its matrix could not
 # see.
-SERVER_OFF_JOBS = 8
+SERVER_OFF_JOBS = 4
 SERVER_OFF_COUNT = 32
-SERVER_NET_JOBS = 16
+SERVER_NET_JOBS = 8
 SERVER_NET_COUNT = 64
 SERVER_WAIT_S = 300.0
 # The kernels each window must launch. The storm's base is the warm
@@ -6114,13 +6168,14 @@ def executive_server(**over):
 
 def executive_arm(label, prefix, seed, total, n_nodes, allocs_per_node,
                   job_of, n_jobs, count, distinct, lone, min_cohorts,
-                  absent=()):
+                  absent=(), then=None):
     """One dense arm of bench.py's ``_live_pipeline`` with the executive
     on (phase 13 (a) and (b)): the cluster through the log, two warm
     waves of ``n_jobs`` registered with the workers and the executive
     parked, the measured storm, then ``lone`` registrations on an idle
-    broker. Adds each window's launch counts to ``total``; returns the
-    arm's figures."""
+    broker; then ``then(server, clock)`` on the loaded server, before it
+    stops. Adds each window's launch counts to ``total``; returns the
+    arm's figures (with ``then``'s under "then")."""
     import numpy as np
 
     from nomad_tpu_torch import trace
@@ -6235,6 +6290,8 @@ def executive_arm(label, prefix, seed, total, n_nodes, allocs_per_node,
                   f"register to complete p50 {figures['lone_p50_ms']:.2f} "
                   f"ms, p99 {figures['lone_p99_ms']:.2f} ms")
             figures["nodes_checked"] = check_server_nodes(server)
+            if then is not None:
+                figures["then"] = then(server, clock)
         finally:
             server.shutdown()
     check(not errors.records, f"{label} logged errors: {errors.records[:5]}")
@@ -6242,12 +6299,15 @@ def executive_arm(label, prefix, seed, total, n_nodes, allocs_per_node,
 
 
 def run_executive_storms(seed, torch, total, pipeline):
-    """Phase 13 (a) and (b): configs 8 and 6 through the executive.
-    ``pipeline`` is phase 12's figures, printed beside (a)'s."""
+    """Phase 13 (a) and (b): configs 8 and 6 through the executive, and
+    phase 15 (a) on (a)'s server. ``pipeline`` is phase 12's figures,
+    printed beside (a)'s."""
     figures = {"config 8": executive_arm(
         "config 8", "x8", seed, total, SERVER_NODES, SERVER_ALLOCS_PER_NODE,
         server_job, SERVER_JOBS, SERVER_COUNT, True, SERVER_LONE, 1,
-        DRAWN_IN_SCANS)}
+        DRAWN_IN_SCANS,
+        then=lambda server, clock: run_api_config8(server, clock, total))}
+    figures["api"] = figures["config 8"].pop("then")
     side = {k: (pipeline.get(k), figures["config 8"][k])
             for k in ("evals_per_s", "p50_ms", "p99_ms", "lone_p50_ms",
                       "lone_p99_ms")}
@@ -6255,6 +6315,7 @@ def run_executive_storms(seed, torch, total, pipeline):
           f"{json.dumps(side, sort_keys=True)}")
     print(f"server executive figures: "
           f"{json.dumps(figures['config 8'], sort_keys=True)}")
+    phase("13 (b)", "config 6 through the executive")
     figures["config 6"] = executive_arm(
         "config 6", "x6", seed, total, CONFIG6_NODES, 0, config6_job,
         CONFIG6_JOBS, CONFIG6_COUNT, False, CONFIG6_LONE, 2)
@@ -6432,12 +6493,54 @@ CLUSTER_WRITERS = 4
 CLUSTER_ALLOC_CHUNK = 100
 CLUSTER_WAIT_S = 60.0
 CLIENT_HEARTBEAT_S = 5.0
+# Phases 14 (a) and (c) draw each election timeout from [1 s, 2 s), as
+# hashicorp/raft's default config does (HeartbeatTimeout and
+# ElectionTimeout 1 s, each timer randomized up to twice that). The
+# port's 150-300 ms floor suits one server a process; three servers in
+# one interpreter share its GIL, and the storm's threads held a
+# follower's timer past 300 ms often enough to elect a new leader
+# mid-storm, whose broker no longer holds the tokens of the old
+# leader's plans (each then fails with an ERROR record). Phase 14 (b)
+# measures an election and keeps the port's own timeouts.
+CLUSTER_ELECTION_TIMEOUT_S = (1.0, 2.0)
+# Phase 14 (a)'s warm waves: one, not config 8's two, to keep the whole
+# run inside its wall-time budget (the second warm wave took 8-9 s on the
+# H100's host and is held to nothing the first is not).
+CLUSTER_WARM_WAVES = 1
 # The kernels the failover storm must launch after the disconnect: the
 # greedy scan, K3, and K0 or K4 (the scan reads K0's noise at B = 64 on
 # 16 CTAs; the new leader's base is the warm waves' re-keyed, since they
 # stop what they place, so K4 fuses no delta there).
 FAILOVER_KERNELS = ("greedy_scan_seq", "expand_overlay",
                     ("threefry_uniform", "base_delta"))
+
+
+@contextlib.contextmanager
+def election_timeouts(low, high):
+    """Raft's election timeouts drawn from [low, high) s while the block
+    runs (the port reads ``ELECTION_TIMEOUT_MIN`` and ``_MAX`` each time
+    it arms a timer and each time it weighs a PreVote); the port's own
+    after it. Every server the block starts is shut down inside it."""
+    from nomad_tpu_torch.server import raft
+
+    saved = raft.ELECTION_TIMEOUT_MIN, raft.ELECTION_TIMEOUT_MAX
+    raft.ELECTION_TIMEOUT_MIN, raft.ELECTION_TIMEOUT_MAX = low, high
+    try:
+        yield
+    finally:
+        raft.ELECTION_TIMEOUT_MIN, raft.ELECTION_TIMEOUT_MAX = saved
+
+
+def settle_heap():
+    """Move every object the collector tracks out of its reach
+    (``gc.freeze``), as ``bulk_load`` does after a load: called before
+    each wave of a cluster phase, so that the wave's gen-2 collections
+    walk only the objects made since. A gen-2 pause stops every thread,
+    and a pause past the 150 ms election floor elects a new leader
+    mid-storm, when it walks the earlier waves' objects; the leader's
+    in-flight plans then fail with an ERROR record. Only inside
+    ``running_cluster``, whose exit gives the objects back."""
+    gc.freeze()
 
 
 @contextlib.contextmanager
@@ -6580,8 +6683,6 @@ def load_cluster(servers, label, n_nodes, allocs_per_node, seed):
 
     from nomad_tpu_torch.server.raft import NotLeaderError
 
-    leader = stable_leader(servers, label)
-    nodes, chunks = cluster_entries(n_nodes, allocs_per_node, seed)
     retries = Counter()
 
     def write(entry):
@@ -6595,6 +6696,12 @@ def load_cluster(servers, label, n_nodes, allocs_per_node, seed):
                 retries[entry[0]] += 1
                 time.sleep(0.05)
 
+    with bulk_load():
+        # The entries are made with the collector off too: a gen-2
+        # pause over the earlier phases' objects would elect a new
+        # leader before the load starts.
+        nodes, chunks = cluster_entries(n_nodes, allocs_per_node, seed)
+        leader = stable_leader(servers, label)
     t0 = time.perf_counter()
     with Elections(servers) as elections, bulk_load():
         with ThreadPoolExecutor(CLUSTER_WRITERS) as pool:
@@ -6827,10 +6934,11 @@ def percentile_ms(values, q):
 
 
 def cluster_storm(label, servers, leader, via, clock, total, jobs, count,
-                  distinct, kernels, absent=()):
+                  distinct, kernels, absent=(), release=None):
     """Register ``jobs`` through ``via`` with every server parked,
-    release all, and wait until each eval is complete; returns (eval
-    ids, released-at, figures) with each server's cohorts, fast evals and
+    release all (``release(servers)``, every server at once unless
+    given), and wait until each eval is complete; returns (eval ids,
+    released-at, figures) with each server's cohorts, fast evals and
     placements."""
     figures = {}
     ex0 = {s.node_id: s.executive.stats() for s in servers}
@@ -6841,7 +6949,8 @@ def cluster_storm(label, servers, leader, via, clock, total, jobs, count,
         placed = stack.enter_context(PlacedBy(servers))
         evs, start = counted(
             total, label, kernels,
-            lambda: cluster_wave(servers, via, clock, label, jobs), absent)
+            lambda: cluster_wave(servers, via, clock, label, jobs, release),
+            absent)
     wall = max(clock.done[e] for e in evs) - start
     lat = [clock.done[e] - start for e in evs]
     # One snapshot for the holds: a store read makes the FSM's next
@@ -6870,11 +6979,12 @@ def cluster_storm(label, servers, leader, via, clock, total, jobs, count,
     return evs, start, figures
 
 
-def cluster_wave(servers, via, clock, label, jobs):
+def cluster_wave(servers, via, clock, label, jobs, release=None):
     cluster_paused(servers)
+    settle_heap()
     evs = [via.job_register(job)[0] for job in jobs]
     start = time.perf_counter()
-    cluster_release(servers)
+    (release or cluster_release)(servers)
     clock.wait(label, evs)
     return evs, start
 
@@ -6901,7 +7011,7 @@ def run_cluster_config8(seed, total, single):
         clock = clocks[servers.index(leader)]
         follower = next(s for s in servers if s is not leader)
         t0 = time.perf_counter()
-        for w in range(SERVER_WARM_WAVES):
+        for w in range(CLUSTER_WARM_WAVES):
             warm = [server_job(f"c8-warm{w}-{j}") for j in range(SERVER_JOBS)]
             cluster_wave(servers, leader, clock, f"{label} warm wave {w}",
                          warm)
@@ -6909,7 +7019,7 @@ def run_cluster_config8(seed, total, single):
                                f"{label} warm wave {w}")
             cluster_deregister(servers, leader, clock,
                                f"{label} warm dereg {w}", warm)
-        print(f"{label}: {SERVER_WARM_WAVES} warm waves of {SERVER_JOBS} "
+        print(f"{label}: {CLUSTER_WARM_WAVES} warm wave(s) of {SERVER_JOBS} "
               f"jobs placed and stopped in {time.perf_counter() - t0:.1f} s "
               f"(host)")
 
@@ -6940,6 +7050,7 @@ def run_cluster_config8(seed, total, single):
 
         # The follower's own clock: the eval reads complete there once
         # the follower applied its plan.
+        settle_heap()
         with Forwarded(transport) as forwarded:
             lone = lone_evals(
                 follower, clocks[servers.index(follower)], total, label,
@@ -7055,18 +7166,83 @@ def failover_storm(label, transport, servers, clocks, total):
     return figures
 
 
+class FollowerDequeues:
+    """Evals that followers' workers and executives dequeue while the
+    block runs: a server that does not lead takes them from the leader's
+    broker through its HTTP API (``RemoteLeader``)."""
+
+    def __init__(self, servers):
+        self.servers = servers
+        self.by = Counter()
+
+    def __enter__(self):
+        for s in self.servers:
+            one, many = s.eval_dequeue, s.eval_dequeue_many
+
+            def dequeue(schedulers, timeout, s=s, one=one):
+                follower = not s.is_leader()
+                ev, token = one(schedulers, timeout)
+                if follower and ev is not None:
+                    self.by[s.node_id] += 1
+                return ev, token
+
+            def dequeue_many(schedulers, max_n, s=s, many=many):
+                follower = not s.is_leader()
+                got = many(schedulers, max_n)
+                if follower:
+                    self.by[s.node_id] += len(got)
+                return got
+
+            s.eval_dequeue, s.eval_dequeue_many = dequeue, dequeue_many
+        return self
+
+    def __exit__(self, *exc):
+        for s in self.servers:
+            del s.eval_dequeue, s.eval_dequeue_many
+
+
+def consistent_reads(servers, https, leader, eval_id, label):
+    """Phase 15 (b)'s read: once each follower has heard of the leader's
+    last commit, a ``?consistent`` read of ``eval_id`` on the follower's
+    API serves at or past the leader's store index then, with the eval
+    as the leader holds it. Returns the index read."""
+    import urllib.request
+
+    commit = leader.raft.known_commit_index()
+    store_index = leader.fsm.state.latest_index()
+    want = leader.fsm.state.eval_by_id(eval_id)
+    for server, http in zip(servers, https):
+        if server is leader:
+            continue
+        wait_for(lambda s=server: s.raft.known_commit_index() >= commit,
+                 label, f"{server.node_id} to hear of commit {commit}")
+        url = f"{http.addr}/v1/evaluation/{eval_id}?consistent"
+        with urllib.request.urlopen(url, timeout=API_WAIT_S) as resp:
+            body = json.loads(resp.read())
+            index = int(resp.headers["X-Nomad-Index"])
+        check(server.fsm.state.latest_index() >= store_index
+              and body["status"] == want.status
+              and index >= want.modify_index,
+              f"{label}: ?consistent on {server.node_id} read index {index}"
+              f", status {body['status']}, store "
+              f"{server.fsm.state.latest_index()}; the leader's store "
+              f"{store_index}, eval {want.status} at {want.modify_index}")
+    return store_index
+
+
 def run_cluster_tcp(seed, total):
-    """Phase 14 (c): config 6 on three servers over TCPTransport that
-    find each other by gossip (setup_serf, serf_join,
-    setup_raft_cluster(expect=3) on 127.0.0.1 ephemeral ports). The port
-    has no HTTP API: the followers find no leader address in the serf
-    tags and back off, so the leader's own workers and executive place
-    the storm."""
+    """Phase 14 (c) with phase 15 (b): config 6 on three servers over
+    TCPTransport that find each other by gossip (setup_serf, serf_join,
+    setup_raft_cluster(expect=3) on 127.0.0.1 ephemeral ports). Each
+    server runs the port's HTTPServer on 127.0.0.1:0 and tags its
+    address into serf, so the followers find the leader's HTTP address
+    and their workers and executives dequeue, submit plans and ack
+    through it beside the leader's own."""
     from nomad_tpu_torch.server.transport import (TCPTransport,
                                                   fsm_payload_decoder)
 
     label = "cluster over TCP"
-    servers, transports = [], []
+    servers, transports, https = [], [], []
     t0 = time.perf_counter()
     try:
         for i in range(CLUSTER_SERVERS):
@@ -7074,9 +7250,11 @@ def run_cluster_tcp(seed, total):
                                           bootstrap_expect=CLUSTER_SERVERS))
             transport = TCPTransport(fsm_payload_decoder)
             transports.append((transport, transport.serve("127.0.0.1", 0)))
+            https.append(http_api(servers[-1]))
         with running_cluster(label, servers):
-            for server, (_t, addr) in zip(servers, transports):
-                server.setup_serf("127.0.0.1", 0, rpc_addr=addr)
+            for server, (_t, addr), http in zip(servers, transports, https):
+                server.setup_serf("127.0.0.1", 0, http_addr=http.addr,
+                                  rpc_addr=addr)
             seed_addr = servers[0].serf.local_member.addr
             for server in servers[1:]:
                 check(server.serf_join([seed_addr]) == 1,
@@ -7091,30 +7269,377 @@ def run_cluster_tcp(seed, total):
                   f"{label}: members {leader.raft.stats()['members']}")
             leader, figures["load"] = load_cluster(
                 servers, label, CONFIG6_NODES, 0, seed + 11)
+            for server in servers:
+                if server is not leader:
+                    want = https[servers.index(leader)].addr
+                    wait_for(lambda s=server: s.leader_http_addr() == want,
+                             label, f"{server.node_id} to find the leader's "
+                             f"HTTP address {want} in serf")
             clock = EvalClock(leader)
             jobs = [config6_job(f"tcp-e2e-{j}") for j in range(CONFIG6_JOBS)]
-            _evs, _start, storm = cluster_storm(
-                f"{label} storm", servers, leader, leader, clock, total,
-                jobs, CONFIG6_COUNT, False, EXECUTIVE_KERNELS["config 6"])
+            phase("15 (b)", "followers schedule through the leader's HTTP")
+
+            def followers_first(servers):
+                cluster_release([s for s in servers if s is not leader])
+                wait_for(lambda: sum(dequeues.by.values()) >= 1, label,
+                         "a follower's first dequeue through the leader's "
+                         "HTTP")
+                release(leader)
+
+            with FollowerDequeues(servers) as dequeues:
+                evs, _start, storm = cluster_storm(
+                    f"{label} storm", servers, leader, leader, clock, total,
+                    jobs, CONFIG6_COUNT, False, EXECUTIVE_KERNELS["config 6"],
+                    release=followers_first)
             figures.update(storm)
+            figures["follower_dequeued"] = dict(dequeues.by)
+            n = sum(dequeues.by.values())
+            check(n >= 1, f"{label}: no eval dequeued by a follower "
+                  f"through the leader's HTTP")
+            last = max(evs, key=lambda e: clock.done[e])
+            figures["consistent_read_index"] = consistent_reads(
+                servers, https, leader, last, label)
             figures["fsm_rows"] = check_equal_fsms(servers, label, full=True)
             print(f"{label}: bootstrap to one leader in "
                   f"{figures['bootstrap_s']:.2f} s; storm "
                   f"{figures['evals_per_s']:.2f} evals/s, p99 "
-                  f"{figures['p99_ms']:.2f} ms; the followers' decoded FSMs "
-                  f"equal the leader's field by field")
+                  f"{figures['p99_ms']:.2f} ms; {n} evals dequeued by "
+                  f"followers through the leader's HTTP "
+                  f"({json.dumps(figures['follower_dequeued'])}); a "
+                  f"?consistent read on each follower served at the "
+                  f"leader's store index {figures['consistent_read_index']};"
+                  f" the followers' decoded FSMs equal the leader's field "
+                  f"by field")
     finally:
+        for http in https:
+            http.stop()
         for transport, _addr in transports:
             transport.close()
+    return figures
+
+
+API_WRITERS = 4         # SDK threads registering phase 15 (a)'s storm
+API_WAIT_S = 120.0      # the deadline of each wait in phase 15
+API_BLOCK_WAIT_S = 60.0  # a blocking query's ?wait
+
+
+def http_api(server):
+    """The port's HTTPServer in front of ``server`` on 127.0.0.1:0,
+    started; the caller stops it."""
+    from nomad_tpu_torch.api import HTTPServer
+
+    http = HTTPServer(server, "127.0.0.1", 0)
+    http.start()
+    return http
+
+
+def os_threads():
+    """The process's threads as the kernel counts them: Python's and
+    the native ones (torch's, the CUDA driver's)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("Threads:"):
+                return int(line.split()[1])
+    return -1
+
+
+def take_response(buf):
+    """One whole HTTP/1.1 response off the front of ``buf``: ((status,
+    lower-cased headers, body), rest), or (None, buf) until it has
+    arrived."""
+    head_end = buf.find(b"\r\n\r\n")
+    if head_end < 0:
+        return None, buf
+    lines = buf[:head_end].decode("latin-1").split("\r\n")
+    headers = {}
+    for line in lines[1:]:
+        k, _, v = line.partition(":")
+        headers[k.strip().lower()] = v.strip()
+    end = head_end + 4 + int(headers.get("content-length", "0"))
+    if len(buf) < end:
+        return None, buf
+    return (int(lines[0].split()[1]), headers, buf[head_end + 4:end]), \
+        buf[end:]
+
+
+class EvalWatchers:
+    """Blocking queries on evals, ``GET /v1/evaluation/<id>?index=N``,
+    each on its own keep-alive socket, all read from the calling thread
+    through one selector: this side holds no thread a query, so the
+    process's thread count shows what the server holds while they are
+    parked. A watcher asks once without an index, then past each index
+    it is answered with, until the eval reads terminal."""
+
+    TERMINAL = ("complete", "failed", "cancelled")
+
+    def __init__(self, addr, label):
+        import selectors
+
+        host, port = addr.split("//", 1)[1].rsplit(":", 1)
+        self.host, self.port, self.label = host, int(port), label
+        self.sel = selectors.DefaultSelector()
+        self.recs = {}
+        self.blocking_answers = 0
+
+    def add(self, eval_id, registered_at):
+        import selectors
+        import socket
+
+        sock = socket.create_connection((self.host, self.port),
+                                        timeout=API_WAIT_S)
+        rec = dict(id=eval_id, sock=sock, buf=b"", registered=registered_at,
+                   asked_blocking=False, done=None, status=None)
+        self.recs[eval_id] = rec
+        self.sel.register(sock, selectors.EVENT_READ, rec)
+        self._ask(rec, f"/v1/evaluation/{eval_id}")
+
+    def _ask(self, rec, path):
+        rec["sock"].sendall(
+            f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+
+    def _answer(self, rec, status, headers, body):
+        check(status == 200, f"{self.label}: eval {rec['id']} answered "
+              f"{status}: {body[:200]!r}")
+        if rec["asked_blocking"]:
+            self.blocking_answers += 1
+        ev = json.loads(body)
+        if ev["status"] in self.TERMINAL:
+            rec["done"], rec["status"] = time.perf_counter(), ev["status"]
+            self.sel.unregister(rec["sock"])
+            rec["sock"].close()
+            return
+        rec["asked_blocking"] = True
+        self._ask(rec, f"/v1/evaluation/{rec['id']}?index="
+                  f"{headers['x-nomad-index']}&wait={API_BLOCK_WAIT_S:g}")
+
+    def pump(self, until, what):
+        """Read answers until ``until()`` holds; past API_WAIT_S, fail
+        naming ``what`` and the evals not yet answered terminal."""
+        deadline = time.perf_counter() + API_WAIT_S
+        while not until():
+            left = [r["id"] for r in self.recs.values() if r["done"] is None]
+            check(time.perf_counter() < deadline,
+                  f"{self.label}: waited {API_WAIT_S:.0f} s for {what}; "
+                  f"{len(left)} evals not answered terminal, e.g. {left[:3]}")
+            for key, _ev in self.sel.select(timeout=0.05):
+                rec = key.data
+                chunk = rec["sock"].recv(1 << 16)
+                check(chunk, f"{self.label}: the server closed eval "
+                      f"{rec['id']}'s query")
+                rec["buf"] += chunk
+                while rec["done"] is None:
+                    got, rec["buf"] = take_response(rec["buf"])
+                    if got is None:
+                        break
+                    self._answer(rec, *got)
+
+    def all_done(self):
+        return all(r["done"] is not None for r in self.recs.values())
+
+    def close(self):
+        for rec in self.recs.values():
+            if rec["done"] is None:
+                self.sel.unregister(rec["sock"])
+                rec["sock"].close()
+        self.sel.close()
+
+
+def wait_for(cond, label, what):
+    """Poll ``cond`` until it holds; past API_WAIT_S, fail naming
+    ``what`` (a string, or a callable that gives it then)."""
+    deadline = time.perf_counter() + API_WAIT_S
+    while not cond():
+        if time.perf_counter() >= deadline:
+            raise SmokeFailure(f"{label}: waited {API_WAIT_S:.0f} s for "
+                               f"{what() if callable(what) else what}")
+        time.sleep(0.005)
+
+
+def thread_names():
+    """The process's Python threads by name, less their pool index."""
+    import threading
+
+    return dict(Counter(t.name.rstrip("0123456789-_")
+                        for t in threading.enumerate()))
+
+
+def run_api_config8(server, clock, total):
+    """Phase 15 (a) (see the module docstring), on phase 13 (a)'s loaded
+    server after its lone evals. Adds each window's launch counts to
+    ``total``; returns the figures."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.api import Client
+    from nomad_tpu_torch.scheduler.batcher import get_batcher
+
+    label = "config 8 over HTTP"
+    phase("15 (a)", "the API: config 8 submitted and watched over HTTP on "
+          "phase 13 (a)'s server")
+    jobs = [server_job(f"api-e2e-{j}") for j in range(SERVER_JOBS)]
+    figures = {}
+    http = http_api(server)
+    watchers = EvalWatchers(http.addr, label)
+    try:
+        def register(part):
+            client = Client(http.addr, timeout=API_WAIT_S)
+            try:
+                out = []
+                for job in part:
+                    t = time.perf_counter()
+                    out.append((client.jobs.register(job), t))
+                return out
+            finally:
+                client.pool.close()
+
+        def storm():
+            paused(server)
+            with ThreadPoolExecutor(API_WRITERS) as pool:
+                for got in pool.map(register, [jobs[i::API_WRITERS]
+                                               for i in range(API_WRITERS)]):
+                    for eval_id, t in got:
+                        watchers.add(eval_id, t)
+            watchers.pump(lambda: all(r["asked_blocking"]
+                                      for r in watchers.recs.values()),
+                          "every eval's first answer")
+            mux = server.read_mux
+            wait_for(lambda: mux.stats()["parked"] == SERVER_JOBS, label,
+                     lambda: f"{SERVER_JOBS} parked queries "
+                     f"({mux.stats()['parked']} parked)")
+            # The handler threads of the parked queries exit; the
+            # registering clients' connections close.
+            wait_for(lambda: threading.active_count() < SERVER_JOBS, label,
+                     lambda: f"fewer threads than parked queries "
+                     f"({threading.active_count()} threads: "
+                     f"{json.dumps(thread_names(), sort_keys=True)})")
+            figures.update(parked=mux.stats()["parked"],
+                           threads_parked=threading.active_count(),
+                           os_threads_parked=os_threads(),
+                           thread_names=thread_names())
+            start = time.perf_counter()
+            release(server)
+            watchers.pump(watchers.all_done, "every eval complete")
+            return start
+
+        mux0 = server.read_mux.stats()
+        stats0 = get_batcher().stats()
+        ex0 = server.executive.stats()
+        with Cohorts(server) as cohorts:
+            start = counted(total, f"{label} storm",
+                            EXECUTIVE_KERNELS["config 8"], storm,
+                            DRAWN_IN_SCANS)
+        recs = list(watchers.recs.values())
+        bad = sorted({r["status"] for r in recs} - {"complete"})
+        check(not bad, f"{label}: evals ended {bad}")
+        clock.wait(label, [r["id"] for r in recs])
+        check_server_state(server, jobs, SERVER_COUNT, label, True)
+        placed = sum(len(server.fsm.state.allocs_by_job(j.id)) for j in jobs)
+        check(placed == SERVER_JOBS * SERVER_COUNT, f"{label}: placed {placed}")
+        # A serve counts itself after its answer is on the wire.
+        wait_for(lambda: stats_delta(mux0, server.read_mux.stats())["served"]
+                 >= watchers.blocking_answers, label,
+                 lambda: f"the read mux to count its serves "
+                 f"({json.dumps(server.read_mux.stats(), sort_keys=True)}, "
+                 f"{watchers.blocking_answers} blocking answers)")
+        mux = stats_delta(mux0, server.read_mux.stats())
+        # Each write wakes its own eval's query only: no wake whose scope
+        # had not moved, every answer a park that a wake (or the
+        # park-time recheck) served, none timed out.
+        check(mux["spurious"] == 0 and mux["timeouts"] == 0
+              and mux["write_errors"] == 0,
+              f"{label}: read mux {json.dumps(mux, sort_keys=True)}")
+        check(mux["served"] == watchers.blocking_answers
+              and 1 <= mux["wakes"] <= mux["served"],
+              f"{label}: {watchers.blocking_answers} blocking answers, "
+              f"read mux {json.dumps(mux, sort_keys=True)}")
+        ex = stats_delta(ex0, server.executive.stats())
+        st = stats_delta(stats0, get_batcher().stats())
+        check(ex["cohorts"] >= 1 and ex["fast_evals"] >= 1
+              and ex["device_faults"] == 0,
+              f"{label}: executive {json.dumps(ex, sort_keys=True)}")
+        check(st["cohort_dispatches"] > 0, f"{label}: no cohort dispatch")
+        routed = cohorts.routed_first(server.config.dense_min_batch)
+        check(not routed, f"{label}: {len(routed)} evals routed to the "
+              f"host on their first delivery")
+        done = [r["done"] for r in recs]
+        from_register = [r["done"] - r["registered"] for r in recs]
+        from_release = [d - start for d in done]
+        figures.update(
+            evals=SERVER_JOBS, placed=placed,
+            evals_per_s=SERVER_JOBS / (max(done) - start),
+            p50_ms=percentile_ms(from_register, 50),
+            p99_ms=percentile_ms(from_register, 99),
+            release_p50_ms=percentile_ms(from_release, 50),
+            release_p99_ms=percentile_ms(from_release, 99),
+            cohort_sizes=[len(c) for c in cohorts.seen],
+            cohort_dispatches=st["cohort_dispatches"],
+            blocking_answers=watchers.blocking_answers,
+            read_mux={k: mux[k] for k in ("parked_total", "wakes",
+                                          "spurious", "served",
+                                          "timeouts")})
+        print(f"{label} storm: {SERVER_JOBS} jobs registered through the SDK"
+              f" from {API_WRITERS} threads, each eval watched by a blocking "
+              f"query; {figures['evals_per_s']:.2f} evals/s; register to the "
+              f"answer of complete p50 {figures['p50_ms']:.2f} ms, p99 "
+              f"{figures['p99_ms']:.2f} ms (release to it p50 "
+              f"{figures['release_p50_ms']:.2f}, p99 "
+              f"{figures['release_p99_ms']:.2f}); {placed} allocs placed; "
+              f"read mux parked high water {figures['parked']} with "
+              f"{figures['threads_parked']} Python threads "
+              f"({figures['os_threads_parked']} in all) in the process; "
+              f"cohorts {figures['cohort_sizes']}")
+
+        routed0 = server.executive.stats()["routed_host"]
+        lone_jobs = [server_job(f"api-lone-{i}") for i in range(SERVER_LONE)]
+
+        def lone():
+            client = Client(http.addr, timeout=API_WAIT_S)
+            try:
+                for job in lone_jobs:
+                    t = time.perf_counter()
+                    watchers.add(client.jobs.register(job), t)
+                    watchers.pump(watchers.all_done, "a lone eval complete")
+            finally:
+                client.pool.close()
+
+        lone_start = len(recs)
+        counted(total, f"{label} lone evals", (), lone, ANY_KERNEL)
+        lone_recs = list(watchers.recs.values())[lone_start:]
+        check(all(r["status"] == "complete" for r in lone_recs),
+              f"{label}: lone evals ended "
+              f"{sorted({r['status'] for r in lone_recs})}")
+        check_server_state(server, lone_jobs, SERVER_COUNT,
+                           f"{label} lone evals", True)
+        routed = server.executive.stats()["routed_host"] - routed0
+        check(routed == SERVER_LONE, f"{label} lone evals: routed_host "
+              f"{routed}, not {SERVER_LONE}")
+        lone_lat = [r["done"] - r["registered"] for r in lone_recs]
+        figures["lone_p50_ms"] = percentile_ms(lone_lat, 50)
+        figures["lone_p99_ms"] = percentile_ms(lone_lat, 99)
+        figures["nodes_checked"] = check_server_nodes(server)
+        figures["connections_accepted"] = http.connections_accepted
+        print(f"{label} lone evals: {SERVER_LONE}, all routed to the host; "
+              f"register to the answer of complete p50 "
+              f"{figures['lone_p50_ms']:.2f} ms, p99 "
+              f"{figures['lone_p99_ms']:.2f} ms")
+    finally:
+        watchers.close()
+        http.stop()
+    print(f"server API figures: {json.dumps(figures, sort_keys=True)}")
     return figures
 
 
 def run_cluster(seed, total, single):
     """Phase 14: (a), (b) and (c); prints ``server cluster figures``."""
     t0 = time.perf_counter()
-    figures = {"config 8": run_cluster_config8(seed, total, single)}
+    phase("14 (a)", "config 8 on three servers over InmemTransport")
+    with election_timeouts(*CLUSTER_ELECTION_TIMEOUT_S):
+        figures = {"config 8": run_cluster_config8(seed, total, single)}
+    phase("14 (b)", "failover during config 6's storm")
     figures["failover"] = run_cluster_failover(seed, total)
-    figures["tcp"] = run_cluster_tcp(seed, total)
+    phase("14 (c)", "config 6 on three servers over TCP, with the API")
+    with election_timeouts(*CLUSTER_ELECTION_TIMEOUT_S):
+        figures["tcp"] = run_cluster_tcp(seed, total)
     figures["wall_s"] = time.perf_counter() - t0
     print(f"server cluster figures: {json.dumps(figures, sort_keys=True)}")
     return figures
@@ -7144,6 +7669,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.WARNING)
 
     try:
+        phase(1, "card identity and the kernels' build")
         card = card_identity()
         kind = torch.cuda.get_device_name(0)
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -7174,15 +7700,21 @@ def main(argv=None) -> int:
 
         total = Counter()
         with ShapeCalls() as relax_calls:
+            phase("2-3", "the north-star cluster and its evals")
             counts, _lat_ms, main_h = run_main_path(args.seed, torch)
             total.update(counts)
+            phase(4, "the eval storm")
             storm, storm_h = run_storm(args.seed, torch, total)
             runtime = storm.pop("runtime")
             print(f"storm figures: {json.dumps(storm, sort_keys=True)}")
+            phase(5, "preemption on a red cluster")
             k6 = run_preemption(args.seed, torch, total)
+            phase(6, "gangs")
             gangs, gang_programs = run_gangs(args.seed, torch, total)
+            phase(8, "the convex kernel and the defrag solve")
             convex_calls = run_convex(args.seed, torch, total, main_h,
                                       storm_h)
+            phase(9, "the node-sharded mesh path")
             mesh_figures, mesh_calls = run_mesh(args.seed, torch, total,
                                                 storm_h)
             more, more_calls = run_mesh_programs(
@@ -7193,16 +7725,22 @@ def main(argv=None) -> int:
             {k: relax_calls.of(k) for k in sorted(relax_calls.by_kernel)}))
         print(f"mesh figures: {json.dumps(mesh_figures, sort_keys=True)}")
         del main_h, storm_h
+        phase(10, "config 5, the system drain storm")
         system = run_system_drain(args.seed, total)
         print(f"system drain figures: {json.dumps(system, sort_keys=True)}")
+        phase(11, "the runtime's cost")
         runtime.update(run_runtime_cost(args.seed, torch, total))
         print(f"runtime figures: {json.dumps(runtime, sort_keys=True)}")
+        phase(12, "config 8 through the dev-mode Server")
         server = run_server_storm(args.seed, torch, total)
         print(f"server storm figures: {json.dumps(server, sort_keys=True)}")
+        phase("13 (a)", "config 8 through the executive")
         executive = run_executive_storms(args.seed, torch, total, server)
+        phase("13 (c)", "the live defrag loop")
         defrag = run_live_defrag(args.seed, total)
         print(f"server defrag figures: {json.dumps(defrag, sort_keys=True)}")
         run_cluster(args.seed, total, executive["config 8"])
+        phase(7, "each kernel against its plain version")
         results = bench_kernels(torch, np, args.seed)
         results.update(bench_new_kernels(torch, np, args.seed))
         results.update(bench_legs(torch, k6, gangs))
@@ -7214,7 +7752,18 @@ def main(argv=None) -> int:
                 relax_calls.of(name)
         torch.cuda.synchronize()
     except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        for out in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAILED in phase {PHASE[0]}: {e}", file=out)
+        return 1
+    except Exception:
+        # Not a check: a fault of the run itself. Name the phase, show
+        # the traceback, and fail.
+        import traceback
+
+        for out in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAILED in phase {PHASE[0]} with an "
+                  f"exception", file=out)
+        traceback.print_exc()
         return 1
 
     print(f"launches on the main paths: {json.dumps(total, sort_keys=True)}")

@@ -5,13 +5,12 @@ carries.
 Reference: nomad/config.go (defaults at :225-238) and
 command/agent/agent.go:129 (num_schedulers overlay).
 
-Left out until their parts are ported, so that no option is accepted
-and then ignored: the read plane (``read_mux_*``,
-``read_scoped_index``), and the device-path breaker (``breaker_*``: the
-port has none, a device fault fails the eval and the broker redelivers
-it). The pipeline-off ``dispatch_pipeline=False`` arm is not carried
-either: with the executive off, dense evals always go through the
-dispatch pipeline when ``eval_batch_size > 1``.
+Left out, so that no option is accepted and then ignored: the
+device-path breaker (``breaker_*``: the port has none, a device fault
+fails the eval and the broker redelivers it). The pipeline-off
+``dispatch_pipeline=False`` arm is not carried either: with the
+executive off, dense evals always go through the dispatch pipeline when
+``eval_batch_size > 1``.
 """
 
 from __future__ import annotations
@@ -165,6 +164,25 @@ class ServerConfig:
     # so disruption is additionally bounded by migrate_max_parallel
     # (one budget shared with drain storms).
     defrag_max_moves_per_wave: int = 16
+
+    # ---- Read plane (nomad_tpu_torch/readplane) ----
+    # Parked-watcher multiplexer: blocking queries past their ?index
+    # register a continuation with the mux and free their HTTP handler
+    # thread; one wake-owner thread + a small serve pool re-run them
+    # on scope notifications. False reverts to thread-parking long
+    # polls.
+    read_mux_enabled: bool = True
+    # Serve-pool threads re-running satisfied/expired queries.
+    read_mux_workers: int = 4
+    # Continuations parked at once before new blocking queries fall
+    # back to thread-parking (bounds mux memory under a watcher storm).
+    read_mux_max_parked: int = 4096
+    # Scoped modify-index tracking: blocking queries wake on — and
+    # X-Nomad-Index reports — their watch scope's index instead of the
+    # global raft index. False restores global-index wakes; the mux
+    # requires scoped tracking, so False also implies thread-parking
+    # long polls.
+    read_scoped_index: bool = True
 
     # ---- Overload protection (nomad_tpu_torch/admission) ----
     # Bounded broker ready queues: default per-scheduler-type depth cap

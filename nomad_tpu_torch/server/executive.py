@@ -197,6 +197,7 @@ class SchedulerExecutive:
             self._thread.join(timeout=5.0)
             self._thread = None
         self.drain()
+        self._pool.close()
 
     def drain(self) -> int:
         """Leadership loss (or shutdown): hand every accumulated eval's

@@ -101,6 +101,10 @@ class HeartbeatTimers:
         except Exception:
             self.logger.exception("failed to invalidate heartbeat for %s", node_id)
 
+    def close(self) -> None:
+        """End the invalidation pool's threads (the server's shutdown)."""
+        self._invalidate_pool.close()
+
     def count(self) -> int:
         with self._lock:
             return len(self._timers)

@@ -7,9 +7,9 @@ them over its msgpack RPC; here they ride the same HTTP substrate as
 everything else, on internal /v1/internal/* routes the leader serves.
 
 The port of the JAX package's server/leader_client.py, on the port's
-structs, codec, backoff and keep-alive pool. It speaks the JAX HTTP
-API's internal routes (the port has no HTTP API of its own yet), so a
-port follower forwards to a leader that serves them.
+structs, codec, backoff and keep-alive pool. It speaks the HTTP API's
+internal routes, which the port's ``api.HTTPServer`` and the JAX
+package's serve alike.
 """
 
 from __future__ import annotations

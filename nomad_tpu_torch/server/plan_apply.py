@@ -221,6 +221,12 @@ class PlanApplier:
         if thread is not None:
             thread.join(timeout=5.0)
 
+    def close(self) -> None:
+        """End the verify and commit threads (the server's shutdown;
+        ``stop`` only pauses the applier across a leadership loss)."""
+        self.pool.shutdown(wait=False)
+        self._commit_pool.shutdown(wait=False)
+
     def _run(self, stop: Optional[threading.Event] = None) -> None:
         stop = stop if stop is not None else self._stop
         inflight = None  # (future, pending) of the in-flight commit

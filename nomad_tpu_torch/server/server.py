@@ -16,10 +16,10 @@ the multi-server modes: a raft cluster of in-process servers
 routed to the leader's object) or of servers that find each other by
 gossip (``setup_serf``, ``serf_join``, ``setup_raft_cluster`` over a
 TCPTransport, leader-only operations forwarded by ``RemoteLeader`` to
-the leader's HTTP address from its serf tags). Not carried yet: the read
-plane and the HTTP API, so a follower in TCP mode finds no leader
-address until a server of the JAX package, or a later port of the API,
-serves the leader's internal routes.
+the leader's HTTP address from its serf tags: each server's
+``api.HTTPServer`` serves the internal routes, and ``setup_serf`` tags
+its address as ``http_addr``). The read plane's mux (``read_mux``) parks
+the HTTP API's blocking queries.
 """
 
 from __future__ import annotations
@@ -165,6 +165,19 @@ class Server:
         from ..defrag import DefragLoop
 
         self.defrag = DefragLoop(self)
+        # Read plane (readplane/): the parked-watcher long-poll
+        # multiplexer. Constructed unconditionally (stats surface); the
+        # HTTP layer only parks continuations here while
+        # read_mux_enabled — otherwise blocking queries fall back to
+        # the thread-parking loop. The store accessor is a callable
+        # because FSM snapshot-restore swaps the StateStore instance.
+        from ..readplane import ReadMux
+
+        self.read_mux = ReadMux(
+            lambda: self.fsm.state,
+            workers=self.config.read_mux_workers,
+            max_parked=self.config.read_mux_max_parked,
+        )
         self._leader = False
         self._shutdown = False
         self._gc_threads: List[threading.Timer] = []
@@ -244,6 +257,8 @@ class Server:
         self.dispatch.start()
         self.executive.start()
         self.defrag.start()
+        if self.config.read_mux_enabled:
+            self.read_mux.start()
         self.establish_leadership()
         self._start_telemetry()
 
@@ -403,6 +418,8 @@ class Server:
         self.dispatch.start()
         self.executive.start()
         self.defrag.start()
+        if self.config.read_mux_enabled:
+            self.read_mux.start()
         self.raft.start()
         self._start_cluster_thread(self._membership_reconcile_loop,
                                    "raft-membership-sweep")
@@ -553,8 +570,16 @@ class Server:
         self.dispatch.stop()
         self.executive.stop()
         self.defrag.stop()
+        self.read_mux.stop()
         for w in self.workers:
             w.stop()
+        # The pools' threads end with the server: each process that
+        # starts servers one after another would otherwise keep every
+        # earlier server's (up to 192 eval-batch threads apiece).
+        self.eval_pool.close()
+        self._membership_pool.close()
+        self.heartbeats.close()
+        self.plan_applier.close()
         if self.vault is not None and hasattr(self.vault, "stop"):
             self.vault.stop()  # own-token renewal loop
 
@@ -1449,6 +1474,10 @@ class Server:
             # the applier-side whole-gang rejections live in
             # plan_applier stats ("gangs_rejected").
             "gang": _gang_stats(),
+            # Read plane (readplane/): parked continuations,
+            # wake/spurious/served/timeout/write-error counters, and
+            # the serve-pool depth.
+            "read_mux": self.read_mux.stats(),
         }
         if self.raft is not None:
             # Term/commit/membership for operators (the reference's

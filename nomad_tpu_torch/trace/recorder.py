@@ -404,7 +404,7 @@ class FlightRecorder:
     def e2e_p99(self) -> float:
         """Rolling end-to-end p99 in ms (0.0 before any completions).
         Cheap single-histogram read for the pressure monitor
-        (admission/, not ported yet) — stage_stats() walks every stage."""
+        (admission/) — stage_stats() walks every stage."""
         with self._hist_lock:
             if not self._e2e.count:
                 return 0.0

@@ -51,7 +51,8 @@ class PoolFuture:
 
 class WorkPool:
     """Fixed-ceiling daemon-thread pool. Threads spawn on demand up to
-    `size` and then persist, blocking on the queue when idle."""
+    `size` and then persist, blocking on the queue when idle, until
+    ``close()``."""
 
     def __init__(self, size: int, name: str = "workpool"):
         self.size = max(1, size)
@@ -114,6 +115,8 @@ class WorkPool:
             finally:
                 with self._lock:
                     self._idle -= 1
+            if item is None:
+                return  # close(): the work queued before it is done
             fn, args, fut = item
             try:
                 fut._result = fn(*args)
@@ -122,6 +125,16 @@ class WorkPool:
                 logger.debug("pool task failed", exc_info=True)
             finally:
                 fut._event.set()
+
+    def close(self) -> None:
+        """End the pool's threads once they have run the work queued
+        before this call: one stop marker a live thread, queued behind
+        that work. A later ``submit`` starts threads again."""
+        with self._lock:
+            live = [t for t in self._threads if t.is_alive()]
+            self._threads = []
+        for _ in live:
+            self._queue.put(None)
 
     def queued(self) -> int:
         return self._queue.qsize()

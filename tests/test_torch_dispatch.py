@@ -630,10 +630,10 @@ def test_pipeline_drops_expired_evals_before_matrix_build():
 
 
 def test_server_stats_expose_pipeline_stats():
-    """The reference's /v1/agent/self case without the HTTP layer (the
-    port has no API yet): ``Server.stats()`` carries the pipeline stats
-    (occupancy, retries/eval, in-flight batches, stage latencies) and
-    the applier's conflict counters; the pipeline's keys are the JAX
+    """The reference's /v1/agent/self case: ``Server.stats()`` carries
+    the pipeline stats (occupancy, retries/eval, in-flight batches,
+    stage latencies) and the applier's conflict counters, and so does
+    the port's /v1/agent/self; the pipeline's keys are the JAX
     package's less its breaker and fault-injection counters."""
     from nomad_tpu.dispatch import DispatchPipeline as RefPipeline
     from nomad_tpu.server import ServerConfig as RefConfig
@@ -658,6 +658,16 @@ def test_server_stats_expose_pipeline_stats():
             scheduler_factories={"service": "service-tpu"})})()).stats()
         assert set(ref) - set(pipe) == {"breaker_routed", "finish_dropped"}
         assert set(pipe) <= set(ref)
+        from nomad_tpu_torch.api import Client, HTTPServer
+
+        http = HTTPServer(server)
+        http.start()
+        try:
+            out = Client(http.addr, timeout=10.0).agent.self()
+            assert set(out["dispatch_pipeline"]) == set(pipe)
+            assert "plans_rejected" in out["stats"]["plan_applier"]
+        finally:
+            http.stop()
     finally:
         server.shutdown()
 

@@ -1,9 +1,10 @@
 """The port's RemoteLeader (nomad_tpu_torch/server/leader_client.py)
-against a JAX Server's broker, plan queue and heartbeats through the JAX
-HTTPServer's internal routes (the port has no HTTP API yet): the wire
-format is the JAX API's, and what comes back is the port's structs. As
-in tests/test_httppool.py:123, the follower path goes through serf tags
-on a port Server that is not the leader."""
+against a leader's broker, plan queue and heartbeats through its
+HTTPServer's internal routes: a JAX Server behind the JAX HTTPServer,
+and a port Server behind the port's. The wire format is the JAX API's,
+and what comes back is the port's structs. As in
+tests/test_httppool.py:123, the follower path goes through serf tags on
+a port Server that is not the leader."""
 
 import time
 from types import SimpleNamespace
@@ -12,11 +13,13 @@ import pytest
 
 import torch_parity  # noqa: F401  (the port on the CPU)
 from nomad_tpu import mock as ref_mock
-from nomad_tpu.api import HTTPServer
+from nomad_tpu.api import HTTPServer as RefHTTPServer
 from nomad_tpu.server import Server as RefServer
 from nomad_tpu.server import ServerConfig as RefConfig
 from nomad_tpu.structs import consts
 from nomad_tpu.utils.codec import to_dict as ref_to_dict
+from nomad_tpu_torch import mock as port_mock
+from nomad_tpu_torch.api import HTTPServer
 from nomad_tpu_torch.server import Server, ServerConfig
 from nomad_tpu_torch.server.leader_client import (
     LeaderUnavailableError,
@@ -35,14 +38,27 @@ def wait_until(fn, timeout=20.0, interval=0.02):
     return False
 
 
-@pytest.fixture
-def leader():
-    """A worker-less JAX dev server (its own leader) behind its HTTP
-    API, so the test's dequeues are the broker's only consumers."""
-    server = RefServer(RefConfig(num_schedulers=0, eval_nack_timeout=5.0))
+LEADERS = {
+    "jax": SimpleNamespace(server=RefServer, config=RefConfig,
+                           http=RefHTTPServer, mock=ref_mock,
+                           to_dict=ref_to_dict),
+    "port": SimpleNamespace(server=Server, config=ServerConfig,
+                            http=HTTPServer, mock=port_mock,
+                            to_dict=to_dict),
+}
+
+
+@pytest.fixture(params=sorted(LEADERS))
+def leader(request):
+    """A worker-less dev server (its own leader) behind its HTTP API,
+    so the test's dequeues are the broker's only consumers: the JAX
+    package's, then the port's."""
+    pkg = LEADERS[request.param]
+    server = pkg.server(pkg.config(num_schedulers=0, eval_nack_timeout=5.0))
     server.start()
-    http = HTTPServer(server)
+    http = pkg.http(server)
     http.start()
+    server.pkg = pkg
     yield server, http
     http.stop()
     server.shutdown()
@@ -51,7 +67,7 @@ def leader():
 def parked_evals(server, n):
     evals = []
     for _ in range(n):
-        ev = ref_mock.eval()
+        ev = server.pkg.mock.eval()
         ev.type = consts.JOB_TYPE_SERVICE
         evals.append(ev)
     server.broker.enqueue_all(evals)
@@ -68,7 +84,7 @@ def test_remote_leader_drains_and_nacks_a_reference_broker(leader):
     by_id = {ev.id: ev for ev in evals}
     for ev, token in pairs:
         assert isinstance(ev, Evaluation) and token
-        assert to_dict(ev) == ref_to_dict(by_id[ev.id])
+        assert to_dict(ev) == server.pkg.to_dict(by_id[ev.id])
         assert remote.eval_outstanding(ev.id) == token
         remote.eval_nack(ev.id, token)  # put them back
     assert wait_until(lambda: server.broker.stats()["total_ready"] == 4)
@@ -86,25 +102,26 @@ def test_remote_leader_drains_and_nacks_a_reference_broker(leader):
 
 
 def test_remote_leader_submits_a_plan_and_resets_heartbeats(leader):
-    """A port Plan crosses to the JAX applier and its PlanResult comes
-    back as the port's struct; the heartbeat reset returns the leader's
-    TTL."""
+    """A port Plan crosses to the leader's applier and its PlanResult
+    comes back as the port's struct; the heartbeat reset returns the
+    leader's TTL."""
     server, http = leader
-    node = ref_mock.node()
+    mock, dump = server.pkg.mock, server.pkg.to_dict
+    node = mock.node()
     server.node_register(node)
-    job = ref_mock.job()
+    job = mock.job()
     job.task_groups[0].count = 1
     server.job_register(job)
     ev, token = server.broker.dequeue([consts.JOB_TYPE_SERVICE], 5.0)
     assert ev is not None
     stored = server.fsm.state.job_by_id(job.id)
-    alloc = ref_mock.alloc()
+    alloc = mock.alloc()
     alloc.job, alloc.job_id = stored, stored.id
     alloc.node_id, alloc.eval_id = node.id, ev.id
     plan = from_dict(Plan, {"eval_id": ev.id, "eval_token": token,
-                            "priority": 50, "job": ref_to_dict(stored),
+                            "priority": 50, "job": dump(stored),
                             "node_allocation": {
-                                node.id: [ref_to_dict(alloc)]}})
+                                node.id: [dump(alloc)]}})
     remote = RemoteLeader(http.addr)
     result = remote.plan_submit(plan)
     assert isinstance(result, PlanResult)

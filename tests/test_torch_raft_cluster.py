@@ -34,9 +34,10 @@ def make_server_cluster(n=3, data_dirs=None, snapshot_threshold=1024,
     cluster = {}
     ids = [f"s{i}" for i in range(n)]
     servers = []
+    cfg_kwargs.setdefault("num_schedulers", 1)
     for i, node_id in enumerate(ids):
-        cfg = ServerConfig(num_schedulers=1, eval_nack_timeout=5.0,
-                           node_name=node_id, **cfg_kwargs)
+        cfg = ServerConfig(eval_nack_timeout=5.0, node_name=node_id,
+                           **cfg_kwargs)
         server = Server(cfg)
         server.start_with_raft(
             node_id, ids, transport, cluster,
@@ -298,11 +299,13 @@ def test_followers_schedule_at_or_past_the_leaders_store_index():
     eval sees what an earlier delivery committed; a dev-mode server and
     the leader itself need no more than the eval's own index. The index
     is the store's: raft's noops never reach it, so after an election an
-    idle store would never reach raft's commit index."""
+    idle store would never reach raft's commit index. The servers run no
+    scheduler, so that nothing dequeues the job's eval and commits past
+    the index read here before the followers are asked."""
     dev = Server(ServerConfig(num_schedulers=0))
     assert dev.snapshot_min_index() == 0
     dev.shutdown()
-    transport, servers = make_server_cluster(3)
+    transport, servers = make_server_cluster(3, num_schedulers=0)
     try:
         leader = stable_leader(servers)
         leader.job_register(mock.job())

@@ -689,3 +689,30 @@ def test_interpolation_equal(value):
            "NOMAD_JOB_NAME": "example", "NOMAD_REGION": "global"}
     assert interpolate.interpolate_value(value, env) == \
         ref_interpolate.interpolate_value(value, env)
+
+
+def test_work_pool_close_runs_queued_work_then_ends_its_threads():
+    """close() lets every thread finish the work queued before it, then
+    ends them; a later submit starts a thread again."""
+    pool = WorkPool(3, name="p-close")
+    gate = threading.Event()
+    done = []
+    futs = [pool.submit(lambda i=i: (gate.wait(5.0), done.append(i)))
+            for i in range(6)]
+    assert pool.worker_count() == 3
+    pool.close()
+    gate.set()
+    for f in futs:
+        f.result(timeout=5.0)
+    assert sorted(done) == list(range(6))
+
+    def live():
+        return [t for t in threading.enumerate()
+                if t.name.startswith("p-close")]
+
+    deadline = time.monotonic() + 5.0
+    while live() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not live() and pool.worker_count() == 0
+    assert pool.submit(lambda: 7).result(timeout=5.0) == 7
+    pool.close()

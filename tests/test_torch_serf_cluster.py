@@ -3,9 +3,10 @@ TCP (``setup_serf``, ``serf_join``, ``setup_raft_cluster(expect=3)`` on
 127.0.0.1 ephemeral ports), as the JAX agent does with
 ``bootstrap_expect = 3``: one leader, gossip-driven membership, and
 followers whose FSMs decode their own copies of every entry and equal
-the leader's field by field. The port has no HTTP API, so the
-followers' workers find no leader address in serf tags and back off;
-the leader's own worker schedules."""
+the leader's field by field. No server here runs an HTTPServer
+(tests/test_torch_http_cluster.py does), so the followers' workers find
+no leader address in serf tags and back off; the leader's own worker
+schedules."""
 
 import time
 

@@ -106,3 +106,50 @@ def test_failed_then_unblocked_eval_reschedules(server):
     got, token = server.broker.dequeue([ev.type], timeout=2.0)
     assert got is not None and got.id == ev.id
     server.broker.nack(got.id, token)
+
+
+def test_shutdown_ends_the_servers_pool_threads():
+    """A storm through the dispatch pipeline and the read mux, then
+    shutdown: none of the server's pool threads outlives it (the
+    eval-batch pool alone grows to a batch's evals)."""
+    import threading
+
+    from nomad_tpu_torch.api import Client, HTTPServer
+
+    prefixes = ("eval-batch", "executive", "read-serve", "plan-eval",
+                "plan-commit", "raft-membership", "hb-invalidate")
+
+    before = set(threading.enumerate())
+
+    def pool_threads():
+        return [t.name for t in threading.enumerate()
+                if t.name.startswith(prefixes) and t not in before]
+
+    server = Server(ServerConfig(
+        num_schedulers=2, scheduler_factories={"service": "service-gpu"},
+        eval_batch_size=8))
+    server.start()
+    http = HTTPServer(server)
+    http.start()
+    try:
+        for _ in range(4):
+            node = mock.node()
+            node.compute_class()
+            server.node_register(node)
+        for w in server.workers:
+            w.set_pause(True)
+        assert wait_until(lambda: all(w.parked() for w in server.workers))
+        evs = [server.job_register(mock.job())[0] for _ in range(6)]
+        client = Client(http.addr, timeout=10.0)
+        _ev, index = client.evaluations.info(evs[-1])
+        for w in server.workers:
+            w.set_pause(False)
+        client.evaluations.info(evs[-1], index=index, wait=10.0)
+        assert wait_until(lambda: all(
+            server.fsm.state.eval_by_id(e).status
+            == consts.EVAL_STATUS_COMPLETE for e in evs), 30.0)
+        assert pool_threads()
+    finally:
+        http.stop()
+        server.shutdown()
+    assert wait_until(lambda: not pool_threads()), pool_threads()

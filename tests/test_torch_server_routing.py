@@ -259,8 +259,7 @@ def test_batch_size_one_runs_dense_alone():
 
 
 @pytest.mark.parametrize("option", [
-    "dispatch_pipeline", "read_mux_enabled",
-    "read_mux_workers", "read_mux_max_parked", "read_scoped_index",
+    "dispatch_pipeline",
     "breaker_enabled", "breaker_failure_threshold", "breaker_slow_ms",
     "breaker_slow_batches", "breaker_cooldown",
 ])
@@ -281,6 +280,61 @@ def test_executive_and_defrag_fields_keep_the_reference_defaults(field):
     from nomad_tpu.server.config import ServerConfig as RefConfig
 
     assert getattr(ServerConfig(), field) == getattr(RefConfig(), field)
+
+
+def _mux_refuses_parks(server):
+    return not server.read_mux.park([("job", "a")], 10 ** 9,
+                                    time.monotonic() + 5.0, lambda r: None)
+
+
+def _mux_parks_one(server):
+    deadline = time.monotonic() + 5.0
+    first = server.read_mux.park([("job", "a")], 10 ** 9, deadline,
+                                 lambda r: None)
+    second = server.read_mux.park([("job", "b")], 10 ** 9, deadline,
+                                  lambda r: None)
+    return first and not second
+
+
+def _index_is_global(server):
+    from nomad_tpu_torch.api import HTTPServer
+    from nomad_tpu_torch.api.client import Client
+
+    http = HTTPServer(server)
+    http.start()
+    try:
+        first = mock.job()
+        server.job_register(first)
+        server.job_register(mock.job())
+        _job, index = Client(http.addr, timeout=10.0).jobs.info(first.id)
+        return index == server.fsm.state.latest_index()
+    finally:
+        http.stop()
+
+
+@pytest.mark.parametrize("field,value,read", [
+    # The mux is not started: blocking queries park their handler
+    # thread (tests/test_torch_readplane.py
+    # test_mux_disabled_falls_back_to_thread_parking).
+    ("read_mux_enabled", False, _mux_refuses_parks),
+    ("read_mux_workers", 2, lambda s: s.read_mux._pool.size == 2),
+    ("read_mux_max_parked", 1, _mux_parks_one),
+    # X-Nomad-Index is the global index, not the job's scope.
+    ("read_scoped_index", False, _index_is_global),
+], ids=["read_mux_enabled", "read_mux_workers", "read_mux_max_parked",
+        "read_scoped_index"])
+def test_read_plane_fields_keep_the_reference_defaults(field, value, read):
+    """The read plane's fields came back with the read mux and the HTTP
+    API, with the JAX ServerConfig's defaults, and the server reads
+    each one."""
+    from nomad_tpu.server.config import ServerConfig as RefConfig
+
+    assert getattr(ServerConfig(), field) == getattr(RefConfig(), field)
+    server = make_server(num_schedulers=0, **{field: value})
+    try:
+        assert read(server)
+    finally:
+        server.shutdown()
 
 
 @pytest.mark.parametrize("field", ["node_name", "bootstrap_expect"])
